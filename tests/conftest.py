@@ -29,6 +29,10 @@ def pytest_configure(config):
         "cases run in subprocesses with forced host devices (the device "
         "count must be pinned before jax initializes), so the suite is "
         "offline-safe under the normal 1-device platform")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skipped without one — run on the card with "
+        "`python -m pytest -m cuda tests/test_torch_cuda.py`")
 
 
 # ---------------------------------------------------------------------------
