@@ -10,19 +10,37 @@ Phases (any failure exits non-zero and prints no result):
      at the serving path's shapes (H=K=32, hd=128, bs=16, bf16) and at
      G>1 (H=32, K=8): ragged live lengths, rows whose table is all -1,
      garbage in the null block;
-  3. flash prefill (kernel #2), both entries, against their plain
+  3. dense decode attention (kernel #3) against its plain version: the
+     padded plane's shape (4 rows of 1088, H=K=32, hd=128, mixed live
+     lengths and an idle row) in bf16 and fp32, G=4 (H=32, K=8), and a
+     wrapped sliding-window ring (pos > S, window = S) with a row that
+     has no valid key;
+  4. flash prefill (kernel #2), both entries, against their plain
      versions: the paged entry with a chunk that starts mid-page over a
      prefix read through shared pages, the contiguous entry on packed
-     segments with padding;
-  4. serve: full-width deepseek-7b (random bf16 weights from a seed)
-     behind `RealSBSServer` (unified mixed-batch plane, sbs-la, 2 DP
-     units, 16-token pages) answers 8 requests of 128-1024 prompt tokens
-     and 16-32 new tokens; every request must finish, the pools must
-     drain, both kernels must have launched, and each request's
-     first-token logits must agree with a plain dense forward;
-  5. report: one JSON line with the kernels (time per launch, launches
-     on the serve, bound), the card's name and power limit, one JSON
-     line with the serve's TTFT/ITL, and the contract line last.
+     segments with padding and at `attn_extend`'s shape (one 256-token
+     chunk inside a 1088-long cache whose tail is empty);
+  5. mixed serve: full-width deepseek-7b (random bf16 weights from a
+     seed) behind `RealSBSServer` (unified mixed-batch plane, sbs-la, 2
+     DP units, 16-token pages) answers 8 requests of 128-1024 prompt
+     tokens and 16-32 new tokens; every request must finish, the pools
+     must drain, kernels #1 and #2 (paged entry) must have launched, and
+     each request's first-token logits must agree with a plain dense
+     forward;
+  6. P/D serve: the same model and requests behind the P/D-separated
+     `RealSBSServer` on the padded plane (2 prefill instances with
+     256-token chunks, 1 decode instance of 2 DP units × 4 rows of 1088
+     tokens, sbs-la); the same checks, with kernels #3 and #2
+     (contiguous entry) launched;
+  7. report: one JSON line per serve (TTFT/ITL, launches per step, a
+     profile of device time by kernel group and the idle share), the
+     P/D serve's figures each on a line of its own, one JSON line with
+     the kernels (time per launch, launches on their path's serve,
+     bound), the card's name and power limit, and the contract line
+     last.
+
+Launch counts are set to 0 just before each serve and read just after,
+so each kernel's `launches` is its count on its own path's serve.
 
 The kernels are timed with CUDA events over launches that rotate through
 several copies of the inputs (more than the 50 MB L2), as a serving step
@@ -60,6 +78,7 @@ BLOCK = 16
 MAX_LEN = 1088                     # 1024-token prompts + 32 new, 16-aligned
 MAX_BATCH = 4                      # per-DP memory budget (requests × max_len)
 N_REQUESTS = 8
+PD_CHUNK = 256                     # prefill chunk of the P/D serve
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +133,12 @@ def compare(tag, out, ref, errs):
     if not rel <= REL_TOL[dt]:
         raise AssertionError(f"{tag} {dt}: max_rel_err {rel}")
     errs.append((abs_err, rel))
+
+
+def report_timing(tag, r):
+    print(f"{tag} timed at {r['shape']}: ms={r['ms']!r} "
+          f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
+          f"bound_ms={r['bound_ms']!r} ({r['bound_by']})", flush=True)
 
 
 def copies(t, n):
@@ -224,7 +249,112 @@ def check_decode(device):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: flash prefill, both entries
+# phase 3: dense decode attention
+# ---------------------------------------------------------------------------
+
+def dense_decode_case(H, K, hd, S, pos, device, seed, dt, window=0,
+                      empty=()):
+    """Rows of a dense cache as the engines keep them: position t at index
+    t % S (a ring once pos >= S), stale positions of an earlier tenant
+    past a row's cursor (masked, and past the kernel's early stop), and
+    `empty` rows with no valid key at all."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = len(pos)
+    kv_pos = torch.full((B, S), -1, dtype=torch.int32)
+    idx = torch.arange(S, dtype=torch.int32)
+    for b, p in enumerate(pos):
+        if b in empty:
+            continue
+        if p < S:
+            kv_pos[b] = torch.where(idx <= p, idx,
+                                    torch.where(idx % 3 == 0, idx, -1))
+        else:
+            t = torch.arange(p - S + 1, p + 1, dtype=torch.int32)
+            kv_pos[b, t % S] = t
+    q = (torch.randn(B, H, hd, generator=g) * 0.5).to(dt)
+    kc = (torch.randn(B, S, K, hd, generator=g) * 0.5).to(dt)
+    vc = (torch.randn(B, S, K, hd, generator=g) * 0.5).to(dt)
+    to = dict(device=device)
+    return (q.to(**to), kc.to(**to), vc.to(**to), kv_pos.to(**to),
+            torch.tensor(pos, dtype=torch.int32, **to))
+
+
+def dense_valid(kv_pos, pos, window):
+    v = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    if window > 0:
+        v = v & ((pos[:, None] - kv_pos) < window)
+    return v
+
+
+def dense_decode_work(q, k_cache, kv_pos, pos, window):
+    """Bytes and flops the call needs for this data: K/V of the valid
+    (live) entries only, the kv_pos of the walked indices, q, out."""
+    B, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    esz = q.element_size()
+    valid = dense_valid(kv_pos, pos, window)
+    walked = sum(min(S, int(p) + 1) if int(p) >= 0 else 0 for p in pos)
+    n_valid = int(valid.sum())
+    nbytes = (2 * q.numel() * esz + pos.numel() * 4 + walked * 4
+              + n_valid * 2 * K * hd * esz)
+    return nbytes, 4 * hd * H * n_valid
+
+
+def check_dense_decode(device):
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    out = {"errs": []}
+    S = MAX_LEN
+    main_pos = [1087, 700, 129, 40]     # row 3: an idle slot's garbage row
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = (
+        ("padded rows", 32, 32, S, main_pos, 0, (), bf16),
+        ("padded rows", 32, 32, S, main_pos, 0, (), fp32),
+        ("G=4", 32, 8, S, [1000, 333, 64, 7], 0, (), bf16),
+        ("G=4", 32, 8, S, [1000, 333, 64, 7], 0, (), fp32),
+        ("wrapped ring, one empty row", 32, 8, 512, [1500, 700, 511, 2047],
+         512, (3,), bf16),
+        ("wrapped ring, one empty row", 32, 8, 512, [1500, 700, 511, 2047],
+         512, (3,), fp32),
+    )
+    for i, (tag, H, K, S_, pos, window, empty, dt) in enumerate(cases):
+        q, kc, vc, kvp, posn = dense_decode_case(H, K, 128, S_, pos, device,
+                                                 40 + i, dt, window, empty)
+        got = decode_attention(q, kc, vc, kvp, posn, window)
+        ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
+                                     posn, window)
+        for b in empty:
+            if got[b].abs().max() != 0:
+                raise AssertionError("a row with no valid key is not 0")
+        compare(f"[dense decode] {tag} H={H} K={K} S={S_} window={window}",
+                got, ref, out["errs"])
+    # time the padded plane's shape (bf16)
+    q, kc, vc, kvp, posn = dense_decode_case(32, 32, 128, S, main_pos,
+                                             device, 40, bf16)
+    n = 4
+    kcs, vcs = copies(kc, n), copies(vc, n)
+    out["ms"] = time_ms(lambda i: decode_attention(
+        q, kcs[i], vcs[i], kvp, posn), n, iters=50)
+    out["plain_ms"] = time_ms(lambda i: decode_attention_plain(
+        q, kcs[i], vcs[i], kvp, posn), n, iters=10)
+    kt = [k.transpose(1, 2).contiguous() for k in kcs]
+    vt = [v.transpose(1, 2).contiguous() for v in vcs]
+    mask = dense_valid(kvp, posn, 0)[:, None, None, :]
+    qs = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["library_ms"] = time_ms(
+        lambda i: sdpa(qs, kt[i], vt[i], attn_mask=mask), n, iters=50)
+    nbytes, flops = dense_decode_work(q.cpu(), kc, kvp.cpu(), posn.cpu(), 0)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+    out["shape"] = (f"B=4 S={S} H=K=32 hd=128 bf16, pos={main_pos} "
+                    f"(bound: K/V of valid entries only)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: flash prefill, both entries
 # ---------------------------------------------------------------------------
 
 def paged_prefill_case(H, K, hd, device, seed, rows, dt):
@@ -361,33 +491,62 @@ def check_flash_prefill(device):
             raise AssertionError("padding rows of the packed chunk are not 0")
         compare(f"[flash prefill] H={H} K={K} packed 200+250+pad", got, ref,
                 out["errs"])
-    q, k, v, pos, seg = packed_case(32, 32, 128, device, 11, torch.bfloat16)
+    # attn_extend's shape: one 256-token chunk at positions 512..767 over
+    # a 1088-long dense cache whose tail is empty (the chunk written)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, qp, kvp, qs, ks = extend_case(device, 17, dt)
+        got = flash_prefill(q, k, v, qp, kvp, qs, ks)
+        ref = flash_prefill_plain(q.float(), k.float(), v.float(), qp, kvp,
+                                  qs, ks)
+        compare("[flash prefill] attn_extend chunk 256 at 512 of 1088", got,
+                ref, out["errs"])
+    q, k, v, qp, kvp, qs, ks = extend_case(device, 17, torch.bfloat16)
     n = 4
-    ks, vs = copies(k, n), copies(v, n)
+    kk, vv = copies(k, n), copies(v, n)
     out["ms"] = time_ms(lambda i: flash_prefill(
-        q, ks[i], vs[i], pos, pos, seg, seg), n, iters=30)
+        q, kk[i], vv[i], qp, kvp, qs, ks), n, iters=30)
     out["plain_ms"] = time_ms(lambda i: flash_prefill_plain(
-        q, ks[i], vs[i], pos, pos, seg, seg), n, iters=10)
-    mask = build_mask(pos, pos, seg, seg, True)
-    kt = [t.transpose(1, 2).contiguous() for t in ks]
-    vt = [t.transpose(1, 2).contiguous() for t in vs]
+        q, kk[i], vv[i], qp, kvp, qs, ks), n, iters=10)
+    mask = build_mask(qp, kvp, qs, ks, True)
+    kt = [t.transpose(1, 2).contiguous() for t in kk]
+    vt = [t.transpose(1, 2).contiguous() for t in vv]
     qt = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out["library_ms"] = time_ms(
         lambda i: sdpa(qt, kt[i], vt[i], attn_mask=mask[:, None]), n,
         iters=30)
     esz = q.element_size()
-    pairs = int(mask.sum())
+    K, hd = k.shape[2], k.shape[3]
+    live = int((kvp >= 0).sum())
     nbytes, flops = attention_work(
-        q, 2 * k.numel() * esz, pairs, q.numel() * esz,
-        extra=4 * (4 * pos.numel()))
+        q, live * 2 * K * hd * esz, int(mask.sum()), q.numel() * esz,
+        extra=4 * (2 * qp.numel() + 2 * kvp.numel()))
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
-    out["shape"] = "B=2 S=512 (200+250+62 pad) H=K=32 hd=128 bf16"
+    out["shape"] = ("B=1 Sq=256 at positions 512..767 over Skv=1088 "
+                    "(768 live) H=K=32 hd=128 bf16")
     return out
 
 
+def extend_case(device, seed, dt, S=MAX_LEN, p0=512, Sc=256):
+    """`attn_extend`'s call: q at positions p0..p0+Sc-1, K/V of the whole
+    dense cache, kv_pos 0..p0+Sc-1 then -1, segments all 0."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    H = K = 32
+    hd = 128
+    qp = (p0 + torch.arange(Sc, dtype=torch.int32))[None]
+    idx = torch.arange(S, dtype=torch.int32)
+    kvp = torch.where(idx < p0 + Sc, idx, -1)[None]
+    q = (torch.randn(1, Sc, H, hd, generator=g) * 0.5).to(dt)
+    k = (torch.randn(1, S, K, hd, generator=g) * 0.5).to(dt)
+    v = (torch.randn(1, S, K, hd, generator=g) * 0.5).to(dt)
+    zq = torch.zeros(1, Sc, dtype=torch.int32)
+    zk = torch.zeros(1, S, dtype=torch.int32)
+    return [t.to(device) for t in (q, k, v, qp, kvp, zq, zk)]
+
+
 # ---------------------------------------------------------------------------
-# phase 4: serve full-width deepseek-7b
+# phases 5 and 6: serve full-width deepseek-7b
 # ---------------------------------------------------------------------------
 
 def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
@@ -466,29 +625,118 @@ def percentile(xs, q):
     return xs[lo] + (xs[hi] - xs[lo]) * (k - lo)
 
 
-def serve(cfg, device, counters, n_requests=N_REQUESTS, lens=(128, 1024),
-          outs=(16, 32), dtype=None):
-    """Drive the port's main path; returns the serve report.  `counters`
-    is the list of kernel wrappers whose launch counts the run reads.
-    The size arguments let the same code rehearse on the CPU with a
-    reduced config (fp32 `dtype`)."""
+def record_prefill_logits(srv):
+    """Observe, without changing the engines, the logits each request's
+    first token is sampled from on the P/D plane: the prefill engines
+    call `real_engine.prefill_chunk`, whose result this wraps (keyed by
+    the cache it returns), and each engine's `finish_pass` is wrapped to
+    pick, for every prompt the pass completes, its context's last chunk
+    logits.  Returns ({rid: logits}, undo)."""
+    from repro_torch.serving import real_engine as RE
+    seen, last = {}, {}
+    inner_chunk = RE.prefill_chunk
+
+    def prefill_chunk(cfg, params, tokens, cache):
+        logits, new = inner_chunk(cfg, params, tokens, cache)
+        last[id(new)] = logits[0]
+        return logits, new
+
+    for eng in srv.engines:
+        def finish_pass(now, _eng=eng, _inner=eng.finish_pass):
+            for rid, ctx in _eng._ctx.items():
+                if ctx.first_token is not None and rid not in seen:
+                    seen[rid] = last.pop(id(ctx.cache))
+            return _inner(now)
+        eng.finish_pass = finish_pass
+    RE.prefill_chunk = prefill_chunk
+
+    def undo():
+        RE.prefill_chunk = inner_chunk
+    return seen, undo
+
+
+def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
+                 tag):
+    """Every request finished with its tokens, the decode caches drained,
+    and each first-token logits agree with a plain dense forward.
+    Returns (worst max|d|/max|ref|, argmax agreements)."""
     import torch
+    if sorted(g.rid for g in gens) != [r.rid for r in reqs]:
+        raise AssertionError(f"{tag}: unfinished requests: {len(gens)} of "
+                             f"{len(reqs)} finished")
+    for g, r in zip(gens, reqs):
+        if len(g.tokens) != spec.target_len(r):
+            raise AssertionError(f"{tag} request {r.rid}: {len(g.tokens)} "
+                                 f"tokens, expected {spec.target_len(r)}")
+    for eng in srv.decode_engines:
+        for st in eng._dp.values():
+            if spec.paged:
+                st.pool.check()
+                if st.pool.used_count != 0:
+                    raise AssertionError(f"{tag}: the block pools did not "
+                                         f"drain")
+            if st.occupied():
+                raise AssertionError(f"{tag}: the decode slots did not drain")
+    prefilled = (sum(e.tokens_processed for e in srv.engines) if srv.engines
+                 else sum(e.prefill_tokens for e in srv.decode_engines))
+    if prefilled != sum(r.input_len for r in reqs):
+        raise AssertionError(f"{tag}: prefill token count mismatch")
+    worst = 0.0
+    agree = 0
+    for r in reqs:
+        got = first_logits.get(r.rid)
+        ref = dense_forward_logits(cfg, params, r.tokens[:r.input_len],
+                                   device)
+        if got is None or got.shape != (cfg.vocab_size,) \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag} request {r.rid}: bad first-token "
+                                 f"logits")
+        rel = float((got.float() - ref.float()).abs().max()
+                    / ref.float().abs().max())
+        worst = max(worst, rel)
+        agree += int(int(got.argmax()) == int(ref.argmax()))
+    print(f"{tag} first-token logits vs dense forward: worst "
+          f"max|d|/max|ref|={worst:.3e} (tol {LOGITS_REL_TOL}), argmax "
+          f"agrees on {agree}/{len(reqs)}", flush=True)
+    if not worst <= LOGITS_REL_TOL:
+        raise AssertionError(f"{tag}: first-token logits disagree: {worst}")
+    return worst, agree
+
+
+def mixed_scfg():
     from repro_torch.config.base import ServingConfig
-    from repro_torch.models.model import init_params
-    from repro_torch.serving.real_engine import EngineSpec
-    from repro_torch.serving.server import RealSBSServer
-    dtype = dtype or torch.bfloat16
-    t0 = time.monotonic()
-    params = init_params(cfg, seed=0, dtype=dtype, device=device)
-    if device != "cpu":
-        torch.cuda.synchronize()
-    t_init = time.monotonic() - t0
-    scfg = ServingConfig(
+    return ServingConfig(
         num_prefill_instances=1, prefill_dp_per_instance=1,
         num_decode_instances=1, decode_dp_per_instance=2,
         chunk_size=256, t_default=0.05, l_net=0.001,
         max_batch_per_dp=MAX_BATCH, block_size=BLOCK,
         mixed_batch=True, mixed_chunk=256)
+
+
+def pd_scfg():
+    """The P/D serve's deployment.  SBS's flow control rejects a prompt
+    that waited more than n_limit × (2 or 3) dispatch cycles; with the
+    default n_limit=8 the smoke's burst (8 prompts, about 5,000 tokens
+    within 0.35 s, against 2 × 256 tokens per pass) trips it at full
+    width, so the serve raises n_limit: every request must be answered
+    for the token and logits checks."""
+    from repro_torch.config.base import ServingConfig
+    return ServingConfig(
+        num_prefill_instances=2, prefill_dp_per_instance=1,
+        num_decode_instances=1, decode_dp_per_instance=2,
+        chunk_size=PD_CHUNK, t_default=0.05, l_net=0.001,
+        max_batch_per_dp=MAX_BATCH, block_size=0, n_limit=64)
+
+
+def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
+          lens=(128, 1024), outs=(16, 32)):
+    """Drive the unified mixed-batch plane; returns the serve report.
+    `counters` are the kernel wrappers whose launch counts the run reads
+    (set to 0 just before the measured serve).  The size arguments let
+    the same code rehearse on the CPU with a reduced config."""
+    from repro_torch.serving.real_engine import EngineSpec
+    from repro_torch.serving.server import RealSBSServer
+    scfg = mixed_scfg()
     spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
                       max_new=outs[1], block_size=BLOCK,
                       decode_slots=scfg.resolved_decode_slots, device=device)
@@ -505,63 +753,89 @@ def serve(cfg, device, counters, n_requests=N_REQUESTS, lens=(128, 1024),
     gens = srv.serve(reqs, timeout=600)
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
-
-    if sorted(g.rid for g in gens) != [r.rid for r in reqs]:
-        raise AssertionError(f"unfinished requests: {len(gens)} of "
-                             f"{len(reqs)} finished")
-    for g, r in zip(gens, reqs):
-        if len(g.tokens) != spec.target_len(r):
-            raise AssertionError(f"request {r.rid}: {len(g.tokens)} tokens, "
-                                 f"expected {spec.target_len(r)}")
+    worst, agree = check_served(cfg, params, spec, srv, reqs, gens,
+                                first_logits, device, "[serve]")
     eng = srv.decode_engines[0]
-    for st in eng._dp.values():
-        st.pool.check()
-        if st.pool.used_count != 0 or st.occupied():
-            raise AssertionError("the block pools did not drain")
-    if eng.prefill_tokens != sum(r.input_len for r in reqs):
-        raise AssertionError("prefill token count mismatch")
-
-    worst = 0.0
-    agree = 0
-    for r in reqs:
-        got = first_logits.get(r.rid)
-        ref = dense_forward_logits(cfg, params, r.tokens[:r.input_len],
-                                   device)
-        if got is None or got.shape != (cfg.vocab_size,) \
-                or not torch.isfinite(got).all():
-            raise AssertionError(f"request {r.rid}: bad first-token logits")
-        rel = float((got.float() - ref.float()).abs().max()
-                    / ref.float().abs().max())
-        worst = max(worst, rel)
-        agree += int(int(got.argmax()) == int(ref.argmax()))
-    print(f"[serve] first-token logits vs dense forward: worst max|d|/max|ref|"
-          f"={worst:.3e} (tol {LOGITS_REL_TOL}), argmax agrees on "
-          f"{agree}/{len(reqs)}", flush=True)
-    if not worst <= LOGITS_REL_TOL:
-        raise AssertionError(f"first-token logits disagree: {worst}")
-
     ttft = [g.ttft for g in gens]
     durs = [d for d, _a, _r in eng.step_samples]
-    profile = profile_serve(cfg, params, scfg, spec, n_requests, lens, outs,
-                            device)
+    profile = profile_serve(
+        lambda: RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
+                              spec=spec),
+        cfg, n_requests, lens, outs, device)
     return {
-        "model": cfg.name, "dtype": str(dtype).replace("torch.", ""),
+        "plane": "unified mixed-batch, paged", "model": cfg.name,
+        "dtype": str(params["embed"].dtype).replace("torch.", ""),
         "requests": len(reqs), "prompt_tokens": [r.input_len for r in reqs],
-        "new_tokens": [len(g.tokens) for g in gens],
-        "init_s": t_init, "wall_s": wall,
+        "new_tokens": [len(g.tokens) for g in gens], "wall_s": wall,
         "ttft_p50_s": percentile(ttft, 0.5), "ttft_p99_s": percentile(ttft, 0.99),
         "itl_p50_s": percentile(eng.itl, 0.5),
         "itl_p99_s": percentile(eng.itl, 0.99),
         "steps": eng.steps, "mixed_steps": eng.mixed_steps,
         "step_p50_s": percentile(durs, 0.5), "step_p99_s": percentile(durs, 0.99),
-        "launches": launches, "logits_rel_err": worst,
-        "argmax_agree": agree, "profile": profile,
+        "launches": launches,
+        "launches_per_step": {k: v / eng.steps for k, v in launches.items()},
+        "logits_rel_err": worst, "argmax_agree": agree, "profile": profile,
+    }
+
+
+def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
+             lens=(128, 1024), outs=(16, 32)):
+    """Drive the P/D-separated deployment on the padded plane; returns
+    the serve report (as `serve`)."""
+    from repro_torch.serving.real_engine import EngineSpec
+    from repro_torch.serving.server import RealSBSServer
+    scfg = pd_scfg()
+    spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
+                      max_new=outs[1], block_size=0, device=device)
+    warm = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
+    warm.serve(make_requests(cfg, 2, seed=99, lens=(lens[0], lens[0]),
+                             outs=(2, 2)), timeout=300)
+    srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
+    first_logits, undo = record_prefill_logits(srv)
+    reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
+    for w in counters:
+        w.launches = 0
+    t0 = time.monotonic()
+    try:
+        gens = srv.serve(reqs, timeout=600)
+    finally:
+        undo()
+    wall = time.monotonic() - t0
+    launches = {w.__name__: w.launches for w in counters}
+    worst, agree = check_served(cfg, params, spec, srv, reqs, gens,
+                                first_logits, device, "[pd serve]")
+    eng = srv.decode_engines[0]
+    passes = sum(e.passes for e in srv.engines)
+    ttft = [g.ttft for g in gens]
+    durs = [d for d, _a, _r in eng.step_samples]
+    profile = profile_serve(
+        lambda: RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
+                              spec=spec),
+        cfg, n_requests, lens, outs, device)
+    return {
+        "plane": "P/D, padded decode", "model": cfg.name,
+        "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "requests": len(reqs), "prompt_tokens": [r.input_len for r in reqs],
+        "new_tokens": [len(g.tokens) for g in gens], "wall_s": wall,
+        "ttft_p50_s": percentile(ttft, 0.5), "ttft_p99_s": percentile(ttft, 0.99),
+        "itl_p50_s": percentile(eng.itl, 0.5),
+        "itl_p99_s": percentile(eng.itl, 0.99),
+        "decode_steps": eng.steps, "prefill_passes": passes,
+        "step_p50_s": percentile(durs, 0.5), "step_p99_s": percentile(durs, 0.99),
+        "launches": launches,
+        "decode_attention_per_decode_step":
+            launches.get("decode_attention", 0) / max(eng.steps, 1),
+        "flash_prefill_per_prefill_pass":
+            launches.get("flash_prefill", 0) / max(passes, 1),
+        "logits_rel_err": worst, "argmax_agree": agree, "profile": profile,
     }
 
 
 def _kernel_group(name: str) -> str:
     if "paged_decode_kernel" in name:
         return "paged_decode_attention"
+    if "dense_decode_kernel" in name:
+        return "decode_attention"
     if "flash_kernel" in name:
         return "flash_prefill"
     if any(t in name.lower() for t in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -569,7 +843,7 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_serve(cfg, params, scfg, spec, n_requests, lens, outs, device):
+def profile_serve(make_server, cfg, n_requests, lens, outs, device):
     """Where the device time of the same serve goes: a second run of the
     measured requests under torch.profiler (a fresh server, so the
     measured run above carries no profiler cost).  Returns device time by
@@ -577,10 +851,9 @@ def profile_serve(cfg, params, scfg, spec, n_requests, lens, outs, device):
     or None when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.server import RealSBSServer
     if device == "cpu":
         return None
-    srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
+    srv = make_server()
     reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -609,6 +882,38 @@ def profile_serve(cfg, params, scfg, spec, n_requests, lens, outs, device):
 
 # ---------------------------------------------------------------------------
 
+def kernel_items(dec, dense, pfx, fla, mixed, pd):
+    """The kernels line: every kernel of the port with its measurements
+    and its launches on its own path's serve."""
+    def errs(es):
+        return dict(max_abs_err=max(a for a, _r in es),
+                    max_rel_err=max(r for _a, r in es))
+
+    def item(name, source, replaces, rep, r, path):
+        n = rep["launches"][name]
+        steps = rep.get("steps") or rep["decode_steps"]
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=n, **errs(r["errs"]), rel_tol=REL_TOL,
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            path=path, launches_per_decode_step=n / steps, shape=r["shape"])
+
+    csrc = "src/repro_torch/csrc/"
+    dec_k = "src/repro/kernels/decode_attention/kernel.py"
+    fp_k = "src/repro/kernels/flash_prefill/kernel.py:87"
+    return [
+        item("paged_decode_attention", csrc + "paged_decode_attention.cu",
+             dec_k + ":115", mixed, dec, "mixed serve"),
+        item("paged_prefill_attention", csrc + "flash_prefill.cu", fp_k,
+             mixed, pfx, "mixed serve"),
+        item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
+             "P/D serve"),
+        item("decode_attention", csrc + "decode_attention.cu",
+             dec_k + ":166", pd, dense, "P/D serve"),
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -621,9 +926,11 @@ def main() -> int:
     try:
         from repro_torch.config.base import get_arch
         from repro_torch.kernels.build import load_kernels
-        from repro_torch.kernels.decode_attention import paged_decode_attention
+        from repro_torch.kernels.decode_attention import (
+            decode_attention, paged_decode_attention)
         from repro_torch.kernels.flash_prefill import (
             flash_prefill, paged_prefill_attention)
+        from repro_torch.models.model import init_params
     except ImportError as e:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
               file=sys.stderr)
@@ -635,58 +942,55 @@ def main() -> int:
         print(f"[build] kernels built and loaded in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
         dec = check_decode(device)
+        dense = check_dense_decode(device)
         pfx = check_paged_prefill(device)
         fla = check_flash_prefill(device)
-        rep = serve(get_arch("deepseek-7b"), device,
-                    [paged_decode_attention, paged_prefill_attention,
-                     flash_prefill])
-        launches = rep["launches"]
+        for tag, r in (("[decode]", dec), ("[dense decode]", dense),
+                       ("[paged prefill]", pfx), ("[flash prefill]", fla)):
+            report_timing(tag, r)
+        cfg = get_arch("deepseek-7b")
+        t0 = time.monotonic()
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                             device=device)
+        torch.cuda.synchronize()
+        print(f"[init] {cfg.name} bf16 weights in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        counters = [paged_decode_attention, paged_prefill_attention,
+                    flash_prefill, decode_attention]
+        mixed = serve(cfg, params, device, counters)
         for name in ("paged_decode_attention", "paged_prefill_attention"):
-            if launches[name] <= 0:
-                raise AssertionError(f"{name} never launched on the serve")
-        steps = rep["steps"]
-
-        def errs(es):
-            return dict(max_abs_err=max(a for a, _r in es),
-                        max_rel_err=max(r for _a, r in es))
-
-        def item(name, source, replaces, n, r, es, **extra):
-            return dict(
-                name=name, route="cuda", source=source, replaces=replaces,
-                launches=n, **errs(es), rel_tol=REL_TOL,
-                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], library_ms=r["library_ms"],
-                launches_per_step=n / steps, shape=r["shape"], **extra)
-
-        n_fp = launches["paged_prefill_attention"] + launches["flash_prefill"]
-        kernels = [
-            item("paged_decode_attention",
-                 "src/repro_torch/csrc/paged_decode_attention.cu",
-                 "src/repro/kernels/decode_attention/kernel.py:115",
-                 launches["paged_decode_attention"], dec, dec["errs"]),
-            item("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
-                 "src/repro/kernels/flash_prefill/kernel.py:87", n_fp, pfx,
-                 pfx["errs"] + fla["errs"],
-                 entries={
-                     "paged_prefill_attention": dict(
-                         launches=launches["paged_prefill_attention"],
-                         **{k: pfx[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms",
-                                                "shape")},
-                         **errs(pfx["errs"])),
-                     "flash_prefill": dict(
-                         launches=launches["flash_prefill"],
-                         **{k: fla[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms",
-                                                "shape")},
-                         **errs(fla["errs"]))}),
-        ]
+            if mixed["launches"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the mixed "
+                                     f"serve")
+        torch.cuda.empty_cache()
+        pd = serve_pd(cfg, params, device, counters)
+        for name in ("decode_attention", "flash_prefill"):
+            if pd["launches"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the P/D "
+                                     f"serve")
+        prof = pd["profile"] or {}
+        print(f"[pd serve] ttft_p50_s={pd['ttft_p50_s']!r} "
+              f"ttft_p99_s={pd['ttft_p99_s']!r}", flush=True)
+        print(f"[pd serve] itl_p50_s={pd['itl_p50_s']!r} "
+              f"itl_p99_s={pd['itl_p99_s']!r}", flush=True)
+        print(f"[pd serve] wall_s={pd['wall_s']!r}", flush=True)
+        print(f"[pd serve] idle_share={prof.get('idle_share')!r} "
+              f"(profiled second run, wall_s={prof.get('wall_s')!r})",
+              flush=True)
+        print(f"[pd serve] device_s_by_group={prof.get('by_group_s')!r}",
+              flush=True)
+        print(f"[pd serve] launches={pd['launches']!r} per decode step: "
+              f"decode_attention="
+              f"{pd['decode_attention_per_decode_step']!r}, per prefill "
+              f"pass: flash_prefill="
+              f"{pd['flash_prefill_per_prefill_pass']!r}", flush=True)
+        kernels = kernel_items(dec, dense, pfx, fla, mixed, pd)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()
-        rep.pop("launches")
-        print(json.dumps({"serve": rep}), flush=True)
+        print(json.dumps({"serve": mixed}), flush=True)
+        print(json.dumps({"serve_pd": pd}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

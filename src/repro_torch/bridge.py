@@ -59,7 +59,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
 
 def cache_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
                      device="cuda") -> Dict:
-    """A JAX paged cache (or dense batch-1 cache) as the port's cache."""
+    """A JAX cache — paged, or dense with B rows of S_buf entries (a
+    window ring for SWA models) — as the port's cache."""
     require_supported(cfg)
     out = {key: _tensor(tree[key], torch.int32, device)
            for key in ("cur", "kv_pos", "block_tab") if key in tree}
@@ -71,7 +72,8 @@ def cache_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
 
 
 def cache_to_numpy(cfg: ModelConfig, cache: Dict) -> Dict:
-    """The port's cache in the JAX cache layout (numpy leaves)."""
+    """The port's cache (paged or dense) in the JAX cache layout (numpy
+    leaves)."""
     slots = _layer_slots(cfg)
     out: Dict = {key: cache[key].cpu().numpy()
                  for key in ("cur", "kv_pos", "block_tab") if key in cache}

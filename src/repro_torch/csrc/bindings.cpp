@@ -59,6 +59,29 @@ at::Tensor paged_decode_attention(const at::Tensor& q,
   return out;
 }
 
+at::Tensor decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
+                            const at::Tensor& v_cache,
+                            const at::Tensor& kv_pos, const at::Tensor& pos,
+                            int64_t window, double scale) {
+  const auto st = q.scalar_type();
+  check(q, "q", st);
+  check(k_cache, "k_cache", st);
+  check(v_cache, "v_cache", st);
+  check(kv_pos, "kv_pos", at::kInt);
+  check(pos, "pos", at::kInt);
+  const c10::cuda::CUDAGuard guard(q.device());
+  at::Tensor out = at::empty_like(q);
+  check_launch(
+      launch_decode_attention(
+          q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+          kv_pos.data_ptr<int>(), pos.data_ptr<int>(), out.data_ptr(),
+          q.size(0), q.size(1), k_cache.size(1), k_cache.size(2), q.size(2),
+          window, static_cast<float>(scale), dtype_code(q),
+          at::cuda::getCurrentCUDAStream()),
+      "decode_attention");
+  return out;
+}
+
 at::Tensor flash_prefill(const at::Tensor& q, const at::Tensor& k,
                          const at::Tensor& v, const at::Tensor& q_pos,
                          const at::Tensor& kv_pos, const at::Tensor& q_seg,
@@ -119,6 +142,7 @@ at::Tensor paged_prefill_attention(const at::Tensor& q,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_decode_attention", &paged_decode_attention);
+  m.def("decode_attention", &decode_attention);
   m.def("flash_prefill", &flash_prefill);
   m.def("paged_prefill_attention", &paged_prefill_attention);
 }

@@ -21,6 +21,15 @@ cudaError_t launch_paged_decode_attention(
     int B, int H, int K, int hd, int bs, int nbt, int window, float scale,
     int dtype, cudaStream_t stream);
 
+// Dense decode attention: q (B,H,hd); k/v caches (B,S,K,hd); kv_pos
+// (B,S) int32 (-1 = empty); pos (B,) int32; out (B,H,hd).  Walks cache
+// indices 0 .. min(S, pos + 1) - 1 (see the source note).  Replaces
+// decode_attention_pallas.
+cudaError_t launch_decode_attention(
+    const void* q, const void* k_cache, const void* v_cache,
+    const int* kv_pos, const int* pos, void* out, int B, int H, int S, int K,
+    int hd, int window, float scale, int dtype, cudaStream_t stream);
+
 // Packed-varlen flash attention over contiguous K/V: q (B,Sq,H,hd);
 // k/v (B,Skv,K,hd); q_pos/q_seg (B,Sq), kv_pos/kv_seg (B,Skv) int32
 // (segment -1 = pad, kv_pos < 0 = empty); out (B,Sq,H,hd).

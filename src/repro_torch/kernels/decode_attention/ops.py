@@ -1,22 +1,29 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Decode attention, paged and dense: the CUDA kernels' wrappers and
+their plain PyTorch versions.
 
-Replaces `repro/kernels/decode_attention/kernel.py`
-`paged_decode_attention_pallas`.  The kernel
-(`repro_torch/csrc/paged_decode_attention.cu`) is bound by the bytes of
-each row's live K/V pages; one CTA per (row, kv head) walks only the
-row's live blocks with an fp32 online softmax — see the source note.
+Replaces `repro/kernels/decode_attention/kernel.py`:
 
-`paged_decode_attention` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors; `paged_decode_attention.launches`
-counts kernel launches.
+  * `paged_decode_attention_pallas` by `paged_decode_attention`
+    (`repro_torch/csrc/paged_decode_attention.cu`): one query token per
+    row over its K/V pages through the block table;
+  * `decode_attention_pallas` by `decode_attention`
+    (`repro_torch/csrc/decode_attention.cu`): one query token per row
+    over a dense (B, S, K, hd) cache, a ring for sliding-window models.
+
+Both kernels are bound by the bytes of each row's live K/V; one CTA per
+(kv head, row) walks only the row's live entries with an fp32 online
+softmax — see the source notes.  Each wrapper launches its kernel for
+CUDA tensors and takes the plain version only for CPU tensors;
+`<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import load_kernels
-from repro_torch.models.attention import decode_attention_paged
+from repro_torch.models.attention import (
+    decode_attention as _dense_reference, decode_attention_paged,
+)
 
 HEAD_DIMS = (64, 128)       # head dims the kernel is instantiated for
 MAX_GROUP = 8               # query heads per kv head one CTA handles
@@ -32,26 +39,21 @@ def paged_decode_attention_plain(q, k_pool, v_pool, kv_pos_pool, block_tab,
                                   block_tab, pos, window)[:, 0]
 
 
-def check_args(q, k_pool, v_pool, kv_pos_pool, block_tab, pos) -> None:
-    """Raise ValueError for any input the kernel does not take."""
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError("q must be (B, H, hd) and pools (N, bs, K, hd)")
-    B, H, hd = q.shape
-    N, bs, K, hd_k = k_pool.shape
-    if tuple(v_pool.shape) != tuple(k_pool.shape) or hd_k != hd:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    if tuple(kv_pos_pool.shape) != (N, bs):
-        raise ValueError(f"kv_pos_pool must be {(N, bs)}")
-    if block_tab.dim() != 2 or block_tab.shape[0] != B:
-        raise ValueError(f"block_tab must be ({B}, nbt)")
-    if tuple(pos.shape) != (B,):
-        raise ValueError(f"pos must be ({B},)")
-    if q.dtype not in DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise ValueError(f"q and pools must share one dtype of {DTYPES}")
-    for name, t in (("kv_pos_pool", kv_pos_pool), ("block_tab", block_tab),
-                    ("pos", pos)):
+def _check_common(q, k, v, ints) -> None:
+    """Checks both kernels share: q (B, H, hd) and K/V (.., K, hd) of one
+    dtype, a head dim and a group size the kernels are instantiated for,
+    int32 index inputs (`ints`, name -> tensor), and every input
+    contiguous, 16-byte aligned where loaded by 16 bytes, on q's device."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError("q must be (B, H, hd) and K/V 4-d")
+    H, hd = q.shape[1], q.shape[2]
+    K = k.shape[2]
+    if tuple(v.shape) != tuple(k.shape) or k.shape[3] != hd:
+        raise ValueError(f"K/V shapes {tuple(k.shape)}, {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, K and V must share one dtype of {DTYPES}")
+    for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     if hd not in HEAD_DIMS:
@@ -59,13 +61,28 @@ def check_args(q, k_pool, v_pool, kv_pos_pool, block_tab, pos) -> None:
     if K == 0 or H % K or H // K > MAX_GROUP:
         raise ValueError(f"H={H}, K={K}: need H % K == 0 and "
                          f"H // K <= {MAX_GROUP}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("kv_pos_pool", kv_pos_pool), ("block_tab", block_tab),
-                    ("pos", pos)):
+    for name, t in (("q", q), ("k", k), ("v", v), *ints.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def check_args(q, k_pool, v_pool, kv_pos_pool, block_tab, pos) -> None:
+    """Raise ValueError for any input the paged kernel does not take."""
+    _check_common(q, k_pool, v_pool, {"kv_pos_pool": kv_pos_pool,
+                                      "block_tab": block_tab, "pos": pos})
+    B = q.shape[0]
+    N, bs = k_pool.shape[:2]
+    if tuple(kv_pos_pool.shape) != (N, bs):
+        raise ValueError(f"kv_pos_pool must be {(N, bs)}")
+    if block_tab.dim() != 2 or block_tab.shape[0] != B:
+        raise ValueError(f"block_tab must be ({B}, nbt)")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"pos must be ({B},)")
 
 
 def paged_decode_attention(q, k_pool, v_pool, kv_pos_pool, block_tab, pos,
@@ -87,3 +104,51 @@ def paged_decode_attention(q, k_pool, v_pool, kv_pos_pool, block_tab, pos,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dense (padded / ring) cache
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(q, k_cache, v_cache, kv_pos, pos, window: int = 0):
+    """Einsum scores + masked softmax.  q (B, H, hd); caches (B, S, K, hd);
+    kv_pos (B, S) int32 (-1 = empty); pos (B,) int32  ->  (B, H, hd).
+    Key i is valid iff 0 <= kv_pos[i] <= pos and, with window > 0,
+    pos - kv_pos[i] < window; a row with no valid key gives 0."""
+    return _dense_reference(q[:, None], k_cache, v_cache, kv_pos, pos,
+                            window)[:, 0]
+
+
+def check_dense_args(q, k_cache, v_cache, kv_pos, pos) -> None:
+    """Raise ValueError for any input the dense kernel does not take."""
+    _check_common(q, k_cache, v_cache, {"kv_pos": kv_pos, "pos": pos})
+    B = q.shape[0]
+    S = k_cache.shape[1]
+    if k_cache.shape[0] != B:
+        raise ValueError(f"caches must have {B} rows, as q")
+    if tuple(kv_pos.shape) != (B, S):
+        raise ValueError(f"kv_pos must be {(B, S)}")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"pos must be ({B},)")
+
+
+def decode_attention(q, k_cache, v_cache, kv_pos, pos, window: int = 0):
+    """One query token per row over its dense cache (shapes as the plain
+    version).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise.  The kernel walks cache indices
+    0 .. min(S, pos + 1) - 1, which equals the plain version whenever
+    index i holds -1 or a position p with p % S == i (every engine path;
+    see `repro_torch/csrc/decode_attention.cu`)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_pos, pos,
+                                      window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_dense_args(q, k_cache, v_cache, kv_pos, pos)
+    out = load_kernels().decode_attention(
+        q, k_cache, v_cache, kv_pos, pos, int(window), q.shape[-1] ** -0.5)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

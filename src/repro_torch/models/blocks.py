@@ -1,14 +1,16 @@
-"""Transformer blocks of the paged serving path, dense GQA branch.
+"""Transformer blocks of the serving path, dense GQA branch.
 
 Counterpart of `repro/models/blocks.py` (`init_attn_params`,
-`init_dense_mlp_params`, `_paged_write_site(s)`, `attn_decode_paged`,
-`attn_extend_paged`, `block_decode_paged`, `block_extend_paged`).  The
-attention itself runs through the port's kernels
-(`repro_torch.kernels`), which take their plain versions on the CPU.
+`init_dense_mlp_params`; the dense-cache `attn_decode`, `attn_extend`,
+`block_decode`, `block_extend`; the paged `_paged_write_site(s)`,
+`attn_decode_paged`, `attn_extend_paged`, `block_decode_paged`,
+`block_extend_paged`).  The attention itself runs through the port's
+kernels (`repro_torch.kernels`), which take their plain versions on the
+CPU.
 
-Unlike the JAX functions, which return new pools, these write the new
-tokens' K/V and positions into the pools IN PLACE and return only the
-hidden states.
+Unlike the JAX functions, which return new caches, these write the new
+tokens' K/V and positions into the caches (dense rows or paged pools)
+IN PLACE and return only the hidden states.
 """
 from __future__ import annotations
 
@@ -17,8 +19,12 @@ from typing import Dict
 import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
-from repro_torch.kernels.decode_attention import paged_decode_attention
-from repro_torch.kernels.flash_prefill import paged_prefill_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention, paged_decode_attention,
+)
+from repro_torch.kernels.flash_prefill import (
+    flash_prefill, paged_prefill_attention,
+)
 from repro_torch.models.layers import apply_rope, init_linear, rms_norm, swiglu
 
 
@@ -65,7 +71,7 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Paged attention sub-layer
+# Attention sub-layers
 # ---------------------------------------------------------------------------
 
 def _window(cfg: ModelConfig) -> int:
@@ -88,6 +94,47 @@ def _qkv(p, x, cfg: ModelConfig, positions):
 def _out_proj(p, o):
     B, S, H, hd = o.shape
     return o.reshape(B, S, H * hd) @ p["w_o"].reshape(H * hd, -1)
+
+
+def attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos, pos):
+    """Single-token decode against a dense cache: write the new K/V (in
+    place) at index pos % S (a ring for SWA caches; S == max_len
+    otherwise, so the index is pos), then attend.  x (B, 1, D); caches
+    (B, S, K, hd); kv_pos (B, S); pos (B,).  Returns (B, 1, D)."""
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    rows = torch.arange(x.shape[0], device=x.device)
+    idx = (pos % k_cache.shape[1]).long()
+    k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
+    kv_pos[rows, idx] = pos.to(kv_pos.dtype)
+    o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, kv_pos, pos,
+                         _window(cfg))
+    return _out_proj(p, o[:, None].to(q.dtype))
+
+
+def attn_extend(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos,
+                positions):
+    """Chunk extend against a dense cache: write the chunk's K/V (in
+    place) at positions % S, THEN attend the chunk's queries over the
+    whole cache with position masking (history and intra-chunk causality
+    in one pass).  As in the reference, a ring cache takes the whole chunk
+    before any of its queries attend, so once a prompt is past the window
+    a chunk's first queries no longer see the keys the chunk's later
+    tokens overwrote.  x (B, Sc, D); positions (B, Sc).  Returns
+    (B, Sc, D)."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)[:, None]
+    idx = (positions % k_cache.shape[1]).long()
+    k_cache[rows, idx] = k.to(k_cache.dtype)
+    v_cache[rows, idx] = v.to(v_cache.dtype)
+    kv_pos[rows, idx] = positions.to(kv_pos.dtype)
+    q_seg = torch.zeros_like(positions, dtype=torch.int32)
+    kv_seg = torch.zeros_like(kv_pos, dtype=torch.int32)
+    o = flash_prefill(q.contiguous(), k_cache, v_cache,
+                      positions.to(torch.int32).contiguous(), kv_pos, q_seg,
+                      kv_seg, causal=True, window=_window(cfg))
+    return _out_proj(p, o.to(q.dtype))
 
 
 def _paged_write_site(block_tab, pos, block_size):
@@ -145,6 +192,24 @@ def _mlp(p, x, cfg: ModelConfig):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
     return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+
+
+def block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos, pos):
+    """Single-token decode block over a dense cache (written in place).
+    Returns the new hidden states (B, 1, D)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn_decode(p["attn"], h, cfg, k_cache, v_cache, kv_pos, pos)
+    return _mlp(p, x, cfg)
+
+
+def block_extend(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos,
+                 positions):
+    """Chunked-prefill block step over a dense cache (written in place).
+    Returns the new hidden states (B, Sc, D)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn_extend(p["attn"], h, cfg, k_cache, v_cache, kv_pos,
+                        positions)
+    return _mlp(p, x, cfg)
 
 
 def block_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,

@@ -1,12 +1,14 @@
-"""Model assembly for the paged serving path (dense GQA decoders).
+"""Model assembly for the serving path (dense GQA decoders).
 
-Counterpart of the paged family of `repro/models/model.py`:
-`layer_layout`, `init_params`, `paged_layout`, `init_paged_cache`,
+Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
+`logits_from_hidden`; the dense (padded) family `kv_buffer_len`,
+`init_cache`, `cache_join`, `cache_take`, `prefill_chunk`,
+`decode_step`; and the paged family `paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step`,
 `paged_prefill_step`, `mixed_step`, `paged_copy_block`,
-`paged_gather_blocks`, `paged_adopt_blocks`, `paged_clear_rows` and
-`logits_from_hidden`.  The JAX package scans over a stacked layer axis;
-here the layers are a Python list and the step functions loop over them.
+`paged_gather_blocks`, `paged_adopt_blocks`, `paged_clear_rows`.  The
+JAX package scans over a stacked layer axis; here the layers are a
+Python list and the step functions loop over them.
 
 Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
@@ -14,15 +16,19 @@ Layouts (torch):
                          "mlp": {w_gate, w_up, w_down}}, ...]}
     paged   {"cur" (slots,) int32, "kv_pos" (N, bs) int32,
     cache    "block_tab" (slots, nbt) int32, "k"/"v" (L, N, bs, K, hd)}
-    dense   {"cur" (1,), "kv_pos" (1, S), "k"/"v" (L, 1, S, K, hd)}
-    batch-1 (what `paged_cache_take` returns and `paged_cache_join` takes)
+    dense   {"cur" (B,) int32, "kv_pos" (B, S) int32,
+    cache    "k"/"v" (L, B, S, K, hd)}, S = kv_buffer_len(cfg, max_len)
+            (a ring of min(window, max_len) entries for SWA models).  A
+            prefill request's cache and what `paged_cache_take` /
+            `cache_take` return are its batch-1 form.
 
 Physical block 0 is the null block: -1 table entries route writes there
-and the attention masks it.  The K/V pools and the kv_pos map are
-written IN PLACE by every function that writes KV (the JAX functions
-return new arrays; at full width a pool copy per step would double the
-KV memory).  `cur` and `block_tab` are small and are replaced, never
-mutated, so a cache dict handed out earlier keeps its cursors.
+and the attention masks it.  The K/V pools, the dense K/V rows and the
+kv_pos maps are written IN PLACE by every function that writes KV (the
+JAX functions return new arrays; at full width a cache copy per step
+would double the KV memory).  `cur` and `block_tab` are small and are
+replaced, never mutated, so a cache dict handed out earlier keeps its
+cursors.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
 from repro_torch.models.blocks import (
-    block_decode_paged, block_extend_paged, init_block_params,
+    block_decode, block_decode_paged, block_extend, block_extend_paged,
+    init_block_params,
 )
 from repro_torch.models.layers import rms_norm
 
@@ -104,6 +111,61 @@ def logits_from_hidden(cfg: ModelConfig, params, x):
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Dense (padded) cache
+# ---------------------------------------------------------------------------
+
+def kv_buffer_len(cfg: ModelConfig, max_len: int) -> int:
+    """Entries of a dense KV row: a ring of the window for SWA models."""
+    if cfg.attention == AttentionKind.SWA and cfg.sliding_window:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device="cuda") -> Dict:
+    """Dense decode cache of `batch` rows (a prefill request's cache is
+    its batch-1 form)."""
+    require_supported(cfg)
+    S = kv_buffer_len(cfg, max_len)
+    shape = (cfg.num_layers, batch, S, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "cur": torch.zeros(batch, dtype=torch.int32, device=device),
+        "kv_pos": torch.full((batch, S), -1, dtype=torch.int32,
+                             device=device),
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
+    """Install the batch-1 cache `src` (a finished prefill, or a parked
+    row) into row `slot` of the dense batch cache `dst`: the whole row of
+    every layer and of kv_pos is copied (in place), and the row's cursor
+    set."""
+    if dst["kv_pos"].shape[1] != src["kv_pos"].shape[1]:
+        raise ValueError(
+            f"cache_join: max_len mismatch (dst S_buf="
+            f"{dst['kv_pos'].shape[1]}, src S_buf={src['kv_pos'].shape[1]})")
+    for name in ("k", "v"):
+        dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
+    dst["kv_pos"][slot] = src["kv_pos"][0]
+    out = dict(dst)
+    out["cur"] = _with(dst, "cur", slot, src["cur"][0])
+    return out
+
+
+def cache_take(src: Dict, slot: int) -> Dict:
+    """Row `slot` of a dense batch cache as a new batch-1 cache (the
+    inverse of cache_join: preemption and drain park it)."""
+    out: Dict = {"cur": src["cur"][slot:slot + 1].clone(),
+                 "kv_pos": src["kv_pos"][slot:slot + 1].clone()}
+    for name in ("k", "v"):
+        out[name] = src[name][:, slot:slot + 1].clone()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +267,41 @@ def paged_cache_clear_slot(cache: Dict, slot) -> Dict:
 # ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
+
+def prefill_chunk(cfg: ModelConfig, params, tokens, cache):
+    """Extend a dense cache by one chunk of prompt tokens (B, Sc): true
+    chunked prefill with KV continuation.  Returns (last-position logits
+    (B, V), cache with `cur` + Sc); the K/V rows are written in place."""
+    Sc = tokens.shape[1]
+    pos0 = cache["cur"]
+    positions = pos0[:, None] + torch.arange(Sc, dtype=torch.int32,
+                                             device=pos0.device)[None]
+    x = params["embed"][tokens.long()]                    # (B, Sc, D)
+    for l, p in enumerate(params["layers"]):
+        x = block_extend(p, x, cfg, cache["k"][l], cache["v"][l],
+                         cache["kv_pos"], positions)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_from_hidden(cfg, params, x[:, -1])
+    out = dict(cache)
+    out["cur"] = pos0 + Sc
+    return logits, out
+
+
+def decode_step(cfg: ModelConfig, params, token, cache):
+    """One decode step over a dense cache.  token (B, 1) int; returns
+    (logits (B, V), cache with `cur` + 1).  Every row steps, idle rows on
+    garbage (rows never interact); the K/V rows are written in place."""
+    pos = cache["cur"]
+    x = params["embed"][token.long()]                    # (B, 1, D)
+    for l, p in enumerate(params["layers"]):
+        x = block_decode(p, x, cfg, cache["k"][l], cache["v"][l],
+                         cache["kv_pos"], pos)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_from_hidden(cfg, params, x[:, 0])
+    out = dict(cache)
+    out["cur"] = pos + 1
+    return logits, out
+
 
 def paged_decode_step(cfg: ModelConfig, params, token, cache):
     """One decode step over a paged cache.  token (slots, 1) int; returns

@@ -1,36 +1,63 @@
-"""Real PyTorch engine backends for the EnginePlane contract (paged only).
+"""Real PyTorch engine backends for the EnginePlane contract.
 
-Counterpart of `repro/serving/real_engine.py`, the parts the unified
-mixed-batch plane runs: `EngineSpec`, `GenState`, `KVHandoffBus`,
-`_Worker`/`_WorkerOwner`, `_DPPagedState`, the paged
-half of `RealDecodeEngine` and `RealUnifiedEngine`.  They plug into
-`ClusterRuntime` exactly where the simulated instances do — same
-scheduler feedback, same DecodeDPState accounting — but every step is a
-real forward of the port's model on the engine's worker thread.  The
-runtime runs in realtime mode: `start_step` returns ASYNC and the worker
-posts the `step_end` completion to the runtime's event loop.
+Counterpart of `repro/serving/real_engine.py`: `EngineSpec`, `GenState`,
+`KVHandoffBus`, `_Worker`/`_WorkerOwner`, `_PrefillCtx` and
+`RealPrefillEngine` (dense backend), `_DPDecodeState`/`_DPPagedState`,
+`RealDecodeEngine` (padded and paged) and `RealUnifiedEngine`.  They plug
+into `ClusterRuntime` exactly where the simulated instances do — same
+scheduler feedback, same DecodeDPState accounting — but every pass/step
+is a real forward of the port's model on the engine's worker thread.
+The runtime runs in realtime mode: `start_pass`/`start_step` return
+ASYNC and the worker posts the `pass_end`/`step_end` completion to the
+runtime's event loop.
 
-Decode is continuous batched decode over a paged block-table cache: each
-DP unit owns a `BlockPool` + paged cache (`init_paged_cache`); a
-request's lifetime pages are reserved at join and returned at
-leave/drain, so admission is by free-block count.  The unified engine
-also runs chunked prefill inside the same steps (`mixed_step`).
+Prefill (P/D deployment) is true chunked prefill: each granted (request,
+tokens) slice extends the request's private batch-1 dense cache via
+`prefill_chunk`; completion publishes the whole cache and the first
+token (argmax of the last chunk's logits) on the `KVHandoffBus` — the
+paper's P/D KV transfer, priced by `transfer_time` on the runtime heap
+and realised at join time.
+
+Decode is continuous batched decode with two cache backends behind one
+engine:
+
+  padded (block_size=0)  each DP owns a `max_batch`-row dense cache
+      (`init_cache`, max_len per row, a ring of the window for SWA
+      models); a free SLOT is the admission token.  Joins copy the
+      parked batch-1 cache into the row (`cache_join`).
+  paged  (block_size>0)  each DP owns a `BlockPool` + block-table cache
+      (`init_paged_cache`); a request's lifetime pages are reserved at
+      join and returned at leave/drain, so admission is by free-block
+      count.  Joins scatter the batch-1 cache into the pages
+      (`paged_cache_join`).
+
+Every step runs one batched `decode_step`/`paged_decode_step` per
+occupied DP behind the instance sync barrier; finished requests leave
+their slot (paged: also their table row and pages).  The unified engine
+(paged only) runs chunked prefill inside the same steps (`mixed_step`).
 
 Differences from the JAX engines:
 
   * no jit, no mesh, no lock around device programs: PyTorch runs
-    eagerly and one engine thread owns one device stream;
-  * the step functions write the K/V pools in place (see
-    `repro_torch.models.model`), so a worker step mutates the DP's pools
+    eagerly, every engine thread issues its work to the device's default
+    stream (so it serialises, and a handoff cache written by a prefill
+    worker is complete before the runtime thread's join reads it);
+  * the step functions write the K/V caches in place (see
+    `repro_torch.models.model`), so a worker step mutates the DP's cache
     while the runtime thread waits for `step_end`.  The runtime thread
     touches a cache only between steps (joins, leaves, preemption), never
-    while `busy`.  For the same reason `drain` refuses to run while a
-    step is in flight: the step would go on writing into pages the drain
-    returns to the pool.  The watchdog, which drains an overdue (busy)
-    instance, is therefore not available on the port yet;
-  * the padded (block_size=0) plane, page-native P/D prefill, page
-    sharing and the sharded plane are not ported yet (ROADMAP Queue 1
-    items 6, 7 and 11).
+    while `busy`.  `drain` — the watchdog's, which finds the instance
+    busy by definition — first waits (at most `drain_wait_s`) for the
+    in-flight step to return, and raises if it does not, so no slot or
+    page is handed back while a step can still write it.  It then parks
+    the PRE-step snapshot, as the JAX engine does: the step's result is
+    dropped (its `step_end` is stale by epoch), and the one K/V entry the
+    abandoned step already wrote, at the row's cursor, is rewritten by
+    the re-joined row's next step before any query reads it (a ring
+    index it overwrote held a position one window back, which the window
+    already masks);
+  * page-native P/D prefill, page sharing and the sharded plane are not
+    ported yet (ROADMAP Queue 1 items 6 and 11).
 """
 from __future__ import annotations
 
@@ -46,13 +73,16 @@ import torch
 from repro_torch.config.base import PAGED_SLOTS_FACTOR, ModelConfig
 from repro_torch.core.types import Request, RequestPhase
 from repro_torch.models.model import (
-    init_paged_cache, mixed_step, paged_cache_clear_slot, paged_cache_join,
-    paged_cache_take, paged_clear_rows, paged_decode_step, paged_layout,
-    paged_prefill_step,
+    cache_join, cache_take, decode_step, init_cache, init_paged_cache,
+    mixed_step, paged_cache_clear_slot, paged_cache_join, paged_cache_take,
+    paged_clear_rows, paged_decode_step, paged_layout, paged_prefill_step,
+    prefill_chunk, require_supported,
 )
-from repro_torch.serving.engine import SimDecodeInstance
+from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
 from repro_torch.serving.kv_pool import BlockPool, pad_block_table
-from repro_torch.serving.plane import ASYNC, StartResult, UnifiedEngine
+from repro_torch.serving.plane import (
+    ASYNC, PassResult, StartResult, UnifiedEngine,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -64,26 +94,26 @@ from repro_torch.serving.plane import ASYNC, StartResult, UnifiedEngine
 class EngineSpec:
     """Model + device context shared by every engine of one deployment.
 
-    `max_batch` is the decode-plane MEMORY budget: each DP spends
-    max_batch·max_len tokens on a shared `BlockPool` of
-    max_batch·max_len/block_size blocks (+ the null block), with
+    `max_batch` is the decode-plane MEMORY budget: the padded plane
+    allocates max_batch rows of max_len tokens per DP; the paged plane
+    (block_size > 0) spends the SAME token budget on a shared `BlockPool`
+    of max_batch·max_len/block_size blocks (+ the null block), with
     `decode_slots` (default 2×max_batch) cheap batch rows on top."""
     cfg: ModelConfig
     params: Any
     max_len: int = 256
     max_batch: int = 8          # decode slots per DP unit (= memory budget)
     max_new: int = 0            # 0 = no cap on generated tokens
-    block_size: int = 16        # paged KV block size
+    block_size: int = 0         # paged KV block size (0 = padded slots)
     decode_slots: int = 0       # paged batch rows per DP (0 = 2×max_batch)
     pool_blocks: int = 0        # physical blocks per DP (0 = equal-memory)
     device: str = "cuda"
 
     def __post_init__(self):
-        if not self.block_size:
-            raise NotImplementedError(
-                "the padded (block_size=0) plane is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
-        self.nbt, _ = paged_layout(self.cfg, self.max_len, self.block_size)
+        require_supported(self.cfg)
+        if self.block_size:
+            self.nbt, _ = paged_layout(self.cfg, self.max_len,
+                                       self.block_size)
         self.device = torch.device(self.device)
         self.dtype = self.params["embed"].dtype
         if self.params["embed"].device.type != self.device.type:
@@ -96,6 +126,10 @@ class EngineSpec:
             load_kernels()
 
     @property
+    def paged(self) -> bool:
+        return self.block_size > 0
+
+    @property
     def paged_slots(self) -> int:
         return self.decode_slots or self.max_batch * PAGED_SLOTS_FACTOR
 
@@ -106,6 +140,16 @@ class EngineSpec:
         if self.pool_blocks:
             return self.pool_blocks
         return self.max_batch * self.max_len // self.block_size + 1
+
+    def request_cache(self) -> Dict:
+        """A prefill request's private batch-1 dense cache."""
+        return init_cache(self.cfg, 1, self.max_len, dtype=self.dtype,
+                          device=self.device)
+
+    def batch_cache(self) -> Dict:
+        """One DP unit's padded decode cache (max_batch rows)."""
+        return init_cache(self.cfg, self.max_batch, self.max_len,
+                          dtype=self.dtype, device=self.device)
 
     def paged_cache(self) -> Dict:
         return init_paged_cache(
@@ -132,17 +176,19 @@ class EngineSpec:
 
 @dataclasses.dataclass
 class GenState:
-    """Per-request generation context.  `cache` is a parked dense batch-1
-    cache (drain / preemption) or None while resident."""
+    """Per-request generation context carried across the P/D handoff.
+    `cache` is a parked dense batch-1 cache (a finished prefill, a drain
+    or a preemption) or None while resident."""
     rid: int
     cache: Optional[Any]
     tokens: List[int]
 
 
 class KVHandoffBus:
-    """Generation-state registry (one per deployment).  The unified plane
-    publishes a request's first token when its prompt completes; a
-    drained or preempted request's cache is parked here until it
+    """Generation-state registry (one per deployment).  The prefill plane
+    publishes a finished request's cache + first token (the unified plane
+    only the first token); the decode plane takes the cache at join time;
+    a drained or preempted request's cache is parked here until it
     re-joins.  All access happens on the runtime thread."""
 
     def __init__(self):
@@ -185,12 +231,14 @@ class _WorkerOwner:
     """start/stop lifecycle of a real engine.  Each start() spawns a
     fresh worker thread, so a server can serve() repeatedly after a
     COMPLETED run.  A worker-thread exception is parked in `_error` and
-    re-raised on the runtime thread by the next start/finish call."""
+    re-raised on the runtime thread by the next start/finish call.
+    `_inflight` is set once the last submitted job has returned."""
 
     def __init__(self, tag: str):
         self._tag = tag
         self._worker: Optional[_Worker] = None
         self._error: Optional[BaseException] = None
+        self._inflight: Optional[threading.Event] = None
 
     def start(self) -> None:
         self._worker = _Worker(self._tag)
@@ -205,6 +253,19 @@ class _WorkerOwner:
             self._worker.join(timeout=timeout)
             self._worker = None
 
+    def _submit(self, job) -> None:
+        """Run `job` on the worker; a fresh `_inflight` event is set when
+        it returns (runtime thread only)."""
+        done = threading.Event()
+        self._inflight = done
+
+        def run():
+            try:
+                job()
+            finally:
+                done.set()
+        self._worker.submit(run)
+
     def _raise_worker_error(self) -> None:
         if self._error is not None:
             err, self._error = self._error, None
@@ -212,22 +273,113 @@ class _WorkerOwner:
 
 
 # ---------------------------------------------------------------------------
-# Real decode (paged)
+# Real prefill (dense backend)
 # ---------------------------------------------------------------------------
 
 
-class _DPPagedState:
-    """One DP unit's paged continuous batch: `paged_slots` batch rows
-    over a shared `BlockPool` (the cache is allocated at the first
-    join).  Admission is by free-block count — a request's lifetime
-    blocks are reserved at join and returned at leave/drain."""
+class _PrefillCtx:
+    """Model-side state of one in-flight prefill (batch-1 chunked cache:
+    a max_len-wide allocation per request, as the reference)."""
 
     def __init__(self, spec: EngineSpec):
+        self.cache = spec.request_cache()
+        self.consumed = 0
+        self.first_token: Optional[int] = None
+
+
+class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
+    """Chunked-prefill engine: scheduler-side queueing/batch-forming and
+    EndForward bookkeeping are inherited from the simulated instance —
+    only the pass execution differs (`prefill_chunk` on the worker
+    thread instead of a cost-model duration).  Dense backend only: the
+    page-native path and prefix sharing are ROADMAP Queue 1 item 6."""
+
+    def __init__(self, instance_id: int, dp_ids: Sequence[int], chunk: int,
+                 spec: EngineSpec, bus: KVHandoffBus,
+                 page_native: bool = False, share_prefix: bool = False):
+        if page_native or share_prefix:
+            raise NotImplementedError(
+                "page-native prefill and prefix sharing are not ported "
+                "yet (ROADMAP Queue 1 item 6)")
+        super().__init__(instance_id, dp_ids, chunk, cost=None)
+        _WorkerOwner.__init__(self, f"prefill-{instance_id}")
+        self.spec = spec
+        self.bus = bus
+        self._post = None
+        self._ctx: Dict[int, _PrefillCtx] = {}
+
+    # -- lifecycle -------------------------------------------------------
+    def bind_loop(self, loop) -> None:
+        self._post = loop.post
+
+    # -- EnginePlane -----------------------------------------------------
+    def start_pass(self, now: float) -> StartResult:
+        self._raise_worker_error()
+        batch = self._begin_pass(now)
+        if batch is None:
+            return None
+        post = self._post        # bound per run: an abandoned job cannot
+        self._submit(            # post into a later run's loop
+            lambda: self._exec_pass(batch, post))
+        return ASYNC
+
+    def _exec_pass(self, batch: Dict[int, List[Tuple[Request, int]]],
+                   post) -> None:
+        # worker thread: pure model execution on engine-private contexts
+        try:
+            for taken in batch.values():
+                for req, tok in taken:
+                    self._run_chunk(req, tok)
+        except BaseException as e:      # surface on the runtime thread
+            self._error = e
+        post("pass_end", self)
+
+    def _run_chunk(self, req: Request, tok: int) -> None:
+        ctx = self._ctx.get(req.rid)
+        if ctx is None:
+            ctx = self._ctx[req.rid] = _PrefillCtx(self.spec)
+        ids = (req.tokens or ())[ctx.consumed: ctx.consumed + tok]
+        if ids:
+            arr = torch.tensor([ids], dtype=torch.int32,
+                               device=self.spec.device)
+            logits, ctx.cache = prefill_chunk(self.spec.cfg,
+                                              self.spec.params, arr,
+                                              ctx.cache)
+            ctx.consumed += len(ids)
+            if ctx.consumed >= req.input_len and ctx.first_token is None:
+                # a host sync: the cache is complete once this returns
+                ctx.first_token = int(logits[0].argmax())
+
+    def finish_pass(self, now: float) -> PassResult:
+        self._raise_worker_error()
+        res = super().finish_pass(now)
+        for req in res.completed:
+            ctx = self._ctx.pop(req.rid, None)
+            if ctx is None or ctx.first_token is None:
+                raise RuntimeError(
+                    f"request {req.rid} completed prefill without model "
+                    f"state (tokens shorter than input_len?)")
+            # the paper's KV transfer: park cache + first token on the bus
+            self.bus.publish(req.rid, ctx.cache, ctx.first_token)
+            req.generated = 1
+        return res
+
+
+# ---------------------------------------------------------------------------
+# Real decode (padded and paged)
+# ---------------------------------------------------------------------------
+
+
+class _DPDecodeState:
+    """One DP unit's padded continuous batch: `max_batch` dense rows (the
+    cache is allocated at the first join).  A free slot is the admission
+    token."""
+
+    def __init__(self, spec: EngineSpec, n_slots: Optional[int] = None):
         self.cache: Optional[Dict] = None
-        self.slots: List[Optional[Request]] = [None] * spec.paged_slots
-        self.next_tok: List[int] = [0] * spec.paged_slots
-        self.pool = BlockPool(spec.paged_pool_blocks, spec.block_size)
-        self.held: Dict[int, List[int]] = {}       # rid -> block ids
+        n = n_slots if n_slots is not None else spec.max_batch
+        self.slots: List[Optional[Request]] = [None] * n
+        self.next_tok: List[int] = [0] * n
 
     def free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slots):
@@ -237,6 +389,26 @@ class _DPPagedState:
 
     def occupied(self) -> bool:
         return any(r is not None for r in self.slots)
+
+    def can_admit(self, need_tokens: int) -> bool:
+        return self.free_slot() is not None
+
+    def leave(self, rid: int, slot: int) -> None:
+        """Free the row; it keeps stepping on garbage until the next join
+        overwrites it whole."""
+        self.slots[slot] = None
+
+
+class _DPPagedState(_DPDecodeState):
+    """One DP unit's paged continuous batch: `paged_slots` batch rows
+    over a shared `BlockPool` (the cache is allocated at the first
+    join).  Admission is by free-block count — a request's lifetime
+    blocks are reserved at join and returned at leave/drain."""
+
+    def __init__(self, spec: EngineSpec):
+        super().__init__(spec, n_slots=spec.paged_slots)
+        self.pool = BlockPool(spec.paged_pool_blocks, spec.block_size)
+        self.held: Dict[int, List[int]] = {}       # rid -> block ids
 
     def can_admit(self, need_tokens: int) -> bool:
         need = self.pool.blocks_for(need_tokens)
@@ -257,10 +429,12 @@ class _DPPagedState:
 
 
 class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
-    """Continuous batched paged decode: join-on-handoff /
-    leave-on-finish per step.  Request/DPState bookkeeping is inherited
-    from the simulated instance; this class adds the paged caches and
-    the real step."""
+    """Continuous batched decode: join-on-handoff / leave-on-finish per
+    step.  Request/DPState bookkeeping is inherited from the simulated
+    instance; this class adds the padded or paged caches and the real
+    step."""
+
+    drain_wait_s = 30.0     # longest drain() waits for an in-flight step
 
     def __init__(self, instance_id: int, dp_ids: Sequence[int],
                  spec: EngineSpec, bus: KVHandoffBus):
@@ -269,8 +443,9 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self.spec = spec
         self.bus = bus
         self._post = None
-        self._dp: Dict[int, _DPPagedState] = {
-            d: _DPPagedState(spec) for d in dp_ids}
+        state = _DPPagedState if spec.paged else _DPDecodeState
+        self._dp: Dict[int, _DPDecodeState] = {d: state(spec)
+                                               for d in dp_ids}
         self._pending: List[Tuple[int, Request]] = []
         self._deferred: set = set()   # rids whose join failed can_admit
         self._slot_of: Dict[int, Tuple[int, int]] = {}   # rid -> (dp, slot)
@@ -291,7 +466,10 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
     def free_kv_tokens(self, dp_id: int,
                        tokens: Optional[Sequence[int]] = None
                        ) -> Optional[int]:
-        return self._dp[dp_id].pool.free_count * self.spec.block_size
+        st = self._dp[dp_id]
+        if self.spec.paged:
+            return st.pool.free_count * self.spec.block_size
+        return sum(1 for r in st.slots if r is None) * self.spec.max_len
 
     def admit(self, dp_id: int, req: Request) -> None:
         # buffered: joins are applied between steps (start_step), never
@@ -303,9 +481,16 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         overload signal, on which the runtime preempts residents."""
         return [r for _, r in self._pending if r.rid in self._deferred]
 
+    def _take(self, st: _DPDecodeState, slot: int) -> Dict:
+        """Slot `slot`'s KV as a new dense batch-1 cache (parked on the
+        bus by preemption and drain)."""
+        if self.spec.paged:
+            return paged_cache_take(self.spec.cfg, st.cache, slot)
+        return cache_take(st.cache, slot)
+
     def preempt(self, rid: int) -> Optional[Request]:
-        """Page-level preemption: park the victim's KV on the bus as a
-        dense batch-1 cache, clear its slot, return its pages.
+        """Request-level preemption: park the victim's KV on the bus as a
+        dense batch-1 cache and free its slot (paged: and its pages).
         Re-admission goes through the normal join path.  Refused (None)
         while a worker step is in flight."""
         if self.busy:
@@ -318,8 +503,7 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         if req is None:
             return None
         st = self._dp[dp_id]
-        self.bus.gen(rid).cache = paged_cache_take(self.spec.cfg, st.cache,
-                                                   slot)
+        self.bus.gen(rid).cache = self._take(st, slot)
         st.leave(rid, slot)
         del self._slot_of[rid]
         self.running[dp_id].remove(req)
@@ -347,8 +531,8 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
 
     def _apply_joins(self, now: float, dp_states) -> None:
         """Join parked requests (a dense batch-1 cache on the bus) into a
-        free slot with their lifetime pages; retry next step when the
-        DP's pool or slots are full."""
+        free slot (paged: with their lifetime pages); retry next step when
+        the DP's slots or pool are full."""
         by_id = {s.dp_id: s for s in dp_states}
         still: List[Tuple[int, Request]] = []
         for dp_id, req in self._pending:
@@ -364,12 +548,18 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
                 continue
             self._deferred.discard(req.rid)
             slot = st.free_slot()
-            if st.cache is None:
-                st.cache = self.spec.paged_cache()
-            ids = st.pool.alloc(st.pool.blocks_for(life))
-            st.held[req.rid] = ids
-            st.cache = paged_cache_join(self.spec.cfg, st.cache, gen.cache,
-                                        slot, self.spec.table(ids))
+            if self.spec.paged:
+                if st.cache is None:
+                    st.cache = self.spec.paged_cache()
+                ids = st.pool.alloc(st.pool.blocks_for(life))
+                st.held[req.rid] = ids
+                st.cache = paged_cache_join(self.spec.cfg, st.cache,
+                                            gen.cache, slot,
+                                            self.spec.table(ids))
+            else:
+                if st.cache is None:
+                    st.cache = self.spec.batch_cache()
+                st.cache = cache_join(st.cache, gen.cache, slot)
             gen.cache = None        # resident now; parked copy released
             st.slots[slot] = req
             st.next_tok[slot] = gen.tokens[-1]
@@ -377,7 +567,7 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             self.running[dp_id].append(req)
         self._pending = still
 
-    def _feed_tokens(self, st: _DPPagedState) -> torch.Tensor:
+    def _feed_tokens(self, st: _DPDecodeState) -> torch.Tensor:
         return torch.tensor([[t] for t in st.next_tok], dtype=torch.int32,
                             device=self.spec.device)
 
@@ -406,18 +596,20 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
                               for d in self._participants)
         epoch = self.epoch
         post = self._post
-        self._worker.submit(lambda: self._exec_step(jobs, epoch, post))
+        self._submit(lambda: self._exec_step(jobs, epoch, post))
         return ASYNC
 
     def _exec_step(self, jobs, epoch: int, post) -> None:
         # worker thread: one batched decode step per occupied DP (the
         # instance-level sync barrier = all DPs in one serial job)
         t0 = time.monotonic()
+        step = paged_decode_step if self.spec.paged else decode_step
         try:
             res: Dict[int, Tuple[Dict, List[int]]] = {}
             for dp_id, cache, toks in jobs:
-                logits, new_cache = paged_decode_step(
-                    self.spec.cfg, self.spec.params, toks, cache)
+                logits, new_cache = step(self.spec.cfg, self.spec.params,
+                                         toks, cache)
+                # a host sync: the step's cache writes are done after it
                 res[dp_id] = (new_cache, logits.argmax(dim=-1).tolist())
             self._result = res
         except BaseException as e:      # surface on the runtime thread
@@ -449,21 +641,28 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             self._join_finished = []
         return finished
 
-    def _require_idle(self) -> None:
-        if self.busy:
+    def _settle(self) -> None:
+        """Wait, at most `drain_wait_s`, for the in-flight step to return:
+        it writes the caches in place, so no slot or page it can still
+        write may be handed back.  A step that does not return (a wedged
+        worker) raises rather than leave corrupted caches behind."""
+        done = self._inflight
+        if self.busy and done is not None \
+                and not done.wait(self.drain_wait_s):
             raise RuntimeError(
-                "drain during an in-flight step: the step writes the pools "
-                "in place (see the module docstring)")
+                f"decode instance {self.instance_id}: the in-flight step "
+                f"did not return within {self.drain_wait_s} s; refusing "
+                f"to drain caches it may still write")
 
     def drain(self) -> Dict[int, List[Request]]:
-        self._require_idle()
+        self._settle()
         out = super().drain()   # clears running, bumps epoch, unlocks
-        # migrate resident KV back to the bus so re-dispatch can re-join
-        # the requests (with their generation state) on a healthy instance
+        # migrate resident KV back to the bus (the pre-step snapshot: the
+        # settled step's result is dropped) so re-dispatch can re-join
+        # the requests, with their generation state, on a healthy instance
         for rid, (dp_id, slot) in list(self._slot_of.items()):
             st = self._dp[dp_id]
-            self.bus.gen(rid).cache = paged_cache_take(self.spec.cfg,
-                                                       st.cache, slot)
+            self.bus.gen(rid).cache = self._take(st, slot)
             st.leave(rid, slot)
         self._slot_of.clear()
         for dp_id, req in self._pending:
@@ -502,6 +701,10 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
     def __init__(self, instance_id: int, dp_ids: Sequence[int],
                  spec: EngineSpec, bus: KVHandoffBus, chunk: int = 256,
                  starve_limit: int = 4, piggyback: bool = True):
+        if not spec.paged:
+            raise ValueError(
+                "the unified mixed-batch engine needs a paged spec "
+                "(block_size > 0)")
         super().__init__(instance_id, dp_ids, spec, bus)
         self.chunk = max(int(chunk), 1)
         self.starve_limit = max(int(starve_limit), 1)
@@ -663,7 +866,7 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
                               if toks is not None)
         epoch = self.epoch
         post = self._post
-        self._worker.submit(lambda: self._exec_mixed(jobs, epoch, post))
+        self._submit(lambda: self._exec_mixed(jobs, epoch, post))
         return ASYNC
 
     def _exec_mixed(self, jobs, epoch: int, post) -> None:
@@ -762,8 +965,9 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
     def drain(self) -> Dict[int, List[Request]]:
         # prefilling residents have no parked generation state: drop
         # their partial KV (pages back to the pool) and restart prefill
-        # wherever re-dispatch lands them
-        self._require_idle()
+        # wherever re-dispatch lands them (after the in-flight step, which
+        # writes their pages, has returned)
+        self._settle()
         pre: Dict[int, List[Request]] = {}
         for d in self.dp_ids:
             q = self.prefilling[d]

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions at small shapes, and the unified server on CUDA against the same
-server on the CPU.  Every test needs an NVIDIA GPU (marker `cuda`) and
+versions at small shapes, and the unified and P/D servers on CUDA against
+the same servers on the CPU.  Every test needs an NVIDIA GPU (marker `cuda`) and
 skips without one; on the card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,7 +20,8 @@ import torch
 from repro_torch.config.base import ServingConfig, get_arch
 from repro_torch.core.types import Request
 from repro_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_decode_attention_plain,
+    decode_attention, decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain,
 )
 from repro_torch.kernels.flash_prefill import (
     flash_prefill, flash_prefill_plain, paged_prefill_attention,
@@ -58,6 +59,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the port's CUDA kernels)")
     return torch.device("cuda")
+
+
+def _to(tree, device):
+    """A params tree (dicts and lists of tensors) on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def _rand(g, shape, dtype, dev):
@@ -137,6 +147,71 @@ def test_flash_prefill_kernel_matches_plain(dev, dtype, causal, window):
     assert float(out[:, 85:].abs().max()) == 0.0     # padding rows
 
 
+def _dense_case(g, pos, S, K, hd, dtype, dev, empty=()):
+    """Caches as the engines keep them: position t at index t % S (a
+    ring once pos >= S), stale later positions past a short row's cursor,
+    and `empty` rows with no valid key."""
+    B = len(pos)
+    kc = _rand(g, (B, S, K, hd), dtype, dev)
+    vc = _rand(g, (B, S, K, hd), dtype, dev)
+    kvp = torch.full((B, S), -1, dtype=torch.int32)
+    idx = torch.arange(S, dtype=torch.int32)
+    for b, p in enumerate(pos):
+        if b in empty:
+            continue
+        if p < S:
+            kvp[b] = torch.where(idx <= p, idx, torch.where(idx % 3 == 0,
+                                                            idx, -1))
+        else:
+            t = torch.arange(p - S + 1, p + 1, dtype=torch.int32)
+            kvp[b, t % S] = t
+    return kc, vc, kvp.to(dev), torch.tensor(pos, dtype=torch.int32,
+                                             device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,hd", [(4, 4, 64), (16, 4, 64), (8, 1, 128),
+                                    (32, 8, 128), (12, 2, 128)])
+@pytest.mark.parametrize("window,S,pos", [
+    (0, 200, [199, 57, 0, 130]),             # padded rows, any S
+    (48, 200, [199, 57, 0, 130]),            # window inside the rows
+    (64, 64, [300, 63, 64, 1000]),           # wrapped rings, window = S
+])
+def test_dense_decode_kernel_matches_plain(dev, dtype, H, K, hd, window, S,
+                                           pos):
+    g = torch.Generator().manual_seed(H * K + hd + S)
+    kc, vc, kvp, posn = _dense_case(g, pos + [9], S, K, hd, dtype, dev,
+                                    empty=(4,))
+    q = _rand(g, (5, H, hd), dtype, dev)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, kvp, posn, window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
+                                 posn, window)
+    _assert_close(out, ref, dtype)
+    assert float(out[4].abs().max()) == 0.0          # no valid key -> 0
+
+
+def test_dense_decode_wrapper_rejects_unsupported_on_cuda(dev):
+    """G > 8, a head dim without an instantiation and a non-contiguous
+    cache raise before any launch."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    before = decode_attention.launches
+    for H, K, hd in ((16, 1, 64), (4, 4, 96)):
+        q = torch.zeros(2, H, hd, device=dev)
+        c = torch.zeros(2, 32, K, hd, device=dev)
+        with pytest.raises(ValueError):
+            decode_attention(q, c, c, torch.zeros(2, 32, **i32),
+                             torch.zeros(2, **i32))
+    q = torch.zeros(2, 4, 64, device=dev)
+    c = torch.zeros(2, 4, 32, 64, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError):
+        decode_attention(q, c, c, torch.zeros(2, 32, **i32),
+                         torch.zeros(2, **i32))
+    assert decode_attention.launches == before
+
+
 def test_wrapper_rejects_unsupported_head_dim_on_cuda(dev):
     q = torch.zeros(1, 4, 32, device=dev)
     pool = torch.zeros(3, 16, 4, 32, device=dev)
@@ -164,17 +239,10 @@ def test_unified_server_on_cuda_matches_cpu(dev):
                                      for _ in range(L)))
                 for i, L in enumerate((17, 40, 33, 64))]
 
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
     cpu_params = init_params(cfg, seed=0, device="cpu")
     out = {}
     for device in ("cpu", "cuda"):
-        params = to(cpu_params, device)
+        params = _to(cpu_params, device)
         launches = (paged_decode_attention.launches,
                     paged_prefill_attention.launches)
         srv = RealSBSServer(cfg, params, scfg,
@@ -185,5 +253,42 @@ def test_unified_server_on_cuda_matches_cpu(dev):
         if device == "cuda":
             assert paged_decode_attention.launches > launches[0]
             assert paged_prefill_attention.launches > launches[1]
+    assert len(out["cpu"]) == 4
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("block_size", [0, 16], ids=["padded", "paged"])
+def test_pd_server_on_cuda_matches_cpu(dev, block_size):
+    """Reduced deepseek-7b in fp32, P/D-separated: the served tokens on
+    the card (prefill through the contiguous flash entry, padded decode
+    through kernel #3 or paged decode through kernel #1) equal the same
+    server's on the CPU (plain versions)."""
+    cfg = get_arch("deepseek-7b", reduced=True)
+    scfg = ServingConfig(
+        num_prefill_instances=2, prefill_dp_per_instance=1,
+        num_decode_instances=1, decode_dp_per_instance=2, chunk_size=32,
+        max_batch_per_dp=4, block_size=block_size)
+
+    def requests():
+        rng = random.Random(6)
+        return [Request(rid=i, arrival_time=0.02 * i, input_len=L,
+                        output_len=6,
+                        tokens=tuple(rng.randrange(cfg.vocab_size)
+                                     for _ in range(L)))
+                for i, L in enumerate((17, 40, 33, 64))]
+
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    dec = paged_decode_attention if block_size else decode_attention
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _to(cpu_params, device)
+        launches = (dec.launches, flash_prefill.launches)
+        srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
+                            max_len=96, max_new=6, device=device)
+        gens = srv.serve(requests(), timeout=120)
+        out[device] = {g.rid: g.tokens for g in gens}
+        if device == "cuda":
+            assert dec.launches > launches[0]
+            assert flash_prefill.launches > launches[1]
     assert len(out["cpu"]) == 4
     assert out["cuda"] == out["cpu"]

@@ -1,8 +1,8 @@
 """PyTorch port: the plain versions of the CUDA kernels, held against the
 JAX oracles (`kernels/*/ref.py`) and the Pallas kernels in interpret
-mode, on the shape sweeps of tests/test_kernels.py; the paged flash
-prefill entry held against `attn_extend_paged`; and the wrappers'
-argument checks.  The kernels themselves run only on the card
+mode, on the shape sweeps of tests/test_kernels.py (dense decode also on
+a wrapped sliding-window ring); the paged flash prefill entry held
+against `attn_extend_paged`; and the wrappers' argument checks.  The kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
 Tolerances as tests/test_kernels.py: 1e-5 in fp32, 2e-2 in bf16 (the two
@@ -16,9 +16,11 @@ import torch
 
 from repro.config import get_arch
 from repro.kernels.decode_attention.ops import (
+    decode_attention as pallas_decode,
     paged_decode_attention as pallas_paged_decode,
 )
 from repro.kernels.decode_attention.ref import (
+    decode_attention_ref as _dense_decode_ref,
     paged_decode_attention_ref as _decode_ref,
 )
 from repro.kernels.flash_prefill.ops import flash_prefill as pallas_flash
@@ -29,7 +31,8 @@ from repro.models.model import init_params as j_init_params
 from repro_torch.bridge import params_from_numpy
 from repro_torch.config.base import get_arch as t_get_arch
 from repro_torch.kernels.decode_attention import (
-    paged_decode_attention, paged_decode_attention_plain,
+    decode_attention, decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain,
 )
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_prefill import (
@@ -41,6 +44,7 @@ from repro_torch.models import blocks as TB
 TOLS = {"float32": 1e-5, "bfloat16": 2e-2}
 # the JAX oracles, jitted: one compile per shape instead of one per op
 paged_decode_attention_ref = jax.jit(_decode_ref, static_argnames="window")
+decode_attention_ref = jax.jit(_dense_decode_ref, static_argnames="window")
 flash_prefill_ref = jax.jit(_flash_ref, static_argnames=("causal", "window"))
 jax_attn_extend_paged = jax.jit(JB.attn_extend_paged, static_argnums=2)
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -121,6 +125,62 @@ def test_paged_decode_plain_masks_unset_rows_and_window():
         out = paged_decode_attention_plain(*t, window=window)
         assert _err(paged_decode_attention_ref(*j, window=window), out) < 1e-5
         assert float(out[2].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# (b') dense decode attention, sweep of tests/test_kernels.py:79-110
+# ---------------------------------------------------------------------------
+
+def _dense_decode_inputs(B, S, H, K, hd, pos, window=0, seed=0):
+    """Caches as the engine keeps them: position p sits at index p % S
+    (a ring once pos >= S), entries older than the window or never
+    written are -1 or stale; pos[b] < 0 marks a row with no valid key."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, hd)).astype(np.float32) * 0.5
+    kc = rng.normal(size=(B, S, K, hd)).astype(np.float32) * 0.5
+    vc = rng.normal(size=(B, S, K, hd)).astype(np.float32) * 0.5
+    kv_pos = np.full((B, S), -1, np.int32)
+    for b, p in enumerate(pos):
+        for t in range(max(p + 1 - S, 0), p + 1):
+            kv_pos[b, t % S] = t
+    return q, kc, vc, kv_pos, np.asarray(pos, np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,hd,bk", [
+    (2, 128, 8, 2, 64, 32),
+    (3, 64, 4, 4, 32, 64),
+    (1, 256, 16, 1, 16, 128),
+])
+def test_dense_decode_plain_matches_ref_and_pallas(dtype, B, S, H, K, hd,
+                                                   bk):
+    pos = [min(5 + 61 * b, S - 1) for b in range(B)]
+    args = _dense_decode_inputs(B, S, H, K, hd, pos)
+    j = [_pair(a, dtype)[0] for a in args]
+    t = [_pair(a, dtype)[1] for a in args]
+    out = decode_attention(*t)                # CPU: the plain version
+    assert out.shape == (B, H, hd) and out.dtype == TDT[dtype]
+    assert _err(decode_attention_ref(*j), out) < TOLS[dtype]
+    assert _err(pallas_decode(*j, block_kv=bk, interpret=True), out) \
+        < TOLS[dtype]
+
+
+@pytest.mark.parametrize("window", [0, 16, 64])
+def test_dense_decode_plain_wrapped_ring(window):
+    """A sliding-window ring of S = 64 entries wrapped several times
+    (entries out of position order), a fresh row and a row with no valid
+    key (all -1, which must give 0)."""
+    B, S, H, K, hd = 4, 64, 8, 2, 32
+    q, kc, vc, kv_pos, pos = _dense_decode_inputs(
+        B, S, H, K, hd, [150, 63, 7, 90], seed=4)
+    kv_pos[3] = -1
+    j = [jnp.asarray(a) for a in (q, kc, vc, kv_pos, pos)]
+    t = [torch.tensor(a) for a in (q, kc, vc, kv_pos, pos)]
+    out = decode_attention_plain(*t, window=window)
+    assert _err(decode_attention_ref(*j, window=window), out) < 1e-5
+    assert _err(pallas_decode(*j, window=window, block_kv=32,
+                              interpret=True), out) < 1e-5
+    assert float(out[3].abs().max()) == 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +372,36 @@ def test_prefill_check_args():
         fp_ops.check_flash_args(q, kv, kv, pos, kpos, pos, pos)
 
 
+def _dense_args(hd=64, H=4, K=4, pos_dtype=torch.int32):
+    q = torch.zeros(2, H, hd)
+    cache = torch.zeros(2, 24, K, hd)
+    return (q, cache, cache.clone(), torch.zeros(2, 24, dtype=pos_dtype),
+            torch.zeros(2, dtype=torch.int32))
+
+
+def test_dense_check_args_accepts_supported():
+    dec_ops.check_dense_args(*_dense_args())
+    dec_ops.check_dense_args(*_dense_args(hd=128, H=32, K=4))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(hd=16), dict(H=16, K=1), dict(H=6, K=4),
+    dict(pos_dtype=torch.int64)])
+def test_dense_check_args_rejects_unsupported(bad):
+    with pytest.raises(ValueError):
+        dec_ops.check_dense_args(*_dense_args(**bad))
+
+
+def test_dense_check_args_rejects_layouts():
+    """Batch mismatch and a non-contiguous cache are refused."""
+    q, k, v, kv_pos, pos = _dense_args()
+    with pytest.raises(ValueError):
+        dec_ops.check_dense_args(q[:1], k, v, kv_pos, pos)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        dec_ops.check_dense_args(q, kt, kt, kv_pos, pos)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     """Only CPU tensors take the plain version; any other non-CUDA
     device raises instead of silently computing somewhere else."""
@@ -320,3 +410,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError):
         paged_decode_attention(*args)
     assert paged_decode_attention.launches == before
+    args = [a.to("meta") for a in _dense_args()]
+    before = decode_attention.launches
+    with pytest.raises(ValueError):
+        decode_attention(*args)
+    assert decode_attention.launches == before

@@ -1,7 +1,10 @@
 """PyTorch port: the paged step family (`paged_prefill_step`,
 `paged_decode_step`, `mixed_step` with `decode_mask`) and the page
-surgery around it, run in lockstep with the JAX functions on the same
-(bridged) weights of reduced deepseek-7b, in fp32.
+surgery around it, and the dense family (`attn_extend`/`attn_decode`,
+`prefill_chunk`/`decode_step`, `cache_join`/`cache_take`), run in
+lockstep with the JAX functions on the same (bridged) weights of reduced
+deepseek-7b — the dense family also on reduced h2o-danube-3-4b, whose
+window-64 ring cache wraps — in fp32.
 
 Scenarios of tests/test_mixed_batch.py:100-230 (mid-stream graduation,
 decode-mask protection, the degenerate step) and
@@ -438,3 +441,210 @@ def test_page_surgery_matches_jax(pair):
         lambda c: TM.paged_adopt_blocks(
             tcfg, c, tpay, 2, torch.tensor(tab, dtype=torch.int32),
             torch.tensor(cm), torch.tensor(km), 29))
+
+
+# ---------------------------------------------------------------------------
+# the dense (padded) family: tests/test_real_plane.py:76-154, and the
+# sliding-window ring on reduced h2o-danube-3-4b (window 64 < MAX_LEN)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["deepseek-7b", "h2o-danube-3-4b"])
+def dense_pair(request):
+    """(JAX cfg, JAX params, port cfg, port params) of one model."""
+    cfg = get_arch(request.param, reduced=True)
+    params = jax.jit(JM.init_params, static_argnums=0)(
+        cfg, jax.random.PRNGKey(0))
+    tcfg = t_get_arch(request.param, reduced=True)
+    return cfg, params, tcfg, params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _jax_steps(cfg):
+    return (jax.jit(lambda p, t, c: JM.prefill_chunk(cfg, p, t, c)),
+            jax.jit(lambda p, t, c: JM.decode_step(cfg, p, t, c)))
+
+
+def _assert_dense_match(tcfg, jc, tc):
+    """Same cursors and positions, K/V rows within 1e-5."""
+    t = cache_to_numpy(tcfg, tc)
+    assert np.array_equal(np.asarray(jc["cur"]), t["cur"])
+    assert np.array_equal(np.asarray(jc["kv_pos"]), t["kv_pos"])
+    for a, b in zip(jc["blocks"]["p0"], t["blocks"]["p0"]):
+        assert np.abs(np.asarray(a) - b).max() <= 1e-5
+
+
+def test_dense_cache_bridge_roundtrip(dense_pair):
+    """A dense batch-B cache (the SWA ring's S_buf included) crosses the
+    bridge both ways unchanged."""
+    cfg, _p, tcfg, _tp = dense_pair
+    jc = jax.tree.map(np.array, JM.init_cache(cfg, 3, MAX_LEN))
+    rng = np.random.default_rng(2)
+    k, v = jc["blocks"]["p0"]
+    assert k.shape[2] == TM.kv_buffer_len(tcfg, MAX_LEN)
+    jc["blocks"]["p0"] = (rng.normal(size=k.shape).astype(np.float32),
+                          rng.normal(size=v.shape).astype(np.float32))
+    jc["kv_pos"] = rng.integers(-1, 90, size=jc["kv_pos"].shape
+                                ).astype(np.int32)
+    jc["cur"][:] = [3, 70, 0]
+    back = cache_to_numpy(tcfg, cache_from_numpy(tcfg, jc, device="cpu"))
+    for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(back)):
+        assert np.array_equal(a, b)
+    t = TM.init_cache(tcfg, 3, MAX_LEN, device="cpu")
+    z = jax.tree.map(np.asarray, JM.init_cache(cfg, 3, MAX_LEN))
+    for a, b in zip(jax.tree.leaves(z),
+                    jax.tree.leaves(cache_to_numpy(tcfg, t))):
+        assert np.array_equal(a, b)
+
+
+def test_attn_decode_and_extend_match_jax(dense_pair):
+    """One dense attention sub-layer on a cache with history (a wrapped
+    ring for SWA): the chunk extend (written before it attends) and the
+    single-token decode give JAX's outputs and JAX's cache writes."""
+    from repro.models import blocks as JB
+    from repro_torch.models import blocks as TB
+    cfg, jparams, tcfg, tparams = dense_pair
+    S = TM.kv_buffer_len(tcfg, MAX_LEN)
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(3)
+    B = 2
+    kc = rng.normal(size=(B, S, K, hd)).astype(np.float32) * 0.5
+    vc = rng.normal(size=(B, S, K, hd)).astype(np.float32) * 0.5
+    cur = np.array([80, 7], np.int32)              # row 0 wrapped if SWA
+    kvp = np.full((B, S), -1, np.int32)
+    for b, c in enumerate(cur):
+        for t in range(max(c - S, 0), c):
+            kvp[b, t % S] = t
+    Sc = 12
+    positions = (cur[:, None] + np.arange(Sc)).astype(np.int32)
+    x = rng.normal(size=(B, Sc, cfg.d_model)).astype(np.float32)
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["p0"]["attn"])
+    tp = tparams["layers"][0]["attn"]
+    jo, (jk, jv, jkvp) = jax.jit(JB.attn_extend, static_argnums=2)(
+        jp, jnp.asarray(x), cfg, *(jnp.asarray(a) for a in
+                                   (kc, vc, kvp, positions)))
+    t = [torch.tensor(a) for a in (kc, vc, kvp)]
+    to = TB.attn_extend(tp, torch.tensor(x), tcfg, *t,
+                        torch.tensor(positions))
+    assert np.abs(np.asarray(jo) - to.numpy()).max() <= LOGIT_TOL
+    for j, tt in ((jk, t[0]), (jv, t[1]), (jkvp, t[2])):
+        assert np.abs(np.asarray(j) - tt.numpy()).max() <= 1e-5
+    pos = (cur + Sc).astype(np.int32)
+    x1 = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+    jo, (jk, jv, jkvp) = jax.jit(JB.attn_decode, static_argnums=2)(
+        jp, jnp.asarray(x1), cfg, jk, jv, jkvp, jnp.asarray(pos))
+    to = TB.attn_decode(tp, torch.tensor(x1), tcfg, *t, torch.tensor(pos))
+    assert np.abs(np.asarray(jo) - to.numpy()).max() <= LOGIT_TOL
+    for j, tt in ((jk, t[0]), (jv, t[1]), (jkvp, t[2])):
+        assert np.abs(np.asarray(j) - tt.numpy()).max() <= 1e-5
+
+
+def test_prefill_chunk_and_decode_step_match_jax(dense_pair):
+    """Batch-2 chunked prefill past the window, then batched decode, in
+    lockstep with JAX: logits within 1e-4, caches equal."""
+    cfg, jparams, tcfg, tparams = dense_pair
+    jchunk, jdecode = _jax_steps(cfg)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 80)).astype(np.int32)
+    jc = JM.init_cache(cfg, 2, MAX_LEN)
+    tc = TM.init_cache(tcfg, 2, MAX_LEN, device="cpu")
+    for i in range(0, 80, 16):
+        jl, jc = jchunk(jparams, jnp.asarray(ids[:, i:i + 16]), jc)
+        tl, tc = TM.prefill_chunk(tcfg, tparams, torch.tensor(ids[:, i:i + 16]),
+                                  tc)
+        assert np.abs(np.asarray(jl) - tl.numpy()).max() <= LOGIT_TOL
+    _assert_dense_match(tcfg, jc, tc)
+    tok = np.argmax(np.asarray(jl), -1).astype(np.int32)[:, None]
+    for _ in range(4):
+        jl, jc = jdecode(jparams, jnp.asarray(tok), jc)
+        tl, tc = TM.decode_step(tcfg, tparams, torch.tensor(tok), tc)
+        assert np.abs(np.asarray(jl) - tl.numpy()).max() <= LOGIT_TOL
+        assert _argmax(np.asarray(jl)) == _argmax(tl.numpy())
+        tok = np.argmax(np.asarray(jl), -1).astype(np.int32)[:, None]
+    _assert_dense_match(tcfg, jc, tc)
+
+
+def test_padded_batched_continuous_decode_matches_serial(dense_pair):
+    """tests/test_real_plane.py:76 on the port: requests joining a padded
+    batch cache at different steps generate exactly the JAX serial
+    decode's tokens (prompts past the window on the SWA model)."""
+    cfg, jparams, tcfg, tparams = dense_pair
+    jchunk, jdecode = _jax_steps(cfg)
+    prompts = _prompts(cfg, (23, 70, 11), seed=0)
+    serial, hand = [], []
+    for ids in prompts:
+        c = JM.init_cache(cfg, 1, MAX_LEN)
+        for i in range(0, len(ids), 16):
+            lg, c = jchunk(jparams, jnp.asarray([ids[i:i + 16]], jnp.int32), c)
+        t0 = int(jnp.argmax(lg[0]))
+        hand.append((t0, cache_from_numpy(tcfg, jax.tree.map(np.asarray, c),
+                                          device="cpu")))
+        toks = [t0]
+        for _ in range(N_NEW - 1):
+            lg, c = jdecode(jparams, jnp.asarray([[toks[-1]]], jnp.int32), c)
+            toks.append(int(jnp.argmax(lg[0])))
+        serial.append(toks)
+    B = 4
+    bc = TM.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    toks, next_tok, slot_of = {}, [0] * B, {}
+    for slot, r in ((0, 0), (2, 1)):
+        bc = TM.cache_join(bc, hand[r][1], slot)
+        toks[slot], next_tok[slot], slot_of[r] = [hand[r][0]], hand[r][0], slot
+    for step in range(N_NEW + 2):
+        if step == 2:                          # late join into a free slot
+            bc = TM.cache_join(bc, hand[2][1], 1)
+            toks[1], next_tok[1], slot_of[2] = [hand[2][0]], hand[2][0], 1
+        active = [s for s in toks if len(toks[s]) < N_NEW]
+        if not active:
+            break
+        lg, bc = TM.decode_step(tcfg, tparams,
+                                torch.tensor(next_tok)[:, None], bc)
+        nxt = _argmax(lg.numpy())
+        for s in active:                       # inactive slots step garbage
+            toks[s].append(nxt[s])
+            next_tok[s] = nxt[s]
+    assert [toks[slot_of[i]] for i in range(3)] == serial
+
+
+def test_cache_take_roundtrip_matches_jax(dense_pair):
+    """tests/test_real_plane.py:127 on the port: cache_take extracts the
+    same batch-1 cache as JAX's and it continues like the serial cache;
+    the taken cache is a copy (later steps of the batch do not touch
+    it)."""
+    cfg, jparams, tcfg, tparams = dense_pair
+    jchunk, jdecode = _jax_steps(cfg)
+    ids = _prompts(cfg, (69,), seed=1)[0]
+    c = JM.init_cache(cfg, 1, MAX_LEN)
+    for i in range(0, len(ids), 16):
+        lg, c = jchunk(jparams, jnp.asarray([ids[i:i + 16]], jnp.int32), c)
+    t0 = int(jnp.argmax(lg[0]))
+    serial, sc = [t0], c
+    for _ in range(5):
+        lg, sc = jdecode(jparams, jnp.asarray([[serial[-1]]], jnp.int32), sc)
+        serial.append(int(jnp.argmax(lg[0])))
+    jb = JM.cache_join(JM.init_cache(cfg, 3, MAX_LEN), c, 1)
+    tb = TM.cache_join(TM.init_cache(tcfg, 3, MAX_LEN, device="cpu"),
+                       cache_from_numpy(tcfg, jax.tree.map(np.asarray, c),
+                                        device="cpu"), 1)
+    toks, next_tok = [t0], [0, t0, 0]
+    for _ in range(2):
+        jl, jb = jdecode(jparams, jnp.asarray(next_tok, jnp.int32)[:, None],
+                         jb)
+        tl, tb = TM.decode_step(tcfg, tparams, torch.tensor(next_tok)[:, None],
+                                tb)
+        toks.append(_argmax(tl.numpy())[1])
+        next_tok[1] = toks[-1]
+    jt = jax.tree.map(np.asarray, JM.cache_take(jb, 1))
+    tt = TM.cache_take(tb, 1)
+    snap = cache_to_numpy(tcfg, tt)
+    assert np.array_equal(jt["cur"], snap["cur"])
+    assert np.array_equal(jt["kv_pos"], snap["kv_pos"])
+    for a, b in zip(jt["blocks"]["p0"], snap["blocks"]["p0"]):
+        assert np.abs(a - b).max() <= 1e-5
+    TM.decode_step(tcfg, tparams, torch.tensor(next_tok)[:, None], tb)
+    for a, b in zip(snap["blocks"]["p0"],
+                    cache_to_numpy(tcfg, tt)["blocks"]["p0"]):
+        assert np.array_equal(a, b)                  # a copy, not a view
+    for _ in range(3):
+        tl, tt = TM.decode_step(tcfg, tparams, torch.tensor([[toks[-1]]]), tt)
+        toks.append(_argmax(tl.numpy())[0])
+    assert toks == serial
