@@ -27,17 +27,30 @@ Phases (any failure exits non-zero and prints no result):
      must drain, kernels #1 and #2 (paged entry) must have launched, and
      each request's first-token logits must agree with a plain dense
      forward;
+  5b. the SSD intra-chunk kernel (kernel #4) against its plain version:
+     full-width mamba2-370m's 256-token chunk (32 heads of 64, d_state
+     128) in bf16 and fp32, a ragged chunk padded with dt = 0, B·nc > 1,
+     and the SSM shapes of reduced mamba2-370m, full-width and reduced
+     jamba-v0.1-52b;
   6. P/D serve: the same model and requests behind the P/D-separated
      `RealSBSServer` on the padded plane (2 prefill instances with
      256-token chunks, 1 decode instance of 2 DP units × 4 rows of 1088
      tokens, sbs-la); the same checks, with kernels #3 and #2
      (contiguous entry) launched;
+  6b. SSM serve: full-width mamba2-370m (48 SSM layers, random bf16
+     weights from seed 0) behind the same P/D deployment with the same 8
+     requests; every request finishes, the decode rows drain, kernel #4
+     launches (once per layer per prefill chunk), and each first-token
+     logits row agrees with a plain forward over the whole prompt
+     through `ssd_chunked` (no kernel) that crosses the prefill chunk
+     boundaries the serve used (its error against a one-pass forward is
+     printed, not checked: bf16 logits depend on those boundaries);
   7. report: one JSON line per serve (TTFT/ITL, launches per step, a
      profile of device time by kernel group and the idle share), the
-     P/D serve's figures each on a line of its own, one JSON line with
-     the kernels (time per launch, launches on their path's serve,
-     bound), the card's name and power limit, and the contract line
-     last.
+     P/D and SSM serves' figures each on a line of its own, one JSON
+     line with the kernels (time per launch, launches on their path's
+     serve, bound), the card's name and power limit, and the contract
+     line last.
 
 Launch counts are set to 0 just before each serve and read just after,
 so each kernel's `launches` is its count on its own path's serve.
@@ -48,7 +61,8 @@ finds them cold.  `bound_ms` is the larger of the bytes the call must
 move over 3.35 TB/s and its flops over 989 TFLOP/s (bf16 dense), counted
 from this run's inputs.  `library_ms` times
 torch.nn.functional.scaled_dot_product_attention on the pre-gathered K/V
-as a yardstick only; the port never calls it.
+as a yardstick only; the port never calls it.  The SSD kernel has none
+(null): no single PyTorch call computes its function.
 """
 from __future__ import annotations
 
@@ -73,7 +87,7 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak
 # misread page moves a vector by a large share of its size.  In fp32 both sides
 # accumulate in fp32 and differ only in summation order.
 REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
-LOGITS_REL_TOL = 5e-2              # served vs dense bf16 forward, 30 layers
+LOGITS_REL_TOL = 5e-2              # served vs plain bf16 forward
 BLOCK = 16
 MAX_LEN = 1088                     # 1024-token prompts + 32 new, 16-aligned
 MAX_BATCH = 4                      # per-DP memory budget (requests × max_len)
@@ -546,7 +560,89 @@ def extend_case(device, seed, dt, S=MAX_LEN, p0=512, Sc=256):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: serve full-width deepseek-7b
+# phase 5b: the SSD intra-chunk kernel
+# ---------------------------------------------------------------------------
+
+def ssd_case(B, nc, Q, nh, hp, ds, device, seed, dt, pad=0):
+    """`ssd_chunked_kernel`'s call: B and C strided slices of one [B|C]
+    tensor, dt = softplus(N(0,1)), A = -exp(linspace(0, 1, nh)); the last
+    chunk's last `pad` tokens zero with dt = 0, as the caller pads."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, nc, Q, nh, hp, generator=g) * 0.3
+    dtv = torch.nn.functional.softplus(torch.randn(B, nc, Q, nh,
+                                                   generator=g))
+    A = -torch.exp(torch.linspace(0.0, 1.0, nh))
+    bc = torch.randn(B, nc, Q, 2 * ds, generator=g) * 0.3
+    if pad:
+        for t in (x, dtv, bc):
+            t[:, -1, Q - pad:] = 0
+    bc = bc.to(dt).to(device)
+    return (x.to(dt).to(device), dtv.to(device), A.to(device),
+            bc[..., :ds], bc[..., ds:])
+
+
+def ssd_work(x, dt, A, Bm, Cm):
+    """Bytes (each input read once, y and the state written once in
+    fp32) and flops of the call: C·Bᵀ once per chunk (one group), the
+    causal half of y and the state per head."""
+    B, nc, Q, nh, hp = x.shape
+    ds = Bm.shape[-1]
+    BC = B * nc
+    esz = x.element_size()
+    nbytes = (x.numel() * esz + dt.numel() * 4 + A.numel() * 4
+              + 2 * BC * Q * ds * esz
+              + BC * Q * nh * hp * 4 + BC * nh * hp * ds * 4)
+    pairs = Q * (Q + 1) // 2
+    flops = BC * (2 * pairs * ds + nh * (2 * pairs * hp + 2 * Q * hp * ds))
+    return nbytes, flops
+
+
+def check_ssd(device):
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    out = {"errs": []}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = (
+        ("mamba2-370m full width", 1, 1, 256, 32, 64, 128, 0, bf16),
+        ("mamba2-370m full width", 1, 1, 256, 32, 64, 128, 0, fp32),
+        ("ragged chunk, 199 of 256 tokens", 1, 1, 256, 32, 64, 128, 57,
+         bf16),
+        ("B=2 nc=3", 2, 3, 256, 32, 64, 128, 0, bf16),
+        ("mamba2-370m reduced", 1, 2, 32, 16, 32, 32, 5, fp32),
+        ("jamba-v0.1-52b full width", 1, 1, 256, 128, 64, 16, 0, bf16),
+        ("jamba-v0.1-52b reduced", 2, 2, 32, 16, 32, 16, 0, fp32),
+    )
+    for i, (tag, B, nc, Q, nh, hp, ds, pad, dt) in enumerate(cases):
+        x, dtv, A, Bm, Cm = ssd_case(B, nc, Q, nh, hp, ds, device, 60 + i,
+                                     dt, pad)
+        y, st = ssd_chunk(x, dtv, A, Bm, Cm)
+        yr, sr = ssd_chunk_plain(x.float(), dtv, A, Bm.float(), Cm.float())
+        name = str(dt).replace("torch.", "")
+        label = (f"[ssd] {tag} ({name} in) B={B} nc={nc} Q={Q} nh={nh} "
+                 f"hp={hp} ds={ds}")
+        compare(label + " y", y, yr, out["errs"])
+        compare(label + " state", st, sr, out["errs"])
+    # time one full-width 256-token chunk in bf16 (a served prefill chunk
+    # of one layer), inputs rotated over copies larger than the L2
+    x, dtv, A, Bm, Cm = ssd_case(1, 1, 256, 32, 64, 128, device, 60, bf16)
+    n = 40
+    xs = copies(x, n)
+    bcs = [torch.cat([Bm, Cm], -1).clone() for _ in range(n)]
+    ds = Bm.shape[-1]
+    out["ms"] = time_ms(lambda i: ssd_chunk(
+        xs[i], dtv, A, bcs[i][..., :ds], bcs[i][..., ds:]), n, iters=80)
+    out["plain_ms"] = time_ms(lambda i: ssd_chunk_plain(
+        xs[i], dtv, A, bcs[i][..., :ds], bcs[i][..., ds:]), n, iters=10)
+    out["library_ms"] = None      # no single PyTorch call computes it
+    out["bound_ms"], out["bound_by"] = bound(*ssd_work(x, dtv, A, Bm, Cm))
+    out["shape"] = ("B=1 nc=1 Q=256 nh=32 hp=64 ds=128, x/B/C bf16 "
+                    "(B and C strided slices of one [B|C] tensor)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5, 6 and 6b: serve full-width deepseek-7b and mamba2-370m
 # ---------------------------------------------------------------------------
 
 def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
@@ -563,10 +659,11 @@ def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
     return reqs
 
 
-def dense_forward_logits(cfg, params, tokens, device):
+def dense_forward_logits(cfg, params, tokens, device, chunks=None):
     """Last-position logits of a plain dense forward over the prompt:
     projections, RoPE, masked einsum attention, SwiGLU — no pages, no
-    kernels."""
+    kernels.  `chunks` is not needed: without a window ring, attention
+    does not depend on prefill chunk boundaries."""
     import torch
     from repro_torch.models.attention import build_mask, gqa_reference
     from repro_torch.models.layers import apply_rope, rms_norm, swiglu
@@ -593,6 +690,38 @@ def dense_forward_logits(cfg, params, tokens, device):
         x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return logits_from_hidden(cfg, params, x[0, -1])
+
+
+def ssm_forward_logits(cfg, params, tokens, device, chunks=None):
+    """Last-position logits of a plain forward over the whole prompt
+    through `ssd_chunked` (the SSD scan in plain torch), with no kernel.
+    `chunks` (prefill chunk lengths) makes it cross the boundaries a
+    serve used, carrying each layer's SSM state and conv tails across
+    them: in bf16 the logits depend on where chunks start (the scan is
+    chunked from each prefill chunk's start, and rounding differs); None
+    runs the prompt in one pass."""
+    import torch
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.mamba import mamba_forward, ssd_chunked
+    from repro_torch.models.model import logits_from_hidden
+    ids = torch.tensor([list(tokens)], dtype=torch.long, device=device)
+    states = [(None, None)] * len(params["layers"])
+    at = 0
+    for n in chunks or [ids.shape[1]]:
+        x = params["embed"][ids[:, at:at + n]]
+        for i, p in enumerate(params["layers"]):
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            y, states[i] = mamba_forward(h, p["mamba"], cfg.ssm, *states[i],
+                                         scan=ssd_chunked)
+            x = x + y
+        at += n
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return logits_from_hidden(cfg, params, x[0, -1])
+
+
+def ssm_whole_prompt_logits(cfg, params, tokens, device):
+    """`ssm_forward_logits` in one pass, whatever chunks the serve used."""
+    return ssm_forward_logits(cfg, params, tokens, device)
 
 
 def record_first_logits(engine):
@@ -631,9 +760,11 @@ def record_prefill_logits(srv):
     call `real_engine.prefill_chunk`, whose result this wraps (keyed by
     the cache it returns), and each engine's `finish_pass` is wrapped to
     pick, for every prompt the pass completes, its context's last chunk
-    logits.  Returns ({rid: logits}, undo)."""
+    logits; each engine's `_run_chunk` is wrapped to note the chunk
+    lengths each request was prefilled in.  Returns ({rid: logits},
+    {rid: [chunk lengths]}, undo)."""
     from repro_torch.serving import real_engine as RE
-    seen, last = {}, {}
+    seen, last, chunks = {}, {}, {}
     inner_chunk = RE.prefill_chunk
 
     def prefill_chunk(cfg, params, tokens, cache):
@@ -647,19 +778,28 @@ def record_prefill_logits(srv):
                 if ctx.first_token is not None and rid not in seen:
                     seen[rid] = last.pop(id(ctx.cache))
             return _inner(now)
+
+        def run_chunk(req, tok, _inner=eng._run_chunk):
+            chunks.setdefault(req.rid, []).append(tok)
+            return _inner(req, tok)
         eng.finish_pass = finish_pass
+        eng._run_chunk = run_chunk
     RE.prefill_chunk = prefill_chunk
 
     def undo():
         RE.prefill_chunk = inner_chunk
-    return seen, undo
+    return seen, chunks, undo
 
 
 def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
-                 tag):
+                 tag, forward=dense_forward_logits, chunks=None,
+                 info_forward=None):
     """Every request finished with its tokens, the decode caches drained,
-    and each first-token logits agree with a plain dense forward.
-    Returns (worst max|d|/max|ref|, argmax agreements)."""
+    and each first-token logits agree with a plain forward (`forward`,
+    over the chunk boundaries `chunks` the serve used).  `info_forward`,
+    if given, is another reference whose error is printed and returned,
+    not checked.  Returns (worst max|d|/max|ref|, argmax agreements, the
+    worst error against `info_forward` or None)."""
     import torch
     if sorted(g.rid for g in gens) != [r.rid for r in reqs]:
         raise AssertionError(f"{tag}: unfinished requests: {len(gens)} of "
@@ -683,10 +823,12 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
         raise AssertionError(f"{tag}: prefill token count mismatch")
     worst = 0.0
     agree = 0
+    info = None if info_forward is None else 0.0
+    chunks = chunks or {}
     for r in reqs:
         got = first_logits.get(r.rid)
-        ref = dense_forward_logits(cfg, params, r.tokens[:r.input_len],
-                                   device)
+        prompt = r.tokens[:r.input_len]
+        ref = forward(cfg, params, prompt, device, chunks.get(r.rid))
         if got is None or got.shape != (cfg.vocab_size,) \
                 or not torch.isfinite(got).all():
             raise AssertionError(f"{tag} request {r.rid}: bad first-token "
@@ -695,12 +837,19 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                     / ref.float().abs().max())
         worst = max(worst, rel)
         agree += int(int(got.argmax()) == int(ref.argmax()))
-    print(f"{tag} first-token logits vs dense forward: worst "
+        if info_forward is not None:
+            alt = info_forward(cfg, params, prompt, device).float()
+            info = max(info, float((got.float() - alt).abs().max()
+                                   / alt.abs().max()))
+    print(f"{tag} first-token logits vs plain forward: worst "
           f"max|d|/max|ref|={worst:.3e} (tol {LOGITS_REL_TOL}), argmax "
           f"agrees on {agree}/{len(reqs)}", flush=True)
+    if info is not None:
+        print(f"{tag} (not checked) vs {info_forward.__name__}: worst "
+              f"max|d|/max|ref|={info:.3e}", flush=True)
     if not worst <= LOGITS_REL_TOL:
         raise AssertionError(f"{tag}: first-token logits disagree: {worst}")
-    return worst, agree
+    return worst, agree, info
 
 
 def mixed_scfg():
@@ -753,8 +902,8 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
     gens = srv.serve(reqs, timeout=600)
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
-    worst, agree = check_served(cfg, params, spec, srv, reqs, gens,
-                                first_logits, device, "[serve]")
+    worst, agree, _ = check_served(cfg, params, spec, srv, reqs, gens,
+                                   first_logits, device, "[serve]")
     eng = srv.decode_engines[0]
     ttft = [g.ttft for g in gens]
     durs = [d for d, _a, _r in eng.step_samples]
@@ -779,9 +928,12 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
 
 
 def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
-             lens=(128, 1024), outs=(16, 32)):
+             lens=(128, 1024), outs=(16, 32), tag="[pd serve]",
+             forward=dense_forward_logits, info_forward=None):
     """Drive the P/D-separated deployment on the padded plane; returns
-    the serve report (as `serve`)."""
+    the serve report (as `serve`).  `forward` is the plain reference of
+    the first-token logits, run over the serve's chunk boundaries;
+    `info_forward` an unchecked second one (see `check_served`)."""
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
     scfg = pd_scfg()
@@ -791,7 +943,7 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     warm.serve(make_requests(cfg, 2, seed=99, lens=(lens[0], lens[0]),
                              outs=(2, 2)), timeout=300)
     srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
-    first_logits, undo = record_prefill_logits(srv)
+    first_logits, chunks, undo = record_prefill_logits(srv)
     reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
     for w in counters:
         w.launches = 0
@@ -802,8 +954,9 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
         undo()
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
-    worst, agree = check_served(cfg, params, spec, srv, reqs, gens,
-                                first_logits, device, "[pd serve]")
+    worst, agree, info = check_served(cfg, params, spec, srv, reqs, gens,
+                                      first_logits, device, tag, forward,
+                                      chunks, info_forward)
     eng = srv.decode_engines[0]
     passes = sum(e.passes for e in srv.engines)
     ttft = [g.ttft for g in gens]
@@ -827,7 +980,12 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
             launches.get("decode_attention", 0) / max(eng.steps, 1),
         "flash_prefill_per_prefill_pass":
             launches.get("flash_prefill", 0) / max(passes, 1),
-        "logits_rel_err": worst, "argmax_agree": agree, "profile": profile,
+        "ssd_chunk_per_prefill_pass":
+            launches.get("ssd_chunk", 0) / max(passes, 1),
+        "logits_rel_err": worst, "argmax_agree": agree,
+        "logits_rel_err_unchecked_reference": info,
+        "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
+        "profile": profile,
     }
 
 
@@ -838,6 +996,8 @@ def _kernel_group(name: str) -> str:
         return "decode_attention"
     if "flash_kernel" in name:
         return "flash_prefill"
+    if "ssd_chunk_kernel" in name:
+        return "ssd_chunk"
     if any(t in name.lower() for t in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul"
     return "other"
@@ -882,14 +1042,14 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device):
 
 # ---------------------------------------------------------------------------
 
-def kernel_items(dec, dense, pfx, fla, mixed, pd):
+def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
 
-    def item(name, source, replaces, rep, r, path):
+    def item(name, source, replaces, rep, r, path, **extra):
         n = rep["launches"][name]
         steps = rep.get("steps") or rep["decode_steps"]
         return dict(
@@ -897,7 +1057,8 @@ def kernel_items(dec, dense, pfx, fla, mixed, pd):
             launches=n, **errs(r["errs"]), rel_tol=REL_TOL,
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            path=path, launches_per_decode_step=n / steps, shape=r["shape"])
+            path=path, launches_per_decode_step=n / steps, shape=r["shape"],
+            **extra)
 
     csrc = "src/repro_torch/csrc/"
     dec_k = "src/repro/kernels/decode_attention/kernel.py"
@@ -911,6 +1072,12 @@ def kernel_items(dec, dense, pfx, fla, mixed, pd):
              "P/D serve"),
         item("decode_attention", csrc + "decode_attention.cu",
              dec_k + ":166", pd, dense, "P/D serve"),
+        item("ssd_chunk", csrc + "ssd_chunk.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:54", ssm, ssd,
+             "SSM serve (P/D, padded)",
+             launches_per_prefill_pass=ssm["ssd_chunk_per_prefill_pass"],
+             library_note="none: no single PyTorch call computes the SSD "
+                          "intra-chunk term"),
     ]
 
 
@@ -930,6 +1097,7 @@ def main() -> int:
             decode_attention, paged_decode_attention)
         from repro_torch.kernels.flash_prefill import (
             flash_prefill, paged_prefill_attention)
+        from repro_torch.kernels.ssd_scan import ssd_chunk
         from repro_torch.models.model import init_params
     except ImportError as e:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
@@ -945,8 +1113,10 @@ def main() -> int:
         dense = check_dense_decode(device)
         pfx = check_paged_prefill(device)
         fla = check_flash_prefill(device)
+        ssd = check_ssd(device)
         for tag, r in (("[decode]", dec), ("[dense decode]", dense),
-                       ("[paged prefill]", pfx), ("[flash prefill]", fla)):
+                       ("[paged prefill]", pfx), ("[flash prefill]", fla),
+                       ("[ssd]", ssd)):
             report_timing(tag, r)
         cfg = get_arch("deepseek-7b")
         t0 = time.monotonic()
@@ -956,7 +1126,7 @@ def main() -> int:
         print(f"[init] {cfg.name} bf16 weights in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
         counters = [paged_decode_attention, paged_prefill_attention,
-                    flash_prefill, decode_attention]
+                    flash_prefill, decode_attention, ssd_chunk]
         mixed = serve(cfg, params, device, counters)
         for name in ("paged_decode_attention", "paged_prefill_attention"):
             if mixed["launches"][name] <= 0:
@@ -984,13 +1154,46 @@ def main() -> int:
               f"{pd['decode_attention_per_decode_step']!r}, per prefill "
               f"pass: flash_prefill="
               f"{pd['flash_prefill_per_prefill_pass']!r}", flush=True)
-        kernels = kernel_items(dec, dense, pfx, fla, mixed, pd)
+        del params
+        torch.cuda.empty_cache()
+        scfg_ = get_arch("mamba2-370m")
+        t0 = time.monotonic()
+        sparams = init_params(scfg_, seed=0, dtype=torch.bfloat16,
+                              device=device)
+        torch.cuda.synchronize()
+        print(f"[init] {scfg_.name} bf16 weights in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        ssm = serve_pd(scfg_, sparams, device, counters, tag="[ssm serve]",
+                       forward=ssm_forward_logits,
+                       info_forward=ssm_whole_prompt_logits)
+        if ssm["launches"]["ssd_chunk"] <= 0:
+            raise AssertionError("ssd_chunk never launched on the SSM serve")
+        sprof = ssm["profile"] or {}
+        print(f"[ssm serve] ttft_p50_s={ssm['ttft_p50_s']!r} "
+              f"ttft_p99_s={ssm['ttft_p99_s']!r}", flush=True)
+        print(f"[ssm serve] itl_p50_s={ssm['itl_p50_s']!r} "
+              f"itl_p99_s={ssm['itl_p99_s']!r}", flush=True)
+        print(f"[ssm serve] wall_s={ssm['wall_s']!r}", flush=True)
+        print(f"[ssm serve] decode_step_p50_s={ssm['step_p50_s']!r} "
+              f"decode_step_p99_s={ssm['step_p99_s']!r} "
+              f"(decode_steps={ssm['decode_steps']})", flush=True)
+        print(f"[ssm serve] prefill_passes={ssm['prefill_passes']} "
+              f"ssd_chunk launches={ssm['launches']['ssd_chunk']} "
+              f"({ssm['ssd_chunk_per_prefill_pass']!r} per prefill pass)",
+              flush=True)
+        print(f"[ssm serve] idle_share={sprof.get('idle_share')!r} "
+              f"(profiled second run, wall_s={sprof.get('wall_s')!r})",
+              flush=True)
+        print(f"[ssm serve] device_s_by_group={sprof.get('by_group_s')!r}",
+              flush=True)
+        kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()
         print(json.dumps({"serve": mixed}), flush=True)
         print(json.dumps({"serve_pd": pd}), flush=True)
+        print(json.dumps({"serve_ssm": ssm}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

@@ -7,8 +7,11 @@ itself only sees numpy arrays and nested dicts/tuples — it never imports
 JAX or the `repro` package.
 
 JAX stacks the layers of each group of `layer_layout` (the dense prefix,
-then one stack per pattern slot); the port keeps one list (params) or
-one leading layer axis (caches) in model order.
+then one stack per pattern slot); the port keeps one list (params) in
+model order, and one leading layer axis per cache stack (the attention
+layers' "k"/"v", the SSM layers' "ssm"/"conv_x"/"conv_bc", each in model
+order; see `repro_torch.models.model`).  A JAX SSM cache entry is
+`(ssm_state, (conv_x, conv_bc))`.
 """
 from __future__ import annotations
 
@@ -17,8 +20,13 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig
-from repro_torch.models.model import layer_layout, require_supported
+from repro_torch.config.base import LayerKind, ModelConfig
+from repro_torch.models.model import (
+    layer_layout, require_supported, stack_index,
+)
+
+# SSM leaves the JAX init keeps in fp32 whatever the model's dtype
+_FP32_LEAVES = ("A_log", "D_skip", "dt_bias")
 
 
 def _layer_slots(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -43,10 +51,11 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
     """The JAX `init_params` pytree (numpy leaves) as the port's params."""
     require_supported(cfg)
 
-    def take(node, i):
+    def take(node, i, name=""):
         if isinstance(node, dict):
-            return {k: take(v, i) for k, v in node.items()}
-        return _tensor(np.asarray(node)[i], dtype, device)
+            return {k: take(v, i, k) for k, v in node.items()}
+        dt = torch.float32 if name in _FP32_LEAVES else dtype
+        return _tensor(np.asarray(node)[i], dt, device)
 
     params = {"embed": _tensor(tree["embed"], dtype, device),
               "ln_f": _tensor(tree["ln_f"], dtype, device)}
@@ -57,6 +66,15 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
     return params
 
 
+def _stacks(cfg: ModelConfig):
+    """The JAX (group key, index) of the layers of each port cache stack:
+    (attention layers, SSM layers), each in model order."""
+    attn, ssm = [], []
+    for slot, (kind, _) in zip(_layer_slots(cfg), stack_index(cfg)):
+        (attn if kind == LayerKind.DENSE else ssm).append(slot)
+    return attn, ssm
+
+
 def cache_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
                      device="cuda") -> Dict:
     """A JAX cache — paged, or dense with B rows of S_buf entries (a
@@ -64,10 +82,18 @@ def cache_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
     require_supported(cfg)
     out = {key: _tensor(tree[key], torch.int32, device)
            for key in ("cur", "kv_pos", "block_tab") if key in tree}
-    for n, name in enumerate(("k", "v")):
-        out[name] = torch.stack([
-            _tensor(np.asarray(_group(tree, key)[n])[i], dtype, device)
-            for key, i in _layer_slots(cfg)])
+    attn, ssm = _stacks(cfg)
+
+    def stack(slots, leaf, dt):
+        return torch.stack([_tensor(np.asarray(leaf(_group(tree, key)))[i],
+                                    dt, device) for key, i in slots])
+    if attn:
+        out["k"] = stack(attn, lambda e: e[0], dtype)
+        out["v"] = stack(attn, lambda e: e[1], dtype)
+    if ssm:
+        out["ssm"] = stack(ssm, lambda e: e[0], torch.float32)
+        out["conv_x"] = stack(ssm, lambda e: e[1][0], dtype)
+        out["conv_bc"] = stack(ssm, lambda e: e[1][1], dtype)
     return out
 
 
@@ -75,13 +101,20 @@ def cache_to_numpy(cfg: ModelConfig, cache: Dict) -> Dict:
     """The port's cache (paged or dense) in the JAX cache layout (numpy
     leaves)."""
     slots = _layer_slots(cfg)
+    index = stack_index(cfg)
     out: Dict = {key: cache[key].cpu().numpy()
                  for key in ("cur", "kv_pos", "block_tab") if key in cache}
     out["blocks"] = {}
     for key in dict.fromkeys(k for k, _ in slots):
-        layers = [l for l, (k, _) in enumerate(slots) if k == key]
-        entry = tuple(cache[name][layers].float().cpu().numpy()
-                      for name in ("k", "v"))
+        layers = [index[l] for l, (k, _) in enumerate(slots) if k == key]
+        rows = [i for _kind, i in layers]
+
+        def leaf(name):
+            return cache[name][rows].float().cpu().numpy()
+        if layers[0][0] == LayerKind.DENSE:
+            entry = (leaf("k"), leaf("v"))
+        else:
+            entry = (leaf("ssm"), (leaf("conv_x"), leaf("conv_bc")))
         if key == "prefix":
             out["prefix"] = entry
         else:

@@ -138,6 +138,40 @@ at::Tensor paged_prefill_attention(const at::Tensor& q,
   return out;
 }
 
+std::tuple<at::Tensor, at::Tensor> ssd_chunk(
+    const at::Tensor& x, const at::Tensor& dt, const at::Tensor& A,
+    const at::Tensor& Bm, const at::Tensor& Cm, int64_t b_stride,
+    int64_t c_stride) {
+  const auto st = x.scalar_type();
+  check(x, "x", st);
+  check(dt, "dt", at::kFloat);
+  check(A, "A", at::kFloat);
+  // B and C may be strided views (tokens at one stride, ds contiguous)
+  for (const at::Tensor* t : {&Bm, &Cm}) {
+    TORCH_CHECK(t->is_cuda() && t->scalar_type() == st && t->dim() == 4 &&
+                    t->stride(3) == 1,
+                "Bm / Cm must be CUDA (B, nc, Q, ds) of x's dtype with a "
+                "contiguous last axis");
+  }
+  TORCH_CHECK(x.dim() == 5, "x must be (B, nc, Q, nh, hp)");
+  const int64_t B = x.size(0), nc = x.size(1), Q = x.size(2);
+  const int64_t nh = x.size(3), hp = x.size(4), ds = Bm.size(3);
+  const c10::cuda::CUDAGuard guard(x.device());
+  const auto f32 = x.options().dtype(at::kFloat);
+  at::Tensor y = at::empty({B, nc, Q, nh, hp}, f32);
+  at::Tensor state = at::empty({B, nc, nh, hp, ds}, f32);
+  check_launch(
+      launch_ssd_chunk(x.data_ptr(), dt.data_ptr<float>(),
+                       A.data_ptr<float>(), Bm.data_ptr(), Cm.data_ptr(),
+                       y.data_ptr<float>(), state.data_ptr<float>(),
+                       static_cast<int>(B * nc), static_cast<int>(Q),
+                       static_cast<int>(nh), static_cast<int>(hp),
+                       static_cast<int>(ds), b_stride, c_stride,
+                       dtype_code(x), at::cuda::getCurrentCUDAStream()),
+      "ssd_chunk");
+  return {y, state};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -145,4 +179,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention);
   m.def("flash_prefill", &flash_prefill);
   m.def("paged_prefill_attention", &paged_prefill_attention);
+  m.def("ssd_chunk", &ssd_chunk);
 }

@@ -49,3 +49,13 @@ cudaError_t launch_paged_prefill_attention(
     const int* kv_pos_pool, const int* block_tab, const int* q_pos,
     void* out, int B, int Sq, int H, int K, int hd, int bs, int nbt,
     int window, float scale, int dtype, cudaStream_t stream);
+
+// Mamba2 SSD intra-chunk term (n_groups = 1): x (BC,Q,nh,hp); dt
+// (BC,Q,nh) fp32; A (nh,) fp32; B and C: BC*Q tokens of ds values at a
+// row stride of b_stride / c_stride elements; y (BC,Q,nh,hp) fp32; state
+// (BC,nh,hp,ds) fp32.  Q <= 256.  Replaces ssd_chunk_pallas.
+cudaError_t launch_ssd_chunk(const void* x, const float* dt, const float* A,
+                             const void* Bm, const void* Cm, float* y,
+                             float* state, int BC, int Q, int nh, int hp,
+                             int ds, long long b_stride, long long c_stride,
+                             int dtype, cudaStream_t stream);

@@ -14,7 +14,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("bindings.cpp", "paged_decode_attention.cu", "decode_attention.cu",
-            "flash_prefill.cu")
+            "flash_prefill.cu", "ssd_chunk.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-lineinfo")
 

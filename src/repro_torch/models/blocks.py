@@ -1,16 +1,19 @@
-"""Transformer blocks of the serving path, dense GQA branch.
+"""Transformer blocks of the serving path: dense GQA and Mamba2 (SSM).
 
 Counterpart of `repro/models/blocks.py` (`init_attn_params`,
-`init_dense_mlp_params`; the dense-cache `attn_decode`, `attn_extend`,
-`block_decode`, `block_extend`; the paged `_paged_write_site(s)`,
-`attn_decode_paged`, `attn_extend_paged`, `block_decode_paged`,
-`block_extend_paged`).  The attention itself runs through the port's
-kernels (`repro_torch.kernels`), which take their plain versions on the
-CPU.
+`init_dense_mlp_params`, `init_block_params`; the dense-cache
+`attn_decode`, `attn_extend`, `block_decode`, `block_extend` with their
+SSM arms; the paged `_paged_write_site(s)`, `attn_decode_paged`,
+`attn_extend_paged`, `block_decode_paged`, `block_extend_paged`, which
+are attention-only).  Attention runs through the port's kernels
+(`repro_torch.kernels`), the SSM prefill through the SSD kernel
+(`repro_torch.models.mamba`); each takes its plain version on the CPU.
 
-Unlike the JAX functions, which return new caches, these write the new
-tokens' K/V and positions into the caches (dense rows or paged pools)
-IN PLACE and return only the hidden states.
+Unlike the JAX functions, which return new caches, the attention arms
+write the new tokens' K/V and positions into the caches (dense rows or
+paged pools) IN PLACE.  The SSM arms return new state tensors and leave
+their inputs alone: an SSM step is not idempotent, so a step whose
+result is dropped (a drained one) must leave the state it read intact.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ from repro_torch.kernels.flash_prefill import (
     flash_prefill, paged_prefill_attention,
 )
 from repro_torch.models.layers import apply_rope, init_linear, rms_norm, swiglu
+from repro_torch.models.mamba import (
+    init_mamba_params, mamba_decode_step, mamba_forward,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -58,16 +64,21 @@ def init_dense_mlp_params(gen: torch.Generator, cfg: ModelConfig,
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig,
                       kind: LayerKind, dtype) -> Dict:
-    if kind != LayerKind.DENSE or cfg.d_ff <= 0:
+    """A dense attention block, or an SSM block (Mamba2 mixer, plus the
+    dense MLP when d_ff > 0)."""
+    if kind not in (LayerKind.DENSE, LayerKind.SSM):
         raise NotImplementedError(
-            f"{kind} blocks are not ported yet (ROADMAP Queue 1 items 9-12)")
+            f"{kind} blocks are not ported yet (ROADMAP Queue 1 item 9)")
     D = cfg.d_model
-    return {
-        "ln1": torch.ones(D, dtype=dtype, device=gen.device),
-        "attn": init_attn_params(gen, cfg, dtype),
-        "ln2": torch.ones(D, dtype=dtype, device=gen.device),
-        "mlp": init_dense_mlp_params(gen, cfg, dtype),
-    }
+    p: Dict = {"ln1": torch.ones(D, dtype=dtype, device=gen.device)}
+    if kind == LayerKind.DENSE:
+        p["attn"] = init_attn_params(gen, cfg, dtype)
+    else:
+        p["mamba"] = init_mamba_params(gen, D, cfg.ssm, dtype)
+    if cfg.d_ff > 0:
+        p["ln2"] = torch.ones(D, dtype=dtype, device=gen.device)
+        p["mlp"] = init_dense_mlp_params(gen, cfg, dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -189,27 +200,44 @@ def attn_extend_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
 
 
 def _mlp(p, x, cfg: ModelConfig):
+    if "mlp" not in p:                  # an SSM block with d_ff == 0
+        return x
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
     return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
-def block_decode(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos, pos):
-    """Single-token decode block over a dense cache (written in place).
-    Returns the new hidden states (B, 1, D)."""
+def block_decode(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
+                 pos):
+    """Single-token decode block over a dense cache entry: (k, v) rows of
+    an attention layer (written in place), or (ssm_state, (conv_x,
+    conv_bc)) of an SSM layer.  Returns (hidden (B, 1, D), the layer's
+    new entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_decode(p["attn"], h, cfg, k_cache, v_cache, kv_pos, pos)
-    return _mlp(p, x, cfg)
+    if kind == LayerKind.DENSE:
+        x = x + attn_decode(p["attn"], h, cfg, entry[0], entry[1], kv_pos,
+                            pos)
+    else:
+        y, entry = mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0],
+                                     entry[1])
+        x = x + y
+    return _mlp(p, x, cfg), entry
 
 
-def block_extend(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos,
+def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
                  positions):
-    """Chunked-prefill block step over a dense cache (written in place).
-    Returns the new hidden states (B, Sc, D)."""
+    """Chunked-prefill block step over a dense cache entry (as
+    `block_decode`).  The SSM arm scans the chunk with the SSD kernel,
+    from the entry's state and conv tail.  Returns (hidden (B, Sc, D),
+    the layer's new entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_extend(p["attn"], h, cfg, k_cache, v_cache, kv_pos,
-                        positions)
-    return _mlp(p, x, cfg)
+    if kind == LayerKind.DENSE:
+        x = x + attn_extend(p["attn"], h, cfg, entry[0], entry[1], kv_pos,
+                            positions)
+    else:
+        y, entry = mamba_forward(h, p["mamba"], cfg.ssm, entry[0], entry[1])
+        x = x + y
+    return _mlp(p, x, cfg), entry
 
 
 def block_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,

@@ -1,4 +1,5 @@
-"""Model assembly for the serving path (dense GQA decoders).
+"""Model assembly for the serving path (dense GQA decoders, Mamba2 SSM
+stacks and hybrids of the two).
 
 Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `logits_from_hidden`; the dense (padded) family `kv_buffer_len`,
@@ -6,34 +7,44 @@ Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `decode_step`; and the paged family `paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step`,
 `paged_prefill_step`, `mixed_step`, `paged_copy_block`,
-`paged_gather_blocks`, `paged_adopt_blocks`, `paged_clear_rows`.  The
-JAX package scans over a stacked layer axis; here the layers are a
-Python list and the step functions loop over them.
+`paged_gather_blocks`, `paged_adopt_blocks`, `paged_clear_rows`
+(attention-only).  The JAX package scans over a stacked layer axis; here
+the layers are a Python list and the step functions loop over them.
 
 Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
-             "layers": [{"ln1", "attn": {w_q, w_k, w_v, w_o}, "ln2",
-                         "mlp": {w_gate, w_up, w_down}}, ...]}
+             "layers": [{"ln1", "attn": {w_q, w_k, w_v, w_o} or "mamba":
+                         {...}, "ln2", "mlp": {w_gate, w_up, w_down}
+                         (an SSM layer has them only if d_ff > 0)}, ...]}
     paged   {"cur" (slots,) int32, "kv_pos" (N, bs) int32,
     cache    "block_tab" (slots, nbt) int32, "k"/"v" (L, N, bs, K, hd)}
     dense   {"cur" (B,) int32, "kv_pos" (B, S) int32,
-    cache    "k"/"v" (L, B, S, K, hd)}, S = kv_buffer_len(cfg, max_len)
-            (a ring of min(window, max_len) entries for SWA models).  A
-            prefill request's cache and what `paged_cache_take` /
-            `cache_take` return are its batch-1 form.
+    cache    "k"/"v" (L_attn, B, S, K, hd)       if any attention layer,
+             "ssm" (L_ssm, B, nh, hp, ds) fp32,
+             "conv_x" (L_ssm, B, d_conv-1, d_inner),
+             "conv_bc" (L_ssm, B, d_conv-1, 2·ds)  if any SSM layer}
+            S = kv_buffer_len(cfg, max_len) (a ring of min(window,
+            max_len) entries for SWA models; 1 when no layer attends).
+            Each stack holds its own kind's layers in model order;
+            `stack_index` maps a layer to its stack.  A prefill request's
+            cache and what `paged_cache_take` / `cache_take` return are
+            its batch-1 form.
 
 Physical block 0 is the null block: -1 table entries route writes there
 and the attention masks it.  The K/V pools, the dense K/V rows and the
 kv_pos maps are written IN PLACE by every function that writes KV (the
 JAX functions return new arrays; at full width a cache copy per step
-would double the KV memory).  `cur` and `block_tab` are small and are
-replaced, never mutated, so a cache dict handed out earlier keeps its
-cursors.
+would double the KV memory), and by the joins.  `cur` and `block_tab`
+are replaced, never mutated, so a cache dict handed out earlier keeps
+its cursors; the steps replace the SSM and conv states too, never
+writing the ones they read: a step drained while in flight must leave
+its pre-step snapshot intact, and an SSM update, unlike a K/V write,
+cannot be replayed harmlessly.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -43,6 +54,7 @@ from repro_torch.models.blocks import (
     init_block_params,
 )
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.mamba import ssm_dims
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +74,8 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, Tuple[LayerKind, ...], int]:
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """The port covers decoder-only dense GQA models so far."""
+    """The port covers decoder-only models of dense GQA and SSM layers
+    so far."""
     layer_layout(cfg)
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise NotImplementedError(
@@ -71,10 +84,27 @@ def require_supported(cfg: ModelConfig) -> None:
     if cfg.attention == AttentionKind.MLA:
         raise NotImplementedError(
             f"{cfg.name}: MLA is not ported yet (ROADMAP Queue 1 item 10)")
-    if any(k != LayerKind.DENSE for k in cfg.layer_kinds()):
+    if any(k not in (LayerKind.DENSE, LayerKind.SSM)
+           for k in cfg.layer_kinds()):
         raise NotImplementedError(
-            f"{cfg.name}: MoE and SSM layers are not ported yet (ROADMAP "
-            f"Queue 1 items 9 and 12)")
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
+            f"item 9)")
+
+
+def _has_attn_cache(cfg: ModelConfig) -> bool:
+    return any(k == LayerKind.DENSE for k in cfg.layer_kinds())
+
+
+def stack_index(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
+    """(kind, index within its kind's cache stack) of every layer, in
+    model order: attention layers index "k"/"v", SSM layers "ssm" and the
+    conv tails."""
+    seen = {LayerKind.DENSE: 0, LayerKind.SSM: 0}
+    out = []
+    for kind in cfg.layer_kinds():
+        out.append((kind, seen[kind]))
+        seen[kind] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -127,31 +157,52 @@ def kv_buffer_len(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda") -> Dict:
     """Dense decode cache of `batch` rows (a prefill request's cache is
-    its batch-1 form)."""
+    its batch-1 form): K/V rows for the attention layers, fp32 SSM states
+    and conv tails (in `dtype`) for the SSM layers."""
     require_supported(cfg)
-    S = kv_buffer_len(cfg, max_len)
-    shape = (cfg.num_layers, batch, S, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {
+    S = kv_buffer_len(cfg, max_len) if _has_attn_cache(cfg) else 1
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k == LayerKind.DENSE for k in kinds)
+    n_ssm = len(kinds) - n_attn
+    cache = {
         "cur": torch.zeros(batch, dtype=torch.int32, device=device),
         "kv_pos": torch.full((batch, S), -1, dtype=torch.int32,
                              device=device),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+    if n_attn:
+        shape = (n_attn, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if n_ssm:
+        sc = cfg.ssm
+        di, nh, _ = ssm_dims(cfg.d_model, sc)
+        tail = (n_ssm, batch, sc.d_conv - 1)
+        cache["ssm"] = torch.zeros((n_ssm, batch, nh, sc.head_dim,
+                                    sc.d_state), dtype=torch.float32,
+                                   device=device)
+        cache["conv_x"] = torch.zeros(tail + (di,), dtype=dtype,
+                                      device=device)
+        cache["conv_bc"] = torch.zeros(
+            tail + (2 * sc.n_groups * sc.d_state,), dtype=dtype,
+            device=device)
+    return cache
+
+
+_ROW_STACKS = ("k", "v", "ssm", "conv_x", "conv_bc")   # (L, B, ...) entries
 
 
 def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
     """Install the batch-1 cache `src` (a finished prefill, or a parked
-    row) into row `slot` of the dense batch cache `dst`: the whole row of
-    every layer and of kv_pos is copied (in place), and the row's cursor
-    set."""
+    row) into row `slot` of the dense batch cache `dst`: the row of every
+    layer's K/V or SSM and conv state, and of kv_pos, is copied in place
+    (between steps: no step is in flight), and the row's cursor set."""
     if dst["kv_pos"].shape[1] != src["kv_pos"].shape[1]:
         raise ValueError(
             f"cache_join: max_len mismatch (dst S_buf="
             f"{dst['kv_pos'].shape[1]}, src S_buf={src['kv_pos'].shape[1]})")
-    for name in ("k", "v"):
-        dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
+    for name in _ROW_STACKS:
+        if name in dst:
+            dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
     dst["kv_pos"][slot] = src["kv_pos"][0]
     out = dict(dst)
     out["cur"] = _with(dst, "cur", slot, src["cur"][0])
@@ -163,8 +214,9 @@ def cache_take(src: Dict, slot: int) -> Dict:
     inverse of cache_join: preemption and drain park it)."""
     out: Dict = {"cur": src["cur"][slot:slot + 1].clone(),
                  "kv_pos": src["kv_pos"][slot:slot + 1].clone()}
-    for name in ("k", "v"):
-        out[name] = src[name][:, slot:slot + 1].clone()
+    for name in _ROW_STACKS:
+        if name in src:
+            out[name] = src[name][:, slot:slot + 1].clone()
     return out
 
 
@@ -177,6 +229,12 @@ def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
     """(nbt, block_size) table geometry for a paged cache equivalent to a
     dense max_len cache.  Validates the config supports paging."""
     require_supported(cfg)
+    if not _has_attn_cache(cfg):
+        raise ValueError(f"{cfg.name}: no attention cache to page")
+    if LayerKind.SSM in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"{cfg.name}: per-slot SSM state beside paged K/V is not "
+            f"ported yet (ROADMAP Queue 1 item 12)")
     if cfg.attention == AttentionKind.SWA and cfg.sliding_window:
         raise ValueError(
             f"{cfg.name}: SWA ring caches are already bounded — use the "
@@ -268,37 +326,61 @@ def paged_cache_clear_slot(cache: Dict, slot) -> Dict:
 # Steps
 # ---------------------------------------------------------------------------
 
+def _dense_layers(cfg: ModelConfig, params, x, cache, block, where):
+    """Run every layer of a dense-cache step: `block` is block_extend or
+    block_decode, `where` the positions (B, Sc) or cursors (B,).  K/V are
+    written in place; the new SSM and conv states are stacked into new
+    tensors.  Returns (hidden, the cache's new entries)."""
+    ssm: List = []
+    conv_x: List = []
+    conv_bc: List = []
+    for p, (kind, i) in zip(params["layers"], stack_index(cfg)):
+        if kind == LayerKind.DENSE:
+            entry = (cache["k"][i], cache["v"][i])
+        else:
+            entry = (cache["ssm"][i],
+                     (cache["conv_x"][i], cache["conv_bc"][i]))
+        x, entry = block(p, x, kind, cfg, entry, cache["kv_pos"], where)
+        if kind == LayerKind.SSM:
+            ssm.append(entry[0])
+            conv_x.append(entry[1][0])
+            conv_bc.append(entry[1][1])
+    new: Dict = {}
+    if ssm:
+        new = {"ssm": torch.stack(ssm), "conv_x": torch.stack(conv_x),
+               "conv_bc": torch.stack(conv_bc)}
+    return x, new
+
+
 def prefill_chunk(cfg: ModelConfig, params, tokens, cache):
     """Extend a dense cache by one chunk of prompt tokens (B, Sc): true
-    chunked prefill with KV continuation.  Returns (last-position logits
-    (B, V), cache with `cur` + Sc); the K/V rows are written in place."""
+    chunked prefill with KV and SSM state continuation.  Returns
+    (last-position logits (B, V), cache with `cur` + Sc and the new SSM
+    states); the K/V rows are written in place."""
     Sc = tokens.shape[1]
     pos0 = cache["cur"]
     positions = pos0[:, None] + torch.arange(Sc, dtype=torch.int32,
                                              device=pos0.device)[None]
     x = params["embed"][tokens.long()]                    # (B, Sc, D)
-    for l, p in enumerate(params["layers"]):
-        x = block_extend(p, x, cfg, cache["k"][l], cache["v"][l],
-                         cache["kv_pos"], positions)
+    x, new = _dense_layers(cfg, params, x, cache, block_extend, positions)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, x[:, -1])
-    out = dict(cache)
+    out = dict(cache, **new)
     out["cur"] = pos0 + Sc
     return logits, out
 
 
 def decode_step(cfg: ModelConfig, params, token, cache):
     """One decode step over a dense cache.  token (B, 1) int; returns
-    (logits (B, V), cache with `cur` + 1).  Every row steps, idle rows on
-    garbage (rows never interact); the K/V rows are written in place."""
+    (logits (B, V), cache with `cur` + 1 and the new SSM states).  Every
+    row steps, idle rows on garbage (rows never interact); the K/V rows
+    are written in place."""
     pos = cache["cur"]
     x = params["embed"][token.long()]                    # (B, 1, D)
-    for l, p in enumerate(params["layers"]):
-        x = block_decode(p, x, cfg, cache["k"][l], cache["v"][l],
-                         cache["kv_pos"], pos)
+    x, new = _dense_layers(cfg, params, x, cache, block_decode, pos)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, x[:, 0])
-    out = dict(cache)
+    out = dict(cache, **new)
     out["cur"] = pos + 1
     return logits, out
 

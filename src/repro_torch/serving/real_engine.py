@@ -23,13 +23,17 @@ engine:
 
   padded (block_size=0)  each DP owns a `max_batch`-row dense cache
       (`init_cache`, max_len per row, a ring of the window for SWA
-      models); a free SLOT is the admission token.  Joins copy the
-      parked batch-1 cache into the row (`cache_join`).
+      models; per-row SSM and conv state for SSM layers); a free SLOT is
+      the admission token.  Joins copy the parked batch-1 cache into the
+      row (`cache_join`).  The plane of SSM models (SSM state has no
+      page form) and, in the port, of hybrids.
   paged  (block_size>0)  each DP owns a `BlockPool` + block-table cache
       (`init_paged_cache`); a request's lifetime pages are reserved at
       join and returned at leave/drain, so admission is by free-block
       count.  Joins scatter the batch-1 cache into the pages
-      (`paged_cache_join`).
+      (`paged_cache_join`).  Attention-only models: a paged spec of a
+      config without attention raises ValueError (`paged_layout`), and
+      one of a hybrid NotImplementedError.
 
 Every step runs one batched `decode_step`/`paged_decode_step` per
 occupied DP behind the instance sync barrier; finished requests leave
@@ -55,7 +59,8 @@ Differences from the JAX engines:
     abandoned step already wrote, at the row's cursor, is rewritten by
     the re-joined row's next step before any query reads it (a ring
     index it overwrote held a position one window back, which the window
-    already masks);
+    already masks).  SSM and conv states are never written by a step (it
+    returns new ones), so the snapshot holds them as they were;
   * page-native P/D prefill, page sharing and the sharded plane are not
     ported yet (ROADMAP Queue 1 items 6 and 11).
 """

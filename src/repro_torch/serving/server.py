@@ -8,12 +8,14 @@ Counterpart of `repro/serving/server.py`, for two deployments:
       dense caches and hand each finished cache, with its first token,
       over the `KVHandoffBus` (priced at `l_net` on the runtime heap) to
       `RealDecodeEngine`s, which decode over the padded plane
-      (`block_size=0`: dense max_len rows, a ring for SWA models) or the
-      paged plane (`block_size>0`: block-table pools).
+      (`block_size=0`: dense max_len rows, a ring for SWA models, per-row
+      SSM and conv state for SSM layers) or the paged plane
+      (`block_size>0`: block-table pools, attention-only models).
   unified mixed-batch (`mixed_batch=True`, paged only)
       a decode-pool-only deployment of `RealUnifiedEngine`s, where
       chunked prefill rides the same paged steps as decode and no KV
-      handoff happens.
+      handoff happens.  An SSM config raises ValueError there, as in
+      JAX: its state has no page form.
 
 `immediate`, `sbs` and `sbs-la` schedule both exactly as in the JAX
 server, and `watchdog_multiplier > 0` arms the decode watchdog (a drain

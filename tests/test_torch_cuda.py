@@ -1,6 +1,8 @@
 """PyTorch port on the card: the CUDA kernels against their plain
-versions at small shapes, and the unified and P/D servers on CUDA against
-the same servers on the CPU.  Every test needs an NVIDIA GPU (marker `cuda`) and
+versions at small shapes (the SSD kernel also at every SSM shape of the
+configs, full width included), and the unified and P/D servers on CUDA
+against the same servers on the CPU (reduced mamba2-370m: against the
+CPU model replaying the serve's prefill chunk boundaries).  Every test needs an NVIDIA GPU (marker `cuda`) and
 skips without one; on the card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -27,7 +29,10 @@ from repro_torch.kernels.flash_prefill import (
     flash_prefill, flash_prefill_plain, paged_prefill_attention,
     paged_prefill_attention_plain,
 )
-from repro_torch.models.model import init_params
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+from repro_torch.models.model import (
+    decode_step, init_cache, init_params, prefill_chunk,
+)
 from repro_torch.serving.server import RealSBSServer
 
 pytestmark = pytest.mark.cuda
@@ -292,3 +297,101 @@ def test_pd_server_on_cuda_matches_cpu(dev, block_size):
             assert flash_prefill.launches > launches[1]
     assert len(out["cpu"]) == 4
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# kernel #4: the SSD intra-chunk term
+# ---------------------------------------------------------------------------
+
+def _ssd_case(g, B, nc, Q, nh, hp, ds, dtype, dev, pad=0):
+    """Inputs as `ssd_chunked_kernel` passes them: B and C as strided
+    slices of one [B|C] tensor; the last chunk's last `pad` tokens padded
+    with zeros and dt = 0."""
+    x = torch.randn(B, nc, Q, nh, hp, generator=g) * 0.3
+    dt = torch.nn.functional.softplus(torch.randn(B, nc, Q, nh, generator=g))
+    A = -torch.exp(torch.linspace(0.0, 1.0, nh))
+    bc = torch.randn(B, nc, Q, 2 * ds, generator=g) * 0.3
+    if pad:
+        for t in (x, dt, bc):
+            t[:, -1, Q - pad:] = 0
+    bc = bc.to(dtype).to(dev)
+    return (x.to(dtype).to(dev), dt.to(dev), A.to(dev), bc[..., :ds],
+            bc[..., ds:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nc,Q,nh,hp,ds,pad", [
+    (1, 1, 256, 32, 64, 128, 0),       # mamba2-370m, full width
+    (2, 2, 256, 32, 64, 128, 57),      # B·nc > 1, a ragged last chunk
+    (1, 1, 32, 16, 32, 32, 0),         # mamba2-370m, reduced
+    (1, 1, 256, 128, 64, 16, 0),       # jamba-v0.1-52b, full width
+    (3, 2, 32, 16, 32, 16, 5),         # jamba-v0.1-52b, reduced
+])
+def test_ssd_chunk_kernel_matches_plain(dev, dtype, B, nc, Q, nh, hp, ds,
+                                        pad):
+    g = torch.Generator().manual_seed(Q + nh + ds + pad)
+    x, dt, A, Bm, Cm = _ssd_case(g, B, nc, Q, nh, hp, ds, dtype, dev, pad)
+    before = ssd_chunk.launches
+    y, st = ssd_chunk(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == before + 1
+    yr, sr = ssd_chunk_plain(x.float(), dt, A, Bm.float(), Cm.float())
+    assert y.dtype == st.dtype == torch.float32
+    assert st.shape == (B, nc, nh, hp, ds)
+    # outputs are fp32 from fp32 arithmetic on either input type
+    _assert_close(y, yr, torch.float32)
+    _assert_close(st, sr, torch.float32)
+
+
+def test_ssd_chunk_wrapper_rejects_unsupported_on_cuda(dev):
+    g = torch.Generator().manual_seed(0)
+    x, dt, A, Bm, Cm = _ssd_case(g, 1, 1, 32, 4, 48, 16, torch.float32, dev)
+    before = ssd_chunk.launches
+    with pytest.raises(ValueError):
+        ssd_chunk(x, dt, A, Bm, Cm)                        # hp 48
+    x, dt, A, Bm, Cm = _ssd_case(g, 1, 1, 32, 4, 32, 16, torch.float32, dev)
+    with pytest.raises(ValueError):
+        ssd_chunk(x, dt.to(torch.bfloat16), A, Bm, Cm)
+    assert ssd_chunk.launches == before
+
+
+def test_pd_ssm_server_on_cuda_matches_cpu_replay(dev):
+    """Reduced mamba2-370m in fp32, P/D on the padded plane: the tokens
+    served on the card (prefill through kernel #4) equal the CPU model's
+    (plain versions) on the prefill chunk boundaries the serve used (the
+    SSD scan chunks each prefill chunk from its start)."""
+    cfg = get_arch("mamba2-370m", reduced=True)
+    scfg = ServingConfig(
+        num_prefill_instances=2, prefill_dp_per_instance=1,
+        num_decode_instances=1, decode_dp_per_instance=2, chunk_size=32,
+        max_batch_per_dp=4, block_size=0)
+    rng = random.Random(6)
+    reqs = [Request(rid=i, arrival_time=0.02 * i, input_len=L, output_len=6,
+                    tokens=tuple(rng.randrange(cfg.vocab_size)
+                                 for _ in range(L)))
+            for i, L in enumerate((17, 40, 33, 64))]
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    srv = RealSBSServer(cfg, _to(cpu_params, "cuda"), scfg,
+                        scheduler="sbs-la", max_len=96, max_new=6,
+                        device="cuda")
+    chunks = {}
+    for eng in srv.engines:
+        inner = eng._run_chunk
+        eng._run_chunk = (lambda req, tok, _f=inner: (
+            chunks.setdefault(req.rid, []).append(tok), _f(req, tok))[1])
+    before = ssd_chunk.launches
+    gens = srv.serve(reqs, timeout=120)
+    assert ssd_chunk.launches > before
+    assert sorted(g.rid for g in gens) == [0, 1, 2, 3]
+    for g, r in zip(gens, reqs):
+        cache, at = init_cache(cfg, 1, 96, device="cpu"), 0
+        for n in chunks[r.rid]:
+            lg, cache = prefill_chunk(cfg, cpu_params, torch.tensor(
+                [r.tokens[at:at + n]]), cache)
+            at += n
+        toks = [int(lg[0].argmax())]
+        while len(toks) < r.output_len:
+            lg, cache = decode_step(cfg, cpu_params,
+                                    torch.tensor([[toks[-1]]]), cache)
+            toks.append(int(lg[0].argmax()))
+        assert g.tokens == toks

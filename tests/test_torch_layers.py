@@ -207,8 +207,18 @@ def test_decode_attention_paged_matches_jax(window):
 # ---------------------------------------------------------------------------
 
 def test_init_params_shapes_and_scales_match_jax():
-    cfg = get_arch("deepseek-7b", reduced=True)
-    tcfg = t_get_arch("deepseek-7b", reduced=True)
+    _check_init_matches_jax("deepseek-7b")
+
+
+def test_init_params_ssm_shapes_and_scales_match_jax():
+    """Mamba2 mixers: split projections, conv weights, and the fp32
+    A_log / D_skip / dt_bias, as the JAX init."""
+    _check_init_matches_jax("mamba2-370m")
+
+
+def _check_init_matches_jax(arch):
+    cfg = get_arch(arch, reduced=True)
+    tcfg = t_get_arch(arch, reduced=True)
     jp = jax.tree.map(np.asarray, jax.jit(j_init_params, static_argnums=0)(
         cfg, jax.random.PRNGKey(0)))
     tp = t_init_params(tcfg, seed=0, device="cpu")
@@ -224,7 +234,7 @@ def test_init_params_shapes_and_scales_match_jax():
         assert abs(st - sr) <= 0.1 * max(sr, 1e-6) or st == sr == 0, path
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m",
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b",
                                   "minicpm3-4b", "whisper-large-v3"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError):

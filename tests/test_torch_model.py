@@ -4,15 +4,20 @@ surgery around it, and the dense family (`attn_extend`/`attn_decode`,
 `prefill_chunk`/`decode_step`, `cache_join`/`cache_take`), run in
 lockstep with the JAX functions on the same (bridged) weights of reduced
 deepseek-7b — the dense family also on reduced h2o-danube-3-4b, whose
-window-64 ring cache wraps — in fp32.
+window-64 ring cache wraps, on reduced mamba2-370m (SSM layers only:
+the SSD scan, the per-row SSM and conv state) and on a MoE-free hybrid
+(reduced jamba with the layer pattern (SSM, DENSE): the per-kind cache
+stacks side by side) — in fp32.
 
 Scenarios of tests/test_mixed_batch.py:100-230 (mid-stream graduation,
 decode-mask protection, the degenerate step) and
 tests/test_real_plane.py:156-250 (paged batched decode with late joins,
 the take round trip).  Tokens must match exactly; logits within 1e-4
-(fp32 through two layers, sums in another order); pool contents within
-1e-5, except the null block 0, which holds garbage by design.
+(fp32 through two layers, sums in another order); pool contents and
+conv tails within 1e-5, except the null block 0, which holds garbage by
+design; SSM states within 1e-5 of their largest magnitude.
 """
+import dataclasses
 import random
 
 import jax
@@ -22,10 +27,12 @@ import pytest
 import torch
 
 from repro.config import get_arch
+from repro.config.base import LayerKind as JLK
 from repro.models import model as JM
 from repro.serving.kv_pool import BlockPool, pad_block_table
 
 from repro_torch.bridge import cache_from_numpy, cache_to_numpy, params_from_numpy
+from repro_torch.config.base import LayerKind as TLK
 from repro_torch.config.base import get_arch as t_get_arch
 from repro_torch.models import model as TM
 
@@ -448,15 +455,38 @@ def test_page_surgery_matches_jax(pair):
 # sliding-window ring on reduced h2o-danube-3-4b (window 64 < MAX_LEN)
 # ---------------------------------------------------------------------------
 
+def _pair(name):
+    """(JAX cfg, JAX params, port cfg, port params) of one reduced model;
+    "jamba-hybrid" is reduced jamba with the layer pattern (SSM, DENSE)
+    and so no MoE layer."""
+    arch = "jamba-v0.1-52b" if name == "jamba-hybrid" else name
+    cfg = get_arch(arch, reduced=True)
+    tcfg = t_get_arch(arch, reduced=True)
+    if name == "jamba-hybrid":
+        cfg = dataclasses.replace(cfg, layer_pattern=(JLK.SSM, JLK.DENSE))
+        tcfg = dataclasses.replace(tcfg, layer_pattern=(TLK.SSM, TLK.DENSE))
+    params = jax.jit(JM.init_params, static_argnums=0)(
+        cfg, jax.random.PRNGKey(0))
+    return cfg, params, tcfg, params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, params), device="cpu")
+
+
 @pytest.fixture(scope="module", params=["deepseek-7b", "h2o-danube-3-4b"])
 def dense_pair(request):
     """(JAX cfg, JAX params, port cfg, port params) of one model."""
-    cfg = get_arch(request.param, reduced=True)
-    params = jax.jit(JM.init_params, static_argnums=0)(
-        cfg, jax.random.PRNGKey(0))
-    tcfg = t_get_arch(request.param, reduced=True)
-    return cfg, params, tcfg, params_from_numpy(
-        tcfg, jax.tree.map(np.asarray, params), device="cpu")
+    return _pair(request.param)
+
+
+@pytest.fixture(scope="module", params=["deepseek-7b", "h2o-danube-3-4b",
+                                        "mamba2-370m", "jamba-hybrid"])
+def model_pair(request):
+    """As dense_pair, over attention, SSM and hybrid layer stacks."""
+    return _pair(request.param)
+
+
+def _layer_leaves(c):
+    """The per-layer cache entries of a JAX-layout cache, as a list."""
+    return jax.tree.leaves((c.get("prefix", ()), c["blocks"]))
 
 
 def _jax_steps(cfg):
@@ -464,25 +494,39 @@ def _jax_steps(cfg):
             jax.jit(lambda p, t, c: JM.decode_step(cfg, p, t, c)))
 
 
+def _assert_entries_close(tcfg, jc, tc):
+    """Every layer's K/V rows and conv tails within 1e-5, its SSM state
+    within 1e-5 of the state's largest magnitude (a state sums the whole
+    prompt, up to about 15 here, where fp32 resolves about 1e-6)."""
+    j = cache_from_numpy(tcfg, jax.tree.map(np.asarray, jc), device="cpu")
+    assert set(j) == set(tc)
+    for name in ("k", "v", "conv_x", "conv_bc", "ssm"):
+        if name not in tc:
+            continue
+        ref = j[name]
+        tol = 1e-5 * max(1.0, float(ref.abs().max())) if name == "ssm" \
+            else 1e-5
+        assert float((tc[name] - ref).abs().max()) <= tol, name
+
+
 def _assert_dense_match(tcfg, jc, tc):
-    """Same cursors and positions, K/V rows within 1e-5."""
+    """Same cursors and positions, every layer's entries close."""
     t = cache_to_numpy(tcfg, tc)
     assert np.array_equal(np.asarray(jc["cur"]), t["cur"])
     assert np.array_equal(np.asarray(jc["kv_pos"]), t["kv_pos"])
-    for a, b in zip(jc["blocks"]["p0"], t["blocks"]["p0"]):
-        assert np.abs(np.asarray(a) - b).max() <= 1e-5
+    _assert_entries_close(tcfg, jc, tc)
 
 
-def test_dense_cache_bridge_roundtrip(dense_pair):
-    """A dense batch-B cache (the SWA ring's S_buf included) crosses the
-    bridge both ways unchanged."""
-    cfg, _p, tcfg, _tp = dense_pair
+def test_dense_cache_bridge_roundtrip(model_pair):
+    """A dense batch-B cache (the SWA ring's S_buf included; SSM states
+    and conv tails) crosses the bridge both ways unchanged."""
+    cfg, _p, tcfg, _tp = model_pair
     jc = jax.tree.map(np.array, JM.init_cache(cfg, 3, MAX_LEN))
     rng = np.random.default_rng(2)
-    k, v = jc["blocks"]["p0"]
-    assert k.shape[2] == TM.kv_buffer_len(tcfg, MAX_LEN)
-    jc["blocks"]["p0"] = (rng.normal(size=k.shape).astype(np.float32),
-                          rng.normal(size=v.shape).astype(np.float32))
+    S = TM.kv_buffer_len(tcfg, MAX_LEN) if TM._has_attn_cache(tcfg) else 1
+    assert jc["kv_pos"].shape[1] == S
+    jc["blocks"] = jax.tree.map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32), jc["blocks"])
     jc["kv_pos"] = rng.integers(-1, 90, size=jc["kv_pos"].shape
                                 ).astype(np.int32)
     jc["cur"][:] = [3, 70, 0]
@@ -538,10 +582,11 @@ def test_attn_decode_and_extend_match_jax(dense_pair):
         assert np.abs(np.asarray(j) - tt.numpy()).max() <= 1e-5
 
 
-def test_prefill_chunk_and_decode_step_match_jax(dense_pair):
-    """Batch-2 chunked prefill past the window, then batched decode, in
-    lockstep with JAX: logits within 1e-4, caches equal."""
-    cfg, jparams, tcfg, tparams = dense_pair
+def test_prefill_chunk_and_decode_step_match_jax(model_pair):
+    """Batch-2 chunked prefill past the window (SSD: in chunks shorter
+    than the scan's, padded), then batched decode, in lockstep with JAX:
+    logits within 1e-4, caches equal."""
+    cfg, jparams, tcfg, tparams = model_pair
     jchunk, jdecode = _jax_steps(cfg)
     rng = np.random.default_rng(4)
     ids = rng.integers(0, cfg.vocab_size, size=(2, 80)).astype(np.int32)
@@ -563,11 +608,12 @@ def test_prefill_chunk_and_decode_step_match_jax(dense_pair):
     _assert_dense_match(tcfg, jc, tc)
 
 
-def test_padded_batched_continuous_decode_matches_serial(dense_pair):
+def test_padded_batched_continuous_decode_matches_serial(model_pair):
     """tests/test_real_plane.py:76 on the port: requests joining a padded
     batch cache at different steps generate exactly the JAX serial
-    decode's tokens (prompts past the window on the SWA model)."""
-    cfg, jparams, tcfg, tparams = dense_pair
+    decode's tokens (prompts past the window on the SWA model; a joined
+    SSM row carries its prefill's state and conv tails)."""
+    cfg, jparams, tcfg, tparams = model_pair
     jchunk, jdecode = _jax_steps(cfg)
     prompts = _prompts(cfg, (23, 70, 11), seed=0)
     serial, hand = [], []
@@ -605,12 +651,12 @@ def test_padded_batched_continuous_decode_matches_serial(dense_pair):
     assert [toks[slot_of[i]] for i in range(3)] == serial
 
 
-def test_cache_take_roundtrip_matches_jax(dense_pair):
+def test_cache_take_roundtrip_matches_jax(model_pair):
     """tests/test_real_plane.py:127 on the port: cache_take extracts the
     same batch-1 cache as JAX's and it continues like the serial cache;
     the taken cache is a copy (later steps of the batch do not touch
     it)."""
-    cfg, jparams, tcfg, tparams = dense_pair
+    cfg, jparams, tcfg, tparams = model_pair
     jchunk, jdecode = _jax_steps(cfg)
     ids = _prompts(cfg, (69,), seed=1)[0]
     c = JM.init_cache(cfg, 1, MAX_LEN)
@@ -638,13 +684,47 @@ def test_cache_take_roundtrip_matches_jax(dense_pair):
     snap = cache_to_numpy(tcfg, tt)
     assert np.array_equal(jt["cur"], snap["cur"])
     assert np.array_equal(jt["kv_pos"], snap["kv_pos"])
-    for a, b in zip(jt["blocks"]["p0"], snap["blocks"]["p0"]):
-        assert np.abs(a - b).max() <= 1e-5
+    _assert_entries_close(tcfg, jt, tt)
     TM.decode_step(tcfg, tparams, torch.tensor(next_tok)[:, None], tb)
-    for a, b in zip(snap["blocks"]["p0"],
-                    cache_to_numpy(tcfg, tt)["blocks"]["p0"]):
+    for a, b in zip(_layer_leaves(snap),
+                    _layer_leaves(cache_to_numpy(tcfg, tt))):
         assert np.array_equal(a, b)                  # a copy, not a view
     for _ in range(3):
         tl, tt = TM.decode_step(tcfg, tparams, torch.tensor([[toks[-1]]]), tt)
         toks.append(_argmax(tl.numpy())[0])
     assert toks == serial
+
+
+def test_paged_layout_refuses_ssm_layers():
+    """SSM state has no page form: a config without attention cannot be
+    paged (ValueError, as JAX's paged_layout); a hybrid's per-slot SSM
+    state beside paged K/V is not ported yet."""
+    for arch in ("mamba2-370m",):
+        with pytest.raises(ValueError):
+            JM.paged_layout(get_arch(arch, reduced=True), MAX_LEN, BLOCK)
+        with pytest.raises(ValueError):
+            TM.paged_layout(t_get_arch(arch, reduced=True), MAX_LEN, BLOCK)
+    hybrid = dataclasses.replace(t_get_arch("jamba-v0.1-52b", reduced=True),
+                                 layer_pattern=(TLK.SSM, TLK.DENSE))
+    with pytest.raises(NotImplementedError):
+        TM.paged_layout(hybrid, MAX_LEN, BLOCK)
+
+
+def test_ssm_cache_stacks_by_kind():
+    """K/V stack over the attention layers only, SSM state (fp32) and
+    conv tails (cache dtype) over the SSM layers only; the index maps
+    every layer to its own stack."""
+    hybrid = dataclasses.replace(t_get_arch("jamba-v0.1-52b", reduced=True),
+                                 layer_pattern=(TLK.SSM, TLK.DENSE))
+    c = TM.init_cache(hybrid, 2, MAX_LEN, dtype=torch.bfloat16, device="cpu")
+    assert TM.stack_index(hybrid) == [(TLK.SSM, 0), (TLK.DENSE, 0)]
+    assert c["k"].shape[:3] == (1, 2, MAX_LEN)
+    sc = hybrid.ssm
+    nh = hybrid.d_model * sc.expand // sc.head_dim
+    assert c["ssm"].shape == (1, 2, nh, sc.head_dim, sc.d_state)
+    assert c["ssm"].dtype == torch.float32
+    assert c["conv_x"].dtype == c["conv_bc"].dtype == torch.bfloat16
+    m = TM.init_cache(t_get_arch("mamba2-370m", reduced=True), 2, MAX_LEN,
+                      device="cpu")
+    assert "k" not in m and m["kv_pos"].shape == (2, 1)
+    assert m["ssm"].shape[0] == 2

@@ -10,10 +10,17 @@ deepseek-7b with the JAX weights bridged over, in fp32 on the CPU:
     whose window-64 ring wraps;
   * the engines' recovery paths: page-level preemption, a drain while a
     step is in flight (the watchdog's), a live watchdog run, and
-    worker errors that surface promptly.
+    worker errors that surface promptly;
+  * SSM serving on the P/D padded plane (reduced mamba2-370m, and a
+    MoE-free hybrid: reduced jamba with the layer pattern (SSM, DENSE)),
+    whose tokens depend on where prefill chunks start (the SSD scan
+    chunks each prefill chunk from its start), so the oracle replays the
+    serve's chunk boundaries; preemption and a drain while busy keep an
+    SSM row token-exact; paged and mixed-batch SSM deployments raise.
 
 Token streams must match exactly.
 """
+import dataclasses
 import random
 import threading
 import time
@@ -25,9 +32,12 @@ import pytest
 import torch
 
 from repro.config import get_arch
+from repro.config.base import LayerKind as JLK
+from repro.config.base import ServingConfig as JServingConfig
 from repro.models import model as JM
 
 from repro_torch.bridge import cache_from_numpy, params_from_numpy
+from repro_torch.config.base import LayerKind as TLK
 from repro_torch.config.base import ServingConfig
 from repro_torch.config.base import get_arch as t_get_arch
 from repro_torch.core.types import DecodeDPState, Request, RequestPhase
@@ -51,10 +61,11 @@ def _torch_threads():
 
 
 class _Oracle:
-    """The JAX seed path: chunked dense prefill, then serial decode."""
+    """The JAX seed path: chunked dense prefill, then serial decode.
+    `cfg` defaults to reduced deepseek-7b."""
 
-    def __init__(self):
-        cfg = get_arch("deepseek-7b", reduced=True)
+    def __init__(self, cfg=None):
+        cfg = cfg or get_arch("deepseek-7b", reduced=True)
         self.cfg = cfg
         self.params = jax.jit(JM.init_params, static_argnums=0)(
             cfg, jax.random.PRNGKey(0))
@@ -69,8 +80,19 @@ class _Oracle:
                                     cache)
         return int(jnp.argmax(lg[0])), cache
 
-    def tokens(self, ids, n):
-        t0, cache = self.prefill(ids)
+    def tokens(self, ids, n, chunks=None):
+        """n tokens of the serial path; `chunks` (prefill chunk lengths)
+        replays a serve's chunk boundaries instead of 16-token chunks."""
+        if chunks is None:
+            t0, cache = self.prefill(ids)
+        else:
+            assert sum(chunks) == len(ids)
+            cache, at = JM.init_cache(self.cfg, 1, MAX_LEN), 0
+            for c in chunks:
+                lg, cache = self._chunk(self.params, jnp.asarray(
+                    [ids[at:at + c]], jnp.int32), cache)
+                at += c
+            t0 = int(jnp.argmax(lg[0]))
         toks = [t0]
         for _ in range(n - 1):
             lg, cache = self._decode(self.params,
@@ -405,6 +427,10 @@ def test_drain_during_inflight_step_is_token_exact(oracle, port, monkeypatch,
     return before any slot or page comes back, raises if the step never
     returns, and parks the pre-step snapshot: re-admitted elsewhere, the
     requests finish with the serial tokens."""
+    _check_drain_inflight(oracle, port, monkeypatch, block_size)
+
+
+def _check_drain_inflight(oracle, port, monkeypatch, block_size):
     tcfg, tparams = port
     spec = EngineSpec(tcfg, tparams, max_len=MAX_LEN, max_batch=4, max_new=6,
                       block_size=block_size, device="cpu")
@@ -543,3 +569,142 @@ def test_live_watchdog_terminates_and_conserves(oracle, port, monkeypatch,
     # the decode plane's KV accounting matches the requests it holds
     assert sum(d.kv_tokens for d in srv.state.decode_dps) == sum(
         r.input_len + r.generated for r in engines.values())
+
+
+# ---------------------------------------------------------------------------
+# SSM serving on the P/D padded plane: reduced mamba2-370m and a MoE-free
+# hybrid (reduced jamba with the layer pattern (SSM, DENSE))
+# ---------------------------------------------------------------------------
+
+def _ssm_model(name):
+    """(JAX oracle, (port cfg, port params)) on one JAX init."""
+    arch = "jamba-v0.1-52b" if name == "jamba-hybrid" else name
+    cfg = get_arch(arch, reduced=True)
+    tcfg = t_get_arch(arch, reduced=True)
+    if name == "jamba-hybrid":
+        cfg = dataclasses.replace(cfg, layer_pattern=(JLK.SSM, JLK.DENSE))
+        tcfg = dataclasses.replace(tcfg, layer_pattern=(TLK.SSM, TLK.DENSE))
+    orc = _Oracle(cfg)
+    return orc, (tcfg, params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, orc.params), device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    return _ssm_model("mamba2-370m")
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    return _ssm_model("jamba-hybrid")
+
+
+def _record_chunks(srv):
+    """Prefill chunk lengths per request, as the port's engines ran them."""
+    chunks = {}
+    for eng in srv.engines:
+        inner = eng._run_chunk
+        eng._run_chunk = (lambda req, tok, _f=inner: (
+            chunks.setdefault(req.rid, []).append(tok), _f(req, tok))[1])
+    return chunks
+
+
+def _check_ssm_pd_serve(orc, tcfg, tparams, scheduler):
+    reqs = _requests(tcfg)
+    srv = RealSBSServer(tcfg, tparams, _pd_scfg(0), scheduler=scheduler,
+                        max_len=MAX_LEN, max_new=5, device="cpu")
+    assert "ssm" in srv.spec.batch_cache()
+    chunks = _record_chunks(srv)
+    gens = srv.serve(reqs, timeout=120)
+    assert sorted(g.rid for g in gens) == [r.rid for r in reqs]
+    for g, r in zip(gens, reqs):
+        assert g.tokens == orc.tokens(list(r.tokens), r.output_len,
+                                      chunks=chunks[r.rid])
+        assert r.generated == r.output_len
+    _assert_conserved(srv, reqs)
+
+
+@pytest.mark.parametrize("scheduler", ["sbs", "sbs-la", "immediate"])
+def test_pd_ssm_server_matches_jax_oracle(mamba, scheduler):
+    """Reduced mamba2-370m behind the P/D server on the padded plane:
+    prefill chunks carry the SSM and conv state, the handoff carries it
+    to a decode row, and every token matches the JAX serial path on the
+    serve's chunk boundaries."""
+    orc, (tcfg, tparams) = mamba
+    _check_ssm_pd_serve(orc, tcfg, tparams, scheduler)
+
+
+def test_pd_hybrid_server_matches_jax_oracle(hybrid):
+    """The per-kind cache stacks side by side (K/V of the attention
+    layer, SSM state of the SSM layer) through prefill, handoff, joins
+    and decode."""
+    orc, (tcfg, tparams) = hybrid
+    _check_ssm_pd_serve(orc, tcfg, tparams, "sbs-la")
+
+
+def test_ssm_preempt_readmit_token_exact(mamba):
+    """A padded SSM row is preempted (its state and conv tails parked on
+    the bus as a batch-1 cache, its slot freed), re-admitted through the
+    join path, and finishes with the serial tokens."""
+    orc, (tcfg, tparams) = mamba
+    spec = EngineSpec(tcfg, tparams, max_len=MAX_LEN, max_batch=2, max_new=6,
+                      device="cpu")
+    bus = KVHandoffBus()
+    eng = RealDecodeEngine(0, [0], spec, bus)
+    rng = random.Random(7)
+    reqs = [Request(rid=i, arrival_time=0.0, input_len=L, output_len=6,
+                    tokens=tuple(rng.randrange(tcfg.vocab_size)
+                                 for _ in range(L)),
+                    priority=2 - 2 * i)
+            for i, L in enumerate((24, 37))]
+    want = {r.rid: orc.tokens(list(r.tokens), r.output_len) for r in reqs}
+    dps = DecodeDPState(dp_id=0, instance_id=0, block_size=0)
+    _publish(orc, tcfg, bus, dps, eng, reqs)
+    eng.start()
+    try:
+        finished = list(_step(eng, dps))      # joins both, one step
+        st = eng._dp[0]
+        victim = eng.preempt(0)
+        assert victim is reqs[0] and st.free_slot() is not None
+        parked = bus.gen(0).cache
+        assert int(parked["cur"][0]) == 25
+        assert parked["ssm"].shape[1] == 1 and parked["conv_x"].shape[1] == 1
+        finished += _step(eng, dps)           # rid 1 alone
+        eng.admit(0, reqs[0])                 # re-admission
+        while eng.has_work():
+            finished += _step(eng, dps)
+    finally:
+        eng.stop()
+        eng.join_worker(timeout=10)
+    assert sorted(r.rid for r in finished) == [0, 1]
+    for r in reqs:
+        assert bus.gen(r.rid).tokens == want[r.rid]
+    assert not st.occupied()
+
+
+def test_ssm_drain_during_inflight_step_is_token_exact(mamba, monkeypatch):
+    """The watchdog's drain of a busy padded instance with SSM rows: the
+    step returns new SSM states and leaves the ones it read intact, so
+    the parked pre-step snapshot re-joins token-exact."""
+    orc, port = mamba
+    _check_drain_inflight(orc, port, monkeypatch, 0)
+
+
+@pytest.mark.parametrize("kw", [dict(block_size=BLOCK),
+                                dict(block_size=BLOCK, mixed_batch=True),
+                                dict(block_size=0, mixed_batch=True)],
+                         ids=["pd-paged", "mixed-paged", "mixed-padded"])
+def test_ssm_paged_and_mixed_deployments_raise(mamba, kw):
+    """SSM state has no page form: a paged or mixed-batch deployment of
+    mamba2 raises ValueError in the port, as in the JAX server."""
+    from repro.serving.server import RealSBSServer as JServer
+    orc, (tcfg, tparams) = mamba
+    base = dict(num_prefill_instances=1, prefill_dp_per_instance=1,
+                num_decode_instances=1, decode_dp_per_instance=2,
+                max_batch_per_dp=4, **kw)
+    with pytest.raises(ValueError):
+        JServer(orc.cfg, orc.params, JServingConfig(**base),
+                max_len=MAX_LEN)
+    with pytest.raises(ValueError):
+        RealSBSServer(tcfg, tparams, ServingConfig(**base), max_len=MAX_LEN,
+                      device="cpu")
