@@ -6,20 +6,30 @@
 Phases (any failure exits non-zero and prints no result):
   1. build the CUDA kernels of `src/repro_torch/csrc` (sm_90a) and print
      the build time;
-  2. paged decode attention (kernel #1) against its plain PyTorch version
-     at the serving path's shapes (H=K=32, hd=128, bs=16, bf16) and at
-     G>1 (H=32, K=8): ragged live lengths, rows whose table is all -1,
-     garbage in the null block;
+  2. paged decode attention (kernel #1, split-K over pages) against its
+     plain PyTorch version at the serving path's shapes (H=K=32, hd=128,
+     bs=16, bf16) and at G>1 (H=32, K=8): ragged live lengths, rows whose
+     table is all -1, garbage in the null block; and at the split
+     design's edges (rows of 1 token, 1 page, mid-page and the full
+     68-entry table, so that some splits are empty; an all -1 row, which
+     must be exactly 0; G = 1, 4 and 8; hd 64 and 128; bf16 and fp32);
   3. dense decode attention (kernel #3) against its plain version: the
      padded plane's shape (4 rows of 1088, H=K=32, hd=128, mixed live
      lengths and an idle row) in bf16 and fp32, G=4 (H=32, K=8), and a
      wrapped sliding-window ring (pos > S, window = S) with a row that
      has no valid key;
-  4. flash prefill (kernel #2), both entries, against their plain
-     versions: the paged entry with a chunk that starts mid-page over a
-     prefix read through shared pages, the contiguous entry on packed
-     segments with padding and at `attn_extend`'s shape (one 256-token
-     chunk inside a 1088-long cache whose tail is empty);
+  4. flash prefill (kernel #2: tensor cores in bf16, FMA in fp32), both
+     entries, against their plain versions: the paged entry with a chunk
+     that starts mid-page over a prefix read through shared pages, the
+     contiguous entry on packed segments with padding and at
+     `attn_extend`'s shape (one 256-token chunk inside a 1088-long cache
+     whose tail is empty); and at the tensor-core design's edges: ragged
+     chunks of 117, 199 and 240 tokens, rows whose K/V tiles are all
+     skipped (an all -1 table, an empty cache: exactly 0), wrapped
+     sliding-window rings with a window, G = 1 and 4, hd 64 and 128,
+     and packed segments that one warp or key tile spans while every
+     key passes the position masks (448 one-token segments at position
+     0; chunks that start at nonzero positions);
   5. mixed serve: full-width deepseek-7b (random bf16 weights from a
      seed) behind `RealSBSServer` (unified mixed-batch plane, sbs-la, 2
      DP units, 16-token pages) answers 8 requests of 128-1024 prompt
@@ -48,21 +58,25 @@ Phases (any failure exits non-zero and prints no result):
   7. report: one JSON line per serve (TTFT/ITL, launches per step, a
      profile of device time by kernel group and the idle share), the
      P/D and SSM serves' figures each on a line of its own, one JSON
-     line with the kernels (time per launch, launches on their path's
-     serve, bound), the card's name and power limit, and the contract
-     line last.
+     line with the kernels (device and wall time per call, launches on
+     their path's serve, bound), the card's name and power limit, and
+     the contract line last.
 
 Launch counts are set to 0 just before each serve and read just after,
 so each kernel's `launches` is its count on its own path's serve.
 
-The kernels are timed with CUDA events over launches that rotate through
+The kernels are timed with CUDA events over calls that rotate through
 several copies of the inputs (more than the 50 MB L2), as a serving step
-finds them cold.  `bound_ms` is the larger of the bytes the call must
-move over 3.35 TB/s and its flops over 989 TFLOP/s (bf16 dense), counted
-from this run's inputs.  `library_ms` times
-torch.nn.functional.scaled_dot_product_attention on the pre-gathered K/V
-as a yardstick only; the port never calls it.  The SSD kernel has none
-(null): no single PyTorch call computes its function.
+finds them cold, twice (`time_ms`): `wall_ms` over calls the host issues
+back to back, so a call costs the larger of its host issue and its
+device time, and `ms` over the same calls queued behind a device-side
+spin, so the events time only the card.  `bound_ms` is the larger of the
+bytes the call must move over 3.35 TB/s and its flops over 989 TFLOP/s
+(bf16 dense), counted from this run's inputs.  `library_ms` and
+`library_wall_ms` time torch.nn.functional.scaled_dot_product_attention
+on the pre-gathered K/V the same two ways, as a yardstick only; the port
+never calls it.  The SSD kernel has none (null): no single PyTorch call
+computes its function.
 """
 from __future__ import annotations
 
@@ -99,20 +113,53 @@ PD_CHUNK = 256                     # prefill chunk of the P/D serve
 # helpers
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, n_inputs: int, iters: int = 20) -> float:
-    """Mean ms per call of fn(i), rotating i over n_inputs input copies."""
+_SPIN = {}
+
+
+def _spin_cycles_per_ms() -> float:
+    """Device clock cycles per ms of `torch.cuda._sleep`, measured once."""
+    import torch
+    if "c" not in _SPIN:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        stop.record()
+        torch.cuda.synchronize()
+        _SPIN["c"] = 20_000_000 / start.elapsed_time(stop)
+    return _SPIN["c"]
+
+
+def time_ms(fn, n_inputs: int, iters: int = 20):
+    """(device ms, wall ms) per call of fn(i), rotating i over n_inputs
+    input copies.  Wall: the calls issued back to back by the host and
+    timed by events around them, so a call costs the larger of its host
+    issue (a wrapper's Python checks, the binding, the launches) and its
+    device time.  Device: the same calls queued behind a device-side
+    spin long enough for the host to issue all of them, so the events
+    time only the card's work."""
     import torch
     for i in range(min(3, n_inputs)):
         fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for it in range(iters):
         fn(it % n_inputs)
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    host_ms = (time.perf_counter() - t0) * 1e3
+    wall = start.elapsed_time(stop) / iters
+    torch.cuda._sleep(int(_spin_cycles_per_ms() * (2 * host_ms + 2)))
+    start.record()
+    for it in range(iters):
+        fn(it % n_inputs)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters, wall
 
 
 def bound(nbytes: float, flops: float):
@@ -151,7 +198,9 @@ def compare(tag, out, ref, errs):
 
 def report_timing(tag, r):
     print(f"{tag} timed at {r['shape']}: ms={r['ms']!r} "
-          f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
+          f"wall_ms={r['wall_ms']!r} plain_ms={r['plain_ms']!r} "
+          f"library_ms={r['library_ms']!r} "
+          f"library_wall_ms={r['library_wall_ms']!r} "
           f"bound_ms={r['bound_ms']!r} ({r['bound_by']})", flush=True)
 
 
@@ -220,29 +269,84 @@ def decode_work(q, k_pool, tab, kv_pos, pos):
     return nbytes, flops
 
 
+def paged_rows_case(lens, H, K, hd, device, seed, dt, Sq=None):
+    """A pool of MAX_BATCH·MAX_LEN/BLOCK (+1) pages and a 68-entry table
+    per row, row b holding positions 0..lens[b]-1 in its first pages (0 =
+    a table of -1 only); unallocated pages and the null block hold
+    garbage positions.  q is (B, H, hd), or (B, Sq, H, hd) if Sq."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B, nbt = len(lens), MAX_LEN // BLOCK
+    N = MAX_BATCH * MAX_LEN // BLOCK + 1
+    kv_pos = torch.randint(0, 2048, (N, BLOCK), generator=g,
+                           dtype=torch.int32)
+    tab = torch.full((B, nbt), -1, dtype=torch.int32)
+    free = (torch.randperm(N - 1, generator=g) + 1).tolist()
+    for b, n in enumerate(lens):
+        for j in range(-(-n // BLOCK)):
+            phys = free.pop()
+            tab[b, j] = phys
+            r = torch.arange(BLOCK, dtype=torch.int32) + j * BLOCK
+            kv_pos[phys] = torch.where(r < n, r, -1)
+    shape = (B, H, hd) if Sq is None else (B, Sq, H, hd)
+    q = (torch.randn(shape, generator=g) * 0.5).to(dt)
+    kp = (torch.randn(N, BLOCK, K, hd, generator=g) * 0.5).to(dt)
+    vp = (torch.randn(N, BLOCK, K, hd, generator=g) * 0.5).to(dt)
+    to = dict(device=device)
+    return q.to(**to), kp.to(**to), vp.to(**to), kv_pos.to(**to), tab.to(**to)
+
+
+def check_zero(tag, rows):
+    """A fully masked row must come out exactly 0."""
+    if rows.numel() and float(rows.abs().max()) != 0.0:
+        raise AssertionError(f"{tag}: a fully masked row is not exactly 0")
+
+
+# rows of the redesign's edge cases for kernel #1: 1 token, 1 page,
+# mid-page, the full 68-entry table (so that some of a short row's
+# splits are empty), an all -1 table (exactly 0), a long row
+DECODE_EDGE_LENS = [1, BLOCK, 37, MAX_LEN, 0, 700]
+
+
 def check_decode(device):
     import torch
     from repro_torch.kernels.decode_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        decode_splits, paged_decode_attention, paged_decode_attention_plain)
     out = {"errs": []}
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device != "cpu" else 132)          # "cpu": a rehearsal
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for i, (H, K, hd, dt) in enumerate((
+            (32, 32, 128, bf16), (32, 32, 128, fp32), (32, 8, 128, bf16),
+            (32, 4, 128, bf16), (32, 4, 128, fp32), (16, 16, 64, bf16))):
+        lens = DECODE_EDGE_LENS
+        q, kp, vp, kvp, tab = paged_rows_case(lens, H, K, hd, device,
+                                              80 + i, dt)
+        pos = torch.tensor([n - 1 if n else 40 for n in lens],
+                           dtype=torch.int32, device=device)
+        got = paged_decode_attention(q, kp, vp, kvp, tab, pos)
+        ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                           kvp, tab, pos)
+        tag = (f"[decode] edges H={H} K={K} hd={hd} rows={lens} "
+               f"splits={decode_splits(len(lens), K, tab.shape[1], sms)}")
+        check_zero(tag, got[4])
+        compare(tag, got, ref, out["errs"])
     for H, K, dt in ((32, 32, torch.bfloat16), (32, 8, torch.bfloat16),
                      (32, 32, torch.float32)):
         q, kp, vp, kvp, tab, pos = decode_case(H, K, 128, device, H + K, dt)
         got = paged_decode_attention(q, kp, vp, kvp, tab, pos)
         ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
                                            kvp, tab, pos)
-        masked_rows = (tab < 0).all(dim=1)
-        if got[masked_rows].abs().max() != 0:
-            raise AssertionError("a row with an all -1 table is not 0")
+        check_zero("[decode] all -1 table", got[(tab < 0).all(dim=1)])
         compare(f"[decode] H={H} K={K}", got, ref, out["errs"])
         if (H, K, dt) != (32, 32, torch.bfloat16):
             continue
         # main-path shape: time kernel, plain and the SDPA yardstick
         n = 4
         kps, vps = copies(kp, n), copies(vp, n)
-        out["ms"] = time_ms(lambda i: paged_decode_attention(
+        out["ms"], out["wall_ms"] = time_ms(lambda i: paged_decode_attention(
             q, kps[i], vps[i], kvp, tab, pos), n, iters=50)
-        out["plain_ms"] = time_ms(lambda i: paged_decode_attention_plain(
+        out["plain_ms"], _ = time_ms(lambda i: paged_decode_attention_plain(
             q, kps[i], vps[i], kvp, tab, pos), n, iters=10)
         from repro_torch.models.attention import gather_paged, gather_paged_pos
         kg = [gather_paged(k, tab).transpose(1, 2).contiguous() for k in kps]
@@ -251,7 +355,7 @@ def check_decode(device):
         mask = ((kvg >= 0) & (kvg <= pos[:, None]))[:, None, None, :]
         qs = q[:, :, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        out["library_ms"] = time_ms(
+        out["library_ms"], out["library_wall_ms"] = time_ms(
             lambda i: sdpa(qs, kg[i], vg[i], attn_mask=mask), n, iters=50)
         nbytes, flops = decode_work(q.cpu(), kp, tab.cpu(), kvp.cpu(),
                                     pos.cpu())
@@ -349,16 +453,16 @@ def check_dense_decode(device):
                                              device, 40, bf16)
     n = 4
     kcs, vcs = copies(kc, n), copies(vc, n)
-    out["ms"] = time_ms(lambda i: decode_attention(
+    out["ms"], out["wall_ms"] = time_ms(lambda i: decode_attention(
         q, kcs[i], vcs[i], kvp, posn), n, iters=50)
-    out["plain_ms"] = time_ms(lambda i: decode_attention_plain(
+    out["plain_ms"], _ = time_ms(lambda i: decode_attention_plain(
         q, kcs[i], vcs[i], kvp, posn), n, iters=10)
     kt = [k.transpose(1, 2).contiguous() for k in kcs]
     vt = [v.transpose(1, 2).contiguous() for v in vcs]
     mask = dense_valid(kvp, posn, 0)[:, None, None, :]
     qs = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out["library_ms"] = time_ms(
+    out["library_ms"], out["library_wall_ms"] = time_ms(
         lambda i: sdpa(qs, kt[i], vt[i], attn_mask=mask), n, iters=50)
     nbytes, flops = dense_decode_work(q.cpu(), kc, kvp.cpu(), posn.cpu(), 0)
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
@@ -434,10 +538,32 @@ def check_paged_prefill(device):
     from repro_torch.models.attention import (
         build_mask, gather_paged, gather_paged_pos)
     out = {"errs": []}
+    # the redesign's edges: ragged chunks (117, 199, 240 tokens) starting
+    # mid-page at a long position, a shorter row padded with repeats of
+    # its last position, and a row whose table is all -1 (every K/V tile
+    # skipped, output exactly 0); G = 1 and 4, hd 64 and 128
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for i, (Sc, H, K, hd, dt) in enumerate((
+            (117, 32, 32, 128, bf16), (199, 32, 8, 128, bf16),
+            (240, 32, 8, 128, fp32), (240, 16, 16, 64, bf16),
+            (199, 16, 4, 64, fp32))):
+        p0 = 49 * BLOCK + 5
+        lens = [p0 + Sc, 300 + Sc - 40, 0]
+        q, kp, vp, kvp, tab = paged_rows_case(lens, H, K, hd, device,
+                                              90 + i, dt, Sq=Sc)
+        posn = torch.stack([(p + torch.arange(Sc)).clamp(max=p + sc - 1)
+                            for p, sc in ((p0, Sc), (300, Sc - 40),
+                                          (300, Sc))])
+        posn = posn.to(torch.int32).to(device)
+        got = paged_prefill_attention(q, kp, vp, kvp, tab, posn)
+        ref = paged_prefill_attention_plain(q.float(), kp.float(), vp.float(),
+                                            kvp, tab, posn)
+        tag = f"[paged prefill] edges Sc={Sc} H={H} K={K} hd={hd}"
+        check_zero(tag, got[2])
+        compare(tag, got, ref, out["errs"])
     two = [(13 * BLOCK + 5, 240), (9 * BLOCK + 11, 117)]
     # the main path's shape: one row, a 240-token chunk at a long position
     one = [(49 * BLOCK + 5, 240)]
-    bf16, fp32 = torch.bfloat16, torch.float32
     for H, K, rows, dt, seed in ((32, 32, two, bf16, 1024),
                                  (32, 8, two, bf16, 256),
                                  (32, 32, one, fp32, 7),
@@ -452,9 +578,9 @@ def check_paged_prefill(device):
     # time the last case (bf16, the main path's shape)
     n = 4
     kps, vps = copies(kp, n), copies(vp, n)
-    out["ms"] = time_ms(lambda i: paged_prefill_attention(
+    out["ms"], out["wall_ms"] = time_ms(lambda i: paged_prefill_attention(
         q, kps[i], vps[i], kvp, tab, posn), n, iters=30)
-    out["plain_ms"] = time_ms(lambda i: paged_prefill_attention_plain(
+    out["plain_ms"], _ = time_ms(lambda i: paged_prefill_attention_plain(
         q, kps[i], vps[i], kvp, tab, posn), n, iters=10)
     kg = [gather_paged(k, tab).transpose(1, 2).contiguous() for k in kps]
     vg = [gather_paged(v, tab).transpose(1, 2).contiguous() for v in vps]
@@ -462,7 +588,7 @@ def check_paged_prefill(device):
     mask = build_mask(posn, kvg, causal=True)[:, None]
     qt = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out["library_ms"] = time_ms(
+    out["library_ms"], out["library_wall_ms"] = time_ms(
         lambda i: sdpa(qt, kg[i], vg[i], attn_mask=mask), n, iters=30)
     nbytes, flops = paged_prefill_work(q.cpu(), kp, kvp.cpu(), tab.cpu(),
                                        posn.cpu())
@@ -472,17 +598,21 @@ def check_paged_prefill(device):
     return out
 
 
-def packed_case(H, K, hd, device, seed, dt, B=2, S=512):
-    """Packed varlen chunk: two segments and padding per row."""
+def packed_case(H, K, hd, device, seed, dt, B=2, S=512, lens=(200, 250),
+                starts=(0, 0)):
+    """Packed varlen chunk: segment i holds positions starts[i] ..
+    starts[i] + lens[i] - 1, then padding, in every row."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
-    lens = (200, 250)
-    pos = torch.cat([torch.arange(lens[0]), torch.arange(lens[1]),
-                     torch.zeros(S - sum(lens), dtype=torch.int64)])
-    seg = torch.cat([torch.zeros(lens[0]), torch.ones(lens[1]),
-                     -torch.ones(S - sum(lens))])
-    pos = pos.to(torch.int32).repeat(B, 1)
-    seg = seg.to(torch.int32).repeat(B, 1)
+    pos = torch.zeros(S, dtype=torch.int32)
+    seg = torch.full((S,), -1, dtype=torch.int32)
+    at = 0
+    for i, (n, p0) in enumerate(zip(lens, starts)):
+        pos[at:at + n] = p0 + torch.arange(n, dtype=torch.int32)
+        seg[at:at + n] = i
+        at += n
+    pos = pos.repeat(B, 1)
+    seg = seg.repeat(B, 1)
     q = (torch.randn(B, S, H, hd, generator=g) * 0.5).to(dt)
     k = (torch.randn(B, S, K, hd, generator=g) * 0.5).to(dt)
     v = (torch.randn(B, S, K, hd, generator=g) * 0.5).to(dt)
@@ -505,6 +635,24 @@ def check_flash_prefill(device):
             raise AssertionError("padding rows of the packed chunk are not 0")
         compare(f"[flash prefill] H={H} K={K} packed 200+250+pad", got, ref,
                 out["errs"])
+    # warps and key tiles that span several segments, every key valid by
+    # position for every query: only the segment mask separates them
+    # (448 one-token segments at position 0; four chunks from 0 and four
+    # that start past them)
+    segs = (("448 one-token segments at 0", [1] * 448, [0] * 448),
+            ("chunks at 0,0,0,0,700,300,64,7",
+             [16, 16, 16, 16, 100, 120, 90, 60], [0, 0, 0, 0, 700, 300, 64, 7]))
+    for H, K, dt in ((32, 32, torch.bfloat16), (32, 8, torch.bfloat16),
+                     (32, 32, torch.float32)):
+        for name, lens, starts in segs:
+            q, k, v, pos, seg = packed_case(H, K, 128, device, H + K, dt,
+                                            lens=lens, starts=starts)
+            got = flash_prefill(q, k, v, pos, pos, seg, seg)
+            ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos,
+                                      pos, seg, seg)
+            tag = f"[flash prefill] segments H={H} K={K} {name}"
+            check_zero(tag, got[seg < 0])
+            compare(tag, got, ref, out["errs"])
     # attn_extend's shape: one 256-token chunk at positions 512..767 over
     # a 1088-long dense cache whose tail is empty (the chunk written)
     for dt in (torch.bfloat16, torch.float32):
@@ -514,19 +662,41 @@ def check_flash_prefill(device):
                                   qs, ks)
         compare("[flash prefill] attn_extend chunk 256 at 512 of 1088", got,
                 ref, out["errs"])
+    # the redesign's edges: ragged chunks over a cache with an empty tail,
+    # wrapped sliding-window rings (window < S and = S), G = 1 and 4, hd 64
+    # and 128; row 1's cache is all empty (every K/V tile skipped, output
+    # exactly 0)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for i, (Sc, p0, S, window, H, K, hd, dt) in enumerate((
+            (117, 40, 320, 0, 32, 32, 128, bf16),
+            (199, 0, 264, 0, 32, 8, 128, bf16),
+            (240, 512, MAX_LEN, 0, 16, 4, 64, bf16),
+            (117, 500, 128, 96, 32, 8, 128, bf16),
+            (240, 900, 256, 256, 32, 32, 128, bf16),
+            (199, 500, 128, 96, 16, 16, 64, fp32))):
+        q, k, v, qp, kvp, qs, ks = extend_case(device, 30 + i, dt, S=S, p0=p0,
+                                               Sc=Sc, H=H, K=K, hd=hd, B=2)
+        kvp[1] = -1
+        got = flash_prefill(q, k, v, qp, kvp, qs, ks, True, window)
+        ref = flash_prefill_plain(q.float(), k.float(), v.float(), qp, kvp,
+                                  qs, ks, True, window)
+        tag = (f"[flash prefill] edges Sq={Sc} at {p0} over S={S} "
+               f"window={window} H={H} K={K} hd={hd}")
+        check_zero(tag, got[1])
+        compare(tag, got, ref, out["errs"])
     q, k, v, qp, kvp, qs, ks = extend_case(device, 17, torch.bfloat16)
     n = 4
     kk, vv = copies(k, n), copies(v, n)
-    out["ms"] = time_ms(lambda i: flash_prefill(
+    out["ms"], out["wall_ms"] = time_ms(lambda i: flash_prefill(
         q, kk[i], vv[i], qp, kvp, qs, ks), n, iters=30)
-    out["plain_ms"] = time_ms(lambda i: flash_prefill_plain(
+    out["plain_ms"], _ = time_ms(lambda i: flash_prefill_plain(
         q, kk[i], vv[i], qp, kvp, qs, ks), n, iters=10)
     mask = build_mask(qp, kvp, qs, ks, True)
     kt = [t.transpose(1, 2).contiguous() for t in kk]
     vt = [t.transpose(1, 2).contiguous() for t in vv]
     qt = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out["library_ms"] = time_ms(
+    out["library_ms"], out["library_wall_ms"] = time_ms(
         lambda i: sdpa(qt, kt[i], vt[i], attn_mask=mask[:, None]), n,
         iters=30)
     esz = q.element_size()
@@ -541,21 +711,24 @@ def check_flash_prefill(device):
     return out
 
 
-def extend_case(device, seed, dt, S=MAX_LEN, p0=512, Sc=256):
+def extend_case(device, seed, dt, S=MAX_LEN, p0=512, Sc=256, H=32, K=32,
+                hd=128, B=1):
     """`attn_extend`'s call: q at positions p0..p0+Sc-1, K/V of the whole
-    dense cache, kv_pos 0..p0+Sc-1 then -1, segments all 0."""
+    dense cache written up to the chunk's end (position t at index t % S:
+    the empty tail of a long cache, a ring once p0 + Sc > S), segments
+    all 0."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
-    H = K = 32
-    hd = 128
-    qp = (p0 + torch.arange(Sc, dtype=torch.int32))[None]
-    idx = torch.arange(S, dtype=torch.int32)
-    kvp = torch.where(idx < p0 + Sc, idx, -1)[None]
-    q = (torch.randn(1, Sc, H, hd, generator=g) * 0.5).to(dt)
-    k = (torch.randn(1, S, K, hd, generator=g) * 0.5).to(dt)
-    v = (torch.randn(1, S, K, hd, generator=g) * 0.5).to(dt)
-    zq = torch.zeros(1, Sc, dtype=torch.int32)
-    zk = torch.zeros(1, S, dtype=torch.int32)
+    qp = (p0 + torch.arange(Sc, dtype=torch.int32)).repeat(B, 1)
+    kvp = torch.full((S,), -1, dtype=torch.int32)
+    t = torch.arange(max(0, p0 + Sc - S), p0 + Sc, dtype=torch.int32)
+    kvp[t % S] = t
+    kvp = kvp.repeat(B, 1)
+    q = (torch.randn(B, Sc, H, hd, generator=g) * 0.5).to(dt)
+    k = (torch.randn(B, S, K, hd, generator=g) * 0.5).to(dt)
+    v = (torch.randn(B, S, K, hd, generator=g) * 0.5).to(dt)
+    zq = torch.zeros(B, Sc, dtype=torch.int32)
+    zk = torch.zeros(B, S, dtype=torch.int32)
     return [t.to(device) for t in (q, k, v, qp, kvp, zq, zk)]
 
 
@@ -630,11 +803,12 @@ def check_ssd(device):
     xs = copies(x, n)
     bcs = [torch.cat([Bm, Cm], -1).clone() for _ in range(n)]
     ds = Bm.shape[-1]
-    out["ms"] = time_ms(lambda i: ssd_chunk(
+    out["ms"], out["wall_ms"] = time_ms(lambda i: ssd_chunk(
         xs[i], dtv, A, bcs[i][..., :ds], bcs[i][..., ds:]), n, iters=80)
-    out["plain_ms"] = time_ms(lambda i: ssd_chunk_plain(
+    out["plain_ms"], _ = time_ms(lambda i: ssd_chunk_plain(
         xs[i], dtv, A, bcs[i][..., :ds], bcs[i][..., ds:]), n, iters=10)
     out["library_ms"] = None      # no single PyTorch call computes it
+    out["library_wall_ms"] = None
     out["bound_ms"], out["bound_by"] = bound(*ssd_work(x, dtv, A, Bm, Cm))
     out["shape"] = ("B=1 nc=1 Q=256 nh=32 hp=64 ds=128, x/B/C bf16 "
                     "(B and C strided slices of one [B|C] tensor)")
@@ -990,7 +1164,7 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
 
 
 def _kernel_group(name: str) -> str:
-    if "paged_decode_kernel" in name:
+    if "paged_decode" in name:          # the split kernel and the merge
         return "paged_decode_attention"
     if "dense_decode_kernel" in name:
         return "decode_attention"
@@ -1055,8 +1229,9 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm):
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=n, **errs(r["errs"]), rel_tol=REL_TOL,
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            ms=r["ms"], wall_ms=r["wall_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], library_wall_ms=r["library_wall_ms"],
             path=path, launches_per_decode_step=n / steps, shape=r["shape"],
             **extra)
 

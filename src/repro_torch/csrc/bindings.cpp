@@ -37,7 +37,7 @@ at::Tensor paged_decode_attention(const at::Tensor& q,
                                   const at::Tensor& kv_pos_pool,
                                   const at::Tensor& block_tab,
                                   const at::Tensor& pos, int64_t window,
-                                  double scale) {
+                                  double scale, int64_t n_split) {
   const auto st = q.scalar_type();
   check(q, "q", st);
   check(k_pool, "k_pool", st);
@@ -47,14 +47,22 @@ at::Tensor paged_decode_attention(const at::Tensor& q,
   check(pos, "pos", at::kInt);
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor out = at::empty_like(q);
+  // the splits' fp32 partials (m, l) and acc; unused with one split
+  const auto f32 = q.options().dtype(at::kFloat);
+  const int64_t parts = n_split > 1 ? q.size(0) * q.size(1) * n_split : 0;
+  at::Tensor part_ml = at::empty({parts, 2}, f32);
+  at::Tensor part_acc = at::empty({parts, q.size(2)}, f32);
   check_launch(
       launch_paged_decode_attention(
           q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
           kv_pos_pool.data_ptr<int>(), block_tab.data_ptr<int>(),
-          pos.data_ptr<int>(), out.data_ptr(), q.size(0), q.size(1),
-          k_pool.size(2), q.size(2), k_pool.size(1), block_tab.size(1),
-          window, static_cast<float>(scale),
-          dtype_code(q), at::cuda::getCurrentCUDAStream()),
+          pos.data_ptr<int>(), out.data_ptr(),
+          parts ? part_ml.data_ptr<float>() : nullptr,
+          parts ? part_acc.data_ptr<float>() : nullptr, q.size(0),
+          q.size(1), k_pool.size(2), q.size(2), k_pool.size(1),
+          block_tab.size(1), static_cast<int>(n_split), window,
+          static_cast<float>(scale), dtype_code(q),
+          at::cuda::getCurrentCUDAStream()),
       "paged_decode_attention");
   return out;
 }

@@ -49,30 +49,6 @@ namespace {
 constexpr int kDenseThreads = 256;
 constexpr int kDenseMaxG = 8;    // query heads per kv head one CTA handles
 
-// 16 raw bytes of K or V, widened to fp32 on use.
-template <typename T>
-__device__ __forceinline__ void widen(const uint4& raw, float* o);
-
-template <>
-__device__ __forceinline__ void widen<float>(const uint4& raw, float* o) {
-  o[0] = __uint_as_float(raw.x);
-  o[1] = __uint_as_float(raw.y);
-  o[2] = __uint_as_float(raw.z);
-  o[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& raw,
-                                                     float* o) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
 template <typename T, int HD, int GMAX>
 __global__ void __launch_bounds__(kDenseThreads)
 dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,

@@ -14,12 +14,17 @@ enum KernelDtype { kFloat32 = 0, kBFloat16 = 1 };
 
 // Paged decode attention: q (B,H,hd); pools (N,bs,K,hd); kv_pos_pool
 // (N,bs) int32; block_tab (B,nbt) int32 (-1 = unset); pos (B,) int32;
-// out (B,H,hd).  Replaces paged_decode_attention_pallas.
+// out (B,H,hd).  Each row's table is cut into n_split ranges of
+// ceil(nbt / n_split) entries (each non-empty); with n_split > 1 the
+// splits' fp32 partials go to part_ml (B,H,n_split,2) and part_acc
+// (B,H,n_split,hd), and a second kernel merges them into out.
+// Replaces paged_decode_attention_pallas.
 cudaError_t launch_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const int* kv_pos_pool, const int* block_tab, const int* pos, void* out,
-    int B, int H, int K, int hd, int bs, int nbt, int window, float scale,
-    int dtype, cudaStream_t stream);
+    float* part_ml, float* part_acc, int B, int H, int K, int hd, int bs,
+    int nbt, int n_split, int window, float scale, int dtype,
+    cudaStream_t stream);
 
 // Dense decode attention: q (B,H,hd); k/v caches (B,S,K,hd); kv_pos
 // (B,S) int32 (-1 = empty); pos (B,) int32; out (B,H,hd).  Walks cache
@@ -32,7 +37,10 @@ cudaError_t launch_decode_attention(
 
 // Packed-varlen flash attention over contiguous K/V: q (B,Sq,H,hd);
 // k/v (B,Skv,K,hd); q_pos/q_seg (B,Sq), kv_pos/kv_seg (B,Skv) int32
-// (segment -1 = pad, kv_pos < 0 = empty); out (B,Sq,H,hd).
+// (segment -1 = pad, kv_pos < 0 = empty); out (B,Sq,H,hd).  bf16 runs
+// on the tensor cores, fp32 by FMA.  The bf16 body keeps one byte per
+// 32 keys in shared memory beside ~158 KB of tiles, so it takes up to
+// about 2.2M keys (nbt * bs on the paged entry).
 // Replaces flash_prefill_pallas.
 cudaError_t launch_flash_prefill(
     const void* q, const void* k, const void* v,

@@ -10,13 +10,19 @@ Replaces `repro/kernels/decode_attention/kernel.py`:
     (`repro_torch/csrc/decode_attention.cu`): one query token per row
     over a dense (B, S, K, hd) cache, a ring for sliding-window models.
 
-Both kernels are bound by the bytes of each row's live K/V; one CTA per
-(kv head, row) walks only the row's live entries with an fp32 online
-softmax — see the source notes.  Each wrapper launches its kernel for
-CUDA tensors and takes the plain version only for CPU tensors;
-`<wrapper>.launches` counts kernel launches.
+Both kernels are bound by the bytes of each row's live K/V and walk
+only the row's live entries with an fp32 online softmax — see the
+source notes.  The dense kernel gives each (kv head, row) one CTA; the
+paged kernel also splits each row's table into `decode_splits(B, K,
+nbt, SMs)` ranges, one CTA each, whose partials a second small kernel
+merges, so one call of `paged_decode_attention` launches two kernels
+(one when there is a single split).  Each wrapper launches its kernel
+for CUDA tensors and takes the plain version only for CPU tensors;
+`<wrapper>.launches` counts the wrapper's calls that launched.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,6 +34,30 @@ from repro_torch.models.attention import (
 HEAD_DIMS = (64, 128)       # head dims the kernel is instantiated for
 MAX_GROUP = 8               # query heads per kv head one CTA handles
 DTYPES = (torch.float32, torch.bfloat16)
+H100_SM_COUNT = 132         # streaming multiprocessors of an H100 SXM
+SPLIT_CTAS_PER_SM = 8       # two waves of four resident CTAs per SM
+MIN_SPLIT_BLOCKS = 4        # table entries a split takes at least
+
+
+def decode_splits(B: int, K: int, nbt: int,
+                  sm_count: int = H100_SM_COUNT) -> int:
+    """Number of ranges the paged decode kernel cuts each row's block
+    table into, from the shapes alone (never from `pos`: reading it
+    would sync the host once per layer).  Enough (kv head, row, split)
+    CTAs to give each of `sm_count` SMs `SPLIT_CTAS_PER_SM`, no split
+    under `MIN_SPLIT_BLOCKS` table entries (one split when the table is
+    shorter), and every split owns at least one entry: the splits are
+    ranges of `per` entries and the last one starts before nbt."""
+    if nbt <= 0:
+        raise ValueError(f"nbt must be positive, got {nbt}")
+    want = -(-SPLIT_CTAS_PER_SM * sm_count // max(B * K, 1))
+    per = max(MIN_SPLIT_BLOCKS, -(-nbt // want))
+    return -(-nbt // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, kv_pos_pool, block_tab,
@@ -79,8 +109,9 @@ def check_args(q, k_pool, v_pool, kv_pos_pool, block_tab, pos) -> None:
     N, bs = k_pool.shape[:2]
     if tuple(kv_pos_pool.shape) != (N, bs):
         raise ValueError(f"kv_pos_pool must be {(N, bs)}")
-    if block_tab.dim() != 2 or block_tab.shape[0] != B:
-        raise ValueError(f"block_tab must be ({B}, nbt)")
+    if block_tab.dim() != 2 or block_tab.shape[0] != B \
+            or block_tab.shape[1] == 0:
+        raise ValueError(f"block_tab must be ({B}, nbt) with nbt > 0")
     if tuple(pos.shape) != (B,):
         raise ValueError(f"pos must be ({B},)")
 
@@ -96,9 +127,11 @@ def paged_decode_attention(q, k_pool, v_pool, kv_pos_pool, block_tab, pos,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     check_args(q, k_pool, v_pool, kv_pos_pool, block_tab, pos)
+    n_split = decode_splits(q.shape[0], k_pool.shape[2], block_tab.shape[1],
+                            _sm_count(q.device))
     out = load_kernels().paged_decode_attention(
         q, k_pool, v_pool, kv_pos_pool, block_tab, pos, int(window),
-        q.shape[-1] ** -0.5)
+        q.shape[-1] ** -0.5, n_split)
     paged_decode_attention.launches += 1
     return out
 

@@ -8,8 +8,11 @@ and the gather + attend of `attn_extend_paged`
 prefill chunk whose K/V are read through the block table, which is the
 entry the serving path runs).  The kernel
 (`repro_torch/csrc/flash_prefill.cu`) tiles K/V through shared memory
-with an fp32 online softmax and never writes a (Sq, Skv) matrix to
-device memory — see the source note.
+with an fp32 online softmax, skips from the data every K/V tile no
+query of a tile can attend to, and never writes a (Sq, Skv) matrix to
+device memory.  bf16 inputs run both products on the tensor cores
+(mma.sync, K/V tiles streamed in by cp.async); fp32 inputs run an FMA
+body, so the fp32 path keeps its 1e-4 agreement — see the source note.
 
 Each wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; `<wrapper>.launches` counts launches.
@@ -25,6 +28,9 @@ from repro_torch.models.attention import (
 
 HEAD_DIMS = (64, 128)       # head dims the kernel is instantiated for
 DTYPES = (torch.float32, torch.bfloat16)
+# keys the bf16 body walks at most (Skv, or nbt * bs on the paged entry):
+# it keeps one byte per 32 keys in shared memory beside its tiles
+MAX_BF16_KEYS = 1 << 21
 
 
 def flash_prefill_plain(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
@@ -72,6 +78,10 @@ def _check_common(q, kv, ints) -> None:
             raise ValueError("all inputs must be contiguous")
         if t.device != q.device:
             raise ValueError(f"input on {t.device}, q on {q.device}")
+    for t in (q, *kv):
+        if t.data_ptr() % 16:
+            raise ValueError("q, K and V must be 16-byte aligned (rows are "
+                             "copied 16 bytes at a time)")
 
 
 def check_flash_args(q, k, v, q_pos, kv_pos, q_seg, kv_seg) -> None:
@@ -87,6 +97,7 @@ def check_flash_args(q, k, v, q_pos, kv_pos, q_seg, kv_seg) -> None:
                            ("kv_seg", kv_seg, (B, Skv))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}")
+    _check_keys(q, Skv)
 
 
 def check_paged_args(q, k_pool, v_pool, kv_pos_pool, block_tab,
@@ -103,6 +114,13 @@ def check_paged_args(q, k_pool, v_pool, kv_pos_pool, block_tab,
         raise ValueError(f"block_tab must be ({B}, nbt)")
     if tuple(positions.shape) != (B, Sq):
         raise ValueError(f"positions must be {(B, Sq)}")
+    _check_keys(q, block_tab.shape[1] * bs)
+
+
+def _check_keys(q, n_keys: int) -> None:
+    if q.dtype == torch.bfloat16 and n_keys > MAX_BF16_KEYS:
+        raise ValueError(f"{n_keys} keys: the bf16 kernel walks at most "
+                         f"{MAX_BF16_KEYS}")
 
 
 def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,

@@ -152,6 +152,202 @@ def test_flash_prefill_kernel_matches_plain(dev, dtype, causal, window):
     assert float(out[:, 85:].abs().max()) == 0.0     # padding rows
 
 
+# ---------------------------------------------------------------------------
+# kernel #2 (tensor cores in bf16, FMA in fp32) at its design's edges:
+# ragged chunks, K/V tiles skipped from the data, fully masked rows
+# ---------------------------------------------------------------------------
+
+def _extend_case(g, Sq, p0, S, K, hd, dtype, dev, H):
+    """`attn_extend`'s call, two rows: q at positions p0..p0+Sq-1 over a
+    dense cache of S entries written up to the chunk's end (position t
+    at index t % S, so a ring once p0 + Sq > S; the tail of a longer
+    cache empty).  Row 1's cache is all empty: every K/V tile of its
+    query tiles is skipped and its output must be exactly 0."""
+    qp = (p0 + torch.arange(Sq, dtype=torch.int32)).repeat(2, 1)
+    kvp = torch.full((2, S), -1, dtype=torch.int32)
+    last = p0 + Sq - 1
+    t = torch.arange(max(0, last + 1 - S), last + 1, dtype=torch.int32)
+    kvp[0, t % S] = t
+    q = _rand(g, (2, Sq, H, hd), dtype, dev)
+    k = _rand(g, (2, S, K, hd), dtype, dev)
+    v = _rand(g, (2, S, K, hd), dtype, dev)
+    zq = torch.zeros(2, Sq, dtype=torch.int32, device=dev)
+    zk = torch.zeros(2, S, dtype=torch.int32, device=dev)
+    return q, k, v, qp.to(dev), kvp.to(dev), zq, zk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)], ids=["G1", "G4"])
+@pytest.mark.parametrize("Sq,p0,S,window", [
+    (117, 40, 320, 0),        # ragged chunk, empty cache tail (5 tiles)
+    (199, 0, 264, 0),         # first chunk of a prompt, ragged cache end
+    (240, 512, 1088, 0),      # attn_extend's shape, 5 of 17 tiles empty
+    (117, 500, 128, 96),      # wrapped sliding-window ring, window < S
+    (240, 900, 256, 256),     # wrapped ring, window = S
+], ids=["ragged117", "ragged199", "extend240", "ring117", "ring240"])
+def test_flash_prefill_kernel_edges(dev, dtype, hd, H, K, Sq, p0, S, window):
+    g = torch.Generator().manual_seed(Sq + p0 + S + hd + K)
+    q, k, v, qp, kvp, qs, ks = _extend_case(g, Sq, p0, S, K, hd, dtype, dev,
+                                            H)
+    before = flash_prefill.launches
+    out = flash_prefill(q, k, v, qp, kvp, qs, ks, True, window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    ref = flash_prefill_plain(q.float(), k.float(), v.float(), qp, kvp, qs,
+                              ks, True, window)
+    _assert_close(out, ref, dtype)
+    assert float(out[1].abs().max()) == 0.0          # all-empty cache -> 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,hd", [(8, 8, 64), (8, 2, 128)])
+def test_flash_prefill_kernel_pad_tiles(dev, dtype, H, K, hd):
+    """Packed segments whose padding fills whole query tiles (no valid
+    query row: every K/V tile skipped), and a row of padding only; pad
+    rows come out exactly 0."""
+    g = torch.Generator().manual_seed(11 + hd)
+    B, S = 2, 320
+    q = _rand(g, (B, S, H, hd), dtype, dev)
+    k = _rand(g, (B, S, K, hd), dtype, dev)
+    v = _rand(g, (B, S, K, hd), dtype, dev)
+    pos = torch.cat([torch.arange(70), torch.arange(47),
+                     torch.zeros(S - 117, dtype=torch.int64)])
+    seg = torch.cat([torch.zeros(70), torch.ones(47), -torch.ones(S - 117)])
+    pos = torch.stack([pos, torch.zeros(S, dtype=torch.int64)])
+    seg = torch.stack([seg, -torch.ones(S)])
+    pos = pos.to(torch.int32).to(dev)
+    seg = seg.to(torch.int32).to(dev)
+    out = flash_prefill(q, k, v, pos, pos, seg, seg)
+    ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos, pos, seg,
+                              seg)
+    _assert_close(out, ref, dtype)
+    assert float(out[seg < 0].abs().max()) == 0.0
+
+
+def _packed_segments(lens, starts, S):
+    """Packed-varlen positions and segment ids: segment i holds positions
+    starts[i] .. starts[i] + lens[i] - 1; the rest of the S rows is pad."""
+    pos = torch.zeros(S, dtype=torch.int32)
+    seg = torch.full((S,), -1, dtype=torch.int32)
+    at = 0
+    for i, (n, p0) in enumerate(zip(lens, starts)):
+        pos[at:at + n] = p0 + torch.arange(n, dtype=torch.int32)
+        seg[at:at + n] = i
+        at += n
+    return pos, seg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,hd", [(8, 8, 64), (8, 2, 128)])
+@pytest.mark.parametrize("lens,starts", [
+    ([1] * 160, [0] * 160),                    # one-token segments at 0
+    # four chunks from position 0 fill the first key tile; later warps
+    # span chunks that start past it
+    ([16, 16, 16, 16, 5, 37, 30, 22], [0, 0, 0, 0, 300, 100, 64, 7]),
+    ([8] * 20, [50 + 3 * i for i in range(20)]),   # short chunks, offset
+], ids=["one_token_at_0", "chunks_at_any_pos", "short_chunks_offset"])
+def test_flash_prefill_kernel_mixed_segments(dev, dtype, H, K, hd, lens,
+                                             starts):
+    """Warps and key tiles that span several segments, every key of which
+    passes the position masks: only the segment mask separates them, so
+    a query must not attend across segments."""
+    g = torch.Generator().manual_seed(len(lens) + hd)
+    S = 192
+    pos, seg = _packed_segments(lens, starts, S)
+    pos, seg = pos.repeat(2, 1).to(dev), seg.repeat(2, 1).to(dev)
+    q = _rand(g, (2, S, H, hd), dtype, dev)
+    k = _rand(g, (2, S, K, hd), dtype, dev)
+    v = _rand(g, (2, S, K, hd), dtype, dev)
+    out = flash_prefill(q, k, v, pos, pos, seg, seg)
+    ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos, pos, seg,
+                              seg)
+    _assert_close(out, ref, dtype)
+    assert float(out[seg < 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)], ids=["G1", "G4"])
+@pytest.mark.parametrize("Sc,window", [(117, 0), (199, 0), (240, 0),
+                                       (199, 64)])
+def test_paged_prefill_kernel_edges(dev, dtype, hd, H, K, Sc, window):
+    """Ragged chunks starting mid-page at a long position (rows 0-1, one
+    shorter and padded with repeats of its last position), and a row
+    whose table is all -1 (every tile skipped, output exactly 0)."""
+    g = torch.Generator().manual_seed(Sc + hd + K + window)
+    rows = [(789, Sc), (213, Sc - 40)]
+    lens = [p0 + sc for p0, sc in rows] + [0]
+    kp, vp, kvp, tab = _paged_case(g, 3, 160, 16, 68, K, hd, dtype, dev,
+                                   lens)
+    positions = torch.stack([
+        (p0 + torch.arange(Sc)).clamp(max=p0 + sc - 1)
+        for p0, sc in rows + [(300, Sc)]]).to(torch.int32).to(dev)
+    q = _rand(g, (3, Sc, H, hd), dtype, dev)
+    before = paged_prefill_attention.launches
+    out = paged_prefill_attention(q, kp, vp, kvp, tab, positions, window)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == before + 1
+    ref = paged_prefill_attention_plain(q.float(), kp.float(), vp.float(),
+                                        kvp, tab, positions, window)
+    _assert_close(out, ref, dtype)
+    assert float(out[2].abs().max()) == 0.0          # all -1 table -> 0
+
+
+# ---------------------------------------------------------------------------
+# kernel #1 (split-K over pages) at its design's edges
+# ---------------------------------------------------------------------------
+
+_DECODE_LENS = [1, 16, 37, 68 * 16, 0, 700]   # 1 token, 1 page, mid-page,
+#   the full 68-entry table, an all -1 row, a long row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (16, 4), (32, 4)],
+                         ids=["G1", "G4", "G8"])
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_decode_kernel_edges(dev, dtype, hd, H, K, window):
+    g = torch.Generator().manual_seed(H * K + hd + window)
+    B = len(_DECODE_LENS)
+    kp, vp, kvp, tab = _paged_case(g, B, 160, 16, 68, K, hd, dtype, dev,
+                                   _DECODE_LENS)
+    pos = torch.tensor([n - 1 if n else 40 for n in _DECODE_LENS],
+                       dtype=torch.int32, device=dev)
+    q = _rand(g, (B, H, hd), dtype, dev)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, kp, vp, kvp, tab, pos, window)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                       kvp, tab, pos, window)
+    _assert_close(out, ref, dtype)
+    assert float(out[4].abs().max()) == 0.0          # all -1 table -> 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 17, 68])
+def test_paged_decode_kernel_any_split(dev, dtype, n_split):
+    """The split and merge agree with the plain version for any split
+    count the launcher takes (1 = no merge, 68 = one table entry each,
+    most of them past short rows' live blocks)."""
+    from repro_torch.kernels.build import load_kernels
+    g = torch.Generator().manual_seed(n_split)
+    B, H, K, hd = len(_DECODE_LENS), 16, 4, 128
+    kp, vp, kvp, tab = _paged_case(g, B, 160, 16, 68, K, hd, dtype, dev,
+                                   _DECODE_LENS)
+    pos = torch.tensor([n - 1 if n else 40 for n in _DECODE_LENS],
+                       dtype=torch.int32, device=dev)
+    q = _rand(g, (B, H, hd), dtype, dev)
+    out = load_kernels().paged_decode_attention(q, kp, vp, kvp, tab, pos, 0,
+                                                hd ** -0.5, n_split)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                       kvp, tab, pos)
+    _assert_close(out, ref, dtype)
+    assert float(out[4].abs().max()) == 0.0
+
+
 def _dense_case(g, pos, S, K, hd, dtype, dev, empty=()):
     """Caches as the engines keep them: position t at index t % S (a
     ring once pos >= S), stale later positions past a short row's cursor,

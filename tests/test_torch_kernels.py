@@ -372,6 +372,37 @@ def test_prefill_check_args():
         fp_ops.check_flash_args(q, kv, kv, pos, kpos, pos, pos)
 
 
+@pytest.mark.parametrize("sm_count", [132, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("B,K,nbt", [
+    (8, 32, 68),        # the mixed serve's decode step (one DP unit)
+    (1, 32, 68), (4, 8, 68), (1, 1, 68), (16, 32, 2048), (2, 4, 7),
+    (3, 5, 1), (64, 32, 68), (1, 8, 1025),
+])
+def test_decode_splits_fill_the_grid_without_empty_splits(B, K, nbt,
+                                                          sm_count):
+    """Every split owns at least one table entry and the splits cover the
+    table; the (kv head, row, split) grid reaches two waves of the card's
+    SMs unless the splits are already at their minimum length."""
+    n = dec_ops.decode_splits(B, K, nbt, sm_count)
+    per = -(-nbt // n)
+    assert 1 <= n <= nbt
+    assert (n - 1) * per < nbt <= n * per          # no split of zero pages
+    assert B * K * n >= 2 * sm_count or per <= dec_ops.MIN_SPLIT_BLOCKS
+    if per > dec_ops.MIN_SPLIT_BLOCKS:             # not cut finer than needed
+        target = dec_ops.SPLIT_CTAS_PER_SM * sm_count
+        assert B * K * n >= target * per // (per + 1)
+
+
+def test_decode_splits_are_the_same_for_every_pos():
+    """The split count is a function of shapes and the card only: it
+    takes B, K, nbt and the SM count, never `pos` (reading it would sync
+    the host once per layer), so rows at any position get the same
+    plan."""
+    import inspect
+    assert list(inspect.signature(dec_ops.decode_splits).parameters) == [
+        "B", "K", "nbt", "sm_count"]
+
+
 def _dense_args(hd=64, H=4, K=4, pos_dtype=torch.int32):
     q = torch.zeros(2, H, hd)
     cache = torch.zeros(2, 24, K, hd)
