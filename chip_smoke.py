@@ -13,11 +13,15 @@ Phases (any failure exits non-zero and prints no result):
      design's edges (rows of 1 token, 1 page, mid-page and the full
      68-entry table, so that some splits are empty; an all -1 row, which
      must be exactly 0; G = 1, 4 and 8; hd 64 and 128; bf16 and fp32);
-  3. dense decode attention (kernel #3) against its plain version: the
-     padded plane's shape (4 rows of 1088, H=K=32, hd=128, mixed live
-     lengths and an idle row) in bf16 and fp32, G=4 (H=32, K=8), and a
-     wrapped sliding-window ring (pos > S, window = S) with a row that
-     has no valid key;
+  3. dense decode attention (kernel #3, split-K over the cache) against
+     its plain version: the padded plane's shape (4 rows of 1088,
+     H=K=32, hd=128, mixed live lengths and an idle row) in bf16 and
+     fp32, G=4 (H=32, K=8), and a wrapped sliding-window ring (pos > S,
+     window = S) with a row that has no valid key; and at the split
+     design's edges (S = 4096 with rows that end mid-split, a window
+     whose edge falls inside a split, wrapped rings cut by the splits,
+     one-token rows, an empty row that must be exactly 0; G = 1 and 4,
+     hd 64 and 128, bf16 and fp32);
   4. flash prefill (kernel #2: tensor cores in bf16, FMA in fp32), both
      entries, against their plain versions: the paged entry with a chunk
      that starts mid-page over a prefix read through shared pages, the
@@ -40,8 +44,10 @@ Phases (any failure exits non-zero and prints no result):
   5b. the SSD intra-chunk kernel (kernel #4) against its plain version:
      full-width mamba2-370m's 256-token chunk (32 heads of 64, d_state
      128) in bf16 and fp32, a ragged chunk padded with dt = 0, B·nc > 1,
-     and the SSM shapes of reduced mamba2-370m, full-width and reduced
-     jamba-v0.1-52b;
+     the SSM shapes of reduced mamba2-370m, full-width and reduced
+     jamba-v0.1-52b, and the redesign's edges (Q = 1, 63, 64, 65 and
+     ragged lengths, odd head counts, every (hp, ds)); at the served
+     shape the kernel must equal the plain version bit for bit;
   6. P/D serve: the same model and requests behind the P/D-separated
      `RealSBSServer` on the padded plane (2 prefill instances with
      256-token chunks, 1 decode instance of 2 DP units × 4 rows of 1088
@@ -54,7 +60,9 @@ Phases (any failure exits non-zero and prints no result):
      logits row agrees with a plain forward over the whole prompt
      through `ssd_chunked` (no kernel) that crosses the prefill chunk
      boundaries the serve used (its error against a one-pass forward is
-     printed, not checked: bf16 logits depend on those boundaries);
+     printed, not checked: bf16 logits depend on those boundaries); the
+     error is also printed on a line of its own beside the recorded
+     sensitivity of the check to a 1e-7 perturbation of kernel #4;
   7. report: one JSON line per serve (TTFT/ITL, launches per step, a
      profile of device time by kernel group and the idle share), the
      P/D and SSM serves' figures each on a line of its own, one JSON
@@ -102,6 +110,10 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak
 # accumulate in fp32 and differ only in summation order.
 REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 LOGITS_REL_TOL = 5e-2              # served vs plain bf16 forward
+# what a 1e-7 relative perturbation of the SSD intra-chunk term does to the
+# SSM serve's logits check (worst of its 8 prompts; recorded, from
+# `scripts/ssm_chunking_sensitivity.py --perturb` on one H100, PERF.md)
+SSM_LOGITS_AT_1E7 = 0.1731
 BLOCK = 16
 MAX_LEN = 1088                     # 1024-token prompts + 32 new, 16-aligned
 MAX_BATCH = 4                      # per-DP memory budget (requests × max_len)
@@ -422,32 +434,49 @@ def dense_decode_work(q, k_cache, kv_pos, pos, window):
 def check_dense_decode(device):
     import torch
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, dense_splits)
     out = {"errs": []}
     S = MAX_LEN
     main_pos = [1087, 700, 129, 40]     # row 3: an idle slot's garbage row
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = (
-        ("padded rows", 32, 32, S, main_pos, 0, (), bf16),
-        ("padded rows", 32, 32, S, main_pos, 0, (), fp32),
-        ("G=4", 32, 8, S, [1000, 333, 64, 7], 0, (), bf16),
-        ("G=4", 32, 8, S, [1000, 333, 64, 7], 0, (), fp32),
+        ("padded rows", 32, 32, S, main_pos, 0, (), bf16, 128),
+        ("padded rows", 32, 32, S, main_pos, 0, (), fp32, 128),
+        ("G=4", 32, 8, S, [1000, 333, 64, 7], 0, (), bf16, 128),
+        ("G=4", 32, 8, S, [1000, 333, 64, 7], 0, (), fp32, 128),
         ("wrapped ring, one empty row", 32, 8, 512, [1500, 700, 511, 2047],
-         512, (3,), bf16),
+         512, (3,), bf16, 128),
         ("wrapped ring, one empty row", 32, 8, 512, [1500, 700, 511, 2047],
-         512, (3,), fp32),
+         512, (3,), fp32, 128),
     )
-    for i, (tag, H, K, S_, pos, window, empty, dt) in enumerate(cases):
-        q, kc, vc, kvp, posn = dense_decode_case(H, K, 128, S_, pos, device,
+    # the split-K design's edges: S up to 4096 with rows that end
+    # mid-split, a window whose edge falls inside a split, wrapped rings
+    # cut by the splits, one-token rows; row 4 has no valid key (exactly
+    # 0); G = 1 and 4, hd 64 and 128
+    edges = (
+        ("long rows", 4096, 0, [4095, 2050, 127, 1000, 9]),
+        ("window across splits", S, 100, [1087, 700, 300, 129, 9]),
+        ("wrapped ring", 520, 520, [1500, 777, 519, 2047, 9]),
+        ("one-token rows", S, 0, [0, 0, 1, 16, 9]),
+    )
+    for j, (name, S_, window, pos) in enumerate(edges):
+        for H, K, hd, dt in ((32, 32, 128, bf16), (32, 8, 128, bf16),
+                             (16, 4, 64, fp32)):
+            cases += ((f"edges {name} hd={hd}", H, K, S_, pos, window, (4,),
+                       dt, hd),)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device != "cpu" else 132)          # "cpu": a rehearsal
+    for i, (tag, H, K, S_, pos, window, empty, dt, hd) in enumerate(cases):
+        q, kc, vc, kvp, posn = dense_decode_case(H, K, hd, S_, pos, device,
                                                  40 + i, dt, window, empty)
         got = decode_attention(q, kc, vc, kvp, posn, window)
         ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
                                      posn, window)
+        label = (f"[dense decode] {tag} H={H} K={K} S={S_} window={window} "
+                 f"splits={dense_splits(len(pos), K, S_, sms)}")
         for b in empty:
-            if got[b].abs().max() != 0:
-                raise AssertionError("a row with no valid key is not 0")
-        compare(f"[dense decode] {tag} H={H} K={K} S={S_} window={window}",
-                got, ref, out["errs"])
+            check_zero(label, got[b])
+        compare(label, got, ref, out["errs"])
     # time the padded plane's shape (bf16)
     q, kc, vc, kvp, posn = dense_decode_case(32, 32, 128, S, main_pos,
                                              device, 40, bf16)
@@ -785,6 +814,18 @@ def check_ssd(device):
         ("mamba2-370m reduced", 1, 2, 32, 16, 32, 32, 5, fp32),
         ("jamba-v0.1-52b full width", 1, 1, 256, 128, 64, 16, 0, bf16),
         ("jamba-v0.1-52b reduced", 2, 2, 32, 16, 32, 16, 0, fp32),
+        # the redesign's edges: chunk lengths around its 32-token tiles
+        # (one token, 63-65, a ragged pair), an odd head count, B·nc > 1
+        # with a padded ragged last chunk, every (hp, ds) instantiation
+        ("one token", 1, 1, 1, 32, 64, 128, 0, bf16),
+        ("Q=63", 1, 1, 63, 32, 64, 128, 0, bf16),
+        ("Q=64", 1, 1, 64, 32, 64, 128, 0, bf16),
+        ("Q=65 nh=3, padded", 2, 2, 65, 3, 64, 128, 20, bf16),
+        ("hp=32 ds=16 nh=5", 1, 2, 100, 5, 32, 16, 7, bf16),
+        ("hp=32 ds=64", 1, 1, 256, 8, 32, 64, 0, bf16),
+        ("hp=32 ds=128 nh=3", 2, 1, 161, 3, 32, 128, 0, fp32),
+        ("hp=64 ds=32", 1, 1, 256, 8, 64, 32, 30, bf16),
+        ("hp=64 ds=64 nh=7", 1, 3, 97, 7, 64, 64, 0, fp32),
     )
     for i, (tag, B, nc, Q, nh, hp, ds, pad, dt) in enumerate(cases):
         x, dtv, A, Bm, Cm = ssd_case(B, nc, Q, nh, hp, ds, device, 60 + i,
@@ -796,6 +837,17 @@ def check_ssd(device):
                  f"hp={hp} ds={ds}")
         compare(label + " y", y, yr, out["errs"])
         compare(label + " state", st, sr, out["errs"])
+    # the served shape: bit for bit equal to the plain version (the SSM
+    # serve's logit check needs it, PERF.md)
+    x, dtv, A, Bm, Cm = ssd_case(1, 1, 256, 32, 64, 128, device, 60, bf16)
+    y, st = ssd_chunk(x, dtv, A, Bm, Cm)
+    yr, sr = ssd_chunk_plain(x, dtv, A, Bm, Cm)
+    same = bool(torch.equal(y, yr) and torch.equal(st, sr))
+    print(f"[ssd] served shape bf16: bit-identical to the plain version: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("[ssd] served shape differs from the plain "
+                             "version")
     # time one full-width 256-token chunk in bf16 (a served prefill chunk
     # of one layer), inputs rotated over copies larger than the L2
     x, dtv, A, Bm, Cm = ssd_case(1, 1, 256, 32, 64, 128, device, 60, bf16)
@@ -866,18 +918,21 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None):
     return logits_from_hidden(cfg, params, x[0, -1])
 
 
-def ssm_forward_logits(cfg, params, tokens, device, chunks=None):
+def ssm_forward_logits(cfg, params, tokens, device, chunks=None,
+                       scan=None):
     """Last-position logits of a plain forward over the whole prompt
     through `ssd_chunked` (the SSD scan in plain torch), with no kernel.
     `chunks` (prefill chunk lengths) makes it cross the boundaries a
     serve used, carrying each layer's SSM state and conv tails across
     them: in bf16 the logits depend on where chunks start (the scan is
     chunked from each prefill chunk's start, and rounding differs); None
-    runs the prompt in one pass."""
+    runs the prompt in one pass.  `scan` replaces `ssd_chunked` (the
+    sensitivity script's perturbed scans)."""
     import torch
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.mamba import mamba_forward, ssd_chunked
     from repro_torch.models.model import logits_from_hidden
+    scan = scan or ssd_chunked
     ids = torch.tensor([list(tokens)], dtype=torch.long, device=device)
     states = [(None, None)] * len(params["layers"])
     at = 0
@@ -886,7 +941,7 @@ def ssm_forward_logits(cfg, params, tokens, device, chunks=None):
         for i, p in enumerate(params["layers"]):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             y, states[i] = mamba_forward(h, p["mamba"], cfg.ssm, *states[i],
-                                         scan=ssd_chunked)
+                                         scan=scan)
             x = x + y
         at += n
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -1344,6 +1399,10 @@ def main() -> int:
         if ssm["launches"]["ssd_chunk"] <= 0:
             raise AssertionError("ssd_chunk never launched on the SSM serve")
         sprof = ssm["profile"] or {}
+        print(f"[ssm serve] logits_rel_err={ssm['logits_rel_err']!r} "
+              f"(limit {LOGITS_REL_TOL}; recorded: a 1e-7 relative "
+              f"perturbation of kernel #4's output gives "
+              f"{SSM_LOGITS_AT_1E7})", flush=True)
         print(f"[ssm serve] ttft_p50_s={ssm['ttft_p50_s']!r} "
               f"ttft_p99_s={ssm['ttft_p99_s']!r}", flush=True)
         print(f"[ssm serve] itl_p50_s={ssm['itl_p50_s']!r} "

@@ -70,7 +70,7 @@ at::Tensor paged_decode_attention(const at::Tensor& q,
 at::Tensor decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
                             const at::Tensor& v_cache,
                             const at::Tensor& kv_pos, const at::Tensor& pos,
-                            int64_t window, double scale) {
+                            int64_t window, double scale, int64_t n_split) {
   const auto st = q.scalar_type();
   check(q, "q", st);
   check(k_cache, "k_cache", st);
@@ -79,13 +79,20 @@ at::Tensor decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
   check(pos, "pos", at::kInt);
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor out = at::empty_like(q);
+  // the splits' fp32 partials (m, l) and acc; unused with one split
+  const auto f32 = q.options().dtype(at::kFloat);
+  const int64_t parts = n_split > 1 ? q.size(0) * q.size(1) * n_split : 0;
+  at::Tensor part_ml = at::empty({parts, 2}, f32);
+  at::Tensor part_acc = at::empty({parts, q.size(2)}, f32);
   check_launch(
       launch_decode_attention(
           q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
           kv_pos.data_ptr<int>(), pos.data_ptr<int>(), out.data_ptr(),
-          q.size(0), q.size(1), k_cache.size(1), k_cache.size(2), q.size(2),
-          window, static_cast<float>(scale), dtype_code(q),
-          at::cuda::getCurrentCUDAStream()),
+          parts ? part_ml.data_ptr<float>() : nullptr,
+          parts ? part_acc.data_ptr<float>() : nullptr, q.size(0),
+          q.size(1), k_cache.size(1), k_cache.size(2), q.size(2),
+          static_cast<int>(n_split), window, static_cast<float>(scale),
+          dtype_code(q), at::cuda::getCurrentCUDAStream()),
       "decode_attention");
   return out;
 }
@@ -168,11 +175,17 @@ std::tuple<at::Tensor, at::Tensor> ssd_chunk(
   const auto f32 = x.options().dtype(at::kFloat);
   at::Tensor y = at::empty({B, nc, Q, nh, hp}, f32);
   at::Tensor state = at::empty({B, nc, nh, hp, ds}, f32);
+  // the first kernel's C·Bᵀ (rows padded to 4 floats) and Ā, read by the
+  // second
+  at::Tensor cb = at::empty({B * nc, Q, (Q + 3) / 4 * 4}, f32);
+  at::Tensor acum = at::empty({B * nc, Q, nh}, f32);
   check_launch(
       launch_ssd_chunk(x.data_ptr(), dt.data_ptr<float>(),
                        A.data_ptr<float>(), Bm.data_ptr(), Cm.data_ptr(),
                        y.data_ptr<float>(), state.data_ptr<float>(),
-                       static_cast<int>(B * nc), static_cast<int>(Q),
+                       cb.data_ptr<float>(), acum.data_ptr<float>(),
+                       static_cast<int>(B * nc),
+                       static_cast<int>(Q),
                        static_cast<int>(nh), static_cast<int>(hp),
                        static_cast<int>(ds), b_stride, c_stride,
                        dtype_code(x), at::cuda::getCurrentCUDAStream()),

@@ -361,26 +361,6 @@ constexpr int kMetaRing = 3;        // tiles whose row metadata is in smem
 constexpr int kMetaSlot = 3 * kMmaKeys + 8;   // ints: rows, pos, seg, summary
 constexpr int kPrePassUnroll = 8;   // kv_pos loads in flight per thread
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 zero-fills without a read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Barrier of one warp group (named barrier 1 + g; 0 is __syncthreads).
 __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kGroupThreads)

@@ -26,14 +26,26 @@ cudaError_t launch_paged_decode_attention(
     int nbt, int n_split, int window, float scale, int dtype,
     cudaStream_t stream);
 
+// The log-sum-exp merge of both decode kernels' splits: part_ml
+// (BH,n_split,2) holds each split's (max, sum) and part_acc
+// (BH,n_split,hd) its unnormalised output; out (BH,hd).  A split with
+// sum 0 adds nothing; a row whose splits all have sum 0 gives 0.
+cudaError_t launch_decode_merge(const float* part_ml, const float* part_acc,
+                                void* out, int BH, int hd, int n_split,
+                                int dtype, cudaStream_t stream);
+
 // Dense decode attention: q (B,H,hd); k/v caches (B,S,K,hd); kv_pos
 // (B,S) int32 (-1 = empty); pos (B,) int32; out (B,H,hd).  Walks cache
-// indices 0 .. min(S, pos + 1) - 1 (see the source note).  Replaces
-// decode_attention_pallas.
+// indices 0 .. min(S, pos + 1) - 1 (see the source note), cut into
+// n_split ranges of ceil(ceil(S / 16) / n_split) 16-index units (each
+// non-empty); with n_split > 1 the splits' fp32 partials go to part_ml
+// (B,H,n_split,2) and part_acc (B,H,n_split,hd) and launch_decode_merge
+// writes out.  Replaces decode_attention_pallas.
 cudaError_t launch_decode_attention(
     const void* q, const void* k_cache, const void* v_cache,
-    const int* kv_pos, const int* pos, void* out, int B, int H, int S, int K,
-    int hd, int window, float scale, int dtype, cudaStream_t stream);
+    const int* kv_pos, const int* pos, void* out, float* part_ml,
+    float* part_acc, int B, int H, int S, int K, int hd, int n_split,
+    int window, float scale, int dtype, cudaStream_t stream);
 
 // Packed-varlen flash attention over contiguous K/V: q (B,Sq,H,hd);
 // k/v (B,Skv,K,hd); q_pos/q_seg (B,Sq), kv_pos/kv_seg (B,Skv) int32
@@ -61,9 +73,13 @@ cudaError_t launch_paged_prefill_attention(
 // Mamba2 SSD intra-chunk term (n_groups = 1): x (BC,Q,nh,hp); dt
 // (BC,Q,nh) fp32; A (nh,) fp32; B and C: BC*Q tokens of ds values at a
 // row stride of b_stride / c_stride elements; y (BC,Q,nh,hp) fp32; state
-// (BC,nh,hp,ds) fp32.  Q <= 256.  Replaces ssd_chunk_pallas.
+// (BC,nh,hp,ds) fp32.  Q <= 256; x, B and C 16-byte aligned, B/C rows a
+// multiple of 16 bytes apart.  Two kernels: the first writes C·Bᵀ to the
+// fp32 scratch cb (BC,Q,round4(Q)) and Ā to acum (BC,Q,nh), the second
+// reads them.  Replaces ssd_chunk_pallas.
 cudaError_t launch_ssd_chunk(const void* x, const float* dt, const float* A,
                              const void* Bm, const void* Cm, float* y,
-                             float* state, int BC, int Q, int nh, int hp,
-                             int ds, long long b_stride, long long c_stride,
+                             float* state, float* cb, float* acum, int BC,
+                             int Q, int nh, int hp, int ds,
+                             long long b_stride, long long c_stride,
                              int dtype, cudaStream_t stream);

@@ -52,6 +52,8 @@
 // -1; blocks past it can hold only positions > pos, which the reference
 // masks.
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "kernels.h"
 
@@ -239,6 +241,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 // One CTA per (row, head): the splits' partials merged by log-sum-exp.
 // A split with l = 0 (past the row's live blocks, or all masked) adds
 // nothing and its acc is never read; a row with no valid key gives 0.
+// Shared with the dense decode kernel (decode_attention.cu) through
+// launch_decode_merge.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 paged_decode_merge_kernel(const float* __restrict__ part_ml,
@@ -279,8 +283,10 @@ cudaError_t launch_typed(const void* q, const void* k_pool,
   if (n_split > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    paged_decode_merge_kernel<T, HD><<<B * H, HD, 0, stream>>>(
-        part_ml, part_acc, static_cast<T*>(out), n_split);
+    return launch_decode_merge(part_ml, part_acc, out, B * H, HD, n_split,
+                               std::is_same<T, float>::value ? kFloat32
+                                                             : kBFloat16,
+                               stream);
   }
   return cudaSuccess;
 }
@@ -327,6 +333,23 @@ cudaError_t launch_hd(int hd, const void* q, const void* k_pool,
 
 }  // namespace
 }  // namespace repro_torch
+
+cudaError_t launch_decode_merge(const float* part_ml, const float* part_acc,
+                                void* out, int BH, int hd, int n_split,
+                                int dtype, cudaStream_t stream) {
+  using namespace repro_torch;
+#define REPRO_MERGE(T, HD)                                                 \
+  paged_decode_merge_kernel<T, HD><<<BH, HD, 0, stream>>>(                \
+      part_ml, part_acc, static_cast<T*>(out), n_split);                  \
+  return cudaSuccess
+  if (BH == 0) return cudaSuccess;
+  if (dtype == kBFloat16 && hd == 64) { REPRO_MERGE(__nv_bfloat16, 64); }
+  if (dtype == kBFloat16 && hd == 128) { REPRO_MERGE(__nv_bfloat16, 128); }
+  if (dtype == kFloat32 && hd == 64) { REPRO_MERGE(float, 64); }
+  if (dtype == kFloat32 && hd == 128) { REPRO_MERGE(float, 128); }
+#undef REPRO_MERGE
+  return cudaErrorInvalidValue;
+}
 
 cudaError_t launch_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,

@@ -12,13 +12,15 @@ Replaces `repro/kernels/decode_attention/kernel.py`:
 
 Both kernels are bound by the bytes of each row's live K/V and walk
 only the row's live entries with an fp32 online softmax — see the
-source notes.  The dense kernel gives each (kv head, row) one CTA; the
-paged kernel also splits each row's table into `decode_splits(B, K,
-nbt, SMs)` ranges, one CTA each, whose partials a second small kernel
-merges, so one call of `paged_decode_attention` launches two kernels
-(one when there is a single split).  Each wrapper launches its kernel
-for CUDA tensors and takes the plain version only for CPU tensors;
-`<wrapper>.launches` counts the wrapper's calls that launched.
+source notes.  Both split each row across CTAs, one per (kv head, row,
+split): the paged kernel cuts the row's table into `decode_splits(B, K,
+nbt, SMs)` ranges of table entries, the dense kernel its cache into
+`dense_splits(B, K, S, SMs)` ranges of 16-index units; one merge kernel,
+shared by both, combines the splits' partials, so one wrapper call
+launches two kernels (one when there is a single split).  Each wrapper
+launches its kernel for CUDA tensors and takes the plain version only
+for CPU tensors; `<wrapper>.launches` counts the wrapper's calls that
+launched.
 """
 from __future__ import annotations
 
@@ -53,6 +55,20 @@ def decode_splits(B: int, K: int, nbt: int,
     want = -(-SPLIT_CTAS_PER_SM * sm_count // max(B * K, 1))
     per = max(MIN_SPLIT_BLOCKS, -(-nbt // want))
     return -(-nbt // per)
+
+
+DENSE_SPLIT_UNIT = 16        # cache indices per unit of a dense split
+
+
+def dense_splits(B: int, K: int, S: int,
+                 sm_count: int = H100_SM_COUNT) -> int:
+    """Number of ranges the dense decode kernel cuts each row's cache
+    walk into: `decode_splits` over ceil(S / 16) units of 16 cache
+    indices, so from the shapes alone; every split owns at least one
+    unit (9 splits of 128 indices at B=4, K=32, S=1088 on 132 SMs)."""
+    if S <= 0:
+        raise ValueError(f"S must be positive, got {S}")
+    return decode_splits(B, K, -(-S // DENSE_SPLIT_UNIT), sm_count)
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,8 +194,11 @@ def decode_attention(q, k_cache, v_cache, kv_pos, pos, window: int = 0):
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     check_dense_args(q, k_cache, v_cache, kv_pos, pos)
+    n_split = dense_splits(q.shape[0], k_cache.shape[2], k_cache.shape[1],
+                           _sm_count(q.device))
     out = load_kernels().decode_attention(
-        q, k_cache, v_cache, kv_pos, pos, int(window), q.shape[-1] ** -0.5)
+        q, k_cache, v_cache, kv_pos, pos, int(window), q.shape[-1] ** -0.5,
+        n_split)
     decode_attention.launches += 1
     return out
 

@@ -12,8 +12,12 @@ with one B/C group (`n_groups = 1`, shared by every head) and fp32
 outputs.  The chunk-end state comes back in the SSM cache's
 (nh, hp, ds) order; the JAX kernel returns it as (nh, ds, hp).
 
-The wrapper launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; `ssd_chunk.launches` counts launches.
+The kernel sums every element in the plain version's order, so on the
+card the two agree bit for bit (see the source note for why that is
+required).  The wrapper launches it for CUDA tensors (one call launches
+two kernels: C·Bᵀ and Ā, then y and the state) and takes the plain
+version only for CPU tensors; `ssd_chunk.launches` counts the calls
+that launched.
 """
 from __future__ import annotations
 
@@ -89,8 +93,13 @@ def check_args(x, dt, A, Bm, Cm) -> None:
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    _row_stride(Bm, "Bm")
-    _row_stride(Cm, "Cm")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if _row_stride(t, name) * t.element_size() % 16:
+            raise ValueError(f"{name}: tokens must lie a multiple of 16 "
+                             f"bytes apart")
 
 
 def ssd_chunk(x, dt, A, Bm, Cm):

@@ -52,6 +52,14 @@ class Generation:
     finish: float
 
 
+def _default_serving_config() -> ServingConfig:
+    return ServingConfig(
+        num_prefill_instances=2, prefill_dp_per_instance=2,
+        num_decode_instances=1, decode_dp_per_instance=2,
+        chunk_size=32, t_default=0.05, l_net=0.001,
+        max_batch_per_dp=8)
+
+
 class RealSBSServer:
     """SBS control plane over the port's real engines.
 
@@ -62,14 +70,14 @@ class RealSBSServer:
     live there)."""
 
     def __init__(self, cfg: ModelConfig, params,
-                 serving_cfg: ServingConfig,
+                 serving_cfg: Optional[ServingConfig] = None,
                  scheduler: str = "sbs", max_len: int = 256,
                  max_new: int = 8,
                  watchdog_multiplier: float = 0.0,
                  spec: Optional[EngineSpec] = None,
                  prefix_cache: bool = False,
                  device: str = "cuda"):
-        scfg = serving_cfg
+        scfg = serving_cfg or _default_serving_config()
         if prefix_cache:
             raise NotImplementedError(
                 "page sharing is not ported yet (ROADMAP Queue 1 item 6)")

@@ -394,6 +394,59 @@ def test_dense_decode_kernel_matches_plain(dev, dtype, H, K, hd, window, S,
     assert float(out[4].abs().max()) == 0.0          # no valid key -> 0
 
 
+# rows of the split-K design's edges; row 4 has no valid key (exactly 0)
+_DENSE_SPLIT_CASES = {
+    # S up to 4096, rows that end mid-split, a one-index split tail
+    "long rows": (4096, 0, [4095, 2050, 127, 1000, 9]),
+    # a window whose edge falls inside a split
+    "window across splits": (1088, 100, [1087, 700, 300, 129, 9]),
+    # wrapped rings (pos >= S) cut by the splits at arbitrary indices
+    "wrapped ring": (520, 520, [1500, 777, 519, 2047, 9]),
+    # one-token rows: every split but the first walks nothing
+    "one-token rows": (1088, 0, [0, 0, 1, 16, 9]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (16, 4)], ids=["G1", "G4"])
+@pytest.mark.parametrize("case", list(_DENSE_SPLIT_CASES))
+def test_dense_decode_kernel_split_edges(dev, dtype, hd, H, K, case):
+    S, window, pos = _DENSE_SPLIT_CASES[case]
+    g = torch.Generator().manual_seed(S + window + hd + K)
+    kc, vc, kvp, posn = _dense_case(g, pos, S, K, hd, dtype, dev, empty=(4,))
+    q = _rand(g, (len(pos), H, hd), dtype, dev)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, kvp, posn, window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1     # split + merge: one
+    ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
+                                 posn, window)
+    _assert_close(out, ref, dtype)
+    assert float(out[4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [1, 2, 5, 9, 68])
+def test_dense_decode_kernel_any_split(dev, dtype, n_split):
+    """The split and merge agree with the plain version for any split
+    count the launcher takes (1 = no merge, 68 = one 16-index unit each,
+    most of them past short rows' walks)."""
+    from repro_torch.kernels.build import load_kernels
+    g = torch.Generator().manual_seed(n_split)
+    pos = [1087, 700, 129, 0, 40]
+    kc, vc, kvp, posn = _dense_case(g, pos, 1088, 4, 128, dtype, dev,
+                                    empty=(4,))
+    q = _rand(g, (len(pos), 16, 128), dtype, dev)
+    out = load_kernels().decode_attention(q, kc, vc, kvp, posn, 0,
+                                          128 ** -0.5, n_split)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
+                                 posn)
+    _assert_close(out, ref, dtype)
+    assert float(out[4].abs().max()) == 0.0
+
+
 def test_dense_decode_wrapper_rejects_unsupported_on_cuda(dev):
     """G > 8, a head dim without an instantiation and a non-contiguous
     cache raise before any launch."""
@@ -537,6 +590,41 @@ def test_ssd_chunk_kernel_matches_plain(dev, dtype, B, nc, Q, nh, hp, ds,
     # outputs are fp32 from fp32 arithmetic on either input type
     _assert_close(y, yr, torch.float32)
     _assert_close(st, sr, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hp,ds", [(hp, ds) for hp in (32, 64)
+                                   for ds in (16, 32, 64, 128)])
+@pytest.mark.parametrize("Q", [1, 63, 64, 65, 256])
+def test_ssd_chunk_kernel_edges(dev, dtype, hp, ds, Q):
+    """Every (hp, ds) instantiation at chunk lengths around the kernel's
+    32-token tiles (one tile, a ragged pair, the full 8), an odd head
+    count, B·nc = 4 and a padded ragged last chunk; outputs are fp32
+    from fp32 arithmetic and held at the fp32 tolerance."""
+    g = torch.Generator().manual_seed(hp + ds + Q)
+    pad = Q // 3
+    x, dt, A, Bm, Cm = _ssd_case(g, 2, 2, Q, 3, hp, ds, dtype, dev, pad)
+    y, st = ssd_chunk(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    yr, sr = ssd_chunk_plain(x.float(), dt, A, Bm.float(), Cm.float())
+    _assert_close(y, yr, torch.float32)
+    _assert_close(st, sr, torch.float32)
+
+
+def test_ssd_chunk_kernel_is_bit_identical_at_the_served_shape(dev):
+    """At the SSM serve's shape (one full-width mamba2-370m chunk, bf16
+    inputs, B and C strided) the kernel sums in the plain version's
+    order, so both agree bit for bit: the serve's logit check needs it
+    (a 1e-7 relative change of this term moves the random 48-layer
+    model's logits by 0.17 of the largest, PERF.md)."""
+    g = torch.Generator().manual_seed(7)
+    x, dt, A, Bm, Cm = _ssd_case(g, 1, 1, 256, 32, 64, 128, torch.bfloat16,
+                                 dev)
+    y, st = ssd_chunk(x, dt, A, Bm, Cm)
+    yr, sr = ssd_chunk_plain(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yr)
+    assert torch.equal(st, sr)
 
 
 def test_ssd_chunk_wrapper_rejects_unsupported_on_cuda(dev):

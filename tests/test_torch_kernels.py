@@ -403,6 +403,102 @@ def test_decode_splits_are_the_same_for_every_pos():
         "B", "K", "nbt", "sm_count"]
 
 
+@pytest.mark.parametrize("sm_count", [132, 114])
+@pytest.mark.parametrize("B,K,S", [(4, 32, 1088), (4, 8, 1088), (2, 4, 512),
+                                   (1, 32, 4096), (8, 32, 16), (4, 32, 1),
+                                   (4, 32, 520), (1, 1, 4096)])
+def test_dense_splits_cover_the_cache_without_empty_splits(B, K, S,
+                                                           sm_count):
+    """The dense kernel's splits are whole 16-index units: each owns at
+    least one, together they cover the cache, and their count is
+    `decode_splits` over ceil(S / 16) units."""
+    n = dec_ops.dense_splits(B, K, S, sm_count)
+    units = -(-S // dec_ops.DENSE_SPLIT_UNIT)
+    per = -(-units // n)
+    assert 1 <= n <= units
+    assert (n - 1) * per < units <= n * per        # no split of zero units
+    assert n == dec_ops.decode_splits(B, K, units, sm_count)
+    if (B, K, S, sm_count) == (4, 32, 1088, 132):   # the P/D serve's shape
+        assert (n, per * dec_ops.DENSE_SPLIT_UNIT) == (9, 128)
+
+
+def test_dense_splits_are_the_same_for_every_pos():
+    """The dense split count takes B, K, S and the SM count, never
+    `pos`: every row of a step gets the same plan, with no host sync."""
+    import inspect
+    assert list(inspect.signature(dec_ops.dense_splits).parameters) == [
+        "B", "K", "S", "sm_count"]
+
+
+def _split_merge_emulation(q, kc, vc, kv_pos, pos, window, n_split):
+    """The dense kernel's walk in torch: row b walks cache indices
+    0 .. min(S, pos + 1) - 1, cut into n_split ranges of whole 16-index
+    units; each range keeps an fp32 (max, sum, acc) of its valid keys
+    and the ranges merge by log-sum-exp, as the kernels' merge does."""
+    B, H, hd = q.shape
+    S, K = kc.shape[1], kc.shape[2]
+    G = H // K
+    per = -(-(-(-S // 16)) // n_split) * 16
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        p = int(pos[b])
+        n = min(S, p + 1) if p >= 0 else 0
+        parts = []
+        for s in range(n_split):
+            idx = torch.arange(s * per, max(s * per, min(n, (s + 1) * per)))
+            kp = kv_pos[b, idx]
+            ok = (kp >= 0) & (kp <= p)
+            if window > 0:
+                ok &= (p - kp) < window
+            idx = idx[ok]
+            if not len(idx):
+                continue
+            k = kc[b, idx].repeat_interleave(G, dim=1)     # (n, H, hd)
+            v = vc[b, idx].repeat_interleave(G, dim=1)
+            sc = torch.einsum("hd,nhd->hn", q[b], k) * hd ** -0.5
+            m = sc.max(-1).values
+            e = torch.exp(sc - m[:, None])
+            parts.append((m, e.sum(-1), torch.einsum("hn,nhd->hd", e, v)))
+        if parts:
+            mx = torch.stack([m for m, _l, _a in parts]).max(0).values
+            lsum = sum(l * torch.exp(m - mx) for m, l, _a in parts)
+            acc = sum(a * torch.exp(m - mx)[:, None] for m, _l, a in parts)
+            out[b] = acc / lsum[:, None]
+    return out
+
+
+@pytest.mark.parametrize("S,window,pos", [
+    (200, 0, [199, 57, 0, 130, 9]),          # rows ending mid-split
+    (200, 48, [199, 57, 0, 130, 9]),         # a window across splits
+    (64, 64, [300, 63, 64, 1000, 9]),        # wrapped rings cut by splits
+])
+@pytest.mark.parametrize("n_split", [1, 3, 13])
+def test_dense_split_walk_matches_plain(S, window, pos, n_split):
+    """Cutting the walk into splits and merging them is the plain
+    version's softmax for any split count, rings and windows included;
+    a row with no valid key (row 4) gives exactly 0."""
+    g = torch.Generator().manual_seed(S + window + n_split)
+    B, H, K, hd = len(pos), 8, 4, 16
+    q = torch.randn(B, H, hd, generator=g)
+    kc = torch.randn(B, S, K, hd, generator=g)
+    vc = torch.randn(B, S, K, hd, generator=g)
+    kv_pos = torch.full((B, S), -1, dtype=torch.int32)
+    idx = torch.arange(S, dtype=torch.int32)
+    for b, p in enumerate(pos[:4]):
+        if p < S:
+            kv_pos[b] = torch.where(idx <= p, idx,
+                                    torch.where(idx % 3 == 0, idx, -1))
+        else:
+            t = torch.arange(p - S + 1, p + 1, dtype=torch.int32)
+            kv_pos[b, t % S] = t
+    posn = torch.tensor(pos, dtype=torch.int32)
+    n_split = min(n_split, -(-S // 16))
+    got = _split_merge_emulation(q, kc, vc, kv_pos, posn, window, n_split)
+    ref = dec_ops.decode_attention_plain(q, kc, vc, kv_pos, posn, window)
+    assert torch.allclose(got, ref, atol=1e-5, rtol=1e-5)
+    assert float(got[4].abs().max()) == 0.0
+
+
 def _dense_args(hd=64, H=4, K=4, pos_dtype=torch.int32):
     q = torch.zeros(2, H, hd)
     cache = torch.zeros(2, 24, K, hd)
@@ -446,3 +542,25 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError):
         decode_attention(*args)
     assert decode_attention.launches == before
+
+
+@pytest.mark.parametrize("what", ["x", "Bm", "stride"])
+def test_ssd_check_args_refuses_unaligned(what):
+    """Kernel #4 stages x, B and C with 16-byte loads: a tensor that does
+    not start on 16 bytes, or B/C tokens that do not lie a multiple of
+    16 bytes apart, are refused before any launch."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    Q, nh, hp, ds = 32, 4, 32, 16
+    x = torch.zeros(1, 1, Q, nh, hp)
+    dt = torch.zeros(1, 1, Q, nh)
+    A = -torch.ones(nh)
+    bc = torch.zeros(1, 1, Q, 2 * ds)
+    ssd_ops.check_args(x, dt, A, bc[..., :ds], bc[..., ds:])   # aligned
+    if what == "x":
+        x = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    elif what == "Bm":
+        bc = torch.zeros(bc.numel() + 1)[1:].view(bc.shape)
+    else:                       # tokens 2 * ds + 1 floats apart
+        bc = torch.zeros(1, 1, Q, 2 * ds + 1)[..., :2 * ds]
+    with pytest.raises(ValueError):
+        ssd_ops.check_args(x, dt, A, bc[..., :ds], bc[..., ds:2 * ds])

@@ -200,6 +200,30 @@ def test_unified_plane_needs_pages(port):
         RealSBSServer(tcfg, tparams, scfg, max_len=MAX_LEN, device="cpu")
 
 
+def test_default_serving_config_matches_reference():
+    """Both packages fill in the same ServingConfig when none is given."""
+    from repro.serving.server import _default_serving_config as j_default
+    from repro_torch.serving.server import _default_serving_config
+    assert (dataclasses.asdict(_default_serving_config())
+            == dataclasses.asdict(j_default()))
+
+
+def test_server_builds_and_serves_without_serving_cfg(port, expected):
+    """`RealSBSServer(cfg, params)` takes the reference's default
+    deployment (P/D, 2 prefill instances × 2 DP, chunk 32, padded
+    decode) and serves token-exact against the JAX oracle."""
+    from repro_torch.serving.server import _default_serving_config
+    tcfg, tparams = port
+    srv = RealSBSServer(tcfg, tparams, max_len=MAX_LEN, max_new=5,
+                        device="cpu")
+    assert (dataclasses.asdict(srv.scfg)
+            == dataclasses.asdict(_default_serving_config()))
+    assert len(srv.engines) == 2 and not srv.scfg.mixed_batch
+    reqs = _requests(tcfg)
+    gens = srv.serve(reqs, timeout=120)
+    assert {g.rid: g.tokens for g in gens} == expected
+
+
 # ---------------------------------------------------------------------------
 # page-level preemption on the paged decode engine
 # ---------------------------------------------------------------------------
