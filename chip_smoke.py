@@ -63,12 +63,26 @@ Phases (any failure exits non-zero and prints no result):
      printed, not checked: bf16 logits depend on those boundaries); the
      error is also printed on a line of its own beside the recorded
      sensitivity of the check to a 1e-7 perturbation of kernel #4;
+  6c. shared-prefix P/D serve: full-width deepseek-7b (weights made
+     again from seed 0) behind the P/D server on the paged plane with
+     `prefix_cache=True` (page-native prefill, PageHandoff, prefix
+     sharing; 1 prefill instance × 2 DP units with 256-token chunks, 1
+     decode instance × 2 DP units of 16-token pages, sbs-la), two waves
+     of the same 8 prompts on one server: six share a 512-token prefix,
+     one is unrelated, one repeats the first.  Every request finishes;
+     pages are reused on both planes (hit tokens, a full hit in wave 1,
+     shared decode pages, copy-on-write copies); each computed prompt's
+     first-token logits agree with a plain forward and each full hit
+     replays its original's first token; kernels #1 and #2 (paged entry)
+     launch and #2's contiguous entry and #3 do not; every pool is empty
+     after its binder is evicted;
   7. report: one JSON line per serve (TTFT/ITL, launches per step, a
      profile of device time by kernel group and the idle share), the
-     P/D and SSM serves' figures each on a line of its own, one JSON
-     line with the kernels (device and wall time per call, launches on
-     their path's serve, bound), the card's name and power limit, and
-     the contract line last.
+     P/D, SSM and shared-prefix serves' figures each on a line of its
+     own (the last also its reuse counters and the card's peak memory),
+     one JSON line with the kernels (device and wall time per call,
+     launches on their path's serve, bound), the card's name and power
+     limit, and the contract line last.
 
 Launch counts are set to 0 just before each serve and read just after,
 so each kernel's `launches` is its count on its own path's serve.
@@ -1029,7 +1043,6 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
     if given, is another reference whose error is printed and returned,
     not checked.  Returns (worst max|d|/max|ref|, argmax agreements, the
     worst error against `info_forward` or None)."""
-    import torch
     if sorted(g.rid for g in gens) != [r.rid for r in reqs]:
         raise AssertionError(f"{tag}: unfinished requests: {len(gens)} of "
                              f"{len(reqs)} finished")
@@ -1050,6 +1063,18 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                  else sum(e.prefill_tokens for e in srv.decode_engines))
     if prefilled != sum(r.input_len for r in reqs):
         raise AssertionError(f"{tag}: prefill token count mismatch")
+    return compare_first_logits(cfg, params, reqs, first_logits, device, tag,
+                                forward, chunks, info_forward)
+
+
+def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
+                         forward=dense_forward_logits, chunks=None,
+                         info_forward=None):
+    """Each request's first-token logits against a plain forward (see
+    `check_served`); raises past LOGITS_REL_TOL.  Returns (worst
+    max|d|/max|ref|, argmax agreements, the worst error against
+    `info_forward` or None)."""
+    import torch
     worst = 0.0
     agree = 0
     info = None if info_forward is None else 0.0
@@ -1218,6 +1243,233 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     }
 
 
+def prefix_scfg():
+    """The shared-prefix P/D serve's deployment: one prefill instance
+    (SBS staggers windows per instance, so with one instance a repeat
+    lands on the binder that holds its pages) × 2 DP units, 256-token
+    chunks; one decode instance × 2 DP units of 16-token pages; n_limit
+    as in `pd_scfg`."""
+    from repro_torch.config.base import ServingConfig
+    return ServingConfig(
+        num_prefill_instances=1, prefill_dp_per_instance=2,
+        num_decode_instances=1, decode_dp_per_instance=2,
+        chunk_size=PD_CHUNK, t_default=0.05, l_net=0.001,
+        max_batch_per_dp=MAX_BATCH, block_size=BLOCK, n_limit=64)
+
+
+def make_prefix_waves(cfg, seed, prefix=512, suffixes=(64, 448),
+                      unrelated=1024, outs=(16, 32)):
+    """Two waves of 8 requests, 50 ms apart: six prompts sharing a
+    `prefix`-token system prompt with distinct suffixes (the first, and
+    shortest, of `suffixes[0]` tokens, the rest drawn from the range),
+    one unrelated prompt of `unrelated` tokens, and an exact repeat of
+    the first prompt.  Wave 2 repeats wave 1's prompts (rids 8-15).
+    The first prompt's request is interactive (priority 0), the rest
+    priority 1: PBAA grants chunks by priority, then longest remaining
+    prompt first, so at one priority the shortest prompt's last chunks
+    wait behind the backlog's longer prompts and its repeat is
+    dispatched before it completes: wave 1 would have no full hit once
+    passes are slower than the arrivals.  Returns a function of the
+    wave index (fresh Request objects)."""
+    from repro_torch.core.types import Request
+    rng = random.Random(seed)
+    lens = [suffixes[0]] + [rng.randrange(suffixes[0], suffixes[1] + 1)
+                            for _ in range(5)]
+    new = [rng.randrange(outs[0], outs[1] + 1) for _ in range(8)]
+    head = [rng.randrange(cfg.vocab_size) for _ in range(prefix)]
+    prompts = [head + [rng.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in lens]
+    prompts.append([rng.randrange(cfg.vocab_size) for _ in range(unrelated)])
+    prompts.append(list(prompts[0]))
+
+    def wave(w):
+        return [Request(rid=8 * w + i, arrival_time=0.05 * i,
+                        input_len=len(p), output_len=new[i], tokens=tuple(p),
+                        priority=0 if i == 0 else 1)
+                for i, p in enumerate(prompts)]
+    return wave
+
+
+def record_paged_prefill_logits(srv):
+    """The page-native counterpart of `record_prefill_logits`: wraps
+    `real_engine.paged_prefill_step` to keep the last chunk's logits and
+    each prefill engine's `_run_chunk` to take them for the chunk that
+    sets a request's first token (a full hit runs no chunk and records
+    none), noting each request's chunk lengths.  Returns ({rid:
+    logits}, {rid: [chunk lengths]}, undo)."""
+    from repro_torch.serving import real_engine as RE
+    seen, chunks, last = {}, {}, {}
+    inner_step = RE.paged_prefill_step
+
+    def paged_prefill_step(cfg, params, tokens, cache, slot):
+        logits, new = inner_step(cfg, params, tokens, cache, slot)
+        last["logits"] = logits[0]
+        return logits, new
+
+    for eng in srv.engines:
+        def run_chunk(req, tok, _eng=eng, _inner=eng._run_chunk):
+            ctx = _eng._pctx[req.rid]
+            had = ctx.first_token is not None
+            last.pop("logits", None)
+            out = _inner(req, tok)
+            if tok:
+                chunks.setdefault(req.rid, []).append(tok)
+            if not had and ctx.first_token is not None:
+                seen[req.rid] = last["logits"]
+            return out
+        eng._run_chunk = run_chunk
+    RE.paged_prefill_step = paged_prefill_step
+
+    def undo():
+        RE.paged_prefill_step = inner_step
+    return seen, chunks, undo
+
+
+def drain_prefix_pools(srv, tag):
+    """Evict every binder of `srv`; every prefill and decode pool must
+    then pass its conservation check and hold no page."""
+    pools = [(e.binder, e.pool) for e in srv.engines]
+    pools += [(st.binder, st.pool) for e in srv.decode_engines
+              for st in e._dp.values()]
+    for binder, pool in pools:
+        binder.ensure_free(pool.num_blocks - 1)
+        pool.check()
+        if pool.used_count != 0:
+            raise AssertionError(f"{tag}: {pool.used_count} pages still held "
+                                 f"after eviction")
+    return len(pools)
+
+
+def serve_pd_prefix(cfg, params, device, counters, prefix=512,
+                    suffixes=(64, 448), unrelated=1024, outs=(16, 32),
+                    tag="[pd prefix serve]"):
+    """Drive the P/D deployment on the paged plane with prefix_cache=True
+    under sbs-la: two waves (`make_prefix_waves`) on one server.  Checks
+    that all 16 requests finish, that pages are reused on both planes
+    (hit tokens, a full hit in wave 1, shared decode pages, copy-on-write
+    copies), the first-token logits of every computed prompt against a
+    plain forward, each full hit's replayed first token against its
+    original's, launches (#1 and #2's paged entry run, #2's contiguous
+    entry and #3 do not) and that every pool empties after eviction.
+    Returns the serve report."""
+    import torch
+    from repro_torch.serving.real_engine import EngineSpec
+    from repro_torch.serving.server import RealSBSServer
+    scfg = prefix_scfg()
+    spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
+                      max_new=outs[1], block_size=BLOCK,
+                      decode_slots=scfg.resolved_decode_slots, device=device)
+
+    def server():
+        return RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
+                             spec=spec, prefix_cache=True)
+    warm = server()
+    warm.serve(make_requests(cfg, 2, seed=99, lens=(128, 128), outs=(2, 2)),
+               timeout=300)
+    del warm
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    waves = make_prefix_waves(cfg, 7, prefix, suffixes, unrelated, outs)
+    srv = server()
+    first_logits, chunks, undo = record_paged_prefill_logits(srv)
+    reqs = [waves(0), waves(1)]
+    gens, walls, stats = [], [], []
+    for w in counters:
+        w.launches = 0
+    try:
+        for wave in reqs:
+            t0 = time.monotonic()
+            gens.append(srv.serve(wave, timeout=600))
+            walls.append(time.monotonic() - t0)
+            stats.append(srv.prefix_stats())
+    finally:
+        undo()
+    launches = {w.__name__: w.launches for w in counters}
+    peak = (torch.cuda.max_memory_allocated() if device != "cpu" else None)
+    flat = [r for wave in reqs for r in wave]
+    done = {g.rid: g for wave in gens for g in wave}
+    if sorted(done) != [r.rid for r in flat]:
+        raise AssertionError(f"{tag}: unfinished requests: {len(done)} of "
+                             f"{len(flat)} finished")
+    for r in flat:
+        if len(done[r.rid].tokens) != spec.target_len(r):
+            raise AssertionError(f"{tag} request {r.rid}: "
+                                 f"{len(done[r.rid].tokens)} tokens, "
+                                 f"expected {spec.target_len(r)}")
+    s1, s2 = stats
+    if not (s2["prefix_hit_tokens"] > 0 and s1["prefill_full_hits"] >= 1
+            and s2["decode_blocks_shared"] > 0
+            and s2["decode_cow_copies"] > 0):
+        raise AssertionError(f"{tag}: no page reuse: wave 1 {s1}, "
+                             f"after wave 2 {s2}")
+    for eng in srv.decode_engines:
+        for st in eng._dp.values():
+            if st.occupied():
+                raise AssertionError(f"{tag}: the decode slots did not "
+                                     f"drain")
+    # a full hit ran no chunk: its first token is the one its prompt's
+    # original produced (wave 1's first prompt for the repeat, index 7)
+    computed = [r for r in flat if r.rid in first_logits]
+    hits = [r for r in flat if r.rid not in first_logits]
+    for r in hits:
+        if chunks.get(r.rid):
+            raise AssertionError(f"{tag} request {r.rid}: chunks ran but no "
+                                 f"first-token logits were recorded")
+        i = r.rid % 8
+        orig = 0 if i == 7 else i
+        if done[r.rid].tokens[0] != done[orig].tokens[0]:
+            raise AssertionError(f"{tag} request {r.rid}: replayed first "
+                                 f"token {done[r.rid].tokens[0]} != "
+                                 f"{done[orig].tokens[0]}")
+    if len(hits) != s2["prefill_full_hits"]:
+        raise AssertionError(f"{tag}: {len(hits)} requests ran no chunk, "
+                             f"{s2['prefill_full_hits']} full hits counted")
+    worst, agree, _ = compare_first_logits(cfg, params, computed,
+                                           first_logits, device, tag)
+    n_pools = drain_prefix_pools(srv, tag)
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        if device != "cpu" and launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"shared-prefix P/D serve")
+    for name in ("flash_prefill", "decode_attention"):
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on the shared-prefix P/D serve")
+    eng = srv.decode_engines[0]
+    passes = sum(e.passes for e in srv.engines)
+    durs = [d for d, _a, _r in eng.step_samples]
+    ttft = [[done[r.rid].ttft for r in wave] for wave in reqs]
+    del srv
+    profile = profile_serve(server, cfg, None, None, None, device,
+                            waves=lambda: [waves(0), waves(1)])
+    return {
+        "plane": "P/D, paged, prefix_cache", "model": cfg.name,
+        "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "requests": len(flat), "prompt_tokens": [r.input_len for r in flat],
+        "new_tokens": [len(done[r.rid].tokens) for r in flat],
+        "wall_s": sum(walls), "wall_s_per_wave": walls,
+        "ttft_p50_s_per_wave": [percentile(t, 0.5) for t in ttft],
+        "ttft_p99_s_per_wave": [percentile(t, 0.99) for t in ttft],
+        "itl_p50_s": percentile(eng.itl, 0.5),
+        "itl_p99_s": percentile(eng.itl, 0.99),
+        "decode_steps": eng.steps, "prefill_passes": passes,
+        "step_p50_s": percentile(durs, 0.5), "step_p99_s": percentile(durs, 0.99),
+        "prefix_stats_wave1": s1, "prefix_stats": s2,
+        "computed_prompts": len(computed), "full_hits": len(hits),
+        "pools_emptied": n_pools, "peak_memory_bytes": peak,
+        "launches": launches,
+        "paged_decode_attention_per_decode_step":
+            launches["paged_decode_attention"] / max(eng.steps, 1),
+        "paged_prefill_attention_per_prefill_pass":
+            launches["paged_prefill_attention"] / max(passes, 1),
+        "logits_rel_err": worst, "argmax_agree": agree,
+        "prefill_chunks": {r.rid: chunks.get(r.rid) for r in flat},
+        "profile": profile,
+    }
+
+
 def _kernel_group(name: str) -> str:
     if "paged_decode" in name:          # the split kernel and the merge
         return "paged_decode_attention"
@@ -1232,22 +1484,27 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_serve(make_server, cfg, n_requests, lens, outs, device):
+def profile_serve(make_server, cfg, n_requests, lens, outs, device,
+                  waves=None):
     """Where the device time of the same serve goes: a second run of the
     measured requests under torch.profiler (a fresh server, so the
-    measured run above carries no profiler cost).  Returns device time by
-    kernel group and the device's idle share of the serve's wall time,
-    or None when the profiler records no device time."""
+    measured run above carries no profiler cost; `waves`, if given,
+    returns the lists of requests served one after another).  Returns
+    device time by kernel group and the device's idle share of the
+    serve's wall time, or None when the profiler records no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if device == "cpu":
         return None
     srv = make_server()
-    reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
+    runs = (waves() if waves is not None else
+            [make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        srv.serve(reqs, timeout=600)
+        for reqs in runs:
+            srv.serve(reqs, timeout=600)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     groups, top = {}, []
@@ -1271,9 +1528,10 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device):
 
 # ---------------------------------------------------------------------------
 
-def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm):
+def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix):
     """The kernels line: every kernel of the port with its measurements
-    and its launches on its own path's serve."""
+    and its launches on its own path's serve (#1 and #2's paged entry
+    also on the shared-prefix P/D serve)."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -1293,11 +1551,18 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm):
     csrc = "src/repro_torch/csrc/"
     dec_k = "src/repro/kernels/decode_attention/kernel.py"
     fp_k = "src/repro/kernels/flash_prefill/kernel.py:87"
+    on_prefix = pd_prefix["launches"]
     return [
         item("paged_decode_attention", csrc + "paged_decode_attention.cu",
-             dec_k + ":115", mixed, dec, "mixed serve"),
+             dec_k + ":115", mixed, dec, "mixed serve",
+             launches_pd_prefix_serve=on_prefix["paged_decode_attention"],
+             launches_per_decode_step_pd_prefix_serve=pd_prefix[
+                 "paged_decode_attention_per_decode_step"]),
         item("paged_prefill_attention", csrc + "flash_prefill.cu", fp_k,
-             mixed, pfx, "mixed serve"),
+             mixed, pfx, "mixed serve",
+             launches_pd_prefix_serve=on_prefix["paged_prefill_attention"],
+             launches_per_prefill_pass_pd_prefix_serve=pd_prefix[
+                 "paged_prefill_attention_per_prefill_pass"]),
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
              "P/D serve"),
         item("decode_attention", csrc + "decode_attention.cu",
@@ -1420,7 +1685,46 @@ def main() -> int:
               flush=True)
         print(f"[ssm serve] device_s_by_group={sprof.get('by_group_s')!r}",
               flush=True)
-        kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm)
+        del sparams
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                             device=device)
+        torch.cuda.synchronize()
+        print(f"[init] {cfg.name} bf16 weights in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        px = serve_pd_prefix(cfg, params, device, counters)
+        xprof = px["profile"] or {}
+        for w in (0, 1):
+            print(f"[pd prefix serve] wave {w + 1}: "
+                  f"ttft_p50_s={px['ttft_p50_s_per_wave'][w]!r} "
+                  f"ttft_p99_s={px['ttft_p99_s_per_wave'][w]!r} "
+                  f"wall_s={px['wall_s_per_wave'][w]!r}", flush=True)
+        print(f"[pd prefix serve] itl_p50_s={px['itl_p50_s']!r} "
+              f"itl_p99_s={px['itl_p99_s']!r}", flush=True)
+        print(f"[pd prefix serve] wall_s={px['wall_s']!r}", flush=True)
+        print(f"[pd prefix serve] idle_share={xprof.get('idle_share')!r} "
+              f"(profiled repeat of both waves, "
+              f"wall_s={xprof.get('wall_s')!r})", flush=True)
+        print(f"[pd prefix serve] device_s_by_group="
+              f"{xprof.get('by_group_s')!r}", flush=True)
+        print(f"[pd prefix serve] prefix_stats wave 1: "
+              f"{px['prefix_stats_wave1']!r}", flush=True)
+        print(f"[pd prefix serve] prefix_stats after wave 2: "
+              f"{px['prefix_stats']!r} (computed prompts "
+              f"{px['computed_prompts']}, full hits {px['full_hits']}, "
+              f"{px['pools_emptied']} pools empty after eviction)",
+              flush=True)
+        print(f"[pd prefix serve] peak_memory_bytes="
+              f"{px['peak_memory_bytes']!r}", flush=True)
+        print(f"[pd prefix serve] launches={px['launches']!r} per decode "
+              f"step: paged_decode_attention="
+              f"{px['paged_decode_attention_per_decode_step']!r}, per "
+              f"prefill pass: paged_prefill_attention="
+              f"{px['paged_prefill_attention_per_prefill_pass']!r} "
+              f"(decode_steps={px['decode_steps']}, "
+              f"prefill_passes={px['prefill_passes']})", flush=True)
+        kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1428,6 +1732,7 @@ def main() -> int:
         print(json.dumps({"serve": mixed}), flush=True)
         print(json.dumps({"serve_pd": pd}), flush=True)
         print(json.dumps({"serve_ssm": ssm}), flush=True)
+        print(json.dumps({"serve_pd_prefix": px}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

@@ -6,10 +6,11 @@ Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `init_cache`, `cache_join`, `cache_take`, `prefill_chunk`,
 `decode_step`; and the paged family `paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step`,
-`paged_prefill_step`, `mixed_step`, `paged_copy_block`,
-`paged_gather_blocks`, `paged_adopt_blocks`, `paged_clear_rows`
-(attention-only).  The JAX package scans over a stacked layer axis; here
-the layers are a Python list and the step functions loop over them.
+`paged_prefill_step` (with `_require_pageable_prefill`), `mixed_step`,
+`paged_copy_block`, `paged_gather_blocks`, `paged_adopt_blocks`,
+`paged_clear_rows` (attention-only).  The JAX package scans over a
+stacked layer axis; here the layers are a Python list and the step
+functions loop over them.
 
 Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
@@ -402,12 +403,27 @@ def paged_decode_step(cfg: ModelConfig, params, token, cache):
     return logits, out
 
 
+def _require_pageable_prefill(cfg: ModelConfig) -> None:
+    """Page-native prefill (and page sharing) needs every cached layer in
+    pool pages: attention-only decoder-only configs."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: page-native prefill is attention-only "
+            f"(encoder state has no page representation)")
+    if any(k not in (LayerKind.DENSE, LayerKind.MOE)
+           for k in cfg.layer_kinds()):
+        raise ValueError(
+            f"{cfg.name}: page-native prefill is attention-only "
+            f"(per-slot SSM state has no page representation)")
+
+
 def paged_prefill_step(cfg: ModelConfig, params, tokens, cache, slot):
     """One chunked-prefill step writing straight into pool pages: extend
     slot `slot` by the chunk `tokens` ((1, Sc) int).  Earlier chunks and
     shared-prefix pages are read through the block table.  Returns
     (last-position logits (1, V), cache); the pools are written in
     place."""
+    _require_pageable_prefill(cfg)
     Sc = tokens.shape[1]
     pos0 = cache["cur"][slot]
     positions = (pos0 + torch.arange(Sc, dtype=torch.int32,

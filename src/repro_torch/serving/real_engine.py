@@ -1,9 +1,10 @@
 """Real PyTorch engine backends for the EnginePlane contract.
 
-Counterpart of `repro/serving/real_engine.py`: `EngineSpec`, `GenState`,
-`KVHandoffBus`, `_Worker`/`_WorkerOwner`, `_PrefillCtx` and
-`RealPrefillEngine` (dense backend), `_DPDecodeState`/`_DPPagedState`,
-`RealDecodeEngine` (padded and paged) and `RealUnifiedEngine`.  They plug
+Counterpart of `repro/serving/real_engine.py`: `EngineSpec`,
+`PageHandoff`, `GenState`, `KVHandoffBus`, `_Worker`/`_WorkerOwner`,
+`_PrefillCtx`/`_PagedPrefillCtx` and `RealPrefillEngine` (dense and
+page-native), `_DPDecodeState`/`_DPPagedState`, `RealDecodeEngine`
+(padded and paged) and `RealUnifiedEngine`.  They plug
 into `ClusterRuntime` exactly where the simulated instances do — same
 scheduler feedback, same DecodeDPState accounting — but every pass/step
 is a real forward of the port's model on the engine's worker thread.
@@ -11,12 +12,24 @@ The runtime runs in realtime mode: `start_pass`/`start_step` return
 ASYNC and the worker posts the `pass_end`/`step_end` completion to the
 runtime's event loop.
 
-Prefill (P/D deployment) is true chunked prefill: each granted (request,
-tokens) slice extends the request's private batch-1 dense cache via
-`prefill_chunk`; completion publishes the whole cache and the first
-token (argmax of the last chunk's logits) on the `KVHandoffBus` — the
-paper's P/D KV transfer, priced by `transfer_time` on the runtime heap
-and realised at join time.
+Prefill (P/D deployment) is true chunked prefill with two cache
+backends:
+
+  dense (default)        each granted (request, tokens) slice extends the
+      request's private batch-1 dense cache via `prefill_chunk`;
+      completion publishes the whole cache.
+  page-native (opt-in)   chunks write straight into the engine's
+      `BlockPool` pages via `paged_prefill_step`.  With `share_prefix`, a
+      `PagePrefixBinder` resolves each new prompt's longest cached prefix
+      to live pages at enqueue time, so those chunks are never computed
+      (an exact full-prompt hit runs no chunk and replays the stored
+      first token).  Completion gathers only the pages the request holds
+      (`paged_gather_blocks`) into a `PageHandoff`.
+
+Either way the first token (argmax of the last chunk's logits) and the
+cache or handoff are published on the `KVHandoffBus` — the paper's P/D
+KV transfer, priced by `transfer_time` on the runtime heap and realised
+at join time.
 
 Decode is continuous batched decode with two cache backends behind one
 engine:
@@ -30,8 +43,12 @@ engine:
   paged  (block_size>0)  each DP owns a `BlockPool` + block-table cache
       (`init_paged_cache`); a request's lifetime pages are reserved at
       join and returned at leave/drain, so admission is by free-block
-      count.  Joins scatter the batch-1 cache into the pages
-      (`paged_cache_join`).  Attention-only models: a paged spec of a
+      count.  Joins scatter a batch-1 cache into the pages
+      (`paged_cache_join`); a `PageHandoff` joins by
+      `paged_adopt_blocks`, and with `share_prefix` its prefix pages
+      already resident on the DP are pointed at, not copied, its pages
+      are published into the DP's binder, and the partial tail block is
+      copied on write at join.  Attention-only models: a paged spec of a
       config without attention raises ValueError (`paged_layout`), and
       one of a hybrid NotImplementedError.
 
@@ -45,7 +62,9 @@ Differences from the JAX engines:
   * no jit, no mesh, no lock around device programs: PyTorch runs
     eagerly, every engine thread issues its work to the device's default
     stream (so it serialises, and a handoff cache written by a prefill
-    worker is complete before the runtime thread's join reads it);
+    worker is complete before the runtime thread's join reads it, and a
+    page the runtime thread clears or stages is ready before the
+    worker's next chunk reads it);
   * the step functions write the K/V caches in place (see
     `repro_torch.models.model`), so a worker step mutates the DP's cache
     while the runtime thread waits for `step_end`.  The runtime thread
@@ -61,8 +80,17 @@ Differences from the JAX engines:
     index it overwrote held a position one window back, which the window
     already masks).  SSM and conv states are never written by a step (it
     returns new ones), so the snapshot holds them as they were;
-  * page-native P/D prefill, page sharing and the sharded plane are not
-    ported yet (ROADMAP Queue 1 items 6 and 11).
+  * in-place writes and shared pages: a page a binder has published is
+    never written again.  Every write lands at a position at or past the
+    writer's own cursor: a prefill chunk past its claimed, block-aligned
+    prefix (a full hit never runs a chunk), a decode step past the
+    prompt.  So a decode DP copies the partial tail block a join shares
+    before the row's first step (the eager copy-on-write), and a
+    completed prefill gathers its payload (a copy) before it drops its
+    pages.  The runtime thread stages page-native prefill rows (clears
+    fresh pages, installs the table row and cursor) only while no pass is
+    in flight, and reads no cursor or table back to the host;
+  * the sharded plane is not ported yet (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -76,15 +104,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.config.base import PAGED_SLOTS_FACTOR, ModelConfig
-from repro_torch.core.types import Request, RequestPhase
+from repro_torch.core.types import DispatchCommand, Request, RequestPhase
 from repro_torch.models.model import (
-    cache_join, cache_take, decode_step, init_cache, init_paged_cache,
-    mixed_step, paged_cache_clear_slot, paged_cache_join, paged_cache_take,
-    paged_clear_rows, paged_decode_step, paged_layout, paged_prefill_step,
-    prefill_chunk, require_supported,
+    _require_pageable_prefill, cache_join, cache_take, decode_step,
+    init_cache, init_paged_cache, mixed_step, paged_adopt_blocks,
+    paged_cache_clear_slot, paged_cache_join, paged_cache_take,
+    paged_clear_rows, paged_copy_block, paged_decode_step,
+    paged_gather_blocks, paged_layout, paged_prefill_step, prefill_chunk,
+    require_supported,
 )
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
 from repro_torch.serving.kv_pool import BlockPool, pad_block_table
+from repro_torch.serving.page_share import PagePrefixBinder
 from repro_torch.serving.plane import (
     ASYNC, PassResult, StartResult, UnifiedEngine,
 )
@@ -103,7 +134,9 @@ class EngineSpec:
     allocates max_batch rows of max_len tokens per DP; the paged plane
     (block_size > 0) spends the SAME token budget on a shared `BlockPool`
     of max_batch·max_len/block_size blocks (+ the null block), with
-    `decode_slots` (default 2×max_batch) cheap batch rows on top."""
+    `decode_slots` (default 2×max_batch) cheap batch rows on top.  A
+    page-native prefill engine owns a pool of its own
+    (`paged_prefill_blocks`) with `paged_prefill_slots` rows."""
     cfg: ModelConfig
     params: Any
     max_len: int = 256
@@ -112,6 +145,8 @@ class EngineSpec:
     block_size: int = 0         # paged KV block size (0 = padded slots)
     decode_slots: int = 0       # paged batch rows per DP (0 = 2×max_batch)
     pool_blocks: int = 0        # physical blocks per DP (0 = equal-memory)
+    prefill_slots: int = 0      # page-native prefill rows (0 = auto)
+    prefill_pool_blocks: int = 0  # page-native prefill pool (0 = auto)
     device: str = "cuda"
 
     def __post_init__(self):
@@ -146,6 +181,32 @@ class EngineSpec:
             return self.pool_blocks
         return self.max_batch * self.max_len // self.block_size + 1
 
+    @property
+    def prefix_sharable(self) -> bool:
+        """Page sharing needs every cached layer to live in pool pages —
+        attention-only decoder-only configs."""
+        if not self.paged:
+            return False
+        try:
+            _require_pageable_prefill(self.cfg)
+        except ValueError:
+            return False
+        return True
+
+    @property
+    def paged_prefill_slots(self) -> int:
+        """Concurrent in-flight prompts per page-native prefill engine."""
+        return self.prefill_slots or max(8, 2 * self.max_batch)
+
+    @property
+    def paged_prefill_blocks(self) -> int:
+        """Prefill-pool size: 2× the slot working set, so completed pages
+        can stay resident in the prefix cache while fresh prompts stage."""
+        if self.prefill_pool_blocks:
+            return self.prefill_pool_blocks
+        per_slot = self.max_len // self.block_size
+        return 2 * self.paged_prefill_slots * per_slot + 1
+
     def request_cache(self) -> Dict:
         """A prefill request's private batch-1 dense cache."""
         return init_cache(self.cfg, 1, self.max_len, dtype=self.dtype,
@@ -159,6 +220,13 @@ class EngineSpec:
     def paged_cache(self) -> Dict:
         return init_paged_cache(
             self.cfg, self.paged_slots, self.paged_pool_blocks,
+            self.max_len, self.block_size, dtype=self.dtype,
+            device=self.device)
+
+    def prefill_paged_cache(self) -> Dict:
+        """A page-native prefill engine's paged cache."""
+        return init_paged_cache(
+            self.cfg, self.paged_prefill_slots, self.paged_prefill_blocks,
             self.max_len, self.block_size, dtype=self.dtype,
             device=self.device)
 
@@ -179,11 +247,35 @@ class EngineSpec:
         return req.input_len + max(self.target_len(req) - 1, 0)
 
 
+def _install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
+                 ) -> Dict:
+    """`cache` with slot `slot`'s block-table row and cursor set (new
+    `block_tab`/`cur` tensors: a cache dict handed out earlier keeps its
+    own)."""
+    out = dict(cache)
+    out["block_tab"] = cache["block_tab"].clone()
+    out["block_tab"][slot] = tab
+    out["cur"] = cache["cur"].clone()
+    out["cur"][slot] = cur
+    return out
+
+
+@dataclasses.dataclass
+class PageHandoff:
+    """Block-granular prefill→decode KV payload (`paged_gather_blocks`
+    output, nbt-padded): only the pages the prompt occupies travel, not a
+    max_len dense cache.  `n_tokens` is the prompt length the payload
+    covers (payload row i holds tokens [i·bs, (i+1)·bs))."""
+    payload: Dict
+    n_tokens: int
+
+
 @dataclasses.dataclass
 class GenState:
     """Per-request generation context carried across the P/D handoff.
-    `cache` is a parked dense batch-1 cache (a finished prefill, a drain
-    or a preemption) or None while resident."""
+    `cache` is a parked dense batch-1 cache (a dense prefill, a drain or
+    a preemption re-park), a `PageHandoff` (page-native prefill), or None
+    while resident."""
     rid: int
     cache: Optional[Any]
     tokens: List[int]
@@ -278,7 +370,7 @@ class _WorkerOwner:
 
 
 # ---------------------------------------------------------------------------
-# Real prefill (dense backend)
+# Real prefill (dense and page-native)
 # ---------------------------------------------------------------------------
 
 
@@ -292,41 +384,189 @@ class _PrefillCtx:
         self.first_token: Optional[int] = None
 
 
+class _PagedPrefillCtx:
+    """Model-side state of one PAGE-NATIVE prefill: a row of the
+    engine-shared paged cache plus the request's block table.  `slot` is
+    None until the engine stages the request (allocates its fresh blocks
+    and installs its table row); a full-prefix cache hit never stages —
+    `consumed` starts at `input_len` and the stored first token replays."""
+
+    def __init__(self, table: List[int], claimed: int,
+                 first_token: Optional[int] = None):
+        self.slot: Optional[int] = None
+        self.table = table          # physical blocks (claimed prefix first)
+        self.claimed = claimed      # prefix tokens resolved from cache
+        self.consumed = claimed     # prompt tokens whose KV is in pages
+        self.first_token = first_token
+
+
 class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
     """Chunked-prefill engine: scheduler-side queueing/batch-forming and
     EndForward bookkeeping are inherited from the simulated instance —
-    only the pass execution differs (`prefill_chunk` on the worker
-    thread instead of a cost-model duration).  Dense backend only: the
-    page-native path and prefix sharing are ROADMAP Queue 1 item 6."""
+    only the pass execution differs (`prefill_chunk` or
+    `paged_prefill_step` on the worker thread instead of a cost-model
+    duration).
+
+    With `page_native=True` chunks write straight into `BlockPool` pages,
+    and `share_prefix=True` adds a `PagePrefixBinder`: at enqueue time a
+    new prompt's longest cached prefix is CLAIMED (refcounted pages, no
+    copy) so its chunks are never computed.  The claim must equal the hit
+    the scheduler credited — both sides resolve against the same binder
+    in the same runtime-thread tick (`page_share.EngineBackedPrefixIndex`),
+    so a mismatch is a wiring bug and raises."""
 
     def __init__(self, instance_id: int, dp_ids: Sequence[int], chunk: int,
                  spec: EngineSpec, bus: KVHandoffBus,
                  page_native: bool = False, share_prefix: bool = False):
-        if page_native or share_prefix:
-            raise NotImplementedError(
-                "page-native prefill and prefix sharing are not ported "
-                "yet (ROADMAP Queue 1 item 6)")
         super().__init__(instance_id, dp_ids, chunk, cost=None)
         _WorkerOwner.__init__(self, f"prefill-{instance_id}")
         self.spec = spec
         self.bus = bus
         self._post = None
         self._ctx: Dict[int, _PrefillCtx] = {}
+        self.page_native = bool(page_native)
+        self.binder: Optional[PagePrefixBinder] = None
+        if self.page_native:
+            if not spec.prefix_sharable:
+                raise ValueError(
+                    "page_native prefill needs block_size > 0 and an "
+                    "attention-only decoder-only config")
+            self.pool = BlockPool(spec.paged_prefill_blocks, spec.block_size)
+            self.cache = spec.prefill_paged_cache()
+            if share_prefix:
+                self.binder = PagePrefixBinder(self.pool)
+            self._free_slots: List[int] = list(
+                range(spec.paged_prefill_slots))
+            self._pctx: Dict[int, _PagedPrefillCtx] = {}
+        elif share_prefix:
+            raise ValueError("share_prefix requires page_native=True")
+        # page-native stats (read after the run; only the worker writes
+        # chunks_run, only the runtime thread writes full_hits)
+        self.chunks_run = 0
+        self.full_hits = 0
 
     # -- lifecycle -------------------------------------------------------
     def bind_loop(self, loop) -> None:
         self._post = loop.post
 
     # -- EnginePlane -----------------------------------------------------
+    def enqueue(self, cmd: DispatchCommand, now: float) -> None:
+        if self.page_native:
+            for lst in cmd.assignments.values():
+                for req, tok in lst:
+                    if req.rid not in self._pctx:
+                        self._claim_prefix(req, tok)
+        super().enqueue(cmd, now)
+
+    def _claim_prefix(self, req: Request, tok: int) -> None:
+        """First sight of a request: resolve its cached prefix to pages.
+        The scheduler already credited `expected` hit tokens (it granted
+        `tok` now and debited `remaining_prefill` by grant + hit), so the
+        engine-side claim must match exactly — the claimed chunks will
+        never be granted again."""
+        expected = req.input_len - req.remaining_prefill - tok
+        toks = (req.tokens or ())[:req.input_len]
+        if self.binder is not None and toks:
+            claim, blocks, first = self.binder.claim(toks)
+            self.binder.record(claim, req.input_len)
+        else:
+            claim, blocks, first = 0, [], None
+        if claim != expected:
+            raise RuntimeError(
+                f"request {req.rid}: scheduler credited a {expected}-token "
+                f"prefix hit but the engine binder resolved {claim} — "
+                f"cache-aware dispatch on the real plane must match "
+                f"through EngineBackedPrefixIndex")
+        if claim >= req.input_len:
+            self.full_hits += 1
+        self._pctx[req.rid] = _PagedPrefillCtx(list(blocks), claim, first)
+
+    def _stage(self, req: Request, ctx: _PagedPrefillCtx) -> bool:
+        """Give an unstaged request a cache row + its fresh blocks, and
+        install its table row and cursor.  Runs on the runtime thread with
+        no pass in flight, so the cache mutation cannot race the worker.
+        Returns False (leaving ctx untouched) under slot/page exhaustion —
+        the caller requeues the request's chunks."""
+        if not self._free_slots:
+            return False
+        need = self.pool.blocks_for(req.input_len) - len(ctx.table)
+        if need > self.pool.free_count and self.binder is not None:
+            self.binder.ensure_free(need)
+        if need > self.pool.free_count:
+            return False
+        fresh = self.pool.alloc(need)
+        ctx.table = ctx.table + fresh
+        ctx.slot = self._free_slots.pop()
+        cache = self.cache
+        if fresh:
+            # reused pages keep their previous tenant's kv_pos; any stale
+            # pos <= the reader's cursor would alias as valid history
+            cache = paged_clear_rows(cache, self.spec.table(fresh))
+        self.cache = _install_row(cache, ctx.slot,
+                                  self.spec.table(ctx.table), ctx.claimed)
+        return True
+
     def start_pass(self, now: float) -> StartResult:
         self._raise_worker_error()
+        if self.page_native and not self.busy:
+            # stage before batch-forming, in queue order, so _begin_pass
+            # only hands the worker requests with a live cache row
+            staged = set()
+            for d in self.dp_ids:
+                for req, _tok in self.queues[d]:
+                    ctx = self._pctx.get(req.rid)
+                    if (ctx is None or ctx.slot is not None
+                            or ctx.consumed >= req.input_len
+                            or req.rid in staged):
+                        continue
+                    if not self._stage(req, ctx):
+                        break       # exhausted: later arrivals wait too
+                    staged.add(req.rid)
         batch = self._begin_pass(now)
         if batch is None:
             return None
+        if self.page_native:
+            batch = self._strip_unstaged(batch)
+            if batch is None:
+                return None
         post = self._post        # bound per run: an abandoned job cannot
         self._submit(            # post into a later run's loop
             lambda: self._exec_pass(batch, post))
         return ASYNC
+
+    def _strip_unstaged(self, batch: Dict[int, List[Tuple[Request, int]]]
+                        ) -> Optional[Dict[int, List[Tuple[Request, int]]]]:
+        """Drop batch items whose request has no cache row (page/slot
+        exhaustion) and requeue them at the FRONT of their queue; roll
+        the pass back entirely if nothing runnable remains.  Full-hit
+        requests (consumed == input_len, slot None) always stay — their
+        zero-token markers complete without touching the device."""
+        kept: Dict[int, List[Tuple[Request, int]]] = {}
+        dropped = 0
+        for d, taken in batch.items():
+            keep: List[Tuple[Request, int]] = []
+            back: List[Tuple[Request, int]] = []
+            for req, tok in taken:
+                ctx = self._pctx[req.rid]
+                if ctx.slot is None and ctx.consumed < req.input_len:
+                    back.append((req, tok))
+                else:
+                    keep.append((req, tok))
+            if keep:
+                kept[d] = keep
+            for item in reversed(back):
+                self.queues[d].appendleft(item)
+            dropped += len(back)
+        if not kept:
+            # nothing runnable: undo _begin_pass bookkeeping and idle
+            self._current = None
+            self.busy = False
+            self.passes -= 1
+            self.capacity_offered -= len(self.dp_ids) * self.chunk
+            return None
+        if dropped:
+            self._current = kept
+        return kept
 
     def _exec_pass(self, batch: Dict[int, List[Tuple[Request, int]]],
                    post) -> None:
@@ -340,6 +580,9 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         post("pass_end", self)
 
     def _run_chunk(self, req: Request, tok: int) -> None:
+        if self.page_native:
+            self._run_chunk_paged(req, tok)
+            return
         ctx = self._ctx.get(req.rid)
         if ctx is None:
             ctx = self._ctx[req.rid] = _PrefillCtx(self.spec)
@@ -355,10 +598,29 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
                 # a host sync: the cache is complete once this returns
                 ctx.first_token = int(logits[0].argmax())
 
+    def _run_chunk_paged(self, req: Request, tok: int) -> None:
+        # worker thread: extend the request's cache row in place; the
+        # engine-shared cache is only rebound here and, with no pass in
+        # flight, on the runtime thread (_stage, _complete_paged)
+        ctx = self._pctx[req.rid]
+        ids = (req.tokens or ())[ctx.consumed: ctx.consumed + tok]
+        if not ids:
+            return
+        arr = torch.tensor([ids], dtype=torch.int32, device=self.spec.device)
+        logits, self.cache = paged_prefill_step(
+            self.spec.cfg, self.spec.params, arr, self.cache, ctx.slot)
+        self.chunks_run += 1
+        ctx.consumed += len(ids)
+        if ctx.consumed >= req.input_len and ctx.first_token is None:
+            ctx.first_token = int(logits[0].argmax())
+
     def finish_pass(self, now: float) -> PassResult:
         self._raise_worker_error()
         res = super().finish_pass(now)
         for req in res.completed:
+            if self.page_native:
+                self._complete_paged(req)
+                continue
             ctx = self._ctx.pop(req.rid, None)
             if ctx is None or ctx.first_token is None:
                 raise RuntimeError(
@@ -368,6 +630,35 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
             self.bus.publish(req.rid, ctx.cache, ctx.first_token)
             req.generated = 1
         return res
+
+    def _complete_paged(self, req: Request) -> None:
+        """Page-native completion: gather ONLY the prompt's pages as the
+        handoff payload, publish the pages into the prefix cache, then
+        release the engine's row and references.  Ordering matters: the
+        gather copies page contents before any free (a later tenant of a
+        freed page writes it in place); `binder.insert` increfs newly
+        bound pages before the engine's own references are dropped, so
+        published pages never transit refcount 0."""
+        ctx = self._pctx.pop(req.rid, None)
+        if ctx is None or ctx.first_token is None:
+            raise RuntimeError(
+                f"request {req.rid} completed prefill without model "
+                f"state (tokens shorter than input_len?)")
+        payload = paged_gather_blocks(self.spec.cfg, self.cache,
+                                      self.spec.table(ctx.table))
+        self.bus.publish(req.rid, PageHandoff(payload, req.input_len),
+                         ctx.first_token)
+        req.generated = 1
+        if self.binder is not None and req.tokens:
+            # a prompt's pages are frozen from here on (prefill never
+            # writes past input_len), so the partial tail is publishable
+            # together with its first-token payload
+            self.binder.insert(req.tokens[:req.input_len], ctx.table,
+                               first_token=ctx.first_token)
+        if ctx.slot is not None:
+            self.cache = paged_cache_clear_slot(self.cache, ctx.slot)
+            self._free_slots.append(ctx.slot)
+        self.pool.free(ctx.table)
 
 
 # ---------------------------------------------------------------------------
@@ -395,7 +686,8 @@ class _DPDecodeState:
     def occupied(self) -> bool:
         return any(r is not None for r in self.slots)
 
-    def can_admit(self, need_tokens: int) -> bool:
+    def can_admit(self, need_tokens: int, extra_blocks: int = 0,
+                  shared_blocks: int = 0) -> bool:
         return self.free_slot() is not None
 
     def leave(self, rid: int, slot: int) -> None:
@@ -408,21 +700,36 @@ class _DPPagedState(_DPDecodeState):
     """One DP unit's paged continuous batch: `paged_slots` batch rows
     over a shared `BlockPool` (the cache is allocated at the first
     join).  Admission is by free-block count — a request's lifetime
-    blocks are reserved at join and returned at leave/drain."""
+    blocks are reserved at join and returned at leave/drain.
 
-    def __init__(self, spec: EngineSpec):
+    With `share_prefix`, the unit also owns a `PagePrefixBinder`: joined
+    prompts publish their pages, and later prompts with a matching prefix
+    point at the resident pages instead of re-copying their handoff
+    payload rows.  Pool pressure evicts cache entries before refusing an
+    admission (`binder.ensure_free`)."""
+
+    def __init__(self, spec: EngineSpec, share_prefix: bool = False):
         super().__init__(spec, n_slots=spec.paged_slots)
         self.pool = BlockPool(spec.paged_pool_blocks, spec.block_size)
         self.held: Dict[int, List[int]] = {}       # rid -> block ids
+        self.binder: Optional[PagePrefixBinder] = (
+            PagePrefixBinder(self.pool) if share_prefix else None)
 
-    def can_admit(self, need_tokens: int) -> bool:
+    def can_admit(self, need_tokens: int, extra_blocks: int = 0,
+                  shared_blocks: int = 0) -> bool:
         need = self.pool.blocks_for(need_tokens)
         if need > self.pool.num_blocks - 1:
             raise ValueError(
                 f"request needs {need} blocks, pool holds only "
                 f"{self.pool.num_blocks - 1} — raise max_len/pool_blocks")
+        # `shared_blocks` prefix pages are already claimed (refs held):
+        # they will be pointed at, never allocated, so only the remainder
+        # must come out of the free store
+        need -= shared_blocks
+        if self.binder is not None:
+            self.binder.ensure_free(need + extra_blocks)
         return (self.free_slot() is not None
-                and need <= self.pool.free_count)
+                and need + extra_blocks <= self.pool.free_count)
 
     def leave(self, rid: int, slot: int) -> None:
         """Drop the slot's table row FIRST (the inactive slot keeps
@@ -442,21 +749,28 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
     drain_wait_s = 30.0     # longest drain() waits for an in-flight step
 
     def __init__(self, instance_id: int, dp_ids: Sequence[int],
-                 spec: EngineSpec, bus: KVHandoffBus):
+                 spec: EngineSpec, bus: KVHandoffBus,
+                 share_prefix: bool = False):
         super().__init__(instance_id, dp_ids, cost=None)
         _WorkerOwner.__init__(self, f"decode-{instance_id}")
         self.spec = spec
         self.bus = bus
         self._post = None
-        state = _DPPagedState if spec.paged else _DPDecodeState
-        self._dp: Dict[int, _DPDecodeState] = {d: state(spec)
-                                               for d in dp_ids}
+        if share_prefix and not spec.prefix_sharable:
+            raise ValueError(
+                "share_prefix requires a paged attention-only config")
+        self._dp: Dict[int, _DPDecodeState] = {
+            d: (_DPPagedState(spec, share_prefix=share_prefix)
+                if spec.paged else _DPDecodeState(spec))
+            for d in dp_ids}
         self._pending: List[Tuple[int, Request]] = []
         self._deferred: set = set()   # rids whose join failed can_admit
         self._slot_of: Dict[int, Tuple[int, int]] = {}   # rid -> (dp, slot)
         self._participants: Dict[int, List[Tuple[Request, int]]] = {}
         self._result: Optional[Dict[int, Tuple[Dict, List[int]]]] = None
         self._join_finished: List[Request] = []
+        self.cow_copies = 0         # eager tail copy-on-writes at join
+        self.blocks_shared = 0      # payload rows skipped via shared pages
         # per-step samples (worker appends, read after the run):
         # (wall seconds, active decode rows, cache rows stepped)
         self.step_samples: List[Tuple[float, int, int]] = []
@@ -473,7 +787,16 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
                        ) -> Optional[int]:
         st = self._dp[dp_id]
         if self.spec.paged:
-            return st.pool.free_count * self.spec.block_size
+            free = st.pool.free_count * self.spec.block_size
+            if tokens and st.binder is not None:
+                # credit the claimable block-aligned prefix already
+                # resident in this DP's binder: those pages will be
+                # POINTED AT, not allocated, so they are headroom for
+                # this prompt even though the pool holds them (the same
+                # credit EngineBackedPrefixIndex grants at dispatch)
+                claim, _full = st.binder.peek(tokens)
+                free += st.pool.blocks_for(claim) * self.spec.block_size
+            return free
         return sum(1 for r in st.slots if r is None) * self.spec.max_len
 
     def admit(self, dp_id: int, req: Request) -> None:
@@ -495,9 +818,12 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
 
     def preempt(self, rid: int) -> Optional[Request]:
         """Request-level preemption: park the victim's KV on the bus as a
-        dense batch-1 cache and free its slot (paged: and its pages).
-        Re-admission goes through the normal join path.  Refused (None)
-        while a worker step is in flight."""
+        dense batch-1 cache and free its slot (paged: and its pages; a
+        shared page only loses this row's reference).  Re-admission goes
+        through the normal join path — a re-parked cache is NOT a
+        `PageHandoff`, so it re-joins through `paged_cache_join` with its
+        generated KV intact.  Refused (None) while a worker step is in
+        flight."""
         if self.busy:
             return None
         loc = self._slot_of.get(rid)
@@ -535,9 +861,9 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self._join_finished.append(req)
 
     def _apply_joins(self, now: float, dp_states) -> None:
-        """Join parked requests (a dense batch-1 cache on the bus) into a
-        free slot (paged: with their lifetime pages); retry next step when
-        the DP's slots or pool are full."""
+        """Join parked requests (a dense batch-1 cache or a `PageHandoff`
+        on the bus) into a free slot (paged: with their lifetime pages);
+        retry next step when the DP's slots or pool are full."""
         by_id = {s.dp_id: s for s in dp_states}
         still: List[Tuple[int, Request]] = []
         for dp_id, req in self._pending:
@@ -546,24 +872,47 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             if req.generated >= self._target_len(req):
                 self._finish_at_join(now, by_id, dp_id, req, gen)
                 continue
+            # padded: admission token = a free slot; paged: a free slot
+            # AND the request's lifetime blocks (reserved up front so a
+            # resident request never stalls mid-generation on a page;
+            # share_prefix holds one block of slack for the eager tail
+            # copy-on-write in _join_pages)
             life = self.spec.lifetime_tokens(req)
-            if not st.can_admit(life):
+            use_binder = (self.spec.paged and st.binder is not None
+                          and st.pool.blocks_for(life)
+                          < st.pool.num_blocks - 1)
+            # CLAIM FIRST: take the refs on the resident prefix before
+            # the admission check so (a) the check credits pages that
+            # will be pointed at rather than allocated and (b)
+            # ensure_free's LRU eviction can never free the pages between
+            # the check and the join
+            claim, shared = 0, []
+            toks = (req.tokens or ())[:req.input_len]
+            if (use_binder and toks
+                    and isinstance(gen.cache, PageHandoff)):
+                claim, shared, _first = st.binder.claim(toks)
+            if not st.can_admit(life, extra_blocks=1 if use_binder else 0,
+                                shared_blocks=len(shared)):
+                if shared:
+                    st.pool.free(shared)     # drop the claim's refs
                 self._deferred.add(req.rid)
                 still.append((dp_id, req))   # retry after this step
                 continue
             self._deferred.discard(req.rid)
             slot = st.free_slot()
-            if self.spec.paged:
-                if st.cache is None:
-                    st.cache = self.spec.paged_cache()
+            if st.cache is None:
+                st.cache = (self.spec.paged_cache() if self.spec.paged
+                            else self.spec.batch_cache())
+            if self.spec.paged and isinstance(gen.cache, PageHandoff):
+                self._join_pages(st, gen, req, slot, use_binder,
+                                 claim, shared)
+            elif self.spec.paged:
                 ids = st.pool.alloc(st.pool.blocks_for(life))
                 st.held[req.rid] = ids
                 st.cache = paged_cache_join(self.spec.cfg, st.cache,
                                             gen.cache, slot,
                                             self.spec.table(ids))
             else:
-                if st.cache is None:
-                    st.cache = self.spec.batch_cache()
                 st.cache = cache_join(st.cache, gen.cache, slot)
             gen.cache = None        # resident now; parked copy released
             st.slots[slot] = req
@@ -571,6 +920,55 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             self._slot_of[req.rid] = (dp_id, slot)
             self.running[dp_id].append(req)
         self._pending = still
+
+    def _join_pages(self, st: _DPPagedState, gen: GenState, req: Request,
+                    slot: int, use_binder: bool,
+                    claim: int = 0, shared: Sequence[int] = ()) -> None:
+        """Adopt a `PageHandoff` into this DP: prefix blocks already
+        resident (binder claim — taken by the CALLER before the admission
+        check, refs held) are POINTED AT, the rest of the payload is
+        copied into fresh blocks, growth blocks get their stale kv_pos
+        cleared.  Then the prompt's pages are published into the DP's own
+        prefix cache; binding makes the partial tail block shared, and
+        the request's first decode write lands exactly there — so the
+        copy-on-write divergence is handled EAGERLY, now, while no step
+        is in flight, leaving the cached tail frozen at input_len."""
+        ph: PageHandoff = gen.cache
+        cfg, bs = self.spec.cfg, self.spec.block_size
+        toks = (req.tokens or ())[:req.input_len]
+        n_all = st.pool.blocks_for(self.spec.lifetime_tokens(req))
+        n_payload = st.pool.blocks_for(req.input_len)
+        if use_binder and toks:
+            # hit stats recorded only on a successful join — a deferred
+            # admission must not double-count its retries
+            st.binder.record(claim, req.input_len)
+        n_shared = len(shared)
+        self.blocks_shared += n_shared
+        table = list(shared) + st.pool.alloc(n_all - n_shared)
+        st.held[req.rid] = table
+        idx = torch.arange(self.spec.nbt, device=self.spec.device)
+        copy_mask = (idx >= n_shared) & (idx < n_payload)
+        clear_mask = (idx >= n_payload) & (idx < n_all)
+        st.cache = paged_adopt_blocks(cfg, st.cache, ph.payload, slot,
+                                      self.spec.table(table), copy_mask,
+                                      clear_mask, req.input_len)
+        if not use_binder or not toks:
+            return
+        st.binder.insert(toks, table[:n_payload],
+                         first_token=gen.tokens[0])
+        lw = req.input_len // bs
+        if req.input_len % bs and st.pool.is_shared(table[lw]):
+            # eager COW: the admission slack block becomes the private
+            # tail; the cached copy stays frozen for future exact hits
+            new = st.pool.alloc(1)[0]
+            old = table[lw]
+            cache = paged_copy_block(cfg, st.cache, old, new)
+            cache["block_tab"] = cache["block_tab"].clone()
+            cache["block_tab"][slot, lw] = new
+            st.cache = cache
+            table[lw] = new
+            st.pool.free([old])
+            self.cow_copies += 1
 
     def _feed_tokens(self, st: _DPDecodeState) -> torch.Tensor:
         return torch.tensor([[t] for t in st.next_tok], dtype=torch.int32,
@@ -705,12 +1103,15 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
 
     def __init__(self, instance_id: int, dp_ids: Sequence[int],
                  spec: EngineSpec, bus: KVHandoffBus, chunk: int = 256,
-                 starve_limit: int = 4, piggyback: bool = True):
+                 starve_limit: int = 4, piggyback: bool = True,
+                 share_prefix: bool = False):
         if not spec.paged:
             raise ValueError(
                 "the unified mixed-batch engine needs a paged spec "
                 "(block_size > 0)")
-        super().__init__(instance_id, dp_ids, spec, bus)
+        _require_pageable_prefill(spec.cfg)
+        super().__init__(instance_id, dp_ids, spec, bus,
+                         share_prefix=share_prefix)
         self.chunk = max(int(chunk), 1)
         self.starve_limit = max(int(starve_limit), 1)
         self.piggyback = piggyback
@@ -763,12 +1164,8 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             tab = self.spec.table(ids)
             # reused pages keep their previous tenant's kv_pos; stale
             # pos <= the reader's cursor would alias as valid history
-            cache = paged_clear_rows(st.cache, tab)
-            cache["block_tab"] = cache["block_tab"].clone()
-            cache["block_tab"][slot] = tab
-            cache["cur"] = cache["cur"].clone()
-            cache["cur"][slot] = 0
-            st.cache = cache
+            st.cache = _install_row(paged_clear_rows(st.cache, tab), slot,
+                                    tab, 0)
             st.slots[slot] = req
             self._slot_of[req.rid] = (dp_id, slot)
             self._consumed[req.rid] = 0

@@ -5,11 +5,12 @@ Counterpart of `repro/serving/server.py`, for two deployments:
 
   P/D-separated (`ServingConfig(mixed_batch=False)`, the paper's)
       `RealPrefillEngine`s run true chunked prefill into per-request
-      dense caches and hand each finished cache, with its first token,
-      over the `KVHandoffBus` (priced at `l_net` on the runtime heap) to
-      `RealDecodeEngine`s, which decode over the padded plane
-      (`block_size=0`: dense max_len rows, a ring for SWA models, per-row
-      SSM and conv state for SSM layers) or the paged plane
+      dense caches (or, with `prefix_cache=True`, straight into pool
+      pages) and hand each finished cache or `PageHandoff`, with its
+      first token, over the `KVHandoffBus` (priced at `l_net` on the
+      runtime heap) to `RealDecodeEngine`s, which decode over the padded
+      plane (`block_size=0`: dense max_len rows, a ring for SWA models,
+      per-row SSM and conv state for SSM layers) or the paged plane
       (`block_size>0`: block-table pools, attention-only models).
   unified mixed-batch (`mixed_batch=True`, paged only)
       a decode-pool-only deployment of `RealUnifiedEngine`s, where
@@ -20,8 +21,12 @@ Counterpart of `repro/serving/server.py`, for two deployments:
 `immediate`, `sbs` and `sbs-la` schedule both exactly as in the JAX
 server, and `watchdog_multiplier > 0` arms the decode watchdog (a drain
 waits for the in-flight step, see `real_engine`).  `prefix_cache=True`
-(page sharing, with page-native prefill) raises NotImplementedError
-naming the ROADMAP item that will port it.
+turns on block-granular prefix reuse, as in the JAX server: page-native
+prefill engines whose binders let a cached prefix's chunks be skipped
+(under `sbs`/`sbs-la`), per-decode-DP binders with eager copy-on-write,
+and cache-aware placement; it needs a paged deployment of an
+attention-only model (ValueError otherwise).  `prefix_stats()` reads the
+engines' reuse counters.
 
 Build fresh Request objects per serve() call: progress fields are
 mutated in place by a run.
@@ -37,6 +42,7 @@ from repro_torch.core.types import Request
 from repro_torch.serving.cluster import (
     build_decode_scheduler, build_prefill_scheduler, build_state,
 )
+from repro_torch.serving.page_share import EngineBackedPrefixIndex
 from repro_torch.serving.real_engine import (
     EngineSpec, KVHandoffBus, RealDecodeEngine, RealPrefillEngine,
     RealUnifiedEngine,
@@ -78,9 +84,6 @@ class RealSBSServer:
                  prefix_cache: bool = False,
                  device: str = "cuda"):
         scfg = serving_cfg or _default_serving_config()
-        if prefix_cache:
-            raise NotImplementedError(
-                "page sharing is not ported yet (ROADMAP Queue 1 item 6)")
         if scheduler not in ("sbs", "sbs-la", "immediate"):
             raise ValueError(scheduler)
         if scfg.mixed_batch and not scfg.block_size:
@@ -99,7 +102,8 @@ class RealSBSServer:
                 "immediate-rr" if scheduler == "immediate" else "sbs")
         self.dsched = build_decode_scheduler(
             self.state, scfg, scheduler,
-            watchdog_multiplier=watchdog_multiplier)
+            watchdog_multiplier=watchdog_multiplier,
+            cache_aware=True if prefix_cache else None)
         # a spec may be shared across server instances over one model
         self.spec = spec or EngineSpec(
             cfg, params, max_len=max_len,
@@ -108,12 +112,38 @@ class RealSBSServer:
             decode_slots=(scfg.resolved_decode_slots
                           if scfg.block_size else 0),
             device=device)
+        # prefix_cache turns on block-granular prefix reuse end to end:
+        # page-native prefill engines with shared refcounted pages (a
+        # cached prefix's chunks are never computed), PageHandoff
+        # transfers, per-decode-DP binders with eager COW, and cache-
+        # aware placement on BOTH schedulers.  Prefill-side claiming
+        # needs the credit-granting PBAA path, so the `immediate`
+        # baseline shares pages only on the decode side.
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache and not self.spec.prefix_sharable:
+            raise ValueError(
+                "prefix_cache=True needs a paged deployment "
+                "(ServingConfig.block_size > 0) and an attention-only "
+                "decoder-only model config")
+        share_prefill = (self.prefix_cache and not scfg.mixed_batch
+                         and scheduler in ("sbs", "sbs-la"))
         self.bus = KVHandoffBus()
         self.engines = [] if scfg.mixed_batch else [
             RealPrefillEngine(
                 i, [d.dp_id for d in self.state.prefill_dps_of(i)],
-                scfg.chunk_size, self.spec, self.bus)
+                scfg.chunk_size, self.spec, self.bus,
+                page_native=self.prefix_cache,
+                share_prefix=share_prefill)
             for i in range(scfg.num_prefill_instances)]
+        if share_prefill:
+            # cache-aware PBAA must credit EXACTLY what the engines will
+            # claim: swap the scheduler's simulated index for a view over
+            # the real page binders (insert is engine-owned, a no-op here)
+            binder_of = {}
+            for i, eng in enumerate(self.engines):
+                for d in self.state.prefill_dps_of(i):
+                    binder_of[d.dp_id] = eng.binder
+            self.sched.cache = EngineBackedPrefixIndex(binder_of)
         if scfg.mixed_batch:
             self.decode_engines = [
                 RealUnifiedEngine(
@@ -121,13 +151,14 @@ class RealSBSServer:
                     self.spec, self.bus,
                     chunk=scfg.resolved_mixed_chunk,
                     starve_limit=scfg.prefill_starve_limit,
-                    piggyback=scfg.mixed_piggyback)
+                    piggyback=scfg.mixed_piggyback,
+                    share_prefix=self.prefix_cache)
                 for i in range(scfg.num_decode_instances)]
         else:
             self.decode_engines = [
                 RealDecodeEngine(
                     i, [d.dp_id for d in self.state.decode_dps_of(i)],
-                    self.spec, self.bus)
+                    self.spec, self.bus, share_prefix=self.prefix_cache)
                 for i in range(scfg.num_decode_instances)]
         flow = (FlowController(n_limit=scfg.n_limit,
                                backoff_base=scfg.flow_backoff)
@@ -173,3 +204,23 @@ class RealSBSServer:
                 ttft=r.ttft if r.ttft is not None else float("nan"),
                 finish=r.finish_time))
         return sorted(out, key=lambda g: g.rid)
+
+    def prefix_stats(self) -> dict:
+        """Engine-truth reuse counters (all zero when prefix_cache=False):
+        prefill hit tokens/rate and skipped full prompts, decode pages
+        shared at join and eager COW copies."""
+        hit = sum(e.binder.hit_tokens for e in self.engines
+                  if e.binder is not None)
+        seen = sum(e.binder.seen_tokens for e in self.engines
+                   if e.binder is not None)
+        return {
+            "prefix_hit_tokens": hit,
+            "prefix_seen_tokens": seen,
+            "prefix_hit_rate": hit / seen if seen else 0.0,
+            "prefill_full_hits": sum(e.full_hits for e in self.engines),
+            "prefill_chunks_run": sum(e.chunks_run for e in self.engines),
+            "decode_blocks_shared": sum(e.blocks_shared
+                                        for e in self.decode_engines),
+            "decode_cow_copies": sum(e.cow_copies
+                                     for e in self.decode_engines),
+        }

@@ -1,9 +1,10 @@
 """PyTorch port on the card: the CUDA kernels against their plain
 versions at small shapes (the SSD kernel also at every SSM shape of the
 configs, full width included), and the unified and P/D servers on CUDA
-against the same servers on the CPU (reduced mamba2-370m: against the
-CPU model replaying the serve's prefill chunk boundaries).  Every test needs an NVIDIA GPU (marker `cuda`) and
-skips without one; on the card run
+(P/D also on pages with prefix sharing) against the same servers on the
+CPU (reduced mamba2-370m: against the CPU model replaying the serve's
+prefill chunk boundaries).  Every test needs an NVIDIA GPU (marker
+`cuda`) and skips without one; on the card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -545,6 +546,62 @@ def test_pd_server_on_cuda_matches_cpu(dev, block_size):
             assert dec.launches > launches[0]
             assert flash_prefill.launches > launches[1]
     assert len(out["cpu"]) == 4
+    assert out["cuda"] == out["cpu"]
+
+
+def test_pd_prefix_server_on_cuda_matches_cpu(dev):
+    """Reduced deepseek-7b in fp32, P/D on pages with prefix_cache=True:
+    two waves of prompts sharing a 48-token prefix (wave 2 repeats wave
+    1) give the same tokens on the card (page-native prefill through the
+    paged flash entry, paged decode through kernel #1; neither the
+    contiguous entry nor kernel #3 runs) as on the CPU; pages are shared
+    and copied on write, and every pool is empty after eviction."""
+    cfg = get_arch("deepseek-7b", reduced=True)
+    scfg = ServingConfig(
+        num_prefill_instances=1, prefill_dp_per_instance=2,
+        num_decode_instances=1, decode_dp_per_instance=2, chunk_size=32,
+        max_batch_per_dp=4, block_size=16, n_limit=64)
+    rng = random.Random(8)
+    prefix = [rng.randrange(cfg.vocab_size) for _ in range(48)]
+    prompts = [prefix + [rng.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in (5, 11, 30, 20)]
+    prompts.append(list(prompts[0]))
+
+    def wave(w):
+        return [Request(rid=10 * w + i, arrival_time=0.05 * i,
+                        input_len=len(p), output_len=6, tokens=tuple(p))
+                for i, p in enumerate(prompts)]
+
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    counters = (paged_decode_attention, paged_prefill_attention,
+                flash_prefill, decode_attention)
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _to(cpu_params, device)
+        before = [c.launches for c in counters]
+        srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
+                            max_len=96, max_new=6, prefix_cache=True,
+                            device=device)
+        gens = srv.serve(wave(0), timeout=120)
+        gens += srv.serve(wave(1), timeout=120)
+        out[device] = {g.rid: g.tokens for g in gens}
+        stats = srv.prefix_stats()
+        assert stats["prefix_hit_tokens"] > 0
+        assert stats["decode_blocks_shared"] > 0
+        assert stats["decode_cow_copies"] > 0
+        if device == "cuda":
+            ran = [c.launches - b for c, b in zip(counters, before)]
+            assert ran[0] > 0 and ran[1] > 0 and ran[2:] == [0, 0]
+        for eng in srv.engines:
+            assert eng.binder.ensure_free(eng.pool.num_blocks - 1)
+            eng.pool.check()
+            assert eng.pool.used_count == 0
+        for eng in srv.decode_engines:
+            for st in eng._dp.values():
+                assert st.binder.ensure_free(st.pool.num_blocks - 1)
+                st.pool.check()
+                assert st.pool.used_count == 0
+    assert len(out["cpu"]) == 2 * len(prompts)
     assert out["cuda"] == out["cpu"]
 
 

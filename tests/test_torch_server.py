@@ -178,19 +178,6 @@ def test_server_serves_twice_on_one_spec(port, expected):
         assert {g.rid: g.tokens for g in gens} == expected
 
 
-@pytest.mark.parametrize("kw", [dict(mixed_batch=True), dict(mixed_batch=False)])
-def test_server_rejects_what_is_not_ported(port, kw):
-    """Page sharing (with page-native prefill) is ROADMAP Queue 1 item 6,
-    on either deployment."""
-    tcfg, tparams = port
-    scfg = ServingConfig(num_prefill_instances=1, prefill_dp_per_instance=1,
-                         num_decode_instances=1, decode_dp_per_instance=2,
-                         max_batch_per_dp=4, block_size=BLOCK, **kw)
-    with pytest.raises(NotImplementedError):
-        RealSBSServer(tcfg, tparams, scfg, max_len=MAX_LEN, device="cpu",
-                      prefix_cache=True)
-
-
 def test_unified_plane_needs_pages(port):
     tcfg, tparams = port
     scfg = ServingConfig(num_prefill_instances=1, prefill_dp_per_instance=1,
