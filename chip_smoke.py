@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result):
      table is all -1, garbage in the null block; and at the split
      design's edges (rows of 1 token, 1 page, mid-page and the full
      68-entry table, so that some splits are empty; an all -1 row, which
-     must be exactly 0; G = 1, 4 and 8; hd 64 and 128; bf16 and fp32);
+     must be exactly 0; G = 1, 2, 4 and 8; hd 64 and 128; bf16 and
+     fp32; G = 2 at hd 64 is the MoE serve's shape);
   3. dense decode attention (kernel #3, split-K over the cache) against
      its plain version: the padded plane's shape (4 rows of 1088,
      H=K=32, hd=128, mixed live lengths and an idle row) in bf16 and
@@ -30,8 +31,8 @@ Phases (any failure exits non-zero and prints no result):
      whose tail is empty); and at the tensor-core design's edges: ragged
      chunks of 117, 199 and 240 tokens, rows whose K/V tiles are all
      skipped (an all -1 table, an empty cache: exactly 0), wrapped
-     sliding-window rings with a window, G = 1 and 4, hd 64 and 128,
-     and packed segments that one warp or key tile spans while every
+     sliding-window rings with a window, G = 1, 2 (the MoE serve's, at
+     hd 64) and 4, hd 64 and 128, and packed segments that one warp or key tile spans while every
      key passes the position masks (448 one-token segments at position
      0; chunks that start at nonzero positions);
   5. mixed serve: full-width deepseek-7b (random bf16 weights from a
@@ -76,13 +77,29 @@ Phases (any failure exits non-zero and prints no result):
      replays its original's first token; kernels #1 and #2 (paged entry)
      launch and #2's contiguous entry and #3 do not; every pool is empty
      after its binder is evicted;
+  6d. MoE serve: full-width granite-moe-1b-a400m (24 layers, d 1024, 16
+     heads over 8 KV heads of 64, 32 experts top-8 of 512, capacity
+     factor 1.25; random weights from seed 0 in MOE_CHECK_DTYPE) behind
+     the unified plane as in phase 5 with the same 8 requests; the same
+     checks, with kernels #1 and #2 (paged entry) launched at G = 2 and
+     no other; the plain forward runs the MoE FFN once per prefill chunk
+     the serve ran (expert capacity counts a call's tokens); then the
+     routing flips between the served path and the plain forward, and
+     the capacity drops of every chunk, each on a line of its own;
+  6e. MLA serve: full-width minicpm3-4b (62 layers, d 2560, 40 heads,
+     q_lora 768, kv_lora 256, rope 32; bf16 from seed 0) behind the
+     shared-prefix P/D deployment of phase 6c with the same two waves:
+     latent pages through page-native prefill, claims, `PageHandoff`,
+     adoption and copy-on-write; the same checks, each computed prompt's
+     logits against the NON-absorbed plain forward, and no kernel of the
+     port launched (absorbed MLA runs as torch ops);
   7. report: one JSON line per serve (TTFT/ITL, launches per step, a
      profile of device time by kernel group and the idle share), the
-     P/D, SSM and shared-prefix serves' figures each on a line of its
-     own (the last also its reuse counters and the card's peak memory),
-     one JSON line with the kernels (device and wall time per call,
-     launches on their path's serve, bound), the card's name and power
-     limit, and the contract line last.
+     P/D, SSM, shared-prefix, MoE and MLA serves' figures each on a line
+     of its own (reuse counters and the card's peak memory where they
+     apply), one JSON line with the kernels (device and wall time per
+     call, launches on their path's serve, bound), the card's name and
+     power limit, and the contract line last.
 
 Launch counts are set to 0 just before each serve and read just after,
 so each kernel's `launches` is its count on its own path's serve.
@@ -102,6 +119,7 @@ computes its function.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -133,6 +151,9 @@ MAX_LEN = 1088                     # 1024-token prompts + 32 new, 16-aligned
 MAX_BATCH = 4                      # per-DP memory budget (requests × max_len)
 N_REQUESTS = 8
 PD_CHUNK = 256                     # prefill chunk of the P/D serve
+# dtype of the MoE serve and of its logits check: the check holds in
+# bf16 despite the routing flips bf16 causes (counts in PERF.md)
+MOE_CHECK_DTYPE = "bfloat16"
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +365,8 @@ def check_decode(device):
     bf16, fp32 = torch.bfloat16, torch.float32
     for i, (H, K, hd, dt) in enumerate((
             (32, 32, 128, bf16), (32, 32, 128, fp32), (32, 8, 128, bf16),
-            (32, 4, 128, bf16), (32, 4, 128, fp32), (16, 16, 64, bf16))):
+            (32, 4, 128, bf16), (32, 4, 128, fp32), (16, 16, 64, bf16),
+            (16, 8, 64, bf16))):                 # the last: the MoE serve's
         lens = DECODE_EDGE_LENS
         q, kp, vp, kvp, tab = paged_rows_case(lens, H, K, hd, device,
                                               80 + i, dt)
@@ -589,7 +611,8 @@ def check_paged_prefill(device):
     for i, (Sc, H, K, hd, dt) in enumerate((
             (117, 32, 32, 128, bf16), (199, 32, 8, 128, bf16),
             (240, 32, 8, 128, fp32), (240, 16, 16, 64, bf16),
-            (199, 16, 4, 64, fp32))):
+            (199, 16, 4, 64, fp32),
+            (240, 16, 8, 64, bf16))):            # the MoE serve's heads
         p0 = 49 * BLOCK + 5
         lens = [p0 + Sc, 300 + Sc - 40, 0]
         q, kp, vp, kvp, tab = paged_rows_case(lens, H, K, hd, device,
@@ -885,6 +908,17 @@ def check_ssd(device):
 # phases 5, 6 and 6b: serve full-width deepseek-7b and mamba2-370m
 # ---------------------------------------------------------------------------
 
+def free_device_memory():
+    """Return the memory of everything dropped so far to the card: the
+    engines' recording wrappers close reference cycles (engine → wrapper
+    → engine) that hold a spec's weights and pools until the garbage
+    collector runs, so collect before emptying the allocator's cache."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
     from repro_torch.core.types import Request
     rng = random.Random(seed)
@@ -899,35 +933,75 @@ def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
     return reqs
 
 
-def dense_forward_logits(cfg, params, tokens, device, chunks=None):
-    """Last-position logits of a plain dense forward over the prompt:
-    projections, RoPE, masked einsum attention, SwiGLU — no pages, no
-    kernels.  `chunks` is not needed: without a window ring, attention
-    does not depend on prefill chunk boundaries."""
+def _plain_mla(cfg, a, h, pos, mask):
+    """MLA in the NON-absorbed form, as the reference's full-sequence
+    `mla_full`: per-head k_nope and v materialised from the latent, the
+    shared rope key broadcast over heads, masked einsum attention.  An
+    independent check of the served absorbed form over latent pages."""
     import torch
+    from repro_torch.models.attention import gqa_reference
+    from repro_torch.models.layers import apply_rope, rms_norm
+    m = cfg.mla
+    S, H, dn = h.shape[1], cfg.num_heads, m.qk_nope_head_dim
+    hq = (rms_norm(h @ a["w_dq"], a["q_norm"], cfg.norm_eps)
+          if m.q_lora_rank else h)
+    q = (hq @ a["w_uq"].reshape(hq.shape[-1], -1)).reshape(1, S, H, -1)
+    q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], pos,
+                                           cfg.rope_theta)], dim=-1)
+    ckv = rms_norm(h @ a["w_dkv"], a["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((h @ a["w_kr"])[:, :, None, :], pos, cfg.rope_theta)
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv, a["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", ckv, a["w_uv"])
+    k = torch.cat([k_nope, k_rope.expand(1, S, H, m.qk_rope_head_dim)],
+                  dim=-1)
+    o = gqa_reference(q, k, v, mask)
+    return o.reshape(1, S, -1) @ a["w_o"].reshape(H * m.v_head_dim, -1)
+
+
+def dense_forward_logits(cfg, params, tokens, device, chunks=None):
+    """Last-position logits of a plain forward over the prompt: no pages,
+    no kernels.  Attention is GQA (projections, RoPE, masked einsum) or
+    MLA (`_plain_mla`) over the whole prompt: without a window ring it
+    does not depend on prefill chunk boundaries.  An MoE FFN does: expert
+    capacity counts the tokens of one call, so `moe_block` runs once per
+    prefill chunk the serve used (`chunks`, lengths; None is one call
+    over the prompt), as the served steps call it."""
+    import torch
+    from repro_torch.config.base import AttentionKind
     from repro_torch.models.attention import build_mask, gqa_reference
     from repro_torch.models.layers import apply_rope, rms_norm, swiglu
     from repro_torch.models.model import logits_from_hidden
+    from repro_torch.models.moe import moe_block
     ids = torch.tensor([list(tokens)], dtype=torch.long, device=device)
     S = ids.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=device)[None]
     mask = build_mask(pos, pos, causal=True)
     D, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
+    bounds = [0]
+    for n in chunks or [S]:
+        bounds.append(bounds[-1] + n)
     x = params["embed"][ids]
     for p in params["layers"]:
         a = p["attn"]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q = apply_rope((h @ a["w_q"].reshape(D, -1)).reshape(1, S, H, hd),
-                       pos, cfg.rope_theta)
-        k = apply_rope((h @ a["w_k"].reshape(D, -1)).reshape(1, S, K, hd),
-                       pos, cfg.rope_theta)
-        v = (h @ a["w_v"].reshape(D, -1)).reshape(1, S, K, hd)
-        o = gqa_reference(q, k, v, mask)
-        x = x + o.reshape(1, S, H * hd) @ a["w_o"].reshape(H * hd, D)
+        if cfg.attention == AttentionKind.MLA:
+            x = x + _plain_mla(cfg, a, h, pos, mask)
+        else:
+            q = apply_rope((h @ a["w_q"].reshape(D, -1)).reshape(
+                1, S, H, hd), pos, cfg.rope_theta)
+            k = apply_rope((h @ a["w_k"].reshape(D, -1)).reshape(
+                1, S, K, hd), pos, cfg.rope_theta)
+            v = (h @ a["w_v"].reshape(D, -1)).reshape(1, S, K, hd)
+            o = gqa_reference(q, k, v, mask)
+            x = x + o.reshape(1, S, H * hd) @ a["w_o"].reshape(H * hd, D)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        m = p["mlp"]
-        x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+        if "moe" in p:
+            x = x + torch.cat([moe_block(h[:, lo:hi], p["moe"], cfg.moe)[0]
+                               for lo, hi in zip(bounds, bounds[1:])], 1)
+        else:
+            m = p["mlp"]
+            x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return logits_from_hidden(cfg, params, x[0, -1])
 
@@ -971,21 +1045,23 @@ def record_first_logits(engine):
     """Observe, without changing the engine, the logits each request's
     first token is sampled from: wraps the engine's `finish_step` to read
     the step's chunk results (one (token, logits) per granted chunk, in
-    grant order) for the grants that complete a prompt.  Returns the
-    dict {rid: logits} it fills."""
-    seen = {}
+    grant order) for the grants that complete a prompt, and to note the
+    chunk lengths each prompt was prefilled in.  Returns the dicts
+    ({rid: logits}, {rid: [chunk lengths]}) it fills."""
+    seen, chunks = {}, {}
     inner = engine.finish_step
 
     def finish_step(now, dp_states):
         cres = engine._chunk_result or {}
         for d, grants in engine._grants.items():
             for (req, use), (_tok, lg) in zip(grants, cres.get(d, [])):
+                chunks.setdefault(req.rid, []).append(use)
                 if engine._consumed[req.rid] + use >= req.input_len:
                     seen[req.rid] = lg
         return inner(now, dp_states)
 
     engine.finish_step = finish_step
-    return seen
+    return seen, chunks
 
 
 def percentile(xs, q):
@@ -1132,11 +1208,15 @@ def pd_scfg():
 
 
 def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
-          lens=(128, 1024), outs=(16, 32)):
+          lens=(128, 1024), outs=(16, 32), tag="[serve]"):
     """Drive the unified mixed-batch plane; returns the serve report.
     `counters` are the kernel wrappers whose launch counts the run reads
-    (set to 0 just before the measured serve).  The size arguments let
-    the same code rehearse on the CPU with a reduced config."""
+    (set to 0 just before the measured serve).  The first-token logits
+    are held against `dense_forward_logits` over the chunks the serve
+    ran (they matter for an MoE model's expert capacity).  The size
+    arguments let the same code rehearse on the CPU with a reduced
+    config."""
+    import torch
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
     scfg = mixed_scfg()
@@ -1147,17 +1227,23 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
     warm = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
     warm.serve(make_requests(cfg, 2, seed=99, lens=(lens[0], lens[0]),
                              outs=(2, 2)), timeout=300)
+    del warm
     srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
-    first_logits = record_first_logits(srv.decode_engines[0])
+    first_logits, chunks = record_first_logits(srv.decode_engines[0])
     reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
+    if device != "cpu":
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
     for w in counters:
         w.launches = 0
     t0 = time.monotonic()
     gens = srv.serve(reqs, timeout=600)
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
     worst, agree, _ = check_served(cfg, params, spec, srv, reqs, gens,
-                                   first_logits, device, "[serve]")
+                                   first_logits, device, tag,
+                                   chunks=chunks)
     eng = srv.decode_engines[0]
     ttft = [g.ttft for g in gens]
     durs = [d for d, _a, _r in eng.step_samples]
@@ -1177,7 +1263,10 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
         "step_p50_s": percentile(durs, 0.5), "step_p99_s": percentile(durs, 0.99),
         "launches": launches,
         "launches_per_step": {k: v / eng.steps for k, v in launches.items()},
-        "logits_rel_err": worst, "argmax_agree": agree, "profile": profile,
+        "logits_rel_err": worst, "argmax_agree": agree,
+        "peak_memory_bytes": peak,
+        "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
+        "profile": profile,
     }
 
 
@@ -1342,16 +1431,19 @@ def drain_prefix_pools(srv, tag):
 
 def serve_pd_prefix(cfg, params, device, counters, prefix=512,
                     suffixes=(64, 448), unrelated=1024, outs=(16, 32),
-                    tag="[pd prefix serve]"):
+                    tag="[pd prefix serve]",
+                    launched=("paged_decode_attention",
+                              "paged_prefill_attention")):
     """Drive the P/D deployment on the paged plane with prefix_cache=True
     under sbs-la: two waves (`make_prefix_waves`) on one server.  Checks
     that all 16 requests finish, that pages are reused on both planes
     (hit tokens, a full hit in wave 1, shared decode pages, copy-on-write
-    copies), the first-token logits of every computed prompt against a
-    plain forward, each full hit's replayed first token against its
-    original's, launches (#1 and #2's paged entry run, #2's contiguous
-    entry and #3 do not) and that every pool empties after eviction.
-    Returns the serve report."""
+    copies) and wave 2 runs no chunk, the first-token logits of every
+    computed prompt against a plain forward, each full hit's replayed
+    first token against its original's, launches (on the card every
+    wrapper named in `launched` runs — for a GQA model #1 and #2's paged
+    entry — and every other one of `counters` does not) and that every
+    pool empties after eviction.  Returns the serve report."""
     import torch
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
@@ -1368,8 +1460,7 @@ def serve_pd_prefix(cfg, params, device, counters, prefix=512,
                timeout=300)
     del warm
     if device != "cpu":
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        free_device_memory()
         torch.cuda.reset_peak_memory_stats()
     waves = make_prefix_waves(cfg, 7, prefix, suffixes, unrelated, outs)
     srv = server()
@@ -1426,17 +1517,17 @@ def serve_pd_prefix(cfg, params, device, counters, prefix=512,
     if len(hits) != s2["prefill_full_hits"]:
         raise AssertionError(f"{tag}: {len(hits)} requests ran no chunk, "
                              f"{s2['prefill_full_hits']} full hits counted")
+    ran = [r.rid for r in reqs[1] if chunks.get(r.rid)]
+    if ran:
+        raise AssertionError(f"{tag}: wave 2 ran chunks for {ran}")
     worst, agree, _ = compare_first_logits(cfg, params, computed,
                                            first_logits, device, tag)
     n_pools = drain_prefix_pools(srv, tag)
-    for name in ("paged_decode_attention", "paged_prefill_attention"):
-        if device != "cpu" and launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the "
-                                 f"shared-prefix P/D serve")
-    for name in ("flash_prefill", "decode_attention"):
-        if launches[name] != 0:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"on the shared-prefix P/D serve")
+    for name, n in launches.items():
+        if name in launched and device != "cpu" and n <= 0:
+            raise AssertionError(f"{tag}: {name} never launched")
+        if name not in launched and n != 0:
+            raise AssertionError(f"{tag}: {name} launched {n} times")
     eng = srv.decode_engines[0]
     passes = sum(e.passes for e in srv.engines)
     durs = [d for d, _a, _r in eng.step_samples]
@@ -1470,6 +1561,97 @@ def serve_pd_prefix(cfg, params, device, counters, prefix=512,
     }
 
 
+def route_flips(cfg, params, reqs, chunks, device):
+    """Expert routing of each prompt on the served path and on the plain
+    forward: replays the prompt's prefill chunks (`chunks`, the lengths
+    the serve ran) through `paged_prefill_step` on a fresh paged cache
+    (the step the unified plane runs for a granted chunk, through kernel
+    #2's paged entry) and runs `dense_forward_logits` over the same
+    chunks, with `repro_torch.models.moe.route` wrapped to keep each
+    call's expert ids.  Returns (flips: (token, layer) pairs whose expert
+    sets differ, pairs compared, per prompt the dropped (token, expert)
+    pairs of each chunk summed over layers on the served path, and on
+    the plain path)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_paged_cache, paged_prefill_step
+    E = cfg.moe.num_experts
+    n_moe = sum("moe" in p for p in params["layers"])
+    nbt = MAX_LEN // BLOCK
+    calls = []
+    inner = moe.route
+
+    def route(x2d, p, mc):
+        out = inner(x2d, p, mc)
+        calls.append(out[1].sort(dim=-1).values)
+        return out
+
+    def drops(top_e, C):
+        n = torch.bincount(top_e.reshape(-1), minlength=E)
+        return int((n - C).clamp_min(0).sum())
+
+    flips = pairs = 0
+    served_drops, plain_drops = {}, {}
+    moe.route = route
+    try:
+        for r in reqs:
+            ch = chunks[r.rid]
+            cache = init_paged_cache(cfg, 1, nbt + 1, MAX_LEN, BLOCK,
+                                     dtype=params["embed"].dtype,
+                                     device=device)
+            cache["block_tab"] = torch.arange(
+                1, nbt + 1, dtype=torch.int32, device=device)[None]
+            at = 0
+            for n in ch:
+                ids = torch.tensor([r.tokens[at:at + n]], dtype=torch.int32,
+                                   device=device)
+                _lg, cache = paged_prefill_step(cfg, params, ids, cache, 0)
+                at += n
+            served = calls[:]
+            calls.clear()
+            dense_forward_logits(cfg, params, r.tokens[:r.input_len], device,
+                                 ch)
+            plain = calls[:]
+            calls.clear()
+            sd, pd = [0] * len(ch), [0] * len(ch)
+            for c, n in enumerate(ch):
+                C = moe.capacity(n, cfg.moe)
+                for l in range(n_moe):
+                    a = served[c * n_moe + l]         # chunk-major
+                    b = plain[l * len(ch) + c]        # layer-major
+                    flips += int((a != b).any(dim=-1).sum())
+                    pairs += n
+                    sd[c] += drops(a, C)
+                    pd[c] += drops(b, C)
+            served_drops[r.rid], plain_drops[r.rid] = sd, pd
+    finally:
+        moe.route = inner
+    return flips, pairs, served_drops, plain_drops
+
+
+def report_serve(tag, rep):
+    """The serve's end-to-end figures, each on a line of its own."""
+    prof = rep["profile"] or {}
+    ttft = (f"ttft_p50_s={rep['ttft_p50_s']!r} "
+            f"ttft_p99_s={rep['ttft_p99_s']!r}" if "ttft_p50_s" in rep else
+            " ".join(f"wave {w + 1}: ttft_p50_s={a!r} ttft_p99_s={b!r}"
+                     for w, (a, b) in enumerate(zip(
+                         rep["ttft_p50_s_per_wave"],
+                         rep["ttft_p99_s_per_wave"]))))
+    print(f"{tag} {ttft}", flush=True)
+    print(f"{tag} itl_p50_s={rep['itl_p50_s']!r} "
+          f"itl_p99_s={rep['itl_p99_s']!r}", flush=True)
+    print(f"{tag} wall_s={rep['wall_s']!r}", flush=True)
+    print(f"{tag} step_p50_s={rep['step_p50_s']!r} "
+          f"step_p99_s={rep['step_p99_s']!r}", flush=True)
+    print(f"{tag} idle_share={prof.get('idle_share')!r} (profiled second "
+          f"run, wall_s={prof.get('wall_s')!r})", flush=True)
+    print(f"{tag} device_s_by_group={prof.get('by_group_s')!r}", flush=True)
+    print(f"{tag} peak_memory_bytes={rep['peak_memory_bytes']!r}",
+          flush=True)
+    print(f"{tag} launches={rep['launches']!r}", flush=True)
+
+
 def _kernel_group(name: str) -> str:
     if "paged_decode" in name:          # the split kernel and the merge
         return "paged_decode_attention"
@@ -1482,6 +1664,18 @@ def _kernel_group(name: str) -> str:
     if any(t in name.lower() for t in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul"
     return "other"
+
+
+def _device_events(prof):
+    """The device-side events (kernels, copies, sets) of a finished
+    profile, read from the raw trace.  Their durations are what
+    `key_averages()` reports as self device time, without the CPU op tree
+    it builds first (minutes for a serve of a 62-layer model)."""
+    from torch.autograd import DeviceType
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+                and not e.is_user_annotation()):
+            yield e
 
 
 def profile_serve(make_server, cfg, n_requests, lens, outs, device,
@@ -1507,14 +1701,15 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device,
             srv.serve(reqs, timeout=600)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    groups, top = {}, []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us <= 0:
-            continue
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + us / 1e6
-        top.append((us / 1e6, e.count, e.key[:90]))
+    groups, by_name = {}, {}
+    for e in _device_events(prof):
+        s, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (s + e.duration_ns() / 1e9, n + 1)
+    top = []
+    for name, (sec, n) in by_name.items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + sec
+        top.append((sec, n, name[:90]))
     busy = sum(groups.values())
     if busy <= 0:
         return None
@@ -1528,10 +1723,11 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device,
 
 # ---------------------------------------------------------------------------
 
-def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix):
+def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
+                 moe_serve):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
-    also on the shared-prefix P/D serve)."""
+    also on the shared-prefix P/D serve and the MoE serve)."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -1552,17 +1748,24 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix):
     dec_k = "src/repro/kernels/decode_attention/kernel.py"
     fp_k = "src/repro/kernels/flash_prefill/kernel.py:87"
     on_prefix = pd_prefix["launches"]
+    on_moe = moe_serve["launches"]
     return [
         item("paged_decode_attention", csrc + "paged_decode_attention.cu",
              dec_k + ":115", mixed, dec, "mixed serve",
              launches_pd_prefix_serve=on_prefix["paged_decode_attention"],
              launches_per_decode_step_pd_prefix_serve=pd_prefix[
-                 "paged_decode_attention_per_decode_step"]),
+                 "paged_decode_attention_per_decode_step"],
+             launches_moe_serve=on_moe["paged_decode_attention"],
+             launches_per_step_moe_serve=on_moe["paged_decode_attention"]
+             / moe_serve["steps"]),
         item("paged_prefill_attention", csrc + "flash_prefill.cu", fp_k,
              mixed, pfx, "mixed serve",
              launches_pd_prefix_serve=on_prefix["paged_prefill_attention"],
              launches_per_prefill_pass_pd_prefix_serve=pd_prefix[
-                 "paged_prefill_attention_per_prefill_pass"]),
+                 "paged_prefill_attention_per_prefill_pass"],
+             launches_moe_serve=on_moe["paged_prefill_attention"],
+             launches_per_step_moe_serve=on_moe["paged_prefill_attention"]
+             / moe_serve["steps"]),
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
              "P/D serve"),
         item("decode_attention", csrc + "decode_attention.cu",
@@ -1574,6 +1777,86 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix):
              library_note="none: no single PyTorch call computes the SSD "
                           "intra-chunk term"),
     ]
+
+
+def serve_moe(counters, device, n_layers=None):
+    """Phase 6d: full-width granite-moe-1b-a400m on the unified plane
+    (`serve`) in MOE_CHECK_DTYPE, then its routing flips and capacity
+    drops (`route_flips`).  `n_layers` cuts depth for a CPU rehearsal.
+    Returns the serve report."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    cfg = get_arch("granite-moe-1b-a400m")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    dt = getattr(torch, MOE_CHECK_DTYPE)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=dt, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    print(f"[init] {cfg.name} {dt} weights in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    rep = serve(cfg, params, device, counters, tag="[moe serve]")
+    for name, n in rep["launches"].items():
+        on_path = name in ("paged_decode_attention", "paged_prefill_attention")
+        if on_path and device != "cpu" and n <= 0:
+            raise AssertionError(f"[moe serve] {name} never launched")
+        if not on_path and n != 0:
+            raise AssertionError(f"[moe serve] {name} launched {n} times")
+    reqs = make_requests(cfg, N_REQUESTS, seed=1)
+    flips, pairs, sdrops, pdrops = route_flips(
+        cfg, params, reqs, rep["prefill_chunks"], device)
+    rep.update(route_flips=flips, route_pairs=pairs,
+               capacity_drops_per_chunk=sdrops,
+               capacity_drops_per_chunk_plain=pdrops,
+               check_dtype=rep["dtype"])
+    print(f"[moe serve] logits check in {rep['dtype']}: worst "
+          f"max|d|/max|ref|={rep['logits_rel_err']!r} (limit "
+          f"{LOGITS_REL_TOL})", flush=True)
+    print(f"[moe serve] routing flips (served vs plain forward, all "
+          f"prompts' prefill chunks): {flips} of {pairs} (token, layer) "
+          f"pairs", flush=True)
+    print(f"[moe serve] capacity drops per chunk (served, summed over "
+          f"layers): {sdrops!r}", flush=True)
+    print(f"[moe serve] capacity drops per chunk (plain forward): "
+          f"{pdrops!r}", flush=True)
+    report_serve("[moe serve]", rep)
+    return rep
+
+
+def serve_mla(counters, device, n_layers=None):
+    """Phase 6e: full-width minicpm3-4b (MLA, bf16) behind the P/D
+    deployment on the paged plane with prefix_cache=True
+    (`serve_pd_prefix`); no kernel of the port lies on its path, so every
+    counter must stay 0.  Returns the serve report."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    cfg = get_arch("minicpm3-4b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    print(f"[init] {cfg.name} bf16 weights in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    rep = serve_pd_prefix(cfg, params, device, counters, tag="[mla serve]",
+                          launched=())
+    print(f"[mla serve] logits vs the non-absorbed plain forward: worst "
+          f"max|d|/max|ref|={rep['logits_rel_err']!r} (limit "
+          f"{LOGITS_REL_TOL})", flush=True)
+    print(f"[mla serve] prefix_stats wave 1: {rep['prefix_stats_wave1']!r}",
+          flush=True)
+    print(f"[mla serve] prefix_stats after wave 2: {rep['prefix_stats']!r} "
+          f"(computed prompts {rep['computed_prompts']}, full hits "
+          f"{rep['full_hits']}, {rep['pools_emptied']} pools empty after "
+          f"eviction)", flush=True)
+    report_serve("[mla serve]", rep)
+    return rep
 
 
 def main() -> int:
@@ -1598,6 +1881,11 @@ def main() -> int:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
+    start = time.monotonic()
+
+    def elapsed(phase):
+        print(f"[time] {phase} done, {time.monotonic() - start:.1f} s since "
+              f"start", flush=True)
     try:
         device = "cuda"
         t0 = time.monotonic()
@@ -1609,6 +1897,7 @@ def main() -> int:
         pfx = check_paged_prefill(device)
         fla = check_flash_prefill(device)
         ssd = check_ssd(device)
+        elapsed("kernel checks")
         for tag, r in (("[decode]", dec), ("[dense decode]", dense),
                        ("[paged prefill]", pfx), ("[flash prefill]", fla),
                        ("[ssd]", ssd)):
@@ -1623,12 +1912,14 @@ def main() -> int:
         counters = [paged_decode_attention, paged_prefill_attention,
                     flash_prefill, decode_attention, ssd_chunk]
         mixed = serve(cfg, params, device, counters)
+        elapsed("mixed serve")
         for name in ("paged_decode_attention", "paged_prefill_attention"):
             if mixed["launches"][name] <= 0:
                 raise AssertionError(f"{name} never launched on the mixed "
                                      f"serve")
-        torch.cuda.empty_cache()
+        free_device_memory()
         pd = serve_pd(cfg, params, device, counters)
+        elapsed("P/D serve")
         for name in ("decode_attention", "flash_prefill"):
             if pd["launches"][name] <= 0:
                 raise AssertionError(f"{name} never launched on the P/D "
@@ -1650,7 +1941,7 @@ def main() -> int:
               f"pass: flash_prefill="
               f"{pd['flash_prefill_per_prefill_pass']!r}", flush=True)
         del params
-        torch.cuda.empty_cache()
+        free_device_memory()
         scfg_ = get_arch("mamba2-370m")
         t0 = time.monotonic()
         sparams = init_params(scfg_, seed=0, dtype=torch.bfloat16,
@@ -1661,6 +1952,7 @@ def main() -> int:
         ssm = serve_pd(scfg_, sparams, device, counters, tag="[ssm serve]",
                        forward=ssm_forward_logits,
                        info_forward=ssm_whole_prompt_logits)
+        elapsed("SSM serve")
         if ssm["launches"]["ssd_chunk"] <= 0:
             raise AssertionError("ssd_chunk never launched on the SSM serve")
         sprof = ssm["profile"] or {}
@@ -1686,7 +1978,7 @@ def main() -> int:
         print(f"[ssm serve] device_s_by_group={sprof.get('by_group_s')!r}",
               flush=True)
         del sparams
-        torch.cuda.empty_cache()
+        free_device_memory()
         t0 = time.monotonic()
         params = init_params(cfg, seed=0, dtype=torch.bfloat16,
                              device=device)
@@ -1694,6 +1986,7 @@ def main() -> int:
         print(f"[init] {cfg.name} bf16 weights in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
         px = serve_pd_prefix(cfg, params, device, counters)
+        elapsed("shared-prefix P/D serve")
         xprof = px["profile"] or {}
         for w in (0, 1):
             print(f"[pd prefix serve] wave {w + 1}: "
@@ -1724,7 +2017,15 @@ def main() -> int:
               f"{px['paged_prefill_attention_per_prefill_pass']!r} "
               f"(decode_steps={px['decode_steps']}, "
               f"prefill_passes={px['prefill_passes']})", flush=True)
-        kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px)
+        del params
+        free_device_memory()
+        moe_rep = serve_moe(counters, device)
+        elapsed("MoE serve")
+        free_device_memory()
+        mla = serve_mla(counters, device)
+        elapsed("MLA serve")
+        kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
+                               moe_rep)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1733,6 +2034,8 @@ def main() -> int:
         print(json.dumps({"serve_pd": pd}), flush=True)
         print(json.dumps({"serve_ssm": ssm}), flush=True)
         print(json.dumps({"serve_pd_prefix": px}), flush=True)
+        print(json.dumps({"serve_moe": moe_rep}), flush=True)
+        print(json.dumps({"serve_mla": mla}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

@@ -11,7 +11,8 @@ then one stack per pattern slot); the port keeps one list (params) in
 model order, and one leading layer axis per cache stack (the attention
 layers' "k"/"v", the SSM layers' "ssm"/"conv_x"/"conv_bc", each in model
 order; see `repro_torch.models.model`).  A JAX SSM cache entry is
-`(ssm_state, (conv_x, conv_bc))`.
+`(ssm_state, (conv_x, conv_bc))`; an attention entry is `(k, v)`, for
+MLA `(latent, rope key)`, which the port keeps in "k" and "v".
 """
 from __future__ import annotations
 
@@ -20,13 +21,15 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config.base import LayerKind, ModelConfig
+from repro_torch.config.base import ModelConfig
+from repro_torch.models.blocks import ATTN_KINDS
 from repro_torch.models.model import (
     layer_layout, require_supported, stack_index,
 )
 
-# SSM leaves the JAX init keeps in fp32 whatever the model's dtype
-_FP32_LEAVES = ("A_log", "D_skip", "dt_bias")
+# leaves the JAX init keeps in fp32 whatever the model's dtype: the SSM
+# decay and skip terms, the MoE router and its selection bias
+_FP32_LEAVES = ("A_log", "D_skip", "dt_bias", "router", "router_bias")
 
 
 def _layer_slots(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -43,12 +46,17 @@ def _group(tree: Dict, key: str):
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes: widen exactly first
+        a = a.astype(np.float32)
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
                       device="cuda") -> Dict:
-    """The JAX `init_params` pytree (numpy leaves) as the port's params."""
+    """The JAX `init_params` pytree (numpy leaves) as the port's params.
+    The multi-token-prediction head ("mtp", DeepSeek-V3) is left out: only
+    the reference's training loss reads it (ROADMAP Queue 1 item 14)."""
     require_supported(cfg)
 
     def take(node, i, name=""):
@@ -71,7 +79,7 @@ def _stacks(cfg: ModelConfig):
     (attention layers, SSM layers), each in model order."""
     attn, ssm = [], []
     for slot, (kind, _) in zip(_layer_slots(cfg), stack_index(cfg)):
-        (attn if kind == LayerKind.DENSE else ssm).append(slot)
+        (attn if kind in ATTN_KINDS else ssm).append(slot)
     return attn, ssm
 
 
@@ -111,7 +119,7 @@ def cache_to_numpy(cfg: ModelConfig, cache: Dict) -> Dict:
 
         def leaf(name):
             return cache[name][rows].float().cpu().numpy()
-        if layers[0][0] == LayerKind.DENSE:
+        if layers[0][0] in ATTN_KINDS:
             entry = (leaf("k"), leaf("v"))
         else:
             entry = (leaf("ssm"), (leaf("conv_x"), leaf("conv_bc")))

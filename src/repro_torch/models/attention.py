@@ -1,9 +1,11 @@
 """Attention math, plain PyTorch: the GQA einsum reference, decode
-attention over a dense cache and over a paged (block-table) pool.
+attention over a dense cache and over a paged (block-table) pool, and
+the absorbed-form MLA decode scores.
 
-Counterpart of `repro/models/attention.py:21-314`.  These are the CPU
-path of the port and the oracles its CUDA kernels are held against
-(`repro_torch.kernels`).  Conventions kept from the reference:
+Counterpart of `repro/models/attention.py:21-331`.  The GQA functions
+are the CPU path of the port and the oracles its CUDA kernels are held
+against (`repro_torch.kernels`); the MLA scores run on every device, as
+MLA has no kernel.  Conventions kept from the reference:
 
   * a negative kv position marks an empty cache slot;
   * a -1 block-table entry reads physical block 0 (the null block) and
@@ -102,3 +104,18 @@ def decode_attention_paged(q, k_pool, v_pool, kv_pos_pool, block_tab, pos,
     v = gather_paged(v_pool, block_tab)
     kv_pos = gather_paged_pos(kv_pos_pool, block_tab)
     return decode_attention(q, k, v, kv_pos, pos, window)
+
+
+def mla_scores_decode(q_latent, q_rope, c_cache, kr_cache, kv_pos, pos):
+    """Absorbed-form MLA decode weights: q_latent (B, H, r) scores against
+    the latent cache c_cache (B, S, r) directly (no per-head K), q_rope
+    (B, H, dr) against the shared rope keys kr_cache (B, S, dr).  Returns
+    the softmax weights (B, H, S) in fp32 (all-invalid rows are 0) and
+    the validity mask (B, S)."""
+    s = torch.einsum("bhr,bsr->bhs", q_latent, c_cache).float()
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope, kr_cache).float()
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid.any(dim=-1)[:, None, None], p, 0.0)
+    return p, valid

@@ -1,22 +1,36 @@
-"""Transformer blocks of the serving path: dense GQA and Mamba2 (SSM).
+"""Transformer blocks of the serving path: GQA or MLA attention, or a
+Mamba2 (SSM) mixer, then a dense SwiGLU or an MoE FFN.
+
+    kind DENSE   = attention + dense SwiGLU
+    kind MOE     = attention + MoE
+    kind SSM     = Mamba2 mixer + dense SwiGLU (or nothing when d_ff == 0)
+    kind SSM_MOE = Mamba2 mixer + MoE           (jamba)
 
 Counterpart of `repro/models/blocks.py` (`init_attn_params`,
 `init_dense_mlp_params`, `init_block_params`; the dense-cache
-`attn_decode`, `attn_extend`, `block_decode`, `block_extend` with their
-SSM arms; the paged `_paged_write_site(s)`, `attn_decode_paged`,
-`attn_extend_paged`, `block_decode_paged`, `block_extend_paged`, which
-are attention-only).  Attention runs through the port's kernels
-(`repro_torch.kernels`), the SSM prefill through the SSD kernel
-(`repro_torch.models.mamba`); each takes its plain version on the CPU.
+`attn_decode`, `attn_extend`, `mla_decode`, `mla_extend`,
+`block_decode`, `block_extend` with their SSM arms; the paged
+`_paged_write_site(s)`, `attn_decode_paged`, `attn_extend_paged`,
+`mla_decode_paged`, `mla_extend_paged`, `block_decode_paged`,
+`block_extend_paged`, which are attention-only).  GQA attention runs
+through the port's kernels (`repro_torch.kernels`), the SSM prefill
+through the SSD kernel (`repro_torch.models.mamba`); each takes its
+plain version on the CPU.  MLA is the absorbed form over the latent
+cache (the compressed KV `ckv` and the shared rope key `kr`, no head
+axis), as torch matmuls: the reference has no Pallas kernel for it.  The
+full-sequence `mla_full` belongs to the training path (ROADMAP Queue 1
+item 14).
 
 Unlike the JAX functions, which return new caches, the attention arms
-write the new tokens' K/V and positions into the caches (dense rows or
-paged pools) IN PLACE.  The SSM arms return new state tensors and leave
-their inputs alone: an SSM step is not idempotent, so a step whose
-result is dropped (a drained one) must leave the state it read intact.
+write the new tokens' K/V (MLA: latent and rope key) and positions into
+the caches (dense rows or paged pools) IN PLACE.  The SSM arms return
+new state tensors and leave their inputs alone: an SSM step is not
+idempotent, so a step whose result is dropped (a drained one) must leave
+the state it read intact.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -28,10 +42,16 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.flash_prefill import (
     flash_prefill, paged_prefill_attention,
 )
+from repro_torch.models.attention import (
+    NEG_INF, gather_paged, gather_paged_pos, mla_scores_decode,
+)
 from repro_torch.models.layers import apply_rope, init_linear, rms_norm, swiglu
 from repro_torch.models.mamba import (
     init_mamba_params, mamba_decode_step, mamba_forward,
 )
+from repro_torch.models.moe import init_moe_params, moe_block
+
+ATTN_KINDS = (LayerKind.DENSE, LayerKind.MOE)
 
 
 # ---------------------------------------------------------------------------
@@ -39,12 +59,33 @@ from repro_torch.models.mamba import (
 # ---------------------------------------------------------------------------
 
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP Queue 1 item 10)")
     D = cfg.d_model
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
+    dev = gen.device
+    if cfg.attention == AttentionKind.MLA:
+        m = cfg.mla
+        p: Dict = {}
+        q_in = D
+        if m.q_lora_rank:
+            p["w_dq"] = init_linear(gen, D, m.q_lora_rank, dtype)
+            p["q_norm"] = torch.ones(m.q_lora_rank, dtype=dtype, device=dev)
+            q_in = m.q_lora_rank
+        dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+        p["w_uq"] = init_linear(gen, q_in, H * dq, dtype).reshape(q_in, H, dq)
+        p["w_dkv"] = init_linear(gen, D, m.kv_lora_rank, dtype)
+        p["kv_norm"] = torch.ones(m.kv_lora_rank, dtype=dtype, device=dev)
+        p["w_kr"] = init_linear(gen, D, m.qk_rope_head_dim, dtype)
+
+        def latent(e):
+            w = torch.randn((m.kv_lora_rank, H, e), generator=gen,
+                            dtype=torch.float32, device=dev)
+            return (w / math.sqrt(m.kv_lora_rank)).to(dtype)
+        p["w_uk"] = latent(m.qk_nope_head_dim)
+        p["w_uv"] = latent(m.v_head_dim)
+        p["w_o"] = init_linear(gen, H * m.v_head_dim, D, dtype).reshape(
+            H, m.v_head_dim, D)
+        return p
     return {
         "w_q": init_linear(gen, D, H * hd, dtype).reshape(D, H, hd),
         "w_k": init_linear(gen, D, K * hd, dtype).reshape(D, K, hd),
@@ -64,18 +105,19 @@ def init_dense_mlp_params(gen: torch.Generator, cfg: ModelConfig,
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig,
                       kind: LayerKind, dtype) -> Dict:
-    """A dense attention block, or an SSM block (Mamba2 mixer, plus the
-    dense MLP when d_ff > 0)."""
-    if kind not in (LayerKind.DENSE, LayerKind.SSM):
-        raise NotImplementedError(
-            f"{kind} blocks are not ported yet (ROADMAP Queue 1 item 9)")
+    """An attention block (DENSE, MOE) or an SSM block (SSM, SSM_MOE),
+    then the MoE FFN (MOE and SSM_MOE kinds of a config with experts) or
+    the dense MLP (when d_ff > 0)."""
     D = cfg.d_model
     p: Dict = {"ln1": torch.ones(D, dtype=dtype, device=gen.device)}
-    if kind == LayerKind.DENSE:
+    if kind in ATTN_KINDS:
         p["attn"] = init_attn_params(gen, cfg, dtype)
     else:
         p["mamba"] = init_mamba_params(gen, D, cfg.ssm, dtype)
-    if cfg.d_ff > 0:
+    if kind in (LayerKind.MOE, LayerKind.SSM_MOE) and cfg.moe.num_experts:
+        p["ln2"] = torch.ones(D, dtype=dtype, device=gen.device)
+        p["moe"] = init_moe_params(gen, D, cfg.moe, dtype)
+    elif cfg.d_ff > 0:
         p["ln2"] = torch.ones(D, dtype=dtype, device=gen.device)
         p["mlp"] = init_dense_mlp_params(gen, cfg, dtype)
     return p
@@ -199,8 +241,151 @@ def attn_extend_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
     return _out_proj(p, o.to(q.dtype))
 
 
+# ---------------------------------------------------------------------------
+# MLA sub-layers (absorbed form over the latent cache)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """Per-head query halves: (q_nope (B, S, H, dn), q_rope (B, S, H, dr)
+    with RoPE applied).  x (B, S, D); positions (B, S)."""
+    m = cfg.mla
+    B, S, D = x.shape
+    h = x
+    if m.q_lora_rank:
+        h = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    w = p["w_uq"]
+    q = (h @ w.reshape(w.shape[0], -1)).reshape(B, S, w.shape[1],
+                                                  w.shape[2])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """The tokens' cache entries: the normalised latent (B, S, r) and the
+    shared rope key (B, S, dr)."""
+    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    kr = apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0]
+    return ckv, kr
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    m = cfg.mla
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+
+def _mla_decode_attend(p, cfg, q_nope, q_rope, ckv, kr, kv_pos, pos):
+    """One query token per row over the (gathered) latent cache: ckv
+    (B, S, r), kr (B, S, dr), kv_pos (B, S).  q_nope/q_rope (B, H, ·).
+    Returns (B, 1, D)."""
+    scale = _mla_scale(cfg)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope, p["w_uk"])
+    pattn, _ = mla_scores_decode((q_lat * scale).to(ckv.dtype),
+                                 (q_rope * scale).to(kr.dtype),
+                                 ckv, kr, kv_pos, pos)
+    ctx = torch.einsum("bhs,bsr->bhr", pattn.to(ckv.dtype), ckv)
+    o = torch.einsum("bhr,rhe->bhe", ctx, p["w_uv"])
+    H, E, D = p["w_o"].shape
+    return (o.reshape(-1, H * E) @ p["w_o"].reshape(H * E, D))[:, None]
+
+
+def _mla_extend_attend(p, cfg, q_nope, q_rope, ckv, kr, kv_pos, positions):
+    """A chunk's queries (B, Sc, H, ·) over the (gathered) latent cache
+    with causal position masking, scored in fp32.  Returns (B, Sc, D)."""
+    scale = _mla_scale(cfg)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, p["w_uk"]) * scale
+    s = torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+    s = s + torch.einsum("bshd,btd->bhst", (q_rope * scale).float(),
+                         kr.float())
+    valid = (kv_pos >= 0)[:, None, None, :] & \
+        (kv_pos[:, None, None, :] <= positions[:, None, :, None])
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(valid.any(dim=-1)[..., None], w, 0.0)
+    ctx = torch.einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv)
+    o = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"])
+    B, Sc, H, E = o.shape
+    return o.reshape(B, Sc, H * E) @ p["w_o"].reshape(H * E, -1)
+
+
+def mla_decode(p, x, cfg: ModelConfig, ckv_cache, kr_cache, kv_pos, pos):
+    """Absorbed-form MLA decode against a dense latent cache: write the
+    token's latent and rope key (in place) at pos % S, then attend.
+    x (B, 1, D); ckv_cache (B, S, r); kr_cache (B, S, dr); kv_pos (B, S);
+    pos (B,).  Returns (B, 1, D)."""
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    ckv, kr = _mla_latent(p, x, cfg, pos[:, None])
+    rows = torch.arange(x.shape[0], device=x.device)
+    idx = (pos % ckv_cache.shape[1]).long()
+    ckv_cache[rows, idx] = ckv[:, 0].to(ckv_cache.dtype)
+    kr_cache[rows, idx] = kr[:, 0].to(kr_cache.dtype)
+    kv_pos[rows, idx] = pos.to(kv_pos.dtype)
+    return _mla_decode_attend(p, cfg, q_nope[:, 0], q_rope[:, 0], ckv_cache,
+                              kr_cache, kv_pos, pos)
+
+
+def mla_extend(p, x, cfg: ModelConfig, ckv_cache, kr_cache, kv_pos,
+               positions):
+    """Chunk extend for MLA over a dense latent cache: write the chunk's
+    latents and rope keys (in place) at positions % S, then attend the
+    chunk's queries over the whole cache.  x (B, Sc, D); positions
+    (B, Sc).  Returns (B, Sc, D)."""
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    idx = (positions % ckv_cache.shape[1]).long()
+    ckv_cache[rows, idx] = ckv.to(ckv_cache.dtype)
+    kr_cache[rows, idx] = kr.to(kr_cache.dtype)
+    kv_pos[rows, idx] = positions.to(kv_pos.dtype)
+    return _mla_extend_attend(p, cfg, q_nope, q_rope, ckv_cache, kr_cache,
+                              kv_pos, positions)
+
+
+def mla_decode_paged(p, x, cfg: ModelConfig, ckv_pool, kr_pool, kv_pos_pool,
+                     block_tab, pos):
+    """Absorbed-form MLA decode over paged latent pools (ckv_pool
+    (N, bs, r); kr_pool (N, bs, dr)): write the token's entries (in place)
+    into the row's current physical block, then attend through the block
+    table.  Returns (B, 1, D)."""
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    ckv, kr = _mla_latent(p, x, cfg, pos[:, None])
+    phys, off = _paged_write_site(block_tab, pos, ckv_pool.shape[1])
+    ckv_pool[phys, off] = ckv[:, 0].to(ckv_pool.dtype)
+    kr_pool[phys, off] = kr[:, 0].to(kr_pool.dtype)
+    kv_pos_pool[phys, off] = pos.to(kv_pos_pool.dtype)
+    return _mla_decode_attend(
+        p, cfg, q_nope[:, 0], q_rope[:, 0], gather_paged(ckv_pool, block_tab),
+        gather_paged(kr_pool, block_tab),
+        gather_paged_pos(kv_pos_pool, block_tab), pos)
+
+
+def mla_extend_paged(p, x, cfg: ModelConfig, ckv_pool, kr_pool, kv_pos_pool,
+                     block_tab, positions):
+    """Chunk extend for MLA over paged latent pools: write the chunk's
+    entries (in place) into the row's physical blocks, then attend over
+    the pages through the block table (earlier chunks and shared-prefix
+    pages included).  Returns (B, Sc, D)."""
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+    phys, off = _paged_write_sites(block_tab, positions, ckv_pool.shape[1])
+    ckv_pool[phys, off] = ckv.to(ckv_pool.dtype)
+    kr_pool[phys, off] = kr.to(kr_pool.dtype)
+    kv_pos_pool[phys, off] = positions.to(kv_pos_pool.dtype)
+    return _mla_extend_attend(
+        p, cfg, q_nope, q_rope, gather_paged(ckv_pool, block_tab),
+        gather_paged(kr_pool, block_tab),
+        gather_paged_pos(kv_pos_pool, block_tab), positions)
+
+
 def _mlp(p, x, cfg: ModelConfig):
-    if "mlp" not in p:                  # an SSM block with d_ff == 0
+    """The block's FFN with its residual: MoE, dense SwiGLU, or none (an
+    SSM block with d_ff == 0)."""
+    if "moe" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + moe_block(h, p["moe"], cfg.moe)[0]
+    if "mlp" not in p:
         return x
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
@@ -210,13 +395,14 @@ def _mlp(p, x, cfg: ModelConfig):
 def block_decode(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
                  pos):
     """Single-token decode block over a dense cache entry: (k, v) rows of
-    an attention layer (written in place), or (ssm_state, (conv_x,
-    conv_bc)) of an SSM layer.  Returns (hidden (B, 1, D), the layer's
-    new entry)."""
+    an attention layer, (latent, rope key) rows of an MLA layer (written
+    in place), or (ssm_state, (conv_x, conv_bc)) of an SSM layer.
+    Returns (hidden (B, 1, D), the layer's new entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == LayerKind.DENSE:
-        x = x + attn_decode(p["attn"], h, cfg, entry[0], entry[1], kv_pos,
-                            pos)
+    if kind in ATTN_KINDS:
+        attend = (mla_decode if cfg.attention == AttentionKind.MLA
+                  else attn_decode)
+        x = x + attend(p["attn"], h, cfg, entry[0], entry[1], kv_pos, pos)
     else:
         y, entry = mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0],
                                      entry[1])
@@ -231,9 +417,11 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
     from the entry's state and conv tail.  Returns (hidden (B, Sc, D),
     the layer's new entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == LayerKind.DENSE:
-        x = x + attn_extend(p["attn"], h, cfg, entry[0], entry[1], kv_pos,
-                            positions)
+    if kind in ATTN_KINDS:
+        attend = (mla_extend if cfg.attention == AttentionKind.MLA
+                  else attn_extend)
+        x = x + attend(p["attn"], h, cfg, entry[0], entry[1], kv_pos,
+                       positions)
     else:
         y, entry = mamba_forward(h, p["mamba"], cfg.ssm, entry[0], entry[1])
         x = x + y
@@ -243,10 +431,13 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
 def block_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
                        block_tab, pos):
     """Single-token decode block over a paged cache (pools written in
-    place).  Returns the new hidden states (B, 1, D)."""
+    place; an MLA layer's pools are its latent and rope-key pools).
+    Returns the new hidden states (B, 1, D)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_decode_paged(p["attn"], h, cfg, k_pool, v_pool, kv_pos_pool,
-                              block_tab, pos)
+    attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
+              else attn_decode_paged)
+    x = x + attend(p["attn"], h, cfg, k_pool, v_pool, kv_pos_pool,
+                   block_tab, pos)
     return _mlp(p, x, cfg)
 
 
@@ -255,6 +446,8 @@ def block_extend_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
     """Chunked-prefill block step writing into paged pools (in place).
     Returns the new hidden states (B, Sc, D)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_extend_paged(p["attn"], h, cfg, k_pool, v_pool,
-                              kv_pos_pool, block_tab, positions)
+    attend = (mla_extend_paged if cfg.attention == AttentionKind.MLA
+              else attn_extend_paged)
+    x = x + attend(p["attn"], h, cfg, k_pool, v_pool, kv_pos_pool,
+                   block_tab, positions)
     return _mlp(p, x, cfg)

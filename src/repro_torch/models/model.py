@@ -1,5 +1,6 @@
-"""Model assembly for the serving path (dense GQA decoders, Mamba2 SSM
-stacks and hybrids of the two).
+"""Model assembly for the serving path: decoders of GQA or MLA attention
+with dense or MoE FFNs (a `dense_prefix` of dense layers first, as in
+DeepSeek-V3), Mamba2 SSM stacks and hybrids of the two.
 
 Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `logits_from_hidden`; the dense (padded) family `kv_buffer_len`,
@@ -14,9 +15,14 @@ functions loop over them.
 
 Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
-             "layers": [{"ln1", "attn": {w_q, w_k, w_v, w_o} or "mamba":
-                         {...}, "ln2", "mlp": {w_gate, w_up, w_down}
-                         (an SSM layer has them only if d_ff > 0)}, ...]}
+             "layers": [{"ln1", "attn": {w_q, w_k, w_v, w_o} (GQA) or
+                         {[w_dq, q_norm,] w_uq, w_dkv, kv_norm, w_kr, w_uk,
+                         w_uv, w_o} (MLA), or "mamba": {...}, "ln2",
+                         "mlp": {w_gate, w_up, w_down} (an SSM layer has
+                         them only if d_ff > 0) or "moe": {router
+                         [, router_bias], w_gate, w_up, w_down (expert
+                         axis first) [, shared_gate, shared_up,
+                         shared_down]}}, ...]}
     paged   {"cur" (slots,) int32, "kv_pos" (N, bs) int32,
     cache    "block_tab" (slots, nbt) int32, "k"/"v" (L, N, bs, K, hd)}
     dense   {"cur" (B,) int32, "kv_pos" (B, S) int32,
@@ -26,10 +32,16 @@ Layouts (torch):
              "conv_bc" (L_ssm, B, d_conv-1, 2·ds)  if any SSM layer}
             S = kv_buffer_len(cfg, max_len) (a ring of min(window,
             max_len) entries for SWA models; 1 when no layer attends).
-            Each stack holds its own kind's layers in model order;
-            `stack_index` maps a layer to its stack.  A prefill request's
-            cache and what `paged_cache_take` / `cache_take` return are
-            its batch-1 form.
+            Each stack holds its own kind's layers in model order
+            (attention: DENSE and MOE layers; SSM: SSM and SSM_MOE);
+            `stack_index` maps a layer to its stack.
+            A prefill request's cache and what `paged_cache_take` /
+            `cache_take` return are its batch-1 form.
+    MLA     "k" holds the normalised KV latent and "v" the shared rope
+            key, with no head axis: (…, kv_lora_rank) and
+            (…, qk_rope_head_dim) in place of (…, K, hd), as the
+            reference's kv[0]/kv[1].  The page surgery and the joins
+            index only the leading axes, so they serve both.
 
 Physical block 0 is the null block: -1 table entries route writes there
 and the attention masks it.  The K/V pools, the dense K/V rows and the
@@ -51,8 +63,8 @@ import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
 from repro_torch.models.blocks import (
-    block_decode, block_decode_paged, block_extend, block_extend_paged,
-    init_block_params,
+    ATTN_KINDS, block_decode, block_decode_paged, block_extend,
+    block_extend_paged, init_block_params,
 )
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba import ssm_dims
@@ -75,37 +87,40 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, Tuple[LayerKind, ...], int]:
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """The port covers decoder-only models of dense GQA and SSM layers
-    so far."""
+    """The port covers decoder-only models of GQA or MLA attention, dense
+    or MoE FFNs, and SSM layers."""
     layer_layout(cfg)
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and vision prefill are not "
             f"ported yet (ROADMAP Queue 1 item 13)")
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA is not ported yet (ROADMAP Queue 1 item 10)")
-    if any(k not in (LayerKind.DENSE, LayerKind.SSM)
-           for k in cfg.layer_kinds()):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            f"item 9)")
 
 
 def _has_attn_cache(cfg: ModelConfig) -> bool:
-    return any(k == LayerKind.DENSE for k in cfg.layer_kinds())
+    return any(k in ATTN_KINDS for k in cfg.layer_kinds())
 
 
 def stack_index(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
     """(kind, index within its kind's cache stack) of every layer, in
-    model order: attention layers index "k"/"v", SSM layers "ssm" and the
-    conv tails."""
-    seen = {LayerKind.DENSE: 0, LayerKind.SSM: 0}
+    model order: attention layers (DENSE, MOE) index "k"/"v", SSM layers
+    (SSM, SSM_MOE) "ssm" and the conv tails."""
+    seen = {True: 0, False: 0}
     out = []
     for kind in cfg.layer_kinds():
-        out.append((kind, seen[kind]))
-        seen[kind] += 1
+        attn = kind in ATTN_KINDS
+        out.append((kind, seen[attn]))
+        seen[attn] += 1
     return out
+
+
+def _kv_shapes(cfg: ModelConfig, lead: Tuple[int, ...]):
+    """Shapes of one attention layer stack's "k" and "v" entries after
+    the leading axes `lead`: per-head K/V, or MLA's latent and rope key."""
+    if cfg.attention == AttentionKind.MLA:
+        m = cfg.mla
+        return lead + (m.kv_lora_rank,), lead + (m.qk_rope_head_dim,)
+    kv = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
+    return kv, kv
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +178,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     require_supported(cfg)
     S = kv_buffer_len(cfg, max_len) if _has_attn_cache(cfg) else 1
     kinds = cfg.layer_kinds()
-    n_attn = sum(k == LayerKind.DENSE for k in kinds)
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
     n_ssm = len(kinds) - n_attn
     cache = {
         "cur": torch.zeros(batch, dtype=torch.int32, device=device),
@@ -171,9 +186,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                              device=device),
     }
     if n_attn:
-        shape = (n_attn, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        k_shape, v_shape = _kv_shapes(cfg, (n_attn, batch, S))
+        cache["k"] = torch.zeros(k_shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(v_shape, dtype=dtype, device=device)
     if n_ssm:
         sc = cfg.ssm
         di, nh, _ = ssm_dims(cfg.d_model, sc)
@@ -232,7 +247,7 @@ def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
     require_supported(cfg)
     if not _has_attn_cache(cfg):
         raise ValueError(f"{cfg.name}: no attention cache to page")
-    if LayerKind.SSM in cfg.layer_kinds():
+    if any(k not in ATTN_KINDS for k in cfg.layer_kinds()):
         raise NotImplementedError(
             f"{cfg.name}: per-slot SSM state beside paged K/V is not "
             f"ported yet (ROADMAP Queue 1 item 12)")
@@ -253,15 +268,15 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
     """Paged decode cache for one DP unit: `slots` batch rows sharing
     `num_blocks` physical blocks (block 0 reserved as the null block)."""
     nbt, _ = paged_layout(cfg, max_len, block_size)
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    k_shape, v_shape = _kv_shapes(cfg, (cfg.num_layers, num_blocks,
+                                        block_size))
     i32 = dict(dtype=torch.int32, device=device)
     return {
         "cur": torch.zeros(slots, **i32),
         "kv_pos": torch.full((num_blocks, block_size), -1, **i32),
         "block_tab": torch.full((slots, nbt), -1, **i32),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": torch.zeros(k_shape, dtype=dtype, device=device),
+        "v": torch.zeros(v_shape, dtype=dtype, device=device),
     }
 
 
@@ -336,13 +351,13 @@ def _dense_layers(cfg: ModelConfig, params, x, cache, block, where):
     conv_x: List = []
     conv_bc: List = []
     for p, (kind, i) in zip(params["layers"], stack_index(cfg)):
-        if kind == LayerKind.DENSE:
+        if kind in ATTN_KINDS:
             entry = (cache["k"][i], cache["v"][i])
         else:
             entry = (cache["ssm"][i],
                      (cache["conv_x"][i], cache["conv_bc"][i]))
         x, entry = block(p, x, kind, cfg, entry, cache["kv_pos"], where)
-        if kind == LayerKind.SSM:
+        if kind not in ATTN_KINDS:
             ssm.append(entry[0])
             conv_x.append(entry[1][0])
             conv_bc.append(entry[1][1])
@@ -410,8 +425,7 @@ def _require_pageable_prefill(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: page-native prefill is attention-only "
             f"(encoder state has no page representation)")
-    if any(k not in (LayerKind.DENSE, LayerKind.MOE)
-           for k in cfg.layer_kinds()):
+    if any(k not in ATTN_KINDS for k in cfg.layer_kinds()):
         raise ValueError(
             f"{cfg.name}: page-native prefill is attention-only "
             f"(per-slot SSM state has no page representation)")

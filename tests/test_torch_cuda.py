@@ -3,8 +3,11 @@ versions at small shapes (the SSD kernel also at every SSM shape of the
 configs, full width included), and the unified and P/D servers on CUDA
 (P/D also on pages with prefix sharing) against the same servers on the
 CPU (reduced mamba2-370m: against the CPU model replaying the serve's
-prefill chunk boundaries).  Every test needs an NVIDIA GPU (marker
-`cuda`) and skips without one; on the card run
+prefill chunk boundaries; reduced granite-moe and deepseek-v3 on the
+unified plane); MoE dispatch on the card against every-expert
+evaluation, with no host sync, and MLA's paged decode against the CPU.
+Every test needs an NVIDIA GPU (marker `cuda`) and skips without one;
+on the card run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -20,7 +23,7 @@ import random
 import pytest
 import torch
 
-from repro_torch.config.base import ServingConfig, get_arch
+from repro_torch.config.base import AttentionKind, ServingConfig, get_arch
 from repro_torch.core.types import Request
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_plain, paged_decode_attention,
@@ -736,3 +739,109 @@ def test_pd_ssm_server_on_cuda_matches_cpu_replay(dev):
                                     torch.tensor([[toks[-1]]]), cache)
             toks.append(int(lg[0].argmax()))
         assert g.tokens == toks
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA (torch ops on the card; the GQA attention of an MoE model
+# still runs through kernels #1 and #2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+@pytest.mark.parametrize("T", [8, 256])
+def test_moe_block_on_cuda_matches_dense_reference(dev, arch, T):
+    """Full-width expert shapes in fp32 with a capacity factor of E/k (C
+    >= T: nothing drops): the sort-based dispatch on the card equals
+    every-expert evaluation, and dispatch never synchronises with the
+    host (C comes from shapes)."""
+    import dataclasses
+    from repro_torch.models.moe import (
+        init_moe_params, moe_block, moe_block_dense_reference)
+    mc = get_arch(arch).moe
+    mc = dataclasses.replace(mc, capacity_factor=mc.num_experts / mc.top_k,
+                             num_experts=min(mc.num_experts, 64),
+                             d_expert=min(mc.d_expert, 512),
+                             d_shared=min(mc.d_shared, 512))
+    D = min(get_arch(arch).d_model, 2048)
+    gen = torch.Generator(device=dev).manual_seed(T)
+    p = init_moe_params(gen, D, mc, torch.float32)
+    if "router_bias" in p:
+        p["router_bias"] = torch.randn(mc.num_experts, device=dev,
+                                       generator=gen) * 0.1
+    x = torch.randn((T, D), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = moe_block(x, p, mc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref, _ = moe_block_dense_reference(x, p, mc)
+    d = float((out - ref).abs().max())
+    assert d <= 1e-4 * float(ref.abs().max())
+
+
+def test_mla_paged_decode_on_cuda_matches_cpu(dev):
+    """Reduced minicpm3-4b's absorbed MLA decode over latent pools, fp32,
+    on the card and on the CPU: outputs and written pools within 1e-5."""
+    from repro_torch.models.blocks import mla_decode_paged
+    cfg = get_arch("minicpm3-4b", reduced=True)
+    p = init_params(cfg, seed=0, device="cpu")["layers"][0]["attn"]
+    g = torch.Generator().manual_seed(0)
+    N, bs, m = 12, 8, cfg.mla
+    ckv = torch.randn((N, bs, m.kv_lora_rank), generator=g)
+    kr = torch.randn((N, bs, m.qk_rope_head_dim), generator=g)
+    kvp = torch.full((N, bs), -1, dtype=torch.int32)
+    tab = torch.tensor([[3, 7, 1, -1], [5, -1, -1, -1], [-1] * 4],
+                       dtype=torch.int32)
+    for b, n in enumerate((20, 3, 0)):
+        for t in range(n):
+            kvp[tab[b, t // bs], t % bs] = t
+    pos = torch.tensor([20, 3, 0], dtype=torch.int32)
+    x = torch.randn((3, 1, cfg.d_model), generator=g)
+    res = {}
+    for device in ("cpu", "cuda"):
+        pools = [t.clone().to(device) for t in (ckv, kr, kvp)]
+        out = mla_decode_paged(_to(p, device), x.to(device), cfg, *pools,
+                               tab.to(device), pos.to(device))
+        res[device] = [out] + pools
+    for c, d in zip(res["cpu"], res["cuda"]):
+        if c.dtype == torch.int32:
+            assert torch.equal(c, d.cpu())
+        else:
+            assert float((c - d.cpu()).abs().max()) <= 1e-5 * max(
+                float(c.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+def test_moe_and_mla_unified_server_on_cuda_matches_cpu(dev, arch):
+    """Reduced granite-moe (GQA through kernels #1 and #2, G = 2) and
+    reduced deepseek-v3 (MLA and MoE as torch ops) in fp32 on the
+    unified plane: the served tokens on the card equal the same server's
+    on the CPU."""
+    cfg = get_arch(arch, reduced=True)
+    scfg = ServingConfig(
+        num_prefill_instances=1, prefill_dp_per_instance=1,
+        num_decode_instances=1, decode_dp_per_instance=2,
+        max_batch_per_dp=4, block_size=16, mixed_batch=True, mixed_chunk=32)
+    rng = random.Random(5)
+    prompts = [tuple(rng.randrange(cfg.vocab_size) for _ in range(L))
+               for L in (17, 40, 33, 64)]
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        before = (paged_decode_attention.launches,
+                  paged_prefill_attention.launches)
+        srv = RealSBSServer(cfg, _to(cpu_params, device), scfg,
+                            scheduler="sbs-la", max_len=96, max_new=6,
+                            device=device)
+        gens = srv.serve([Request(rid=i, arrival_time=0.02 * i,
+                                  input_len=len(t), output_len=6, tokens=t)
+                          for i, t in enumerate(prompts)], timeout=120)
+        out[device] = {g.rid: g.tokens for g in gens}
+        ran = (paged_decode_attention.launches - before[0],
+               paged_prefill_attention.launches - before[1])
+        if device == "cuda" and cfg.attention == AttentionKind.MLA:
+            assert ran == (0, 0)
+        elif device == "cuda":
+            assert ran[0] > 0 and ran[1] > 0
+    assert len(out["cpu"]) == 4
+    assert out["cuda"] == out["cpu"]

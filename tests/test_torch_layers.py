@@ -216,6 +216,16 @@ def test_init_params_ssm_shapes_and_scales_match_jax():
     _check_init_matches_jax("mamba2-370m")
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
+                                  "deepseek-v3-671b", "jamba-v0.1-52b"])
+def test_init_params_moe_and_mla_shapes_and_scales_match_jax(arch):
+    """MoE FFNs (fp32 router and selection bias, stacked experts, shared
+    experts), MLA attention with query compression, deepseek-v3's dense
+    prefix layer and jamba's SSM_MOE layer, as the JAX init (the MTP head
+    is not part of the port's params)."""
+    _check_init_matches_jax(arch)
+
+
 def _check_init_matches_jax(arch):
     cfg = get_arch(arch, reduced=True)
     tcfg = t_get_arch(arch, reduced=True)
@@ -234,8 +244,7 @@ def _check_init_matches_jax(arch):
         assert abs(st - sr) <= 0.1 * max(sr, 1e-6) or st == sr == 0, path
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b",
-                                  "minicpm3-4b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError):
         t_init_params(t_get_arch(arch, reduced=True), device="cpu")

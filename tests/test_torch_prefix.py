@@ -660,3 +660,50 @@ def test_drain_during_inflight_step_with_page_handoff_residents(
         assert st.binder.ensure_free(st.pool.num_blocks - 1)
         st.pool.check()
         assert st.pool.used_count == 0
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA on the shared-prefix P/D plane: reduced granite-moe-1b-a400m
+# (MoE FFNs over the page-native chunks and the decode rows) and reduced
+# minicpm3-4b (latent pages claimed, handed off, adopted and copied on
+# write)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b"])
+def test_pd_prefix_serve_moe_and_mla_match_jax_server(arch):
+    """The parity waves of `test_pd_prefix_serve_matches_jax_server`
+    under sbs-la on another model family: the same tokens and the same
+    reuse counters, chunk counts included, as the JAX server."""
+    from repro.core.types import Request as JRequest
+    from repro.serving.real_engine import EngineSpec as JEngineSpec
+    from repro.serving.server import RealSBSServer as JServer
+    cfg = get_arch(arch, reduced=True)
+    tcfg = t_get_arch(arch, reduced=True)
+    jp = jax.jit(JM.init_params, static_argnums=0)(cfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    base = _share_scfg(decode_dp_per_instance=1, max_batch_per_dp=8)
+    kw = dict(max_len=MAX_LEN, max_batch=8, max_new=4, block_size=BLOCK,
+              decode_slots=ServingConfig(**base).resolved_decode_slots)
+    jsrv = JServer(cfg, jp, JServingConfig(**base), scheduler="sbs-la",
+                   spec=JEngineSpec(cfg, jp, **kw), prefix_cache=True)
+    tsrv = RealSBSServer(tcfg, tp, ServingConfig(**base), scheduler="sbs-la",
+                         spec=EngineSpec(tcfg, tp, device="cpu", **kw),
+                         prefix_cache=True)
+    wave1, wave2 = _parity_waves(tcfg.vocab_size)
+    out, stats = {}, {}
+    for name, srv, R in (("jax", jsrv, JRequest), ("port", tsrv, Request)):
+        gens = []
+        for w, wave in enumerate((wave1, wave2)):
+            gens += srv.serve([R(rid=10 * w + i, arrival_time=0.05 * i,
+                                 input_len=len(p), output_len=3 + i % 2,
+                                 tokens=tuple(p))
+                               for i, p in enumerate(wave)], timeout=120)
+        out[name] = {g.rid: g.tokens for g in gens}
+        stats[name] = srv.prefix_stats()
+    assert sorted(out["port"]) == [0, 10, 11, 12, 13, 14]
+    assert out["port"] == out["jax"]
+    assert out["port"][10] == out["port"][0]
+    assert stats["port"] == stats["jax"]
+    assert stats["port"]["prefill_full_hits"] == 1
+    assert stats["port"]["decode_cow_copies"] == 6
+    _drain_pools(tsrv)

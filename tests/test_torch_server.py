@@ -719,3 +719,86 @@ def test_ssm_paged_and_mixed_deployments_raise(mamba, kw):
     with pytest.raises(ValueError):
         RealSBSServer(tcfg, tparams, ServingConfig(**base), max_len=MAX_LEN,
                       device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA: reduced granite-moe-1b-a400m (MoE), deepseek-v3-671b (MLA
+# and MoE after a dense prefix layer, sigmoid routing, a shared expert)
+# and jamba-v0.1-52b (an SSM_MOE layer beside an attention layer).  The
+# reduced configs' capacity factor 8 drops no (token, expert) pair, so
+# batch composition cannot change a token.
+# ---------------------------------------------------------------------------
+
+def _jax_and_port(arch):
+    """(JAX cfg, JAX params, port cfg, port params) on one JAX init."""
+    cfg = get_arch(arch, reduced=True)
+    tcfg = t_get_arch(arch, reduced=True)
+    jp = jax.jit(JM.init_params, static_argnums=0)(cfg, jax.random.PRNGKey(0))
+    return cfg, jp, tcfg, params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def granite():
+    return _jax_and_port("granite-moe-1b-a400m")
+
+
+@pytest.fixture(scope="module")
+def dsv3():
+    return _jax_and_port("deepseek-v3-671b")
+
+
+def _serve_against_jax_server(model, scfg, scheduler="sbs-la"):
+    """The same requests behind the JAX server and the port's, one
+    `ServingConfig` for both; the tokens must be equal.  Returns the
+    port's server and requests."""
+    from repro.core.types import Request as JRequest
+    from repro.serving.server import RealSBSServer as JServer
+    cfg, jp, tcfg, tp = model
+    out = {}
+    for name in ("jax", "port"):
+        if name == "jax":
+            srv = JServer(cfg, jp, JServingConfig(**dataclasses.asdict(scfg)),
+                          scheduler=scheduler, max_len=MAX_LEN, max_new=5)
+            R = JRequest
+        else:
+            srv = RealSBSServer(tcfg, tp, scfg, scheduler=scheduler,
+                                max_len=MAX_LEN, max_new=5, device="cpu")
+            R = Request
+        reqs = [R(rid=r.rid, arrival_time=r.arrival_time,
+                  input_len=r.input_len, output_len=r.output_len,
+                  tokens=r.tokens) for r in _requests(tcfg)]
+        gens = srv.serve(reqs, timeout=120)
+        out[name] = {g.rid: g.tokens for g in gens}
+    assert sorted(out["port"]) == [r.rid for r in reqs]
+    assert out["port"] == out["jax"]
+    return srv, reqs
+
+
+def test_moe_unified_server_matches_jax_server(granite):
+    """Reduced granite-moe on the unified plane: MoE dispatch over the
+    decode rows (idle slots included) and over each prefill chunk."""
+    srv, _reqs = _serve_against_jax_server(granite, _scfg())
+    for st in srv.decode_engines[0]._dp.values():
+        st.pool.check()
+        assert st.pool.used_count == 0 and not st.occupied()
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["unified", "pd-padded"])
+def test_mla_moe_server_matches_jax_server(dsv3, mixed):
+    """Reduced deepseek-v3 (latent K/V pages or rows, a dense prefix
+    layer, sigmoid-routed MoE with a shared expert) on the unified plane
+    and P/D on the padded plane."""
+    srv, reqs = _serve_against_jax_server(
+        dsv3, _scfg() if mixed else _pd_scfg(0))
+    if not mixed:
+        _assert_conserved(srv, reqs)
+
+
+def test_pd_jamba_server_matches_jax_oracle():
+    """The real reduced jamba (SSM_MOE then DENSE): the SSM layer's MoE
+    FFN beside the attention layer's K/V, through prefill, the handoff,
+    joins and decode, on the serve's chunk boundaries."""
+    orc, (tcfg, tparams) = _ssm_model("jamba-v0.1-52b")
+    assert TLK.SSM_MOE in tcfg.layer_kinds()
+    _check_ssm_pd_serve(orc, tcfg, tparams, "sbs-la")
