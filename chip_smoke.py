@@ -22,7 +22,9 @@ Phases (any failure exits non-zero and prints no result):
      design's edges (S = 4096 with rows that end mid-split, a window
      whose edge falls inside a split, wrapped rings cut by the splits,
      one-token rows, an empty row that must be exactly 0; G = 1 and 4,
-     hd 64 and 128, bf16 and fp32);
+     hd 64 and 128, bf16 and fp32); and at head dim 120 (h2o-danube-3-4b,
+     G = 4: the padded rows, a wrapped ring with a window smaller than
+     S), timed at h2o-danube's decode step beside SDPA;
   4. flash prefill (kernel #2: tensor cores in bf16, FMA in fp32), both
      entries, against their plain versions: the paged entry with a chunk
      that starts mid-page over a prefix read through shared pages, the
@@ -34,14 +36,23 @@ Phases (any failure exits non-zero and prints no result):
      sliding-window rings with a window, G = 1, 2 (the MoE serve's, at
      hd 64) and 4, hd 64 and 128, and packed segments that one warp or key tile spans while every
      key passes the position masks (448 one-token segments at position
-     0; chunks that start at nonzero positions);
+     0; chunks that start at nonzero positions); the contiguous entry
+     also at head dim 120 (G = 4: packed segments, attn_extend's chunk,
+     a wrapped window-96 ring), timed at h2o-danube's prefill chunk
+     beside SDPA;
   5. mixed serve: full-width deepseek-7b (random bf16 weights from a
      seed) behind `RealSBSServer` (unified mixed-batch plane, sbs-la, 2
      DP units, 16-token pages) answers 8 requests of 128-1024 prompt
-     tokens and 16-32 new tokens; every request must finish, the pools
-     must drain, kernels #1 and #2 (paged entry) must have launched, and
-     each request's first-token logits must agree with a plain dense
-     forward;
+     tokens and 16-32 new tokens, arriving at once and dispatched
+     together, with step graphs (every decode step and prefill chunk
+     replays a CUDA graph; the server serves the requests once first,
+     capturing the chunk graphs they need), then again eagerly
+     (`step_graphs=False`); every request must finish, the pools must
+     drain, kernels #1 and #2 (paged entry) must have launched, each
+     request's first-token logits must agree with a plain dense
+     forward, and the two modes must run the same steps and chunks with
+     the same launches per step and profiled device busy time within 5%
+     of each other (the trace must hold the graphs' kernels);
   5b. the SSD intra-chunk kernel (kernel #4) against its plain version:
      full-width mamba2-370m's 256-token chunk (32 heads of 64, d_state
      128) in bf16 and fp32, a ragged chunk padded with dt = 0, B·nc > 1,
@@ -52,8 +63,10 @@ Phases (any failure exits non-zero and prints no result):
   6. P/D serve: the same model and requests behind the P/D-separated
      `RealSBSServer` on the padded plane (2 prefill instances with
      256-token chunks, 1 decode instance of 2 DP units × 4 rows of 1088
-     tokens, sbs-la); the same checks, with kernels #3 and #2
-     (contiguous entry) launched;
+     tokens, sbs-la; requests 50 ms apart; decode steps from graphs
+     captured when each server is built, dense prefill chunks eager);
+     the same checks, with kernels #3 and #2 (contiguous entry) launched
+     and no other;
   6b. SSM serve: full-width mamba2-370m (48 SSM layers, random bf16
      weights from seed 0) behind the same P/D deployment with the same 8
      requests; every request finishes, the decode rows drain, kernel #4
@@ -64,7 +77,12 @@ Phases (any failure exits non-zero and prints no result):
      printed, not checked: bf16 logits depend on those boundaries); the
      error is also printed on a line of its own beside the recorded
      sensitivity of the check to a 1e-7 perturbation of kernel #4;
-  6c. shared-prefix P/D serve: full-width deepseek-7b (weights made
+  6c. SWA serve: full-width h2o-danube-3-4b (24 layers, d 3840, 32
+     heads over 8 KV heads of 120, window 4096; bf16 from seed 0) behind
+     the P/D serve's deployment with its requests; the same checks at
+     head dim 120: kernels #3 and #2 (contiguous entry) launch, #1, #2's
+     paged entry and #4 do not;
+  6d. shared-prefix P/D serve: full-width deepseek-7b (weights made
      again from seed 0) behind the P/D server on the paged plane with
      `prefix_cache=True` (page-native prefill, PageHandoff, prefix
      sharing; 1 prefill instance × 2 DP units with 256-token chunks, 1
@@ -76,8 +94,10 @@ Phases (any failure exits non-zero and prints no result):
      first-token logits agree with a plain forward and each full hit
      replays its original's first token; kernels #1 and #2 (paged entry)
      launch and #2's contiguous entry and #3 do not; every pool is empty
-     after its binder is evicted;
-  6d. MoE serve: full-width granite-moe-1b-a400m (24 layers, d 1024, 16
+     after its binder is evicted.  The server serves both waves once
+     first (capturing its chunk graphs) and is evicted before the
+     measured waves;
+  6e. MoE serve: full-width granite-moe-1b-a400m (24 layers, d 1024, 16
      heads over 8 KV heads of 64, 32 experts top-8 of 512, capacity
      factor 1.25; random weights from seed 0 in MOE_CHECK_DTYPE) behind
      the unified plane as in phase 5 with the same 8 requests; the same
@@ -85,8 +105,9 @@ Phases (any failure exits non-zero and prints no result):
      no other; the plain forward runs the MoE FFN once per prefill chunk
      the serve ran (expert capacity counts a call's tokens); then the
      routing flips between the served path and the plain forward, and
-     the capacity drops of every chunk, each on a line of its own;
-  6e. MLA serve: full-width minicpm3-4b (62 layers, d 2560, 40 heads,
+     the capacity drops of every chunk, each on a line of its own; and
+     the eager A/B of phase 5;
+  6f. MLA serve: full-width minicpm3-4b (62 layers, d 2560, 40 heads,
      q_lora 768, kv_lora 256, rope 32; bf16 from seed 0) behind the
      shared-prefix P/D deployment of phase 6c with the same two waves:
      latent pages through page-native prefill, claims, `PageHandoff`,
@@ -94,12 +115,15 @@ Phases (any failure exits non-zero and prints no result):
      logits against the NON-absorbed plain forward, and no kernel of the
      port launched (absorbed MLA runs as torch ops);
   7. report: one JSON line per serve (TTFT/ITL, launches per step, a
-     profile of device time by kernel group and the idle share), the
-     P/D, SSM, shared-prefix, MoE and MLA serves' figures each on a line
-     of its own (reuse counters and the card's peak memory where they
-     apply), one JSON line with the kernels (device and wall time per
-     call, launches on their path's serve, bound), the card's name and
-     power limit, and the contract line last.
+     profile of device time by kernel group with the device busy time
+     and the idle share, the step graphs' counts: graphs captured,
+     replays, capture seconds, graph-pool bytes), every serve's figures
+     each on a line of its own (reuse counters and the card's peak
+     memory where they apply; the A/B serves' graph and eager figures
+     side by side), one JSON line with the kernels (device and wall time
+     per call, launches on their path's serve, bound; #3 and #2's
+     contiguous entry also at head dim 120), the card's name and power
+     limit, and the contract line last.
 
 Launch counts are set to 0 just before each serve and read just after,
 so each kernel's `launches` is its count on its own path's serve.
@@ -484,6 +508,15 @@ def check_dense_decode(device):
          512, (3,), bf16, 128),
         ("wrapped ring, one empty row", 32, 8, 512, [1500, 700, 511, 2047],
          512, (3,), fp32, 128),
+        # head dim 120 (h2o-danube-3-4b: 32 heads over 8 KV heads): the
+        # padded plane's rows, and a wrapped ring with a window smaller
+        # than S and an empty row
+        ("h2o-danube rows hd=120", 32, 8, S, main_pos, 0, (), bf16, 120),
+        ("h2o-danube rows hd=120", 32, 8, S, main_pos, 0, (), fp32, 120),
+        ("wrapped ring, window < S, hd=120", 32, 8, 520,
+         [1500, 300, 519, 2047, 9], 100, (3,), bf16, 120),
+        ("wrapped ring, window < S, hd=120", 32, 8, 520,
+         [1500, 300, 519, 2047, 9], 100, (3,), fp32, 120),
     )
     # the split-K design's edges: S up to 4096 with rows that end
     # mid-split, a window whose edge falls inside a split, wrapped rings
@@ -533,6 +566,27 @@ def check_dense_decode(device):
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
     out["shape"] = (f"B=4 S={S} H=K=32 hd=128 bf16, pos={main_pos} "
                     f"(bound: K/V of valid entries only)")
+    # h2o-danube-3-4b's padded decode step: the same rows at hd 120, G = 4
+    q, kc, vc, kvp, posn = dense_decode_case(32, 8, 120, S, main_pos,
+                                             device, 41, bf16)
+    kcs, vcs = copies(kc, n), copies(vc, n)
+    h = out["hd120"] = {}
+    h["ms"], h["wall_ms"] = time_ms(lambda i: decode_attention(
+        q, kcs[i], vcs[i], kvp, posn), n, iters=50)
+    h["plain_ms"], _ = time_ms(lambda i: decode_attention_plain(
+        q, kcs[i], vcs[i], kvp, posn), n, iters=10)
+    kt = [k.transpose(1, 2).contiguous() for k in kcs]
+    vt = [v.transpose(1, 2).contiguous() for v in vcs]
+    mask = dense_valid(kvp, posn, 0)[:, None, None, :]
+    qs = q[:, :, None, :]
+    h["library_ms"], h["library_wall_ms"] = time_ms(
+        lambda i: sdpa(qs, kt[i], vt[i], attn_mask=mask, enable_gqa=True),
+        n, iters=50)
+    nbytes, flops = dense_decode_work(q.cpu(), kc, kvp.cpu(), posn.cpu(), 0)
+    h["bound_ms"], h["bound_by"] = bound(nbytes, flops)
+    h["shape"] = (f"B=4 S={S} H=32 K=8 hd=120 bf16, pos={main_pos} "
+                  f"(h2o-danube-3-4b's padded decode step; SDPA with "
+                  f"enable_gqa)")
     return out
 
 
@@ -750,6 +804,30 @@ def check_flash_prefill(device):
                f"window={window} H={H} K={K} hd={hd}")
         check_zero(tag, got[1])
         compare(tag, got, ref, out["errs"])
+    # head dim 120 (h2o-danube-3-4b, G = 4): packed segments with padding,
+    # attn_extend's chunk, and a 117-token chunk over a wrapped window-96
+    # ring of 128 whose second row is all empty (exactly 0)
+    for dt in (bf16, fp32):
+        q, k, v, pos, seg = packed_case(32, 8, 120, device, 120, dt)
+        got = flash_prefill(q, k, v, pos, pos, seg, seg)
+        ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos, pos,
+                                  seg, seg)
+        tag = "[flash prefill] hd=120 H=32 K=8 packed 200+250+pad"
+        check_zero(tag, got[seg < 0])
+        compare(tag, got, ref, out["errs"])
+        for Sc, p0, S, window in ((256, 512, MAX_LEN, 0),
+                                  (117, 500, 128, 96)):
+            q, k, v, qp, kvp, qs, ks = extend_case(
+                device, 60 + Sc, dt, S=S, p0=p0, Sc=Sc, H=32, K=8, hd=120,
+                B=2)
+            kvp[1] = -1
+            got = flash_prefill(q, k, v, qp, kvp, qs, ks, True, window)
+            ref = flash_prefill_plain(q.float(), k.float(), v.float(), qp,
+                                      kvp, qs, ks, True, window)
+            tag = (f"[flash prefill] hd=120 H=32 K=8 Sq={Sc} at {p0} over "
+                   f"S={S} window={window}")
+            check_zero(tag, got[1])
+            compare(tag, got, ref, out["errs"])
     q, k, v, qp, kvp, qs, ks = extend_case(device, 17, torch.bfloat16)
     n = 4
     kk, vv = copies(k, n), copies(v, n)
@@ -774,6 +852,31 @@ def check_flash_prefill(device):
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
     out["shape"] = ("B=1 Sq=256 at positions 512..767 over Skv=1088 "
                     "(768 live) H=K=32 hd=128 bf16")
+    # h2o-danube-3-4b's prefill chunk on the padded plane: hd 120, G = 4
+    q, k, v, qp, kvp, qs, ks = extend_case(device, 18, torch.bfloat16, H=32,
+                                           K=8, hd=120)
+    kk, vv = copies(k, n), copies(v, n)
+    mask = build_mask(qp, kvp, qs, ks, True)
+    live = int((kvp >= 0).sum())
+    h = out["hd120"] = {}
+    h["ms"], h["wall_ms"] = time_ms(lambda i: flash_prefill(
+        q, kk[i], vv[i], qp, kvp, qs, ks), n, iters=30)
+    h["plain_ms"], _ = time_ms(lambda i: flash_prefill_plain(
+        q, kk[i], vv[i], qp, kvp, qs, ks), n, iters=10)
+    kt = [t.transpose(1, 2).contiguous() for t in kk]
+    vt = [t.transpose(1, 2).contiguous() for t in vv]
+    qt = q.transpose(1, 2).contiguous()
+    h["library_ms"], h["library_wall_ms"] = time_ms(
+        lambda i: sdpa(qt, kt[i], vt[i], attn_mask=mask[:, None],
+                       enable_gqa=True), n, iters=30)
+    K, hd = k.shape[2], k.shape[3]
+    nbytes, flops = attention_work(
+        q, live * 2 * K * hd * esz, int(mask.sum()), q.numel() * esz,
+        extra=4 * (2 * qp.numel() + 2 * kvp.numel()))
+    h["bound_ms"], h["bound_by"] = bound(nbytes, flops)
+    h["shape"] = ("B=1 Sq=256 at positions 512..767 over Skv=1088 (768 "
+                  "live) H=32 K=8 hd=120 bf16 (h2o-danube-3-4b's prefill "
+                  "chunk; SDPA with enable_gqa)")
     return out
 
 
@@ -919,7 +1022,10 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
-def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
+def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32),
+                  burst=False):
+    """n requests 50 ms apart (`burst`: all at t = 0), prompts of lens[0],
+    lens[1] and n - 2 drawn between them."""
     from repro_torch.core.types import Request
     rng = random.Random(seed)
     plens = [lens[0], lens[1]] + [rng.randrange(lens[0], lens[1] + 1)
@@ -927,7 +1033,7 @@ def make_requests(cfg, n, seed, lens=(128, 1024), outs=(16, 32)):
     reqs = []
     for i, L in enumerate(plens):
         reqs.append(Request(
-            rid=i, arrival_time=0.05 * i, input_len=L,
+            rid=i, arrival_time=0.0 if burst else 0.05 * i, input_len=L,
             output_len=rng.randrange(outs[0], outs[1] + 1),
             tokens=tuple(rng.randrange(cfg.vocab_size) for _ in range(L))))
     return reqs
@@ -965,7 +1071,9 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None):
     does not depend on prefill chunk boundaries.  An MoE FFN does: expert
     capacity counts the tokens of one call, so `moe_block` runs once per
     prefill chunk the serve used (`chunks`, lengths; None is one call
-    over the prompt), as the served steps call it."""
+    over the prompt), as the served steps call it.  A sliding window
+    masks as the reference's; a ring cache gives the same result only
+    while the prompt fits the window (the serves' prompts do)."""
     import torch
     from repro_torch.config.base import AttentionKind
     from repro_torch.models.attention import build_mask, gqa_reference
@@ -975,7 +1083,9 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None):
     ids = torch.tensor([list(tokens)], dtype=torch.long, device=device)
     S = ids.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=device)[None]
-    mask = build_mask(pos, pos, causal=True)
+    window = (cfg.sliding_window if cfg.attention == AttentionKind.SWA
+              else 0)
+    mask = build_mask(pos, pos, causal=True, window=window)
     D, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     bounds = [0]
@@ -1112,7 +1222,7 @@ def record_prefill_logits(srv):
 
 def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                  tag, forward=dense_forward_logits, chunks=None,
-                 info_forward=None):
+                 info_forward=None, prefilled_before=0):
     """Every request finished with its tokens, the decode caches drained,
     and each first-token logits agree with a plain forward (`forward`,
     over the chunk boundaries `chunks` the serve used).  `info_forward`,
@@ -1135,12 +1245,39 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                                          f"drain")
             if st.occupied():
                 raise AssertionError(f"{tag}: the decode slots did not drain")
-    prefilled = (sum(e.tokens_processed for e in srv.engines) if srv.engines
-                 else sum(e.prefill_tokens for e in srv.decode_engines))
-    if prefilled != sum(r.input_len for r in reqs):
+    if prefilled_tokens(srv) - prefilled_before != sum(r.input_len
+                                                       for r in reqs):
         raise AssertionError(f"{tag}: prefill token count mismatch")
     return compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                                 forward, chunks, info_forward)
+
+
+def prefilled_tokens(srv):
+    """Prompt tokens the server's engines have prefilled so far."""
+    return (sum(e.tokens_processed for e in srv.engines) if srv.engines
+            else sum(e.prefill_tokens for e in srv.decode_engines))
+
+
+def graph_stats(srv):
+    """The compiled-step counters of every engine of `srv`, summed:
+    graphs captured, replays, seconds spent capturing, bytes of the
+    graphs' memory pools (None on the eager path)."""
+    st = [e.graphs.stats() for e in [*srv.engines, *srv.decode_engines]
+          if e.graphs is not None]
+    if not st:
+        return None
+    return {k: sum(x[k] for x in st) for k in st[0]}
+
+
+def graphs_report(srv, before):
+    """`graph_stats` now, with the graphs captured and the replays made
+    since `before` (the measured run's)."""
+    now = graph_stats(srv)
+    if now is None:
+        return None
+    return dict(now, graphs_in_run=now["graphs"] - before["graphs"],
+                replays_in_run=now["replays"] - before["replays"],
+                capture_s_in_run=now["capture_s"] - before["capture_s"])
 
 
 def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
@@ -1207,30 +1344,64 @@ def pd_scfg():
         max_batch_per_dp=MAX_BATCH, block_size=0, n_limit=64)
 
 
+def dispatch_bursts_whole(srv, n):
+    """Hold the decode scheduler's first dispatch of every run until all
+    `n` requests of the burst are buffered: they arrive at the same
+    instant but as one event each, and SBS would otherwise place the
+    first alone and the rest a batching window later, at a step count
+    that depends on step time.  So every run admits the same set at
+    once, and the unified engine's steps (grants formed step by step,
+    FIFO) are the same whatever a step costs."""
+    sched = srv.dsched
+    inner = sched.poll
+
+    def poll(now):
+        if sched._last == -math.inf and len(sched.buffer) < n:
+            return None
+        return inner(now)
+    sched.poll = poll
+
+
 def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
-          lens=(128, 1024), outs=(16, 32), tag="[serve]"):
-    """Drive the unified mixed-batch plane; returns the serve report.
-    `counters` are the kernel wrappers whose launch counts the run reads
-    (set to 0 just before the measured serve).  The first-token logits
-    are held against `dense_forward_logits` over the chunks the serve
-    ran (they matter for an MoE model's expert capacity).  The size
-    arguments let the same code rehearse on the CPU with a reduced
-    config."""
+          lens=(128, 1024), outs=(16, 32), tag="[serve]", step_graphs=True):
+    """Drive the unified mixed-batch plane with 8 requests arriving at
+    once; returns the serve report.  The burst, dispatched whole
+    (`dispatch_bursts_whole`), makes the engine's step sequence
+    independent of how long a step takes, so a run with step graphs and
+    one without (`step_graphs=False`) do the same work.  With step graphs the
+    measured server first serves the same requests once, capturing
+    the chunk graphs this traffic needs; the measured and the profiled
+    runs replay them.  `counters` are the kernel wrappers whose launch
+    counts the run reads (set to 0 just before the measured run).  The
+    first-token logits are held against `dense_forward_logits` over the
+    chunks the serve ran (they matter for an MoE model's expert
+    capacity).  The size arguments let the same code rehearse on the
+    CPU with a reduced config."""
     import torch
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
     scfg = mixed_scfg()
     spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
                       max_new=outs[1], block_size=BLOCK,
-                      decode_slots=scfg.resolved_decode_slots, device=device)
-    # warm-up serve (cuBLAS handles, allocator) on its own server
-    warm = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
-    warm.serve(make_requests(cfg, 2, seed=99, lens=(lens[0], lens[0]),
-                             outs=(2, 2)), timeout=300)
-    del warm
+                      decode_slots=scfg.resolved_decode_slots, device=device,
+                      step_graphs=step_graphs)
+
+    def requests():
+        return make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs,
+                             burst=True)
+    t0 = time.monotonic()
     srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
-    first_logits, chunks = record_first_logits(srv.decode_engines[0])
-    reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
+    build_s = time.monotonic() - t0
+    dispatch_bursts_whole(srv, n_requests)
+    # warm-up run: cuBLAS handles, the allocator and, with step graphs,
+    # the chunk graphs of this traffic
+    srv.serve(requests(), timeout=600)
+    eng = srv.decode_engines[0]
+    mark = (eng.steps, len(eng.itl), len(eng.step_samples), eng.mixed_steps,
+            prefilled_tokens(srv))
+    g0 = graph_stats(srv)
+    first_logits, chunks = record_first_logits(eng)
+    reqs = requests()
     if device != "cpu":
         free_device_memory()
         torch.cuda.reset_peak_memory_stats()
@@ -1241,42 +1412,52 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
     peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    graphs = graphs_report(srv, g0)
     worst, agree, _ = check_served(cfg, params, spec, srv, reqs, gens,
                                    first_logits, device, tag,
-                                   chunks=chunks)
-    eng = srv.decode_engines[0]
+                                   chunks=chunks, prefilled_before=mark[4])
     ttft = [g.ttft for g in gens]
-    durs = [d for d, _a, _r in eng.step_samples]
-    profile = profile_serve(
-        lambda: RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
-                              spec=spec),
-        cfg, n_requests, lens, outs, device)
+    steps = eng.steps - mark[0]
+    itl = eng.itl[mark[1]:]
+    durs = [d for d, _a, _r in eng.step_samples[mark[2]:]]
+    prefill_chunks = {r.rid: list(chunks.get(r.rid) or []) for r in reqs}
+    profile = profile_serve(lambda: srv, cfg, None, None, None, device,
+                            waves=lambda: [requests()])
     return {
         "plane": "unified mixed-batch, paged", "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "mode": "step graphs" if step_graphs else "eager",
+        "traffic": "8 requests at t = 0",
         "requests": len(reqs), "prompt_tokens": [r.input_len for r in reqs],
         "new_tokens": [len(g.tokens) for g in gens], "wall_s": wall,
         "ttft_p50_s": percentile(ttft, 0.5), "ttft_p99_s": percentile(ttft, 0.99),
-        "itl_p50_s": percentile(eng.itl, 0.5),
-        "itl_p99_s": percentile(eng.itl, 0.99),
-        "steps": eng.steps, "mixed_steps": eng.mixed_steps,
+        "itl_p50_s": percentile(itl, 0.5),
+        "itl_p99_s": percentile(itl, 0.99),
+        "steps": steps, "mixed_steps": eng.mixed_steps - mark[3],
         "step_p50_s": percentile(durs, 0.5), "step_p99_s": percentile(durs, 0.99),
         "launches": launches,
-        "launches_per_step": {k: v / eng.steps for k, v in launches.items()},
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
         "logits_rel_err": worst, "argmax_agree": agree,
-        "peak_memory_bytes": peak,
-        "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
+        "peak_memory_bytes": peak, "server_build_s": build_s,
+        "graphs": graphs,
+        "prefill_chunks": prefill_chunks,
         "profile": profile,
     }
 
 
 def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
              lens=(128, 1024), outs=(16, 32), tag="[pd serve]",
-             forward=dense_forward_logits, info_forward=None):
-    """Drive the P/D-separated deployment on the padded plane; returns
-    the serve report (as `serve`).  `forward` is the plain reference of
-    the first-token logits, run over the serve's chunk boundaries;
-    `info_forward` an unchecked second one (see `check_served`)."""
+             forward=dense_forward_logits, info_forward=None,
+             launched=("decode_attention", "flash_prefill")):
+    """Drive the P/D-separated deployment on the padded plane (requests
+    50 ms apart); returns the serve report (as `serve`).  Its steps
+    that can be compiled are the decode steps, whose graphs every
+    server captures when it is built (the dense prefill chunks stay
+    eager).  `forward` is the plain reference of the first-token
+    logits, run over the serve's chunk boundaries; `info_forward` an
+    unchecked second one (see `check_served`).  On the card every
+    wrapper named in `launched` must run and every other one of
+    `counters` must not."""
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
     scfg = pd_scfg()
@@ -1285,7 +1466,9 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     warm = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
     warm.serve(make_requests(cfg, 2, seed=99, lens=(lens[0], lens[0]),
                              outs=(2, 2)), timeout=300)
+    del warm
     srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec)
+    g0 = graph_stats(srv)
     first_logits, chunks, undo = record_prefill_logits(srv)
     reqs = make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs)
     for w in counters:
@@ -1297,9 +1480,15 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
         undo()
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
+    graphs = graphs_report(srv, g0)
     worst, agree, info = check_served(cfg, params, spec, srv, reqs, gens,
                                       first_logits, device, tag, forward,
                                       chunks, info_forward)
+    for name, n in launches.items():
+        if name in launched and device != "cpu" and n <= 0:
+            raise AssertionError(f"{tag}: {name} never launched")
+        if name not in launched and n != 0:
+            raise AssertionError(f"{tag}: {name} launched {n} times")
     eng = srv.decode_engines[0]
     passes = sum(e.passes for e in srv.engines)
     ttft = [g.ttft for g in gens]
@@ -1311,6 +1500,8 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     return {
         "plane": "P/D, padded decode", "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "mode": "step graphs", "traffic": "8 requests 50 ms apart",
+        "graphs": graphs,
         "requests": len(reqs), "prompt_tokens": [r.input_len for r in reqs],
         "new_tokens": [len(g.tokens) for g in gens], "wall_s": wall,
         "ttft_p50_s": percentile(ttft, 0.5), "ttft_p99_s": percentile(ttft, 0.99),
@@ -1380,18 +1571,19 @@ def make_prefix_waves(cfg, seed, prefix=512, suffixes=(64, 448),
 
 
 def record_paged_prefill_logits(srv):
-    """The page-native counterpart of `record_prefill_logits`: wraps
-    `real_engine.paged_prefill_step` to keep the last chunk's logits and
-    each prefill engine's `_run_chunk` to take them for the chunk that
-    sets a request's first token (a full hit runs no chunk and records
-    none), noting each request's chunk lengths.  Returns ({rid:
-    logits}, {rid: [chunk lengths]}, undo)."""
-    from repro_torch.serving import real_engine as RE
+    """The page-native counterpart of `record_prefill_logits`: wraps the
+    spec's `paged_prefill` (a chunk's graph replay, or its eager step)
+    to keep the last chunk's logits and each prefill engine's
+    `_run_chunk` to take them for the chunk that sets a request's first
+    token (a full hit runs no chunk and records none), noting each
+    request's chunk lengths.  Returns ({rid: logits}, {rid: [chunk
+    lengths]}, undo)."""
     seen, chunks, last = {}, {}, {}
-    inner_step = RE.paged_prefill_step
+    spec = srv.spec
+    inner_step = spec.paged_prefill
 
-    def paged_prefill_step(cfg, params, tokens, cache, slot):
-        logits, new = inner_step(cfg, params, tokens, cache, slot)
+    def paged_prefill(graphs, tokens, cache, slot, unit=0):
+        logits, new = inner_step(graphs, tokens, cache, slot, unit)
         last["logits"] = logits[0]
         return logits, new
 
@@ -1407,11 +1599,21 @@ def record_paged_prefill_logits(srv):
                 seen[req.rid] = last["logits"]
             return out
         eng._run_chunk = run_chunk
-    RE.paged_prefill_step = paged_prefill_step
+    spec.paged_prefill = paged_prefill
 
     def undo():
-        RE.paged_prefill_step = inner_step
+        del spec.paged_prefill
+        for eng in srv.engines:
+            del eng._run_chunk
     return seen, chunks, undo
+
+
+def stats_since(now, base):
+    """`prefix_stats()` counted from the snapshot `base` on."""
+    out = {k: v - base[k] for k, v in now.items() if k != "prefix_hit_rate"}
+    seen = out["prefix_seen_tokens"]
+    out["prefix_hit_rate"] = out["prefix_hit_tokens"] / seen if seen else 0.0
+    return out
 
 
 def drain_prefix_pools(srv, tag):
@@ -1451,19 +1653,24 @@ def serve_pd_prefix(cfg, params, device, counters, prefix=512,
     spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
                       max_new=outs[1], block_size=BLOCK,
                       decode_slots=scfg.resolved_decode_slots, device=device)
-
-    def server():
-        return RealSBSServer(cfg, params, scfg, scheduler="sbs-la",
-                             spec=spec, prefix_cache=True)
-    warm = server()
-    warm.serve(make_requests(cfg, 2, seed=99, lens=(128, 128), outs=(2, 2)),
-               timeout=300)
-    del warm
+    waves = make_prefix_waves(cfg, 7, prefix, suffixes, unrelated, outs)
+    srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec,
+                        prefix_cache=True)
+    # warm-up: both waves once (cuBLAS handles, the allocator and the
+    # chunk graphs of this traffic), then every binder evicted, so the
+    # measured waves start from empty prefix caches and pools, as on a
+    # new server
+    for w in (0, 1):
+        srv.serve(waves(w), timeout=600)
+    drain_prefix_pools(srv, tag)
     if device != "cpu":
         free_device_memory()
         torch.cuda.reset_peak_memory_stats()
-    waves = make_prefix_waves(cfg, 7, prefix, suffixes, unrelated, outs)
-    srv = server()
+    eng = srv.decode_engines[0]
+    mark = (eng.steps, len(eng.itl), len(eng.step_samples),
+            sum(e.passes for e in srv.engines))
+    base = srv.prefix_stats()
+    g0 = graph_stats(srv)
     first_logits, chunks, undo = record_paged_prefill_logits(srv)
     reqs = [waves(0), waves(1)]
     gens, walls, stats = [], [], []
@@ -1474,11 +1681,12 @@ def serve_pd_prefix(cfg, params, device, counters, prefix=512,
             t0 = time.monotonic()
             gens.append(srv.serve(wave, timeout=600))
             walls.append(time.monotonic() - t0)
-            stats.append(srv.prefix_stats())
+            stats.append(stats_since(srv.prefix_stats(), base))
     finally:
         undo()
     launches = {w.__name__: w.launches for w in counters}
     peak = (torch.cuda.max_memory_allocated() if device != "cpu" else None)
+    graphs = graphs_report(srv, g0)
     flat = [r for wave in reqs for r in wave]
     done = {g.rid: g for wave in gens for g in wave}
     if sorted(done) != [r.rid for r in flat]:
@@ -1528,31 +1736,34 @@ def serve_pd_prefix(cfg, params, device, counters, prefix=512,
             raise AssertionError(f"{tag}: {name} never launched")
         if name not in launched and n != 0:
             raise AssertionError(f"{tag}: {name} launched {n} times")
-    eng = srv.decode_engines[0]
-    passes = sum(e.passes for e in srv.engines)
-    durs = [d for d, _a, _r in eng.step_samples]
+    steps = eng.steps - mark[0]
+    itl = eng.itl[mark[1]:]
+    passes = sum(e.passes for e in srv.engines) - mark[3]
+    durs = [d for d, _a, _r in eng.step_samples[mark[2]:]]
     ttft = [[done[r.rid].ttft for r in wave] for wave in reqs]
-    del srv
-    profile = profile_serve(server, cfg, None, None, None, device,
+    profile = profile_serve(lambda: srv, cfg, None, None, None, device,
                             waves=lambda: [waves(0), waves(1)])
+    drain_prefix_pools(srv, tag)
     return {
         "plane": "P/D, paged, prefix_cache", "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "mode": "step graphs", "graphs": graphs,
+        "traffic": "two waves of 8 requests 50 ms apart",
         "requests": len(flat), "prompt_tokens": [r.input_len for r in flat],
         "new_tokens": [len(done[r.rid].tokens) for r in flat],
         "wall_s": sum(walls), "wall_s_per_wave": walls,
         "ttft_p50_s_per_wave": [percentile(t, 0.5) for t in ttft],
         "ttft_p99_s_per_wave": [percentile(t, 0.99) for t in ttft],
-        "itl_p50_s": percentile(eng.itl, 0.5),
-        "itl_p99_s": percentile(eng.itl, 0.99),
-        "decode_steps": eng.steps, "prefill_passes": passes,
+        "itl_p50_s": percentile(itl, 0.5),
+        "itl_p99_s": percentile(itl, 0.99),
+        "decode_steps": steps, "prefill_passes": passes,
         "step_p50_s": percentile(durs, 0.5), "step_p99_s": percentile(durs, 0.99),
         "prefix_stats_wave1": s1, "prefix_stats": s2,
         "computed_prompts": len(computed), "full_hits": len(hits),
         "pools_emptied": n_pools, "peak_memory_bytes": peak,
         "launches": launches,
         "paged_decode_attention_per_decode_step":
-            launches["paged_decode_attention"] / max(eng.steps, 1),
+            launches["paged_decode_attention"] / max(steps, 1),
         "paged_prefill_attention_per_prefill_pass":
             launches["paged_prefill_attention"] / max(passes, 1),
         "logits_rel_err": worst, "argmax_agree": agree,
@@ -1644,12 +1855,61 @@ def report_serve(tag, rep):
     print(f"{tag} wall_s={rep['wall_s']!r}", flush=True)
     print(f"{tag} step_p50_s={rep['step_p50_s']!r} "
           f"step_p99_s={rep['step_p99_s']!r}", flush=True)
-    print(f"{tag} idle_share={prof.get('idle_share')!r} (profiled second "
-          f"run, wall_s={prof.get('wall_s')!r})", flush=True)
+    print(f"{tag} device_busy_s={prof.get('device_busy_s')!r} "
+          f"idle_share={prof.get('idle_share')!r} (profiled run, "
+          f"wall_s={prof.get('wall_s')!r})", flush=True)
     print(f"{tag} device_s_by_group={prof.get('by_group_s')!r}", flush=True)
-    print(f"{tag} peak_memory_bytes={rep['peak_memory_bytes']!r}",
+    print(f"{tag} peak_memory_bytes={rep.get('peak_memory_bytes')!r}",
           flush=True)
     print(f"{tag} launches={rep['launches']!r}", flush=True)
+    print(f"{tag} mode={rep['mode']} graphs={rep['graphs']!r}", flush=True)
+
+
+def compare_modes(tag, graph, eager, device="cuda"):
+    """The A/B of one serve: its figures with step graphs and eagerly,
+    side by side.  Both runs must have done the same work (the same
+    steps and prefill chunks, which the burst traffic makes
+    independent of step time), and the profiled device busy time with
+    graphs must be within 5% of the eager one: the trace must hold the
+    kernels the graphs launch, else the graph run's idle share would
+    read too high."""
+    same = (graph["steps"] == eager["steps"]
+            and graph["prefill_chunks"] == eager["prefill_chunks"])
+    for key in ("wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+                "itl_p99_s", "step_p50_s", "step_p99_s"):
+        print(f"{tag} A/B {key}: graphs={graph[key]!r} eager={eager[key]!r}",
+              flush=True)
+    gp, ep = graph["profile"] or {}, eager["profile"] or {}
+    gb, eb = gp.get("device_busy_s"), ep.get("device_busy_s")
+    print(f"{tag} A/B device_busy_s: graphs={gb!r} eager={eb!r}; "
+          f"idle_share: graphs={gp.get('idle_share')!r} "
+          f"eager={ep.get('idle_share')!r}; same steps and chunks: {same}",
+          flush=True)
+    # the trace's kernel groups: kernel #1, and #2 (both of its entries
+    # share the kernel's name)
+    attn = ("paged_decode_attention", "flash_prefill")
+    seen = all(gp.get("by_group_s", {}).get(k, 0.0) > 0 for k in attn)
+    print(f"{tag} A/B the trace holds graph-launched kernels (attention "
+          f"kernels run only inside graphs in graph mode): {seen}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"{tag}: the graph and eager runs did different "
+                             f"work: steps {graph['steps']} vs "
+                             f"{eager['steps']}")
+    if device != "cpu":                 # "cpu": a rehearsal, no profile
+        if gb is None or eb is None or not abs(gb - eb) <= 0.05 * eb:
+            raise AssertionError(f"{tag}: device busy with graphs {gb} is "
+                                 f"not within 5% of eager {eb}")
+        if not seen:
+            raise AssertionError(f"{tag}: the profile holds no "
+                                 f"graph-launched attention kernel")
+    if graph["launches_per_step"] != eager["launches_per_step"]:
+        raise AssertionError(f"{tag}: launches per step differ: "
+                             f"{graph['launches_per_step']} vs "
+                             f"{eager['launches_per_step']}")
+    return {"same_work": same, "device_busy_s": [gb, eb],
+            "busy_rel_diff": abs(gb - eb) / eb if gb and eb else None,
+            "graph_kernels_seen": seen}
 
 
 def _kernel_group(name: str) -> str:
@@ -1724,10 +1984,12 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device,
 # ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve):
+                 moe_serve, swa):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
-    also on the shared-prefix P/D serve and the MoE serve)."""
+    also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
+    contiguous entry also on the SWA serve, with their figures at its
+    head dim 120)."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -1743,6 +2005,13 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
             library_ms=r["library_ms"], library_wall_ms=r["library_wall_ms"],
             path=path, launches_per_decode_step=n / steps, shape=r["shape"],
             **extra)
+
+    def hd120(r, name):
+        h = r["hd120"]
+        return {f"hd120_{k}": v for k, v in h.items()} | {
+            "launches_swa_serve": swa["launches"][name],
+            "launches_per_decode_step_swa_serve":
+                swa["launches"][name] / swa["decode_steps"]}
 
     csrc = "src/repro_torch/csrc/"
     dec_k = "src/repro/kernels/decode_attention/kernel.py"
@@ -1767,9 +2036,10 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              launches_per_step_moe_serve=on_moe["paged_prefill_attention"]
              / moe_serve["steps"]),
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
-             "P/D serve"),
+             "P/D serve", **hd120(fla, "flash_prefill")),
         item("decode_attention", csrc + "decode_attention.cu",
-             dec_k + ":166", pd, dense, "P/D serve"),
+             dec_k + ":166", pd, dense, "P/D serve",
+             **hd120(dense, "decode_attention")),
         item("ssd_chunk", csrc + "ssd_chunk.cu",
              "src/repro/kernels/ssd_scan/kernel.py:54", ssm, ssd,
              "SSM serve (P/D, padded)",
@@ -1823,6 +2093,45 @@ def serve_moe(counters, device, n_layers=None):
     print(f"[moe serve] capacity drops per chunk (plain forward): "
           f"{pdrops!r}", flush=True)
     report_serve("[moe serve]", rep)
+    if device != "cpu":
+        free_device_memory()
+    eager = serve(cfg, params, device, counters, tag="[moe serve eager]",
+                  step_graphs=False)
+    report_serve("[moe serve eager]", eager)
+    rep["ab"] = compare_modes("[moe serve]", rep, eager, device)
+    rep["eager"] = {k: v for k, v in eager.items() if k != "prefill_chunks"}
+    return rep
+
+
+def serve_swa(counters, device, n_layers=None):
+    """Phase 6c: full-width h2o-danube-3-4b (24 layers, d 3840, 32 heads
+    over 8 KV heads of 120, window 4096; bf16 from seed 0) behind the
+    P/D deployment on the padded plane (`serve_pd`, the P/D serve's
+    requests): kernels #3 and #2's contiguous entry at head dim 120, and
+    no other.  Prompts (at most 1024 tokens) stay inside the window, so
+    the ring does not wrap; the kernel phases hold the wrapped ring at
+    hd 120.  `n_layers` cuts depth for a CPU rehearsal.  Returns the
+    serve report."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    cfg = get_arch("h2o-danube-3-4b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    print(f"[init] {cfg.name} bf16 weights in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    rep = serve_pd(cfg, params, device, counters, tag="[swa serve]")
+    report_serve("[swa serve]", rep)
+    print(f"[swa serve] launches per decode step: decode_attention="
+          f"{rep['decode_attention_per_decode_step']!r}, per prefill pass: "
+          f"flash_prefill={rep['flash_prefill_per_prefill_pass']!r} "
+          f"(decode_steps={rep['decode_steps']}, "
+          f"prefill_passes={rep['prefill_passes']})", flush=True)
     return rep
 
 
@@ -1902,6 +2211,8 @@ def main() -> int:
                        ("[paged prefill]", pfx), ("[flash prefill]", fla),
                        ("[ssd]", ssd)):
             report_timing(tag, r)
+            if "hd120" in r:
+                report_timing(f"{tag} hd=120", r["hd120"])
         cfg = get_arch("deepseek-7b")
         t0 = time.monotonic()
         params = init_params(cfg, seed=0, dtype=torch.bfloat16,
@@ -1912,29 +2223,23 @@ def main() -> int:
         counters = [paged_decode_attention, paged_prefill_attention,
                     flash_prefill, decode_attention, ssd_chunk]
         mixed = serve(cfg, params, device, counters)
-        elapsed("mixed serve")
         for name in ("paged_decode_attention", "paged_prefill_attention"):
             if mixed["launches"][name] <= 0:
                 raise AssertionError(f"{name} never launched on the mixed "
                                      f"serve")
+        report_serve("[serve]", mixed)
+        free_device_memory()
+        mixed_eager = serve(cfg, params, device, counters,
+                            tag="[serve eager]", step_graphs=False)
+        report_serve("[serve eager]", mixed_eager)
+        mixed["ab"] = compare_modes("[serve]", mixed, mixed_eager, device)
+        mixed["eager"] = {k: v for k, v in mixed_eager.items()
+                          if k != "prefill_chunks"}
+        elapsed("mixed serve (graphs and eager)")
         free_device_memory()
         pd = serve_pd(cfg, params, device, counters)
         elapsed("P/D serve")
-        for name in ("decode_attention", "flash_prefill"):
-            if pd["launches"][name] <= 0:
-                raise AssertionError(f"{name} never launched on the P/D "
-                                     f"serve")
-        prof = pd["profile"] or {}
-        print(f"[pd serve] ttft_p50_s={pd['ttft_p50_s']!r} "
-              f"ttft_p99_s={pd['ttft_p99_s']!r}", flush=True)
-        print(f"[pd serve] itl_p50_s={pd['itl_p50_s']!r} "
-              f"itl_p99_s={pd['itl_p99_s']!r}", flush=True)
-        print(f"[pd serve] wall_s={pd['wall_s']!r}", flush=True)
-        print(f"[pd serve] idle_share={prof.get('idle_share')!r} "
-              f"(profiled second run, wall_s={prof.get('wall_s')!r})",
-              flush=True)
-        print(f"[pd serve] device_s_by_group={prof.get('by_group_s')!r}",
-              flush=True)
+        report_serve("[pd serve]", pd)
         print(f"[pd serve] launches={pd['launches']!r} per decode step: "
               f"decode_attention="
               f"{pd['decode_attention_per_decode_step']!r}, per prefill "
@@ -1951,33 +2256,23 @@ def main() -> int:
               f"{time.monotonic() - t0:.1f} s", flush=True)
         ssm = serve_pd(scfg_, sparams, device, counters, tag="[ssm serve]",
                        forward=ssm_forward_logits,
-                       info_forward=ssm_whole_prompt_logits)
+                       info_forward=ssm_whole_prompt_logits,
+                       launched=("ssd_chunk",))
         elapsed("SSM serve")
-        if ssm["launches"]["ssd_chunk"] <= 0:
-            raise AssertionError("ssd_chunk never launched on the SSM serve")
-        sprof = ssm["profile"] or {}
         print(f"[ssm serve] logits_rel_err={ssm['logits_rel_err']!r} "
               f"(limit {LOGITS_REL_TOL}; recorded: a 1e-7 relative "
               f"perturbation of kernel #4's output gives "
               f"{SSM_LOGITS_AT_1E7})", flush=True)
-        print(f"[ssm serve] ttft_p50_s={ssm['ttft_p50_s']!r} "
-              f"ttft_p99_s={ssm['ttft_p99_s']!r}", flush=True)
-        print(f"[ssm serve] itl_p50_s={ssm['itl_p50_s']!r} "
-              f"itl_p99_s={ssm['itl_p99_s']!r}", flush=True)
-        print(f"[ssm serve] wall_s={ssm['wall_s']!r}", flush=True)
-        print(f"[ssm serve] decode_step_p50_s={ssm['step_p50_s']!r} "
-              f"decode_step_p99_s={ssm['step_p99_s']!r} "
-              f"(decode_steps={ssm['decode_steps']})", flush=True)
-        print(f"[ssm serve] prefill_passes={ssm['prefill_passes']} "
-              f"ssd_chunk launches={ssm['launches']['ssd_chunk']} "
+        report_serve("[ssm serve]", ssm)
+        print(f"[ssm serve] decode_steps={ssm['decode_steps']} "
+              f"prefill_passes={ssm['prefill_passes']} ssd_chunk "
+              f"launches={ssm['launches']['ssd_chunk']} "
               f"({ssm['ssd_chunk_per_prefill_pass']!r} per prefill pass)",
               flush=True)
-        print(f"[ssm serve] idle_share={sprof.get('idle_share')!r} "
-              f"(profiled second run, wall_s={sprof.get('wall_s')!r})",
-              flush=True)
-        print(f"[ssm serve] device_s_by_group={sprof.get('by_group_s')!r}",
-              flush=True)
         del sparams
+        free_device_memory()
+        swa = serve_swa(counters, device)
+        elapsed("SWA serve")
         free_device_memory()
         t0 = time.monotonic()
         params = init_params(cfg, seed=0, dtype=torch.bfloat16,
@@ -1987,20 +2282,10 @@ def main() -> int:
               f"{time.monotonic() - t0:.1f} s", flush=True)
         px = serve_pd_prefix(cfg, params, device, counters)
         elapsed("shared-prefix P/D serve")
-        xprof = px["profile"] or {}
         for w in (0, 1):
             print(f"[pd prefix serve] wave {w + 1}: "
-                  f"ttft_p50_s={px['ttft_p50_s_per_wave'][w]!r} "
-                  f"ttft_p99_s={px['ttft_p99_s_per_wave'][w]!r} "
                   f"wall_s={px['wall_s_per_wave'][w]!r}", flush=True)
-        print(f"[pd prefix serve] itl_p50_s={px['itl_p50_s']!r} "
-              f"itl_p99_s={px['itl_p99_s']!r}", flush=True)
-        print(f"[pd prefix serve] wall_s={px['wall_s']!r}", flush=True)
-        print(f"[pd prefix serve] idle_share={xprof.get('idle_share')!r} "
-              f"(profiled repeat of both waves, "
-              f"wall_s={xprof.get('wall_s')!r})", flush=True)
-        print(f"[pd prefix serve] device_s_by_group="
-              f"{xprof.get('by_group_s')!r}", flush=True)
+        report_serve("[pd prefix serve]", px)
         print(f"[pd prefix serve] prefix_stats wave 1: "
               f"{px['prefix_stats_wave1']!r}", flush=True)
         print(f"[pd prefix serve] prefix_stats after wave 2: "
@@ -2008,9 +2293,7 @@ def main() -> int:
               f"{px['computed_prompts']}, full hits {px['full_hits']}, "
               f"{px['pools_emptied']} pools empty after eviction)",
               flush=True)
-        print(f"[pd prefix serve] peak_memory_bytes="
-              f"{px['peak_memory_bytes']!r}", flush=True)
-        print(f"[pd prefix serve] launches={px['launches']!r} per decode "
+        print(f"[pd prefix serve] launches per decode "
               f"step: paged_decode_attention="
               f"{px['paged_decode_attention_per_decode_step']!r}, per "
               f"prefill pass: paged_prefill_attention="
@@ -2020,12 +2303,12 @@ def main() -> int:
         del params
         free_device_memory()
         moe_rep = serve_moe(counters, device)
-        elapsed("MoE serve")
+        elapsed("MoE serve (graphs and eager)")
         free_device_memory()
         mla = serve_mla(counters, device)
         elapsed("MLA serve")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
-                               moe_rep)
+                               moe_rep, swa)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -2034,6 +2317,7 @@ def main() -> int:
         print(json.dumps({"serve_pd": pd}), flush=True)
         print(json.dumps({"serve_ssm": ssm}), flush=True)
         print(json.dumps({"serve_pd_prefix": px}), flush=True)
+        print(json.dumps({"serve_swa": swa}), flush=True)
         print(json.dumps({"serve_moe": moe_rep}), flush=True)
         print(json.dumps({"serve_mla": mla}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

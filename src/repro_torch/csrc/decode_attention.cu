@@ -60,6 +60,14 @@
 // Masks, as the reference: valid iff 0 <= kv_pos <= pos and, with
 // window > 0, pos - kv_pos < window.  A row with no valid key gives 0.
 // Any S is taken (the Pallas kernel needs S % block_kv == 0).
+//
+// Head dims 64, 120 and 128.  A head dim that is not a power of two
+// (h2o-danube-3-4b's 120) runs the body of the next power of two (128):
+// the lanes past the real elements (one of 16 in bf16, two of 32 in
+// fp32; 120 is a whole number of 16-byte lanes) load nothing and keep
+// zeros, which add nothing to q.k, and their output columns are never
+// stored.  Rows stay 16-byte aligned: 120 bf16 are 240 bytes, 120 fp32
+// 480.
 
 #include <type_traits>
 
@@ -73,6 +81,13 @@ constexpr int kDenseThreads = 128;
 constexpr int kDenseMaxG = 8;    // query heads per kv head one CTA handles
 constexpr int kSplitUnit = 16;   // cache indices per unit of a split
 
+// The body's head dim: the next power of two at or above HD.
+constexpr int padded_hd(int hd) {
+  int p = 1;
+  while (p < hd) p *= 2;
+  return p;
+}
+
 template <typename T, int HD, int GMAX>
 __global__ void __launch_bounds__(kDenseThreads)
 dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
@@ -83,7 +98,9 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                     float* __restrict__ part_acc, int H, int S, int K, int G,
                     int per, int window, float scale) {
   constexpr int VEC = Vec16<T>::N;
-  constexpr int LPT = HD / VEC;                 // lanes per token
+  constexpr int HDP = padded_hd(HD);            // the body's head dim
+  constexpr int LPT = HDP / VEC;                // lanes per token
+  static_assert(HD % VEC == 0, "head dim is not whole 16-byte lanes");
   static_assert(LPT >= 1 && LPT <= 32 && (32 % LPT) == 0,
                 "head dim does not map onto sub-warps");
   constexpr int NSUB = kDenseThreads / LPT;     // sub-warps per CTA
@@ -92,7 +109,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 
   __shared__ float s_m[NSUB][GMAX];
   __shared__ float s_l[NSUB][GMAX];
-  __shared__ float s_acc[NSUB][HD];
+  __shared__ float s_acc[NSUB][HDP];
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -101,6 +118,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int tid = threadIdx.x;
   const int sub = tid / LPT;
   const int lane = tid % LPT;
+  const bool real = lane * VEC < HD;            // a lane past HD loads nothing
   const int pos = pos_arr[b];
   const int n = pos < 0 ? 0 : min(S, pos + 1);
   const int t_beg = split * per;                // this split's indices
@@ -121,7 +139,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
       acc[g][i] = 0.f;
       qr[g][i] = 0.f;
     }
-    if (g < G && t_end > t_beg) {
+    if (g < G && t_end > t_beg && real) {
       const T* qp = q + (static_cast<size_t>(b) * H + kvh * G + g) * HD;
       Vec16<T>::load(qp + lane * VEC, qr[g]);
     }
@@ -139,7 +157,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
       valid[u] = kp >= 0 && kp <= pos && (window <= 0 || pos - kp < window);
       kraw[u] = make_uint4(0u, 0u, 0u, 0u);
       vraw[u] = kraw[u];
-      if (valid[u]) {
+      if (valid[u] && real) {
         const size_t off = base + static_cast<size_t>(t) * stride;
         kraw[u] = *reinterpret_cast<const uint4*>(k_cache + off);
         vraw[u] = *reinterpret_cast<const uint4*>(v_cache + off);
@@ -278,6 +296,10 @@ cudaError_t launch_hd(int hd, const void* q, const void* k_cache,
       return launch_group<T, 64>(q, k_cache, v_cache, kv_pos, pos, out,
                                  part_ml, part_acc, B, H, S, K, n_split,
                                  window, scale, stream);
+    case 120:
+      return launch_group<T, 120>(q, k_cache, v_cache, kv_pos, pos, out,
+                                  part_ml, part_acc, B, H, S, K, n_split,
+                                  window, scale, stream);
     case 128:
       return launch_group<T, 128>(q, k_cache, v_cache, kv_pos, pos, out,
                                   part_ml, part_acc, B, H, S, K, n_split,

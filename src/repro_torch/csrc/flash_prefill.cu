@@ -77,6 +77,16 @@
 // cp.async.  A paged tile is four pages at unrelated addresses, so it
 // needs one TMA box per page (or cp.async as here).
 //
+// Head dims: 64 and 128 on both entries, and 120 (h2o-danube-3-4b) on
+// the contiguous entry, the one its padded plane runs.  The bf16 body
+// needs whole k16 steps and pairs of 8-column tiles, so at 120 it runs
+// the 128-wide body: Q, K and V rows are copied with their 15 real
+// 16-byte chunks and the 16th is zero-filled in shared memory (cp.async
+// with no source bytes), zero columns add nothing to Q.K^T, and the
+// output columns 120..127 of P.V are never stored.  The fp32 body loads
+// and stores element by element, so it takes 120 as it is.  Rows stay
+// 16-byte aligned: 120 bf16 are 240 bytes.
+//
 // Masks, as the reference: kv_pos < 0 (empty, or a -1 table entry),
 // causal on positions, the optional window, and on the contiguous entry
 // segment equality with segment -1 = pad.  A fully masked query row
@@ -403,6 +413,9 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
+// The bf16 body's head dim: whole pairs of k16 steps.
+constexpr int mma_hd(int hd) { return (hd + 31) / 32 * 32; }
+
 template <int HD>
 struct MmaLayout {
   static constexpr int LD = HD + 8;                     // padded row (elems)
@@ -432,13 +445,16 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
                  int K, int bs, int nbt, int causal, int window,
                  float scale_log2, int gp) {
-  using L = MmaLayout<HD>;
+  constexpr int HDP = mma_hd(HD);     // the body's head dim
+  using L = MmaLayout<HDP>;
   constexpr int LD = L::LD;
-  constexpr int KSTEPS = HD / 16;     // k-steps of Q.K^T
+  constexpr int KSTEPS = HDP / 16;    // k-steps of Q.K^T
   constexpr int NT_S = kMmaKeys / 8;  // n-tiles of a score tile
-  constexpr int NT_O = HD / 8;        // n-tiles of the output
-  constexpr int CPR = HD / 8;         // 16-byte chunks per row
-  static_assert(KSTEPS % 2 == 0 && NT_O % 2 == 0, "head dim");
+  constexpr int NT_O = HDP / 8;       // n-tiles of the output
+  constexpr int CPR = HDP / 8;        // 16-byte chunks per shared row
+  constexpr int CPR_IN = HD / 8;      // ... of them read from a global row
+  static_assert(HD % 8 == 0 && KSTEPS % 2 == 0 && NT_O % 2 == 0,
+                "head dim");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -469,7 +485,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const int r = idx / CPR;
     const int c = idx % CPR;
     const int qi = q0 + r / gp;
-    const bool in = qi < Sq;
+    const bool in = qi < Sq && c < CPR_IN;   // zero-fill the padding
     const __nv_bfloat16* src =
         in ? q + ((static_cast<size_t>(b) * Sq + qi) * H + h0 + r % gp) *
                          HD + c * 8
@@ -609,10 +625,10 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
       const int r = idx / CPR;
       const int c = idx % CPR;
       const int row = rows[r];
-      const size_t off =
-          row >= 0 ? static_cast<size_t>(row) * HD + c * 8 : 0;
-      cp_async16(kd + r * LD + c * 8, k + off, row >= 0 ? 16 : 0);
-      cp_async16(vd + r * LD + c * 8, v + off, row >= 0 ? 16 : 0);
+      const bool ld = row >= 0 && c < CPR_IN;   // zero-fill the padding
+      const size_t off = ld ? static_cast<size_t>(row) * HD + c * 8 : 0;
+      cp_async16(kd + r * LD + c * 8, k + off, ld ? 16 : 0);
+      cp_async16(vd + r * LD + c * 8, v + off, ld ? 16 : 0);
     }
   };
 
@@ -826,7 +842,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* o1 =
       out + ((static_cast<size_t>(b) * Sq + qi1) * H + h0 + r1 % gp) * HD;
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
+  for (int n = 0; n < HD / 8; ++n) {     // the real columns only
     if (qi0 < Sq)
       *reinterpret_cast<unsigned*>(o0 + n * 8 + c2) =
           pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
@@ -843,7 +859,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int* block_tab, void* out, int B, int Sq,
                         int Skv, int H, int K, int bs, int nbt, int causal,
                         int window, float scale, cudaStream_t stream) {
-  using L = MmaLayout<HD>;
+  using L = MmaLayout<mma_hd(HD)>;
   // 227 KB a block, less 2 KB for the kernel's static shared memory
   constexpr int kMaxSmem = 232448 - 2048;
   const int n_kv = PAGED ? nbt * bs : Skv;
@@ -887,6 +903,10 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
   } else if (dtype == kFloat32) {
     if (hd == 64) REPRO_FLASH_CASE(launch_fp32, 64);
     if (hd == 128) REPRO_FLASH_CASE(launch_fp32, 128);
+  }
+  if constexpr (!PAGED) {               // head dim 120: contiguous only
+    if (hd == 120 && dtype == kBFloat16) REPRO_FLASH_CASE(launch_bf16, 120);
+    if (hd == 120 && dtype == kFloat32) REPRO_FLASH_CASE(launch_fp32, 120);
   }
 #undef REPRO_FLASH_CASE
   return cudaErrorInvalidValue;

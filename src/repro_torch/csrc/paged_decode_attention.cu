@@ -242,7 +242,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 // A split with l = 0 (past the row's live blocks, or all masked) adds
 // nothing and its acc is never read; a row with no valid key gives 0.
 // Shared with the dense decode kernel (decode_attention.cu) through
-// launch_decode_merge.
+// launch_decode_merge, which also takes its head dim 120.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 paged_decode_merge_kernel(const float* __restrict__ part_ml,
@@ -344,8 +344,10 @@ cudaError_t launch_decode_merge(const float* part_ml, const float* part_acc,
   return cudaSuccess
   if (BH == 0) return cudaSuccess;
   if (dtype == kBFloat16 && hd == 64) { REPRO_MERGE(__nv_bfloat16, 64); }
+  if (dtype == kBFloat16 && hd == 120) { REPRO_MERGE(__nv_bfloat16, 120); }
   if (dtype == kBFloat16 && hd == 128) { REPRO_MERGE(__nv_bfloat16, 128); }
   if (dtype == kFloat32 && hd == 64) { REPRO_MERGE(float, 64); }
+  if (dtype == kFloat32 && hd == 120) { REPRO_MERGE(float, 120); }
   if (dtype == kFloat32 && hd == 128) { REPRO_MERGE(float, 128); }
 #undef REPRO_MERGE
   return cudaErrorInvalidValue;

@@ -33,7 +33,8 @@ from repro_torch.models.attention import (
     decode_attention as _dense_reference, decode_attention_paged,
 )
 
-HEAD_DIMS = (64, 128)       # head dims the kernel is instantiated for
+HEAD_DIMS = (64, 120, 128)  # head dims the dense kernel is instantiated for
+PAGED_HEAD_DIMS = (64, 128)  # ... and the paged kernel
 MAX_GROUP = 8               # query heads per kv head one CTA handles
 DTYPES = (torch.float32, torch.bfloat16)
 H100_SM_COUNT = 132         # streaming multiprocessors of an H100 SXM
@@ -85,11 +86,12 @@ def paged_decode_attention_plain(q, k_pool, v_pool, kv_pos_pool, block_tab,
                                   block_tab, pos, window)[:, 0]
 
 
-def _check_common(q, k, v, ints) -> None:
+def _check_common(q, k, v, ints, head_dims) -> None:
     """Checks both kernels share: q (B, H, hd) and K/V (.., K, hd) of one
-    dtype, a head dim and a group size the kernels are instantiated for,
-    int32 index inputs (`ints`, name -> tensor), and every input
-    contiguous, 16-byte aligned where loaded by 16 bytes, on q's device."""
+    dtype, a head dim of `head_dims` and a group size the kernel is
+    instantiated for, int32 index inputs (`ints`, name -> tensor), and
+    every input contiguous, 16-byte aligned where loaded by 16 bytes, on
+    q's device."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("q must be (B, H, hd) and K/V 4-d")
     H, hd = q.shape[1], q.shape[2]
@@ -102,8 +104,8 @@ def _check_common(q, k, v, ints) -> None:
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if hd not in head_dims:
+        raise ValueError(f"head dim {hd} not in {head_dims}")
     if K == 0 or H % K or H // K > MAX_GROUP:
         raise ValueError(f"H={H}, K={K}: need H % K == 0 and "
                          f"H // K <= {MAX_GROUP}")
@@ -120,7 +122,8 @@ def _check_common(q, k, v, ints) -> None:
 def check_args(q, k_pool, v_pool, kv_pos_pool, block_tab, pos) -> None:
     """Raise ValueError for any input the paged kernel does not take."""
     _check_common(q, k_pool, v_pool, {"kv_pos_pool": kv_pos_pool,
-                                      "block_tab": block_tab, "pos": pos})
+                                      "block_tab": block_tab, "pos": pos},
+                  PAGED_HEAD_DIMS)
     B = q.shape[0]
     N, bs = k_pool.shape[:2]
     if tuple(kv_pos_pool.shape) != (N, bs):
@@ -136,7 +139,9 @@ def paged_decode_attention(q, k_pool, v_pool, kv_pos_pool, block_tab, pos,
                            window: int = 0):
     """One query token per row over its K/V pages (shapes as the plain
     version).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel or raise.  The kernel takes head dims 64 and 128
+    (`PAGED_HEAD_DIMS`): sliding-window models, h2o-danube's hd 120
+    among them, never page."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, kv_pos_pool,
                                             block_tab, pos, window)
@@ -170,7 +175,8 @@ def decode_attention_plain(q, k_cache, v_cache, kv_pos, pos, window: int = 0):
 
 def check_dense_args(q, k_cache, v_cache, kv_pos, pos) -> None:
     """Raise ValueError for any input the dense kernel does not take."""
-    _check_common(q, k_cache, v_cache, {"kv_pos": kv_pos, "pos": pos})
+    _check_common(q, k_cache, v_cache, {"kv_pos": kv_pos, "pos": pos},
+                  HEAD_DIMS)
     B = q.shape[0]
     S = k_cache.shape[1]
     if k_cache.shape[0] != B:
@@ -184,10 +190,12 @@ def check_dense_args(q, k_cache, v_cache, kv_pos, pos) -> None:
 def decode_attention(q, k_cache, v_cache, kv_pos, pos, window: int = 0):
     """One query token per row over its dense cache (shapes as the plain
     version).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise.  The kernel walks cache indices
-    0 .. min(S, pos + 1) - 1, which equals the plain version whenever
-    index i holds -1 or a position p with p % S == i (every engine path;
-    see `repro_torch/csrc/decode_attention.cu`)."""
+    the kernel or raise.  The kernel takes head dims 64, 120 and 128
+    (`HEAD_DIMS`; 120 runs the 128-wide body with the padding zeroed)
+    and walks cache indices 0 .. min(S, pos + 1) - 1, which equals the
+    plain version whenever index i holds -1 or a position p with
+    p % S == i (every engine path; see
+    `repro_torch/csrc/decode_attention.cu`)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, kv_pos, pos,
                                       window)

@@ -26,7 +26,8 @@ from repro_torch.models.attention import (
     build_mask, gather_paged, gather_paged_pos, gqa_reference,
 )
 
-HEAD_DIMS = (64, 128)       # head dims the kernel is instantiated for
+HEAD_DIMS = (64, 120, 128)  # head dims of the contiguous entry
+PAGED_HEAD_DIMS = (64, 128)  # ... and of the paged entry
 DTYPES = (torch.float32, torch.bfloat16)
 # keys the bf16 body walks at most (Skv, or nbt * bs on the paged entry):
 # it keeps one byte per 32 keys in shared memory beside its tiles
@@ -56,7 +57,7 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, kv_pos_pool,
     return gqa_reference(q, kg, vg, mask)
 
 
-def _check_common(q, kv, ints) -> None:
+def _check_common(q, kv, ints, head_dims) -> None:
     if q.dim() != 4 or kv[0].dim() != 4:
         raise ValueError("q must be (B, Sq, H, hd) and K/V 4-d")
     H, hd = q.shape[2], q.shape[3]
@@ -66,8 +67,8 @@ def _check_common(q, kv, ints) -> None:
                          f"{tuple(kv[1].shape)} do not match q")
     if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in kv):
         raise ValueError(f"q, K and V must share one dtype of {DTYPES}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if hd not in head_dims:
+        raise ValueError(f"head dim {hd} not in {head_dims}")
     if K == 0 or H % K:
         raise ValueError(f"H={H} is not a multiple of K={K}")
     for name, t in ints.items():
@@ -87,7 +88,7 @@ def _check_common(q, kv, ints) -> None:
 def check_flash_args(q, k, v, q_pos, kv_pos, q_seg, kv_seg) -> None:
     """Raise ValueError for any input the contiguous entry does not take."""
     _check_common(q, (k, v), {"q_pos": q_pos, "kv_pos": kv_pos,
-                              "q_seg": q_seg, "kv_seg": kv_seg})
+                              "q_seg": q_seg, "kv_seg": kv_seg}, HEAD_DIMS)
     B, Sq = q.shape[:2]
     if k.shape[0] != B:
         raise ValueError("q and K/V batch differ")
@@ -105,7 +106,7 @@ def check_paged_args(q, k_pool, v_pool, kv_pos_pool, block_tab,
     """Raise ValueError for any input the paged entry does not take."""
     _check_common(q, (k_pool, v_pool),
                   {"kv_pos_pool": kv_pos_pool, "block_tab": block_tab,
-                   "positions": positions})
+                   "positions": positions}, PAGED_HEAD_DIMS)
     B, Sq = q.shape[:2]
     N, bs = k_pool.shape[:2]
     if tuple(kv_pos_pool.shape) != (N, bs):
@@ -125,7 +126,9 @@ def _check_keys(q, n_keys: int) -> None:
 
 def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,
                   window: int = 0):
-    """Contiguous packed-varlen entry (shapes as the plain version)."""
+    """Contiguous packed-varlen entry (shapes as the plain version).
+    Head dims 64, 120 and 128 (`HEAD_DIMS`; 120 runs the 128-wide bf16
+    body with the padding zeroed)."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
                                    causal, window)
@@ -141,8 +144,9 @@ def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,
 
 def paged_prefill_attention(q, k_pool, v_pool, kv_pos_pool, block_tab,
                             positions, window: int = 0):
-    """Paged-KV chunk entry (shapes as the plain version).  The kernel
-    walks logical blocks 0 .. max(positions) // bs only."""
+    """Paged-KV chunk entry (shapes as the plain version).  Head dims 64
+    and 128 (`PAGED_HEAD_DIMS`); the kernel walks logical blocks
+    0 .. max(positions) // bs only."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, kv_pos_pool,
                                              block_tab, positions, window)

@@ -7,7 +7,8 @@ Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `init_cache`, `cache_join`, `cache_take`, `prefill_chunk`,
 `decode_step`; and the paged family `paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step`,
-`paged_prefill_step` (with `_require_pageable_prefill`), `mixed_step`,
+`paged_prefill_step` (with `_require_pageable_prefill`), `mixed_step`
+(its decode half is `paged_decode_masked`),
 `paged_copy_block`, `paged_gather_blocks`, `paged_adopt_blocks`,
 `paged_clear_rows` (attention-only).  The JAX package scans over a
 stacked layer axis; here the layers are a Python list and the step
@@ -434,15 +435,21 @@ def _require_pageable_prefill(cfg: ModelConfig) -> None:
 def paged_prefill_step(cfg: ModelConfig, params, tokens, cache, slot):
     """One chunked-prefill step writing straight into pool pages: extend
     slot `slot` by the chunk `tokens` ((1, Sc) int).  Earlier chunks and
-    shared-prefix pages are read through the block table.  Returns
-    (last-position logits (1, V), cache); the pools are written in
-    place."""
+    shared-prefix pages are read through the block table.  `slot` is an
+    int or a one-element integer tensor on the cache's device (as the
+    reference traces it: one compiled step serves every slot, and
+    nothing reads it back to the host).  Returns (last-position logits
+    (1, V), cache); the pools are written in place."""
     _require_pageable_prefill(cfg)
     Sc = tokens.shape[1]
+    if isinstance(slot, torch.Tensor):
+        slot = slot.reshape(1).long()
+        tab_row = cache["block_tab"][slot]                # (1, nbt)
+    else:
+        tab_row = cache["block_tab"][slot][None]          # (1, nbt)
     pos0 = cache["cur"][slot]
     positions = (pos0 + torch.arange(Sc, dtype=torch.int32,
-                                     device=pos0.device))[None]
-    tab_row = cache["block_tab"][slot][None]              # (1, nbt)
+                                     device=pos0.device)).reshape(1, Sc)
     x = params["embed"][tokens.long()]                    # (1, Sc, D)
     for l, p in enumerate(params["layers"]):
         x = block_extend_paged(p, x, cfg, cache["k"][l], cache["v"][l],
@@ -454,29 +461,50 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, cache, slot):
     return logits, out
 
 
+def paged_decode_masked(cfg: ModelConfig, params, token, cache,
+                        decode_mask):
+    """The decode half of `mixed_step`: a paged decode step of the slots
+    under `decode_mask` ((slots,) bool); the other rows decode against a
+    -1 table (the null block) and keep `cur`.  With every row masked in,
+    the same as `paged_decode_step`.  Returns (logits (slots, V),
+    cache)."""
+    tab = cache["block_tab"]
+    cur = cache["cur"]
+    dcache = dict(cache)
+    dcache["block_tab"] = torch.where(decode_mask[:, None], tab, -1)
+    logits, out = paged_decode_step(cfg, params, token, dcache)
+    out["block_tab"] = tab
+    out["cur"] = torch.where(decode_mask, cur + 1, cur)
+    return logits, out
+
+
 def mixed_step(cfg: ModelConfig, params, token, cache,
-               chunks: Sequence, decode_mask=None):
+               chunks: Sequence, decode_mask=None, decode=None,
+               prefill=None):
     """One unified mixed-batch step: the paged decode rows, then each
     `(tokens (1, Sc), slot)` prefill chunk in order, over one pool.
 
     `decode_mask` (slots,) bool marks the actively decoding slots;
     masked rows (prefilling residents, whose table rows are live) decode
-    against a -1 table (the null block) and keep `cur`.  Returns (decode
-    logits (slots, V), tuple of per-chunk last-position logits (1, V),
-    cache)."""
-    tab = cache["block_tab"]
-    cur = cache["cur"]
-    if decode_mask is not None:
-        dcache = dict(cache)
-        dcache["block_tab"] = torch.where(decode_mask[:, None], tab, -1)
-        logits, cache = paged_decode_step(cfg, params, token, dcache)
-        cache["block_tab"] = tab
-        cache["cur"] = torch.where(decode_mask, cur + 1, cur)
+    against a -1 table (the null block) and keep `cur`.  `decode(token,
+    cache, mask)` and `prefill(tokens, cache, slot)`, when given, run
+    the masked decode half and each chunk in place of
+    `paged_decode_masked` and `paged_prefill_step` (the engines pass
+    their compiled steps).  Returns (decode logits (slots, V), tuple of
+    per-chunk last-position logits (1, V), cache)."""
+    if decode is not None:
+        logits, cache = decode(token, cache, decode_mask)
+    elif decode_mask is not None:
+        logits, cache = paged_decode_masked(cfg, params, token, cache,
+                                            decode_mask)
     else:
         logits, cache = paged_decode_step(cfg, params, token, cache)
     chunk_logits = []
     for ctoks, slot in chunks:
-        lg, cache = paged_prefill_step(cfg, params, ctoks, cache, slot)
+        if prefill is not None:
+            lg, cache = prefill(ctoks, cache, slot)
+        else:
+            lg, cache = paged_prefill_step(cfg, params, ctoks, cache, slot)
         chunk_logits.append(lg)
     return logits, tuple(chunk_logits), cache
 

@@ -59,12 +59,19 @@ their slot (paged: also their table row and pages).  The unified engine
 
 Differences from the JAX engines:
 
-  * no jit, no mesh, no lock around device programs: PyTorch runs
-    eagerly, every engine thread issues its work to the device's default
-    stream (so it serialises, and a handoff cache written by a prefill
-    worker is complete before the runtime thread's join reads it, and a
-    page the runtime thread clears or stages is ready before the
-    worker's next chunk reads it);
+  * no jit and no mesh: with `EngineSpec.step_graphs` (the default)
+    every decode step and every page-native prefill chunk replays a CUDA
+    graph (`repro_torch.serving.step_graphs`; decode graphs are captured
+    when the engine is built, chunk graphs at a length's first use),
+    and the steps that stay eager (dense prefill chunks, the SSM
+    prefill, page surgery) run op by op; `step_graphs=False` runs every
+    step eagerly.  Every engine thread queues its work on the device's
+    default stream (so it serialises, and a handoff cache written by a
+    prefill worker is complete before the runtime thread's join reads
+    it, and a page the runtime thread clears or stages is ready before
+    the worker's next chunk reads it); with step graphs each engine
+    queues its steps under the spec's `step_lock`, the reference's
+    `_mesh_lock`, under which graphs are also captured;
   * the step functions write the K/V caches in place (see
     `repro_torch.models.model`), so a worker step mutates the DP's cache
     while the runtime thread waits for `step_end`.  The runtime thread
@@ -95,6 +102,7 @@ Differences from the JAX engines:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -109,9 +117,9 @@ from repro_torch.models.model import (
     _require_pageable_prefill, cache_join, cache_take, decode_step,
     init_cache, init_paged_cache, mixed_step, paged_adopt_blocks,
     paged_cache_clear_slot, paged_cache_join, paged_cache_take,
-    paged_clear_rows, paged_copy_block, paged_decode_step,
-    paged_gather_blocks, paged_layout, paged_prefill_step, prefill_chunk,
-    require_supported,
+    paged_clear_rows, paged_copy_block, paged_decode_masked,
+    paged_decode_step, paged_gather_blocks, paged_layout,
+    paged_prefill_step, prefill_chunk, require_supported,
 )
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
 from repro_torch.serving.kv_pool import BlockPool, pad_block_table
@@ -119,6 +127,7 @@ from repro_torch.serving.page_share import PagePrefixBinder
 from repro_torch.serving.plane import (
     ASYNC, PassResult, StartResult, UnifiedEngine,
 )
+from repro_torch.serving.step_graphs import StepGraphs
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +145,12 @@ class EngineSpec:
     of max_batch·max_len/block_size blocks (+ the null block), with
     `decode_slots` (default 2×max_batch) cheap batch rows on top.  A
     page-native prefill engine owns a pool of its own
-    (`paged_prefill_blocks`) with `paged_prefill_slots` rows."""
+    (`paged_prefill_blocks`) with `paged_prefill_slots` rows.
+
+    `step_graphs` (default) runs the decode steps and page-native
+    prefill chunks through each engine's `StepGraphs`: CUDA graphs on
+    the card, the same static buffers around direct calls on the CPU.
+    False runs today's eager steps (the A/B and the tests)."""
     cfg: ModelConfig
     params: Any
     max_len: int = 256
@@ -148,6 +162,7 @@ class EngineSpec:
     prefill_slots: int = 0      # page-native prefill rows (0 = auto)
     prefill_pool_blocks: int = 0  # page-native prefill pool (0 = auto)
     device: str = "cuda"
+    step_graphs: bool = True    # compiled decode steps and prefill chunks
 
     def __post_init__(self):
         require_supported(self.cfg)
@@ -164,6 +179,41 @@ class EngineSpec:
             # build the kernels now, not inside the first timed step
             from repro_torch.kernels.build import load_kernels
             load_kernels()
+        # held by every engine of the spec while it queues a step, and
+        # while it captures one (step graphs only)
+        self.step_lock = threading.RLock()
+
+    def step_guard(self):
+        """What an engine holds while it queues a step: `step_lock` with
+        step graphs, nothing on the eager path."""
+        return self.step_lock if self.step_graphs else contextlib.nullcontext()
+
+    def step_graphs_for(self) -> Optional[StepGraphs]:
+        """A new engine's compiled steps (None on the eager path)."""
+        if not self.step_graphs:
+            return None
+        return StepGraphs(self.params, self.device, self.step_lock)
+
+    # the steps the graphs capture: fn(cache, **static inputs)
+    def decode_fn(self, cache, token):
+        step = paged_decode_step if self.paged else decode_step
+        return step(self.cfg, self.params, token, cache)
+
+    def masked_decode_fn(self, cache, token, mask):
+        return paged_decode_masked(self.cfg, self.params, token, cache, mask)
+
+    def prefill_fn(self, cache, tokens, slot):
+        return paged_prefill_step(self.cfg, self.params, tokens, cache, slot)
+
+    def paged_prefill(self, graphs: Optional[StepGraphs], tokens, cache,
+                      slot, unit: int = 0):
+        """One page-native prefill chunk into the cache of `unit` (the
+        unified engine's DP; a prefill engine has one cache): the graph
+        of its length, or the eager step."""
+        if graphs is None:
+            return self.prefill_fn(cache, tokens, slot)
+        return graphs.run(("prefill", unit, tokens.shape[1]),
+                          self.prefill_fn, cache, tokens=tokens, slot=slot)
 
     @property
     def paged(self) -> bool:
@@ -424,6 +474,7 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         self.bus = bus
         self._post = None
         self._ctx: Dict[int, _PrefillCtx] = {}
+        self.graphs = spec.step_graphs_for()
         self.page_native = bool(page_native)
         self.binder: Optional[PagePrefixBinder] = None
         if self.page_native:
@@ -590,9 +641,10 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         if ids:
             arr = torch.tensor([ids], dtype=torch.int32,
                                device=self.spec.device)
-            logits, ctx.cache = prefill_chunk(self.spec.cfg,
-                                              self.spec.params, arr,
-                                              ctx.cache)
+            with self.spec.step_guard():    # an eager step
+                logits, ctx.cache = prefill_chunk(self.spec.cfg,
+                                                  self.spec.params, arr,
+                                                  ctx.cache)
             ctx.consumed += len(ids)
             if ctx.consumed >= req.input_len and ctx.first_token is None:
                 # a host sync: the cache is complete once this returns
@@ -607,8 +659,8 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         if not ids:
             return
         arr = torch.tensor([ids], dtype=torch.int32, device=self.spec.device)
-        logits, self.cache = paged_prefill_step(
-            self.spec.cfg, self.spec.params, arr, self.cache, ctx.slot)
+        logits, self.cache = self.spec.paged_prefill(self.graphs, arr,
+                                                     self.cache, ctx.slot)
         self.chunks_run += 1
         ctx.consumed += len(ids)
         if ctx.consumed >= req.input_len and ctx.first_token is None:
@@ -776,6 +828,27 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self.step_samples: List[Tuple[float, int, int]] = []
         self._step_active = 0
         self._step_rows = 0
+        self.graphs = spec.step_graphs_for()
+        if self.graphs is not None and self.graphs.cuda:
+            # capture every DP's decode step now, before the runtime's
+            # threads start (on the CPU the static buffers are made at
+            # the first step, on the cache the DP has then)
+            for d, st in self._dp.items():
+                st.cache = (spec.paged_cache() if spec.paged
+                            else spec.batch_cache())
+                self._prepare_decode(d, st)
+
+    def _prepare_decode(self, dp_id: int, st: _DPDecodeState) -> None:
+        self.graphs.prepare(("decode", dp_id), self.spec.decode_fn,
+                            st.cache, token=self._feed_tokens(st))
+
+    def _decode(self, dp_id: int, cache: Dict, toks: torch.Tensor):
+        """One batched decode step of DP `dp_id`: its graph, or the eager
+        step."""
+        if self.graphs is None:
+            return self.spec.decode_fn(cache, toks)
+        return self.graphs.run(("decode", dp_id), self.spec.decode_fn,
+                               cache, token=toks)
 
     # -- lifecycle -------------------------------------------------------
     def bind_loop(self, loop) -> None:
@@ -1006,12 +1079,10 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         # worker thread: one batched decode step per occupied DP (the
         # instance-level sync barrier = all DPs in one serial job)
         t0 = time.monotonic()
-        step = paged_decode_step if self.spec.paged else decode_step
         try:
             res: Dict[int, Tuple[Dict, List[int]]] = {}
             for dp_id, cache, toks in jobs:
-                logits, new_cache = step(self.spec.cfg, self.spec.params,
-                                         toks, cache)
+                logits, new_cache = self._decode(dp_id, cache, toks)
                 # a host sync: the step's cache writes are done after it
                 res[dp_id] = (new_cache, logits.argmax(dim=-1).tolist())
             self._result = res
@@ -1125,6 +1196,25 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
         self._stalled: set = set()
         self.prefill_tokens = 0
         self.mixed_steps = 0        # steps that ran decode+prefill fused
+
+    def _prepare_decode(self, dp_id: int, st: _DPDecodeState) -> None:
+        # one graph per DP for both decode branches: the decode half of
+        # mixed_step, with every row masked in when nothing prefills
+        self.graphs.prepare(("decode", dp_id), self.spec.masked_decode_fn,
+                            st.cache, token=self._feed_tokens(st),
+                            mask=self._all_rows(st))
+
+    def _decode_masked(self, dp_id: int, token, cache: Dict, mask):
+        """The decode half of DP `dp_id`'s mixed step: its graph, or the
+        eager step."""
+        if self.graphs is None:
+            return self.spec.masked_decode_fn(cache, token, mask)
+        return self.graphs.run(("decode", dp_id), self.spec.masked_decode_fn,
+                               cache, token=token, mask=mask)
+
+    def _all_rows(self, st: _DPDecodeState) -> torch.Tensor:
+        return torch.ones(len(st.slots), dtype=torch.bool,
+                          device=self.spec.device)
 
     # -- EnginePlane -----------------------------------------------------
     def has_work(self) -> bool:
@@ -1283,16 +1373,27 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             cres: Dict[int, List[Tuple[int, torch.Tensor]]] = {}
             for dp_id, cache, toks, chunks, mask in jobs:
                 nxt: List[int] = []
+
+                def decode(token, c, m, _d=dp_id):
+                    return self._decode_masked(_d, token, c, m)
+
+                def prefill(ctoks, c, slot, _d=dp_id):
+                    return self.spec.paged_prefill(self.graphs, ctoks, c,
+                                                   slot, _d)
                 if toks is None:
                     new_cache = cache
                     clogits = []
                     for ctoks, slot in chunks:
-                        lg, new_cache = paged_prefill_step(
-                            cfg, params, ctoks, new_cache, slot)
+                        lg, new_cache = prefill(ctoks, new_cache, slot)
                         clogits.append(lg)
-                elif mask is not None:
+                elif mask is not None or self.graphs is not None:
+                    # with step graphs a plain decode step is the masked
+                    # one with every row masked in (one graph per DP)
+                    if mask is None:
+                        mask = self._all_rows(self._dp[dp_id])
                     logits, clogits, new_cache = mixed_step(
-                        cfg, params, toks, cache, chunks, mask)
+                        cfg, params, toks, cache, chunks, mask, decode,
+                        prefill)
                     if chunks:
                         self.mixed_steps += 1
                     nxt = logits.argmax(dim=-1).tolist()

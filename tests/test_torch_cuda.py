@@ -845,3 +845,415 @@ def test_moe_and_mla_unified_server_on_cuda_matches_cpu(dev, arch):
             assert ran[0] > 0 and ran[1] > 0
     assert len(out["cpu"]) == 4
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# head dim 120 (h2o-danube-3-4b): kernel #3 and #2's contiguous entry run
+# the 128-wide body with the padding zeroed
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,S,pos", [
+    (0, 1088, [1087, 700, 129, 40]),         # padded rows
+    (512, 512, [1500, 700, 511, 2047]),      # wrapped rings, window = S
+    (100, 520, [1500, 300, 519, 9]),         # a window smaller than S
+])
+def test_dense_decode_kernel_head_dim_120(dev, dtype, window, S, pos):
+    """G = 4 (32 heads over 8 KV heads, h2o-danube's), rows of the
+    padded plane, wrapped rings and a window smaller than S; an empty
+    row gives exactly 0."""
+    g = torch.Generator().manual_seed(S + window)
+    kc, vc, kvp, posn = _dense_case(g, pos + [9], S, 8, 120, dtype, dev,
+                                    empty=(4,))
+    q = _rand(g, (5, 32, 120), dtype, dev)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, kvp, posn, window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
+                                 posn, window)
+    _assert_close(out, ref, dtype)
+    assert float(out[4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["packed", "extend", "ring"])
+def test_flash_prefill_kernel_head_dim_120(dev, dtype, case):
+    """G = 4 at head dim 120: packed segments with padding (200 + 250 +
+    pad of 512), attn_extend's 256-token chunk over a 1088-long cache
+    with an empty tail, and a 117-token chunk over a wrapped window-96
+    ring of 128; padding rows and an all-empty cache give exactly 0."""
+    g = torch.Generator().manual_seed(len(case))
+    B, H, K, hd = 2, 32, 8, 120
+    window = 96 if case == "ring" else 0
+    if case == "packed":
+        S = Sq = 512
+        pos = torch.zeros(S, dtype=torch.int32)
+        seg = torch.full((S,), -1, dtype=torch.int32)
+        at = 0
+        for i, n in enumerate((200, 250)):
+            pos[at:at + n] = torch.arange(n, dtype=torch.int32)
+            seg[at:at + n] = i
+            at += n
+        qp = kvp = pos.repeat(B, 1)
+        qs = ks = seg.repeat(B, 1)
+    else:
+        S, Sq, p0 = (1088, 256, 512) if case == "extend" else (128, 117, 500)
+        qp = (p0 + torch.arange(Sq, dtype=torch.int32)).repeat(B, 1)
+        kv = torch.full((S,), -1, dtype=torch.int32)
+        t = torch.arange(max(0, p0 + Sq - S), p0 + Sq, dtype=torch.int32)
+        kv[t % S] = t
+        kvp = kv.repeat(B, 1)
+        kvp[1] = -1                              # every tile skipped
+        qs = torch.zeros(B, Sq, dtype=torch.int32)
+        ks = torch.zeros(B, S, dtype=torch.int32)
+    q = _rand(g, (B, Sq, H, hd), dtype, dev)
+    k = _rand(g, (B, S, K, hd), dtype, dev)
+    v = _rand(g, (B, S, K, hd), dtype, dev)
+    ints = [x.to(dev).contiguous() for x in (qp, kvp, qs, ks)]
+    before = flash_prefill.launches
+    out = flash_prefill(q, k, v, *ints, True, window)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    ref = flash_prefill_plain(q.float(), k.float(), v.float(), *ints, True,
+                              window)
+    _assert_close(out, ref, dtype)
+    if case == "packed":
+        assert float(out[ints[2] < 0].abs().max()) == 0.0
+    else:
+        assert float(out[1].abs().max()) == 0.0
+
+
+def test_paged_kernels_refuse_head_dim_120_on_cuda(dev):
+    """Sliding-window models never page: kernel #1 and #2's paged entry
+    stay at head dims 64 and 128."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    pool = torch.zeros(3, 16, 2, 120, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_attention(torch.zeros(1, 4, 120, device=dev), pool,
+                               pool, torch.zeros(3, 16, **i32),
+                               torch.zeros(1, 2, **i32),
+                               torch.zeros(1, **i32))
+    with pytest.raises(ValueError, match="head dim"):
+        paged_prefill_attention(torch.zeros(1, 8, 4, 120, device=dev), pool,
+                                pool, torch.zeros(3, 16, **i32),
+                                torch.zeros(1, 2, **i32),
+                                torch.zeros(1, 8, **i32))
+
+
+# ---------------------------------------------------------------------------
+# compiled steps: CUDA graphs against the eager steps
+# ---------------------------------------------------------------------------
+
+def _graph_runner(params, dev):
+    import threading
+    from repro_torch.serving.step_graphs import StepGraphs
+    return StepGraphs(params, dev, threading.RLock())
+
+
+def _graph_cache(cfg, params, plane, lens, dev, dtype, seed):
+    """A decode cache whose row b holds a prompt of lens[b] tokens (0: an
+    idle row), prefilled in 16-token chunks: padded rows joined from
+    batch-1 caches, or a paged cache with a table per row."""
+    from repro_torch.models.model import (
+        cache_join, init_paged_cache, paged_prefill_step)
+    rng = random.Random(seed)
+    if plane == "padded":
+        cache = init_cache(cfg, len(lens), 96, dtype=dtype, device=dev)
+    else:
+        nbt = 96 // 16
+        cache = init_paged_cache(cfg, len(lens), len(lens) * nbt + 1, 96, 16,
+                                 dtype=dtype, device=dev)
+        cache["block_tab"] = torch.arange(
+            1, len(lens) * nbt + 1, dtype=torch.int32,
+            device=dev).reshape(len(lens), nbt)
+    for b, L in enumerate(lens):
+        ids = [rng.randrange(cfg.vocab_size) for _ in range(L)]
+        one = init_cache(cfg, 1, 96, dtype=dtype, device=dev) \
+            if plane == "padded" else None
+        for at in range(0, L, 16):
+            t = torch.tensor([ids[at:at + 16]], device=dev)
+            if plane == "padded":
+                _, one = prefill_chunk(cfg, params, t, one)
+            else:
+                _, cache = paged_prefill_step(cfg, params, t, cache, b)
+        if one is not None:
+            cache = cache_join(cache, one, b)
+    return cache
+
+
+_GRAPH_CASES = [
+    ("deepseek-7b", "padded"), ("deepseek-7b", "paged"),
+    ("deepseek-7b", "unified"), ("granite-moe-1b-a400m", "unified"),
+    ("minicpm3-4b", "paged"), ("mamba2-370m", "padded"),
+    ("h2o-danube-3-4b", "padded"), ("deepseek-v3-671b", "unified"),
+]
+
+
+def _graph_step_fn(cfg, params, plane):
+    from repro_torch.models.model import paged_decode_masked, paged_decode_step
+    if plane == "padded":
+        return lambda c, token: decode_step(cfg, params, token, c)
+    if plane == "paged":
+        return lambda c, token: paged_decode_step(cfg, params, token, c)
+    return lambda c, token, mask: paged_decode_masked(cfg, params, token, c,
+                                                      mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,plane", _GRAPH_CASES,
+                         ids=[f"{a}-{p}" for a, p in _GRAPH_CASES])
+def test_decode_graphs_match_eager_on_cuda(dev, dtype, arch, plane):
+    """Four decode steps of every model family and plane replayed from a
+    CUDA graph against the same steps run eagerly on a copy of the
+    cache: the same tokens, logits within 1e-5 of the largest in fp32
+    (bit-identical expected; the difference is printed), and the same
+    cursors, tables and kv_pos."""
+    cfg = get_arch(arch, reduced=True)
+    params = _to(init_params(cfg, seed=0, device="cpu", dtype=dtype), dev)
+    cache = _graph_cache(cfg, params, "padded" if plane == "padded"
+                         else "paged", [70, 21, 0, 40], dev, dtype, 1)
+    fn = _graph_step_fn(cfg, params, plane)
+    args = {"token": torch.tensor([[3], [5], [7], [11]], dtype=torch.int32,
+                                  device=dev)}
+    if plane == "unified":
+        args["mask"] = torch.tensor([True, False, True, True], device=dev)
+    eager = {k: v.clone() for k, v in cache.items()}
+    runner = _graph_runner(params, dev)
+    worst = 0.0
+    for _ in range(4):
+        lg_e, eager = fn(eager, **args)
+        lg_g, cache = runner.run(("decode", 0), fn, cache, **args)
+        torch.cuda.synchronize()
+        worst = max(worst, float((lg_g.float() - lg_e.float()).abs().max()
+                                 / lg_e.float().abs().max()))
+        assert torch.equal(lg_g.argmax(-1), lg_e.argmax(-1))
+        for key in ("cur", "block_tab", "kv_pos"):
+            if key in cache:
+                assert torch.equal(cache[key], eager[key]), key
+        args["token"] = lg_e.argmax(-1).to(torch.int32)[:, None]
+    print(f"{arch} {plane} {dtype}: graph vs eager logits max|d|/max|ref| "
+          f"= {worst:.3e}")
+    if dtype == torch.float32:
+        assert worst <= 1e-5
+    assert runner.captured == 1 and runner.replays == 4
+
+
+def _graph_scfg(plane):
+    # on pages with prefix sharing one decode DP unit of 8 rows: which
+    # of two units a prompt lands on, and so what it shares, follows
+    # timing
+    prefix = plane == "pd-prefix"
+    kw = dict(num_prefill_instances=1 if prefix else 2,
+              prefill_dp_per_instance=2 if prefix else 1,
+              num_decode_instances=1, decode_dp_per_instance=1 if prefix else 2,
+              chunk_size=32, t_default=0.05, l_net=0.001,
+              max_batch_per_dp=8 if prefix else 4, n_limit=64,
+              block_size=0 if plane == "pd-padded" else 16)
+    if plane == "unified":
+        kw.update(mixed_batch=True, mixed_chunk=32)
+    return ServingConfig(**kw)
+
+
+_GRAPH_SERVES = [
+    ("deepseek-7b", "unified"), ("deepseek-7b", "pd-padded"),
+    ("deepseek-7b", "pd-paged"), ("deepseek-7b", "pd-prefix"),
+    ("granite-moe-1b-a400m", "unified"), ("minicpm3-4b", "pd-prefix"),
+    ("mamba2-370m", "pd-padded"), ("h2o-danube-3-4b", "pd-padded"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,plane", _GRAPH_SERVES,
+                         ids=[f"{a}-{p}" for a, p in _GRAPH_SERVES])
+def test_graph_servers_match_eager_on_cuda(dev, dtype, arch, plane):
+    """Servers of every family and plane with step graphs (the default)
+    and without give the same tokens on the card; on pages with
+    prefix_cache=True (joins by PageHandoff over shared pages and
+    copy-on-write tails) also the same reuse counters.  Graph mode
+    replays its decode steps and page-native chunks: the graph counts
+    are read back."""
+    from repro_torch.serving.real_engine import EngineSpec
+    cfg = get_arch(arch, reduced=True)
+    params = _to(init_params(cfg, seed=0, device="cpu", dtype=dtype), dev)
+    scfg = _graph_scfg(plane)
+    rng = random.Random(7)
+    if plane == "pd-prefix":
+        prefix = [rng.randrange(cfg.vocab_size) for _ in range(48)]
+        seed = prefix + [rng.randrange(cfg.vocab_size) for _ in range(10)]
+        waves = [[seed], [seed] + [prefix + [rng.randrange(cfg.vocab_size)
+                                             for _ in range(10)]
+                                   for _ in range(4)]]
+    else:
+        waves = [[[rng.randrange(cfg.vocab_size) for _ in range(L)]
+                  for L in (17, 40, 33, 64)]]
+    out = {}
+    for graphs in (True, False):
+        spec = EngineSpec(cfg, params, max_len=96,
+                          max_batch=scfg.max_batch_per_dp, max_new=6,
+                          block_size=scfg.block_size,
+                          decode_slots=(scfg.resolved_decode_slots
+                                        if scfg.block_size else 0),
+                          device=dev, step_graphs=graphs)
+        srv = RealSBSServer(cfg, params, scfg, scheduler="sbs", spec=spec,
+                            prefix_cache=plane == "pd-prefix")
+        tokens = {}
+        for w, wave in enumerate(waves):
+            gens = srv.serve([Request(rid=10 * w + i, arrival_time=0.05 * i,
+                                      input_len=len(p), output_len=3 + i % 2,
+                                      tokens=tuple(p))
+                              for i, p in enumerate(wave)], timeout=120)
+            assert len(gens) == len(wave)
+            tokens.update({g.rid: g.tokens for g in gens})
+        out[graphs] = (tokens, srv.prefix_stats())
+        engines = [*srv.engines, *srv.decode_engines]
+        if graphs:
+            st = [e.graphs.stats() for e in engines]
+            assert sum(s["graphs"] for s in st) >= 2     # one per DP unit
+            assert sum(s["replays"] for s in st) > 0
+            if plane in ("unified", "pd-prefix"):
+                assert any(k[0] == "prefill" for e in engines
+                           for k in e.graphs._entries)
+        else:
+            assert all(e.graphs is None for e in engines)
+    assert out[True] == out[False]
+    if plane == "pd-prefix":
+        assert out[True][1]["decode_cow_copies"] > 0
+
+
+@pytest.mark.parametrize("graphs", [True, False], ids=["graph", "eager"])
+def test_graph_replay_after_preemption_matches_cpu(dev, graphs):
+    """Paged decode engine, reduced deepseek-7b in fp32: two residents
+    join by PageHandoff over a shared 32-token prefix (each one's tail
+    copied on write), step, the first is preempted (parked as a dense
+    cache), the other steps alone, the first re-joins by the dense join;
+    both finish with the tokens of the same engine on the CPU."""
+    import threading
+    from repro_torch.core.types import DecodeDPState
+    from repro_torch.models.model import (
+        init_paged_cache, paged_gather_blocks, paged_prefill_step)
+    from repro_torch.serving.plane import ASYNC
+    from repro_torch.serving.real_engine import (
+        EngineSpec, KVHandoffBus, PageHandoff, RealDecodeEngine)
+    cfg = get_arch("deepseek-7b", reduced=True)
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    rng = random.Random(3)
+    prefix = [rng.randrange(cfg.vocab_size) for _ in range(32)]
+    prompts = [prefix + [rng.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in (8, 13)]
+
+    def step(eng, dps):
+        done = threading.Event()
+        eng._post = lambda kind, payload: done.set()
+        assert eng.start_step([dps], 0.0) is ASYNC
+        assert done.wait(60)
+        return eng.finish_step(0.0, [dps])
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _to(cpu_params, device)
+        spec = EngineSpec(cfg, params, max_len=96, max_batch=4, max_new=6,
+                          block_size=16, device=device,
+                          step_graphs=graphs or device == "cpu")
+        bus = KVHandoffBus()
+        eng = RealDecodeEngine(0, [0], spec, bus, share_prefix=True)
+        dps = DecodeDPState(dp_id=0, instance_id=0, block_size=16)
+        reqs = []
+        for i, ids in enumerate(prompts):
+            pc = init_paged_cache(cfg, 1, spec.nbt + 1, 96, 16,
+                                  device=device)
+            pc["block_tab"] = torch.arange(1, spec.nbt + 1, dtype=torch.int32,
+                                           device=device)[None]
+            for at in range(0, len(ids), 16):
+                lg, pc = paged_prefill_step(
+                    cfg, params, torch.tensor([ids[at:at + 16]],
+                                              device=device), pc, 0)
+            n = -(-len(ids) // 16)
+            payload = paged_gather_blocks(cfg, pc, spec.table(
+                list(range(1, n + 1))))
+            bus.publish(i, PageHandoff(payload, len(ids)),
+                        int(lg[0].argmax()))
+            r = Request(rid=i, arrival_time=0.0, input_len=len(ids),
+                        output_len=6, tokens=tuple(ids), priority=2 - 2 * i)
+            r.generated = 1
+            dps.admit(r.input_len, reserve_len=r.input_len + r.output_len)
+            eng.admit(0, r)
+            reqs.append(r)
+        eng.start()
+        try:
+            finished = list(step(eng, dps))      # both join, one step
+            assert (eng.blocks_shared, eng.cow_copies) == (2, 2)
+            assert eng.preempt(0) is reqs[0]
+            finished += step(eng, dps)           # rid 1 alone
+            eng.admit(0, reqs[0])                # the dense re-join
+            while eng.has_work():
+                finished += step(eng, dps)
+        finally:
+            eng.stop()
+            eng.join_worker(timeout=10)
+        assert sorted(r.rid for r in finished) == [0, 1]
+        out[device] = {r.rid: bus.gen(r.rid).tokens for r in reqs}
+        if device == "cuda" and graphs:
+            assert eng.graphs.replays > 0
+    assert out["cuda"] == out["cpu"]
+
+
+def test_step_capture_has_no_host_sync(dev):
+    """Capturing the decode step of every family (and a page-native
+    prefill chunk) with the sync debug mode set to "error": a hidden host
+    sync would raise."""
+    from repro_torch.models.model import paged_prefill_step
+    for arch, plane in _GRAPH_CASES:
+        cfg = get_arch(arch, reduced=True)
+        params = _to(init_params(cfg, seed=0, device="cpu",
+                                 dtype=torch.bfloat16), dev)
+        cache = _graph_cache(cfg, params, "padded" if plane == "padded"
+                             else "paged", [20, 0, 5, 9], dev,
+                             torch.bfloat16, 2)
+        args = {"token": torch.zeros((4, 1), dtype=torch.int32, device=dev)}
+        if plane == "unified":
+            args["mask"] = torch.ones(4, dtype=torch.bool, device=dev)
+        runner = _graph_runner(params, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.prepare(("decode", 0), _graph_step_fn(cfg, params, plane),
+                           cache, **args)
+            if plane != "padded":
+                runner.prepare(
+                    ("prefill", 0, 13),
+                    lambda c, tokens, slot: paged_prefill_step(
+                        cfg, params, tokens, c, slot), cache,
+                    tokens=torch.zeros((1, 13), dtype=torch.int32,
+                                       device=dev), slot=2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert runner.captured == (1 if plane == "padded" else 2)
+
+
+def test_swapped_pool_raises_on_cuda(dev):
+    """A graph holds raw pointers: a pool, a kv_pos map or a weight that
+    is not the storage it was captured on raises at the next replay."""
+    from repro_torch.models.model import paged_decode_step
+    cfg = get_arch("deepseek-7b", reduced=True)
+    params = _to(init_params(cfg, seed=0, device="cpu"), dev)
+    cache = _graph_cache(cfg, params, "paged", [20, 5, 0, 0], dev,
+                         torch.float32, 3)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    runner = _graph_runner(params, dev)
+
+    def fn(c, token):
+        return paged_decode_step(cfg, params, token, c)
+    _lg, cache = runner.run(("decode", 0), fn, cache, token=tok)
+    for name in ("k", "v", "kv_pos"):
+        with pytest.raises(RuntimeError, match="not the storage"):
+            runner.run(("decode", 0), fn,
+                       dict(cache, **{name: cache[name].clone()}), token=tok)
+    w = params["layers"][1]["mlp"]["w_up"]
+    params["layers"][1]["mlp"]["w_up"] = w.clone()
+    try:
+        with pytest.raises(RuntimeError, match="weights"):
+            runner.run(("decode", 0), fn, cache, token=tok)
+    finally:
+        params["layers"][1]["mlp"]["w_up"] = w
+    assert runner.captured == 1 and runner.replays == 1
