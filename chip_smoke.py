@@ -24,7 +24,10 @@ Phases (any failure exits non-zero and prints no result):
      one-token rows, an empty row that must be exactly 0; G = 1 and 4,
      hd 64 and 128, bf16 and fp32); and at head dim 120 (h2o-danube-3-4b,
      G = 4: the padded rows, a wrapped ring with a window smaller than
-     S), timed at h2o-danube's decode step beside SDPA;
+     S), timed at h2o-danube's decode step beside SDPA; and at the
+     serving benchmark twin's padded step (granite-moe-1b-a400m, G = 2,
+     hd 64, S = 160: one live row, then mixed live lengths and an idle
+     row) in bf16 and fp32;
   4. flash prefill (kernel #2: tensor cores in bf16, FMA in fp32), both
      entries, against their plain versions: the paged entry with a chunk
      that starts mid-page over a prefix read through shared pages, the
@@ -114,7 +117,22 @@ Phases (any failure exits non-zero and prints no result):
      adoption and copy-on-write; the same checks, each computed prompt's
      logits against the NON-absorbed plain forward, and no kernel of the
      port launched (absorbed MLA runs as torch ops);
-  7. report: one JSON line per serve (TTFT/ITL, launches per step, a
+  7. the serving benchmark twin (`examples/serve_e2e_torch.py`, loaded
+     by path): its five A/Bs through its CLI entry point at the flags of
+     `scripts/ci.sh --real-smoke` (paged vs padded on granite-moe; the
+     scheduler sweep, the prefix, overload and mixed A/Bs on
+     deepseek-7b), in bf16 as the CLI serves them, every serve checked:
+     every request finishes with its tokens, the decode rows and pools
+     drain (prefix-cached pools after eviction), the plane's kernels
+     launch and no other, each computed prompt's first-token logits agree
+     with a plain forward over its chunks (granite-moe's with the expert
+     sets the served chunks chose: bf16 rounding breaks near-ties of its
+     random router apart), a full hit replays its prompt's first
+     token; then each A/B's structural counters (paged residency above
+     padded; the cached leg's saved FLOPs, hits and shared pages;
+     preemptions only with preemption; mixed steps only piggybacked) and,
+     printed but not checked, its timing gate's verdict;
+  8. report: one JSON line per serve (TTFT/ITL, launches per step, a
      profile of device time by kernel group with the device busy time
      and the idle share, the step graphs' counts: graphs captured,
      replays, capture seconds, graph-pool bytes), every serve's figures
@@ -125,8 +143,9 @@ Phases (any failure exits non-zero and prints no result):
      contiguous entry also at head dim 120), the card's name and power
      limit, and the contract line last.
 
-Launch counts are set to 0 just before each serve and read just after,
-so each kernel's `launches` is its count on its own path's serve.
+Launch counts are set to 0 just before each serve (each twin A/B) and
+read just after, so each kernel's `launches` is its count on its own
+path's serve, and `launches_twin` its count on each A/B.
 
 The kernels are timed with CUDA events over calls that rotate through
 several copies of the inputs (more than the 50 MB L2), as a serving step
@@ -143,6 +162,7 @@ computes its function.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -517,6 +537,15 @@ def check_dense_decode(device):
          [1500, 300, 519, 2047, 9], 100, (3,), bf16, 120),
         ("wrapped ring, window < S, hd=120", 32, 8, 520,
          [1500, 300, 519, 2047, 9], 100, (3,), fp32, 120),
+        # the serving benchmark twin's padded plane (granite-moe-1b-a400m:
+        # 16 heads over 8 KV heads of 64, max_len 160): its step's one
+        # row per DP unit, and rows of mixed live lengths with an idle one
+        ("twin padded step G=2 hd=64", 16, 8, 160, [88], 0, (), bf16, 64),
+        ("twin padded step G=2 hd=64", 16, 8, 160, [88], 0, (), fp32, 64),
+        ("twin padded rows G=2 hd=64", 16, 8, 160, [159, 57, 20, 40], 0,
+         (3,), bf16, 64),
+        ("twin padded rows G=2 hd=64", 16, 8, 160, [159, 57, 20, 40], 0,
+         (3,), fp32, 64),
     )
     # the split-K design's edges: S up to 4096 with rows that end
     # mid-split, a window whose edge falls inside a split, wrapped rings
@@ -1183,18 +1212,31 @@ def percentile(xs, q):
     return xs[lo] + (xs[hi] - xs[lo]) * (k - lo)
 
 
-def record_prefill_logits(srv):
+def record_prefill_logits(srv, routes=None):
     """Observe, without changing the engines, the logits each request's
     first token is sampled from on the P/D plane: the prefill engines
     call `real_engine.prefill_chunk`, whose result this wraps (keyed by
     the cache it returns), and each engine's `finish_pass` is wrapped to
     pick, for every prompt the pass completes, its context's last chunk
     logits; each engine's `_run_chunk` is wrapped to note the chunk
-    lengths each request was prefilled in.  Returns ({rid: logits},
-    {rid: [chunk lengths]}, undo)."""
+    lengths each request was prefilled in.  With a dict `routes`, the
+    expert ids of every MoE call a chunk makes (`models.moe.route`, on
+    the chunk's own thread) are appended to `routes[rid]`, chunk-major,
+    for `forced_routes`.  Returns ({rid: logits}, {rid: [chunk
+    lengths]}, undo), undo removing every wrapper."""
+    import threading
+    from repro_torch.models import moe
     from repro_torch.serving import real_engine as RE
     seen, last, chunks = {}, {}, {}
-    inner_chunk = RE.prefill_chunk
+    inner_chunk, inner_route = RE.prefill_chunk, moe.route
+    running = threading.local()
+
+    def route(x2d, p, mc):
+        out = inner_route(x2d, p, mc)
+        into = getattr(running, "routes", None)
+        if into is not None:
+            into.append(out[1])
+        return out
 
     def prefill_chunk(cfg, params, tokens, cache):
         logits, new = inner_chunk(cfg, params, tokens, cache)
@@ -1210,46 +1252,65 @@ def record_prefill_logits(srv):
 
         def run_chunk(req, tok, _inner=eng._run_chunk):
             chunks.setdefault(req.rid, []).append(tok)
-            return _inner(req, tok)
+            if routes is not None:
+                running.routes = routes.setdefault(req.rid, [])
+            try:
+                return _inner(req, tok)
+            finally:
+                running.routes = None
         eng.finish_pass = finish_pass
         eng._run_chunk = run_chunk
     RE.prefill_chunk = prefill_chunk
+    if routes is not None:
+        moe.route = route
 
     def undo():
-        RE.prefill_chunk = inner_chunk
+        RE.prefill_chunk, moe.route = inner_chunk, inner_route
+        for eng in srv.engines:
+            del eng.finish_pass, eng._run_chunk
     return seen, chunks, undo
 
 
 def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                  tag, forward=dense_forward_logits, chunks=None,
-                 info_forward=None, prefilled_before=0):
+                 info_forward=None, prefilled_before=0, prefix_cached=False,
+                 routes=None):
     """Every request finished with its tokens, the decode caches drained,
     and each first-token logits agree with a plain forward (`forward`,
-    over the chunk boundaries `chunks` the serve used).  `info_forward`,
-    if given, is another reference whose error is printed and returned,
-    not checked.  Returns (worst max|d|/max|ref|, argmax agreements, the
-    worst error against `info_forward` or None)."""
-    if sorted(g.rid for g in gens) != [r.rid for r in reqs]:
+    over the chunk boundaries `chunks` the serve used; `routes`: see
+    `compare_first_logits`).  `info_forward`, if given, is another
+    reference whose error is printed and returned, not checked.  With
+    `prefix_cached` the pools keep published pages until they are
+    evicted (`drain_prefix_pools`) and a prompt found whole in the cache
+    runs no chunk: only the prompts with recorded logits are compared,
+    and the prefilled tokens are not counted.  Returns (worst
+    max|d|/max|ref|, argmax agreements, the worst error against
+    `info_forward` or None)."""
+    done = {g.rid: g for g in gens}
+    if sorted(done) != sorted(r.rid for r in reqs):
         raise AssertionError(f"{tag}: unfinished requests: {len(gens)} of "
                              f"{len(reqs)} finished")
-    for g, r in zip(gens, reqs):
-        if len(g.tokens) != spec.target_len(r):
-            raise AssertionError(f"{tag} request {r.rid}: {len(g.tokens)} "
-                                 f"tokens, expected {spec.target_len(r)}")
+    for r in reqs:
+        if len(done[r.rid].tokens) != spec.target_len(r):
+            raise AssertionError(f"{tag} request {r.rid}: "
+                                 f"{len(done[r.rid].tokens)} tokens, "
+                                 f"expected {spec.target_len(r)}")
     for eng in srv.decode_engines:
         for st in eng._dp.values():
             if spec.paged:
                 st.pool.check()
-                if st.pool.used_count != 0:
+                if st.pool.used_count != 0 and not prefix_cached:
                     raise AssertionError(f"{tag}: the block pools did not "
                                          f"drain")
             if st.occupied():
                 raise AssertionError(f"{tag}: the decode slots did not drain")
-    if prefilled_tokens(srv) - prefilled_before != sum(r.input_len
-                                                       for r in reqs):
+    if prefix_cached:
+        reqs = [r for r in reqs if r.rid in first_logits]
+    elif prefilled_tokens(srv) - prefilled_before != sum(r.input_len
+                                                         for r in reqs):
         raise AssertionError(f"{tag}: prefill token count mismatch")
     return compare_first_logits(cfg, params, reqs, first_logits, device, tag,
-                                forward, chunks, info_forward)
+                                forward, chunks, info_forward, routes)
 
 
 def prefilled_tokens(srv):
@@ -1280,22 +1341,70 @@ def graphs_report(srv, before):
                 capture_s_in_run=now["capture_s"] - before["capture_s"])
 
 
+@contextlib.contextmanager
+def forced_routes(routes, n_chunks, n_moe):
+    """Within it, the calls of `repro_torch.models.moe.route` that a plain
+    forward over `n_chunks` chunks makes (layer-major: each MoE layer's
+    chunks in order) return the expert ids the served path chose in the
+    same call (`routes`, chunk-major, as `record_prefill_logits` keeps
+    them), weighted by this call's own router as `route` weights its own
+    choice.  Yields {"flips": (token, layer) pairs whose served expert
+    set differs from this router's own, "pairs": pairs compared}."""
+    import torch
+    from repro_torch.models import moe
+    if len(routes) != n_chunks * n_moe:
+        raise AssertionError(f"{len(routes)} MoE calls recorded for "
+                             f"{n_chunks} chunks of {n_moe} MoE layers")
+    order = iter([routes[c * n_moe + layer] for layer in range(n_moe)
+                  for c in range(n_chunks)])
+    count = {"flips": 0, "pairs": 0}
+    inner = moe.route
+
+    def route(x2d, p, mc):
+        _w, own, probs = inner(x2d, p, mc)
+        top_e = next(order)
+        top_w = torch.gather(probs, -1, top_e)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        if mc.score_fn == "sigmoid":
+            top_w = top_w * mc.routed_scaling
+        count["flips"] += int((own.sort(-1).values != top_e.sort(-1).values)
+                              .any(-1).sum())
+        count["pairs"] += top_e.shape[0]
+        return top_w, top_e, probs
+    moe.route = route
+    try:
+        yield count
+    finally:
+        moe.route = inner
+
+
 def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                          forward=dense_forward_logits, chunks=None,
-                         info_forward=None):
+                         info_forward=None, routes=None):
     """Each request's first-token logits against a plain forward (see
-    `check_served`); raises past LOGITS_REL_TOL.  Returns (worst
-    max|d|/max|ref|, argmax agreements, the worst error against
-    `info_forward` or None)."""
+    `check_served`); raises past LOGITS_REL_TOL.  With `routes` (per rid,
+    from `record_prefill_logits`), the plain forward's MoE layers use the
+    served path's expert sets (`forced_routes`), so that a near-tie the
+    two routers break apart moves no logit; the flips this hides are
+    printed.  Returns (worst max|d|/max|ref|, argmax agreements, the
+    worst error against `info_forward` or None)."""
     import torch
     worst = 0.0
     agree = 0
     info = None if info_forward is None else 0.0
     chunks = chunks or {}
+    n_moe = sum("moe" in p for p in params["layers"])
+    flips = {"flips": 0, "pairs": 0}
     for r in reqs:
         got = first_logits.get(r.rid)
         prompt = r.tokens[:r.input_len]
-        ref = forward(cfg, params, prompt, device, chunks.get(r.rid))
+        if routes is None:
+            ref = forward(cfg, params, prompt, device, chunks.get(r.rid))
+        else:
+            with forced_routes(routes.get(r.rid, []), len(chunks[r.rid]),
+                               n_moe) as n:
+                ref = forward(cfg, params, prompt, device, chunks[r.rid])
+            flips = {k: flips[k] + n[k] for k in flips}
         if got is None or got.shape != (cfg.vocab_size,) \
                 or not torch.isfinite(got).all():
             raise AssertionError(f"{tag} request {r.rid}: bad first-token "
@@ -1311,6 +1420,10 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     print(f"{tag} first-token logits vs plain forward: worst "
           f"max|d|/max|ref|={worst:.3e} (tol {LOGITS_REL_TOL}), argmax "
           f"agrees on {agree}/{len(reqs)}", flush=True)
+    if routes is not None:
+        print(f"{tag} the plain forward replayed the served expert sets: "
+              f"{flips['flips']} of {flips['pairs']} (token, layer) pairs "
+              f"differ from its own router's choice", flush=True)
     if info is not None:
         print(f"{tag} (not checked) vs {info_forward.__name__}: worst "
               f"max|d|/max|ref|={info:.3e}", flush=True)
@@ -1982,14 +2095,301 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the serving benchmark twin's A/Bs (examples/serve_e2e_torch.py)
+# ---------------------------------------------------------------------------
+
+# (phase, flags of the twin's CLI: the reference's scripts/ci.sh
+# --real-smoke commands, and the sweep at its defaults; the section the
+# CLI writes)
+TWIN_PHASES = [
+    ("sweep_paged_vs_padded",
+     ["--arch", "granite-moe-1b-a400m", "--requests", "10", "--max-new",
+      "12", "--max-batch-per-dp", "1", "--arrival-spacing", "0",
+      "--schedulers", "sbs-la", "--timeout", "110", "--compare-padded"],
+     "real_plane"),
+    ("sweep", [], "real_plane"),
+    ("prefix", ["--requests", "10", "--max-new", "4", "--timeout", "150",
+                "--prefix-bench"], "real_plane_prefix"),
+    ("overload", ["--timeout", "150", "--overload-bench"],
+     "real_plane_overload"),
+    ("mixed", ["--timeout", "150", "--mixed-bench"], "real_plane_mixed"),
+]
+
+
+def load_twin():
+    """`examples/serve_e2e_torch.py` as a module (loaded by path)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "serve_e2e_torch", os.path.join(ROOT, "examples", "serve_e2e_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin_plane(srv):
+    """(label, the wrappers a serve of `srv` launches): the unified plane
+    and page-native prefill run #1 and #2's paged entry; P/D with dense
+    prefill runs #2's contiguous entry beside #1 (paged) or #3 (padded)."""
+    s = srv.scfg
+    if s.mixed_batch:
+        return (f"unified {'piggyback' if s.mixed_piggyback else 'disjoint'}",
+                {"paged_decode_attention", "paged_prefill_attention"})
+    if srv.prefix_cache:
+        return ("P/D paged prefix_cache",
+                {"paged_decode_attention", "paged_prefill_attention"})
+    pre = " preemption" if s.preemption else ""
+    if s.block_size:
+        return (f"P/D paged{pre}", {"paged_decode_attention", "flash_prefill"})
+    return "P/D padded", {"decode_attention", "flash_prefill"}
+
+
+def record_twin_logits(srv):
+    """The recorder of first-token logits for `srv`'s plane (see
+    `record_first_logits`, `record_prefill_logits`,
+    `record_paged_prefill_logits`): ({rid: logits}, {rid: [chunk
+    lengths]}, {rid: the served expert ids} or None, undo).  The expert
+    ids are kept where the prefill chunks run eagerly (P/D with dense
+    prefill) and the model has MoE layers."""
+    if srv.scfg.mixed_batch:
+        eng = srv.decode_engines[0]
+        seen, chunks = record_first_logits(eng)
+        return seen, chunks, None, lambda: eng.__dict__.pop("finish_step")
+    if srv.prefix_cache:
+        seen, chunks, undo = record_paged_prefill_logits(srv)
+        return seen, chunks, None, undo
+    routes = ({} if any("moe" in p for p in srv.spec.params["layers"])
+              else None)
+    seen, chunks, undo = record_prefill_logits(srv, routes)
+    return seen, chunks, routes, undo
+
+
+def checked_twin_server(tag, counters, device, log, servers):
+    """The port's `RealSBSServer`, checked after every serve the twin
+    makes (`check_served`): every request finished with its tokens, the
+    decode rows and (without a prefix cache) the pools drained, each
+    computed prompt's first-token logits within LOGITS_REL_TOL of a plain
+    forward over the chunks it ran (an MoE model's with the served expert
+    sets, `forced_routes`); besides, the plane's kernels launched and no
+    other (on the card), and each full hit's replayed first token equals
+    that of its computed twin in the same serve.  Appends the serve's
+    figures to `log` and each server to `servers`."""
+    from repro_torch.serving.server import RealSBSServer
+
+    class Checked(RealSBSServer):
+        def __init__(self, *args, scheduler="sbs", **kw):
+            super().__init__(*args, scheduler=scheduler, **kw)
+            self.scheduler_name = scheduler
+            servers.append(self)
+
+        def serve(self, requests, timeout=120.0):
+            label, launched = twin_plane(self)
+            stag = f"{tag} serve {len(log) + 1} ({self.scheduler_name}, {label})"
+            seen, chunks, routes, undo = record_twin_logits(self)
+            before = {w.__name__: w.launches for w in counters}
+            g0 = graph_stats(self)
+            prefilled = prefilled_tokens(self)
+            t0 = time.monotonic()
+            try:
+                gens = super().serve(requests, timeout=timeout)
+            finally:
+                undo()
+            wall = time.monotonic() - t0
+            launches = {w.__name__: w.launches - before[w.__name__]
+                        for w in counters}
+            graphs = graphs_report(self, g0)
+            worst, agree, _ = check_served(
+                self.cfg, self.spec.params, self.spec, self, requests, gens,
+                seen, device, stag, chunks=chunks,
+                prefilled_before=prefilled, prefix_cached=self.prefix_cache,
+                routes=routes)
+            for name, n in launches.items():
+                if name in launched and device != "cpu" and n <= 0:
+                    raise AssertionError(f"{stag}: {name} never launched")
+                if name not in launched and n != 0:
+                    raise AssertionError(f"{stag}: {name} launched {n} times")
+            done = {g.rid: g for g in gens}
+            computed = [r for r in requests if r.rid in seen]
+            first = {r.tokens[:r.input_len]: done[r.rid].tokens[0]
+                     for r in computed}
+            for r in requests:
+                if r.rid in seen:
+                    continue
+                if chunks.get(r.rid):
+                    raise AssertionError(f"{stag} request {r.rid}: chunks "
+                                         f"ran but no first-token logits "
+                                         f"were recorded")
+                want = first.get(r.tokens[:r.input_len])
+                if want is not None and done[r.rid].tokens[0] != want:
+                    raise AssertionError(f"{stag} request {r.rid}: first "
+                                         f"token differs from its prompt's")
+            ttft = [g.ttft for g in gens]
+            log.append({
+                "serve": len(log) + 1, "scheduler": self.scheduler_name,
+                "plane": label, "requests": len(requests),
+                "computed_prompts": len(computed), "wall_s": wall,
+                "ttft_p50_s": percentile(ttft, 0.5),
+                "ttft_p99_s": percentile(ttft, 0.99),
+                "ttft_s": {g.rid: g.ttft for g in gens},
+                "e2e_s": {r.rid: r.finish_time - r.arrival_time
+                          for r in requests},
+                "graphs_in_run": graphs and graphs["graphs_in_run"],
+                "capture_s_in_run": graphs and graphs["capture_s_in_run"],
+                "launches": launches, "logits_rel_err": worst,
+                "argmax_agree": agree,
+                "expert_sets_replayed": routes is not None})
+            return gens
+    return Checked
+
+
+def twin_verdicts(phase, s):
+    """The hard structural checks of a twin section, and the printed
+    verdicts of its timing gates (measurements, not checks).  Returns
+    {gate: holds}."""
+    tag = f"[twin {phase}]"
+    if phase == "sweep_paged_vs_padded":
+        p, q = (s["peak_decode_resident"][k]["sbs-la"]
+                for k in ("paged", "padded"))
+        print(f"{tag} peak_decode_resident paged={p} padded={q}", flush=True)
+        if not p > q:
+            raise AssertionError(f"{tag}: paged peak residency {p} is not "
+                                 f"above padded {q}")
+        return {}
+    if phase == "sweep":
+        print(f"{tag} peak_decode_resident="
+              f"{s['peak_decode_resident']!r}", flush=True)
+        return {}
+    if phase == "prefix":
+        c, u = s["cached"], s["uncached"]
+        if not (c["prefill_flops_saved"] > 0 and c["prefix_hit_rate"] > 0
+                and c["decode_blocks_shared"] > 0):
+            raise AssertionError(f"{tag}: the cached leg reused nothing: {c}")
+        if u["prefill_chunks_run"] or u["decode_blocks_shared"]:
+            raise AssertionError(f"{tag}: the uncached leg shared pages: {u}")
+        gates = {"cached ttft_p99 < uncached":
+                 c["ttft_p99"] < u["ttft_p99"]}
+        print(f"{tag} timing gate cached ttft_p99 < uncached: cached="
+              f"{c['ttft_p99']!r} uncached={u['ttft_p99']!r} (all requests: "
+              f"{c['ttft_p99_all']!r} vs {u['ttft_p99_all']!r}; hit rate "
+              f"{c['prefix_hit_rate']!r}, flops saved "
+              f"{c['prefill_flops_saved']!r}) -> "
+              f"{'holds' if gates['cached ttft_p99 < uncached'] else 'FAILS'}",
+              flush=True)
+        return gates
+    if phase == "overload":
+        d, p = s["drain_only"], s["preempt"]
+        if not (p["preemptions"] > 0 and d["preemptions"] == 0):
+            raise AssertionError(f"{tag}: preemptions {p['preemptions']} "
+                                 f"(preempt) and {d['preemptions']} "
+                                 f"(drain-only)")
+        gates = {"preempt goodput > drain-only": p["goodput"] > d["goodput"]}
+        print(f"{tag} timing gate preempt goodput > drain-only: preempt="
+              f"{p['goodput']!r} drain_only={d['goodput']!r} (interactive "
+              f"e2e s: {p['e2e_interactive']!r} vs {d['e2e_interactive']!r};"
+              f" {p['preemptions']} preemptions) -> "
+              f"{'holds' if gates['preempt goodput > drain-only'] else 'FAILS'}",
+              flush=True)
+        return gates
+    p, d = s["piggyback"], s["disjoint"]
+    if not (p["mixed_steps"] > 0 and d["mixed_steps"] == 0
+            and p["runs"] == d["runs"] == 3):
+        raise AssertionError(f"{tag}: mixed_steps {p['mixed_steps']} "
+                             f"(piggyback) and {d['mixed_steps']} (disjoint)")
+    key = "piggyback itl_p99 < disjoint at >= 0.95 of its throughput"
+    gates = {key: (p["itl_p99"] < d["itl_p99"]
+                   and p["throughput"] >= 0.95 * d["throughput"])}
+    print(f"{tag} timing gate {key}: itl_p99 piggyback={p['itl_p99']!r} "
+          f"disjoint={d['itl_p99']!r}; throughput piggyback="
+          f"{p['throughput']!r} disjoint={d['throughput']!r} tok/s -> "
+          f"{'holds' if gates[key] else 'FAILS'}", flush=True)
+    return gates
+
+
+def twin_phase(twin, phase, flags, key, counters, device, bench,
+               reduced=False):
+    """One A/B of the twin through its CLI entry point (`main`), every
+    serve checked (`checked_twin_server`); launch counts set to 0 just
+    before and read just after.  The CLI writes its section `key` to the
+    file `bench`, which this call owns: it is removed before and after.
+    Returns the phase report: the section, the CLI's exit code, the
+    structural checks' and timing gates' outcome, each serve's figures
+    and the launches."""
+    tag = f"[twin {phase}]"
+    log, servers = [], []
+    Checked = checked_twin_server(tag, counters, device, log, servers)
+    argv = flags + ["--device", device, "--bench-json", bench]
+    if reduced:
+        argv.append("--reduced")
+    if os.path.exists(bench):
+        os.remove(bench)
+    inner = twin.RealSBSServer
+    twin.RealSBSServer = Checked
+    for w in counters:
+        w.launches = 0
+    t0 = time.monotonic()
+    try:
+        twin.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code or 0
+    finally:
+        twin.RealSBSServer = inner
+    wall = time.monotonic() - t0
+    launches = {w.__name__: w.launches for w in counters}
+    with open(bench) as f:
+        section = json.load(f)[key]
+    os.remove(bench)
+    for srv in servers:
+        if srv.prefix_cache:
+            drain_prefix_pools(srv, tag)
+    servers.clear()
+    for e in log:
+        print(f"{tag} serve {e['serve']} ({e['scheduler']}, {e['plane']}): "
+              f"{e['requests']} finished, wall_s={e['wall_s']!r} "
+              f"ttft_p50_s={e['ttft_p50_s']!r} ttft_p99_s={e['ttft_p99_s']!r} "
+              f"graphs captured in the serve={e['graphs_in_run']} "
+              f"({e['capture_s_in_run']!r} s) logits_rel_err="
+              f"{e['logits_rel_err']:.3e}", flush=True)
+    gates = twin_verdicts(phase, section)
+    print(f"{tag} exit code of the twin's CLI: {code} (1 = a timing gate "
+          f"failed; every request finished and every structural check "
+          f"held)", flush=True)
+    print(f"{tag} launches={launches!r} wall_s={wall!r}", flush=True)
+    return {"flags": flags, "dtype": "float32" if reduced else "bfloat16",
+            "section": section, "exit_code": code,
+            "timing_gates": gates, "serves": log, "launches": launches,
+            "wall_s": wall}
+
+
+def serve_twin(counters, device, reduced=False, elapsed=None):
+    """Phase 7: the twin's five A/Bs (`TWIN_PHASES`) at published width
+    in bf16 (`reduced`: the reference's reduced configs in fp32, for a
+    CPU rehearsal), each writing its section to a file of its own under
+    build/.  Returns {phase: report}."""
+    twin = load_twin()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = {}
+    for phase, flags, key in TWIN_PHASES:
+        bench = os.path.join(ROOT, "build",
+                             f"chip_smoke_twin_{phase}_{os.getpid()}.json")
+        out[phase] = twin_phase(twin, phase, flags, key, counters, device,
+                                bench, reduced)
+        if device != "cpu":
+            free_device_memory()
+        if elapsed is not None:
+            elapsed(f"twin {phase}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve, swa):
+                 moe_serve, swa, twin):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
     contiguous entry also on the SWA serve, with their figures at its
-    head dim 120)."""
+    head dim 120), and on each A/B of the serving benchmark twin
+    (`launches_twin`)."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -2004,6 +2404,8 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], library_wall_ms=r["library_wall_ms"],
             path=path, launches_per_decode_step=n / steps, shape=r["shape"],
+            launches_twin={phase: rep_["launches"][name]
+                           for phase, rep_ in twin.items()},
             **extra)
 
     def hd120(r, name):
@@ -2307,8 +2709,10 @@ def main() -> int:
         free_device_memory()
         mla = serve_mla(counters, device)
         elapsed("MLA serve")
+        free_device_memory()
+        twin = serve_twin(counters, device, elapsed=elapsed)
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
-                               moe_rep, swa)
+                               moe_rep, swa, twin)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -2320,6 +2724,7 @@ def main() -> int:
         print(json.dumps({"serve_swa": swa}), flush=True)
         print(json.dumps({"serve_moe": moe_rep}), flush=True)
         print(json.dumps({"serve_mla": mla}), flush=True)
+        print(json.dumps({"serve_twin": twin}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

@@ -821,6 +821,7 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self._participants: Dict[int, List[Tuple[Request, int]]] = {}
         self._result: Optional[Dict[int, Tuple[Dict, List[int]]]] = None
         self._join_finished: List[Request] = []
+        self.peak_resident = 0      # max concurrent resident requests
         self.cow_copies = 0         # eager tail copy-on-writes at join
         self.blocks_shared = 0      # payload rows skipped via shared pages
         # per-step samples (worker appends, read after the run):
@@ -992,6 +993,7 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             st.next_tok[slot] = gen.tokens[-1]
             self._slot_of[req.rid] = (dp_id, slot)
             self.running[dp_id].append(req)
+            self.peak_resident = max(self.peak_resident, len(self._slot_of))
         self._pending = still
 
     def _join_pages(self, st: _DPPagedState, gen: GenState, req: Request,
@@ -1195,6 +1197,7 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             Dict[int, List[Tuple[int, torch.Tensor]]]] = None
         self._stalled: set = set()
         self.prefill_tokens = 0
+        self.forced_grants = 0      # starvation-bound activations
         self.mixed_steps = 0        # steps that ran decode+prefill fused
 
     def _prepare_decode(self, dp_id: int, st: _DPDecodeState) -> None:
@@ -1260,6 +1263,7 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             self._slot_of[req.rid] = (dp_id, slot)
             self._consumed[req.rid] = 0
             self.prefilling[dp_id].append(req)
+            self.peak_resident = max(self.peak_resident, len(self._slot_of))
         self._pending.extend(still)
 
     # -- budget split ----------------------------------------------------
@@ -1276,6 +1280,7 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             if self._starve[d] < self.starve_limit:
                 return []
             budget = max(1, self.chunk // 4)    # forced minimum grant
+            self.forced_grants += 1
         bs = self.spec.block_size
         grants: List[Tuple[Request, int]] = []
         for req in q:

@@ -375,8 +375,8 @@ def _dense_case(g, pos, S, K, hd, dtype, dev, empty=()):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,K,hd", [(4, 4, 64), (16, 4, 64), (8, 1, 128),
-                                    (32, 8, 128), (12, 2, 128)])
+@pytest.mark.parametrize("H,K,hd", [(4, 4, 64), (16, 8, 64), (16, 4, 64),
+                                    (8, 1, 128), (32, 8, 128), (12, 2, 128)])
 @pytest.mark.parametrize("window,S,pos", [
     (0, 200, [199, 57, 0, 130]),             # padded rows, any S
     (48, 200, [199, 57, 0, 130]),            # window inside the rows

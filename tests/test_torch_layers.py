@@ -53,7 +53,11 @@ def _close(j, t, tol=TOL):
 # ---------------------------------------------------------------------------
 
 def test_import_guard_server_pulls_no_jax():
-    code = ("import sys, repro_torch.serving.server, repro_torch.bridge\n"
+    twin = os.path.join(REPO, "examples", "serve_e2e_torch.py")
+    code = ("import importlib.util, sys, repro_torch.serving.server\n"
+            "import repro_torch.bridge\n"
+            f"s = importlib.util.spec_from_file_location('twin', {twin!r})\n"
+            "s.loader.exec_module(importlib.util.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -70,6 +74,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "examples", "serve_e2e_torch.py")
 
 
 def test_port_sources_import_no_jax_or_repro():
