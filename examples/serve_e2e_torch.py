@@ -3,11 +3,11 @@
 SBS control plane — ClusterRuntime in realtime mode drives threaded
 engines executing true chunked prefill, KV-cache handoff, and continuous
 batched decode (paged block-table KV by default) on the port's PyTorch
-forwards (CUDA graphs of the decode steps and page-native prefill
-chunks, the hand-written Hopper attention kernels); EndForward feedback
-adapts the dispatch interval online.  Runs every scheduler variant over
-the same request set and reports per-request TTFT plus the decode
-plane's peak concurrent residency.
+forwards (CUDA graphs of the decode steps and the dense and
+page-native prefill chunks, the hand-written Hopper attention kernels);
+EndForward feedback adapts the dispatch interval online.  Runs every
+scheduler variant over the same request set and reports per-request
+TTFT plus the decode plane's peak concurrent residency.
 
     PYTHONPATH=src python examples/serve_e2e_torch.py [--requests 8]
         [--arch ID] [--schedulers immediate,sbs,sbs-la] [--timeout 120]
@@ -393,16 +393,18 @@ def run_overload_bench(cfg, params, args):
             "e2e_interactive": [
                 (r.finish_time - r.arrival_time
                  if r.finish_time is not None else None) for r in inter],
+            "ttft_interactive": [r.ttft for r in inter],
             "preemptions": len(srv.runtime.preempted),
             "finished": len(gens),
         }
         s = section[mode]
-        e2e = ["--" if v is None else f"{v:5.2f}s"
-               for v in s["e2e_interactive"]]
+        e2e, ttft = (["--" if v is None else f"{v:5.2f}s"
+                      for v in s[key]]
+                     for key in ("e2e_interactive", "ttft_interactive"))
         print(f"  {mode:>10}: goodput={s['goodput']*100:5.1f}% "
               f"interactive={s['goodput_interactive']*100:5.1f}% "
-              f"e2e_int={e2e} preemptions={s['preemptions']} "
-              f"graphs_captured={graphs}")
+              f"e2e_int={e2e} ttft_int={ttft} "
+              f"preemptions={s['preemptions']} graphs_captured={graphs}")
     if ok:
         d, p = section["drain_only"], section["preempt"]
         if not (p["goodput"] > d["goodput"] and p["preemptions"] > 0):

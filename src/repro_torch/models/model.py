@@ -5,7 +5,9 @@ DeepSeek-V3), Mamba2 SSM stacks and hybrids of the two.
 Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `logits_from_hidden`; the dense (padded) family `kv_buffer_len`,
 `init_cache`, `cache_join`, `cache_take`, `prefill_chunk`,
-`decode_step`; and the paged family `paged_layout`, `init_paged_cache`,
+`decode_step` (with the port's `cache_row` and `cache_clear_row`, for
+the rows of a prefill engine's dense pool); and the paged family
+`paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step`,
 `paged_prefill_step` (with `_require_pageable_prefill`), `mixed_step`
 (its decode half is `paged_decode_masked`),
@@ -229,12 +231,33 @@ def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
 def cache_take(src: Dict, slot: int) -> Dict:
     """Row `slot` of a dense batch cache as a new batch-1 cache (the
     inverse of cache_join: preemption and drain park it)."""
-    out: Dict = {"cur": src["cur"][slot:slot + 1].clone(),
-                 "kv_pos": src["kv_pos"][slot:slot + 1].clone()}
+    return {name: t.clone() for name, t in cache_row(src, slot).items()}
+
+
+def cache_row(src: Dict, row: int) -> Dict:
+    """Row `row` of a dense batch cache as a batch-1 cache of views: a
+    step writes its K/V and kv_pos into the batch cache in place."""
+    out: Dict = {"cur": src["cur"][row:row + 1],
+                 "kv_pos": src["kv_pos"][row:row + 1]}
     for name in _ROW_STACKS:
         if name in src:
-            out[name] = src[name][:, slot:slot + 1].clone()
+            out[name] = src[name][:, row:row + 1]
     return out
+
+
+def cache_clear_row(cache: Dict, row: int) -> Dict:
+    """Reset row `row` of a dense batch cache in place to what
+    `init_cache` makes for every step that reads it: kv_pos -1, cursor 0,
+    SSM states and conv tails 0 (its K/V entries are read only where
+    kv_pos says they were written, so they are left).  The dense
+    counterpart of `paged_cache_clear_slot`, for a reused row of a
+    prefill engine's pool."""
+    cache["kv_pos"][row] = -1
+    cache["cur"][row] = 0
+    for name in ("ssm", "conv_x", "conv_bc"):
+        if name in cache:
+            cache[name][:, row] = 0
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ Prefill (P/D deployment) is true chunked prefill with two cache
 backends:
 
   dense (default)        each granted (request, tokens) slice extends the
-      request's private batch-1 dense cache via `prefill_chunk`;
-      completion publishes the whole cache.
+      request's row of the engine's pool of dense batch-1 caches via
+      `prefill_chunk` (a graph per chunk length over a static working
+      cache, or the eager step on the row); completion publishes a copy
+      of the row and resets it.
   page-native (opt-in)   chunks write straight into the engine's
       `BlockPool` pages via `paged_prefill_step`.  With `share_prefix`, a
       `PagePrefixBinder` resolves each new prompt's longest cached prefix
@@ -60,18 +62,20 @@ their slot (paged: also their table row and pages).  The unified engine
 Differences from the JAX engines:
 
   * no jit and no mesh: with `EngineSpec.step_graphs` (the default)
-    every decode step and every page-native prefill chunk replays a CUDA
-    graph (`repro_torch.serving.step_graphs`; decode graphs are captured
-    when the engine is built, chunk graphs at a length's first use),
-    and the steps that stay eager (dense prefill chunks, the SSM
-    prefill, page surgery) run op by op; `step_graphs=False` runs every
-    step eagerly.  Every engine thread queues its work on the device's
-    default stream (so it serialises, and a handoff cache written by a
-    prefill worker is complete before the runtime thread's join reads
-    it, and a page the runtime thread clears or stages is ready before
-    the worker's next chunk reads it); with step graphs each engine
-    queues its steps under the spec's `step_lock`, the reference's
-    `_mesh_lock`, under which graphs are also captured;
+    every decode step and every prefill chunk, dense (the SSM prefill
+    included) or page-native, replays a CUDA graph
+    (`repro_torch.serving.step_graphs`; decode graphs and a prefill
+    engine's full-chunk graph are captured when the engine is built,
+    shorter chunks' at a length's first use), and only the page surgery
+    and a dense row's copies run op by op; `step_graphs=False` runs
+    every step eagerly.  Every engine thread queues its work on the
+    device's default stream (so it serialises, and a handoff cache
+    written by a prefill worker is complete before the runtime thread's
+    join reads it, and a page the runtime thread clears or stages is
+    ready before the worker's next chunk reads it); with step graphs
+    each engine queues its steps (a dense chunk with its row's copies)
+    under the spec's `step_lock`, the reference's `_mesh_lock`, under
+    which graphs are also captured;
   * the step functions write the K/V caches in place (see
     `repro_torch.models.model`), so a worker step mutates the DP's cache
     while the runtime thread waits for `step_end`.  The runtime thread
@@ -102,7 +106,6 @@ Differences from the JAX engines:
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import queue
 import threading
@@ -114,8 +117,9 @@ import torch
 from repro_torch.config.base import PAGED_SLOTS_FACTOR, ModelConfig
 from repro_torch.core.types import DispatchCommand, Request, RequestPhase
 from repro_torch.models.model import (
-    _require_pageable_prefill, cache_join, cache_take, decode_step,
-    init_cache, init_paged_cache, mixed_step, paged_adopt_blocks,
+    _require_pageable_prefill, cache_clear_row, cache_join, cache_row,
+    cache_take, decode_step, init_cache, init_paged_cache, mixed_step,
+    paged_adopt_blocks,
     paged_cache_clear_slot, paged_cache_join, paged_cache_take,
     paged_clear_rows, paged_copy_block, paged_decode_masked,
     paged_decode_step, paged_gather_blocks, paged_layout,
@@ -127,7 +131,7 @@ from repro_torch.serving.page_share import PagePrefixBinder
 from repro_torch.serving.plane import (
     ASYNC, PassResult, StartResult, UnifiedEngine,
 )
-from repro_torch.serving.step_graphs import StepGraphs
+from repro_torch.serving.step_graphs import IN_PLACE, StepGraphs
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +149,14 @@ class EngineSpec:
     of max_batch·max_len/block_size blocks (+ the null block), with
     `decode_slots` (default 2×max_batch) cheap batch rows on top.  A
     page-native prefill engine owns a pool of its own
-    (`paged_prefill_blocks`) with `paged_prefill_slots` rows.
+    (`paged_prefill_blocks`) with `paged_prefill_slots` rows; a dense
+    prefill engine a pool of `paged_prefill_slots` dense rows, grown by
+    as many again whenever every row is taken.
 
-    `step_graphs` (default) runs the decode steps and page-native
-    prefill chunks through each engine's `StepGraphs`: CUDA graphs on
-    the card, the same static buffers around direct calls on the CPU.
-    False runs today's eager steps (the A/B and the tests)."""
+    `step_graphs` (default) runs every decode step and prefill chunk
+    (dense or page-native) through each engine's `StepGraphs`: CUDA
+    graphs on the card, the same static buffers around direct calls on
+    the CPU.  False runs every step eagerly (the A/B and the tests)."""
     cfg: ModelConfig
     params: Any
     max_len: int = 256
@@ -183,11 +189,6 @@ class EngineSpec:
         # while it captures one (step graphs only)
         self.step_lock = threading.RLock()
 
-    def step_guard(self):
-        """What an engine holds while it queues a step: `step_lock` with
-        step graphs, nothing on the eager path."""
-        return self.step_lock if self.step_graphs else contextlib.nullcontext()
-
     def step_graphs_for(self) -> Optional[StepGraphs]:
         """A new engine's compiled steps (None on the eager path)."""
         if not self.step_graphs:
@@ -205,6 +206,9 @@ class EngineSpec:
     def prefill_fn(self, cache, tokens, slot):
         return paged_prefill_step(self.cfg, self.params, tokens, cache, slot)
 
+    def prefill_chunk_fn(self, cache, tokens):
+        return prefill_chunk(self.cfg, self.params, tokens, cache)
+
     def paged_prefill(self, graphs: Optional[StepGraphs], tokens, cache,
                       slot, unit: int = 0):
         """One page-native prefill chunk into the cache of `unit` (the
@@ -214,6 +218,33 @@ class EngineSpec:
             return self.prefill_fn(cache, tokens, slot)
         return graphs.run(("prefill", unit, tokens.shape[1]),
                           self.prefill_fn, cache, tokens=tokens, slot=slot)
+
+    def dense_prefill(self, graphs: Optional[StepGraphs], tokens, cache,
+                      row: int, at: int, work: Optional[Dict] = None):
+        """One dense prefill chunk of the prompt in row `row` of the
+        dense batch cache `cache` (a prefill engine's pool), whose first
+        `at` tokens are in the row: the eager step on the row itself, or
+        the graph of the chunk's length over the engine's static batch-1
+        cache `work`, into which the row's K/V (its first min(at, S)
+        entries, the only ones written) and kv_pos are copied before
+        the replay and from which they are copied back after it.  The
+        row's cursor and SSM and conv states are set to the step's new
+        ones.  Returns the last position's logits (1, V)."""
+        if graphs is None:
+            logits, new = self.prefill_chunk_fn(cache_row(cache, row),
+                                                tokens)
+            _set_row(cache, row, new)
+            return logits
+        S = cache["kv_pos"].shape[1]
+        with self.step_lock:
+            _copy_kv(work, 0, cache, row, min(at, S))
+            logits, new = graphs.run(("prefill-dense", tokens.shape[1]),
+                                     self.prefill_chunk_fn,
+                                     _dense_step(work, cache, row),
+                                     tokens=tokens)
+            _copy_kv(cache, row, work, 0, min(at + tokens.shape[1], S))
+            _set_row(cache, row, new)
+        return logits
 
     @property
     def paged(self) -> bool:
@@ -257,9 +288,10 @@ class EngineSpec:
         per_slot = self.max_len // self.block_size
         return 2 * self.paged_prefill_slots * per_slot + 1
 
-    def request_cache(self) -> Dict:
-        """A prefill request's private batch-1 dense cache."""
-        return init_cache(self.cfg, 1, self.max_len, dtype=self.dtype,
+    def request_cache(self, batch: int = 1) -> Dict:
+        """A dense prefill cache of `batch` rows (a dense prefill
+        engine's pool; batch 1: its graphs' working cache)."""
+        return init_cache(self.cfg, batch, self.max_len, dtype=self.dtype,
                           device=self.device)
 
     def batch_cache(self) -> Dict:
@@ -280,6 +312,16 @@ class EngineSpec:
             self.max_len, self.block_size, dtype=self.dtype,
             device=self.device)
 
+    def upload(self, ids: Sequence[int]) -> torch.Tensor:
+        """A prefill chunk's tokens as a (1, n) int32 tensor on the spec's
+        device.  On the card the copy is queued from pinned host memory
+        without waiting: one from pageable memory first waits for all the
+        work queued on the stream, other engines' steps included."""
+        t = torch.tensor([list(ids)], dtype=torch.int32)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def table(self, ids: Sequence[int]) -> torch.Tensor:
         """A block-table row (nbt,) int32 on the spec's device."""
         return torch.tensor(pad_block_table(ids, self.nbt),
@@ -295,6 +337,36 @@ class EngineSpec:
         written KV entry per decode step (the final sampled token never
         enters the cache)."""
         return req.input_len + max(self.target_len(req) - 1, 0)
+
+
+def _copy_kv(dst: Dict, drow: int, src: Dict, srow: int, n: int) -> None:
+    """Row `srow` of the dense cache `src` into row `drow` of `dst`, in
+    place: the first `n` entries of every layer's K/V and the whole
+    kv_pos row (the rest of the K/V row is read only where kv_pos says
+    it was written)."""
+    for name in ("k", "v"):
+        if name in dst and n:
+            dst[name][:, drow, :n] = src[name][:, srow, :n]
+    dst["kv_pos"][drow] = src["kv_pos"][srow]
+
+
+def _dense_step(work: Dict, cache: Dict, row: int) -> Dict:
+    """What a dense chunk's graph runs on: the static working cache
+    `work` (K/V and kv_pos, written in place) with the cursor and SSM
+    and conv states of row `row` of `cache` (copied in by the runner)."""
+    step = dict(work)
+    step.update({name: t for name, t in cache_row(cache, row).items()
+                 if name not in IN_PLACE})
+    return step
+
+
+def _set_row(cache: Dict, row: int, new: Dict) -> None:
+    """Write a batch-1 step's new cursor and SSM and conv states into
+    row `row` of the dense batch cache `cache`, in place."""
+    view = cache_row(cache, row)
+    for name, t in new.items():
+        if name not in IN_PLACE:
+            view[name].copy_(t)
 
 
 def _install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
@@ -424,12 +496,50 @@ class _WorkerOwner:
 # ---------------------------------------------------------------------------
 
 
-class _PrefillCtx:
-    """Model-side state of one in-flight prefill (batch-1 chunked cache:
-    a max_len-wide allocation per request, as the reference)."""
+class _DenseRows:
+    """A dense prefill engine's pool of max_len-wide rows: batch caches
+    of `n` rows each (the reference allocates a batch-1 cache per
+    request; a graph holds raw addresses, so the port keeps the rows and
+    copies a finished prompt out).  A request takes a row at its first
+    chunk; when none is free a further batch cache of `n` rows is
+    allocated (`grown` counts those), so a row is never waited for.
+    A released row is reset in place (`cache_clear_row`)."""
 
-    def __init__(self, spec: EngineSpec):
-        self.cache = spec.request_cache()
+    def __init__(self, spec: EngineSpec, n: int):
+        self.spec = spec
+        self.n = n
+        self.caches: List[Dict] = []
+        self.free: List[Tuple[int, int]] = []
+        self.grown = 0
+        self._add()
+
+    def _add(self) -> None:
+        self.caches.append(self.spec.request_cache(self.n))
+        b = len(self.caches) - 1
+        self.free.extend((b, i) for i in reversed(range(self.n)))
+
+    def take(self) -> Tuple[int, int]:
+        """A free row: (batch cache index, row)."""
+        if not self.free:
+            self._add()
+            self.grown += 1
+        return self.free.pop()
+
+    def release(self, row: Tuple[int, int]) -> None:
+        cache_clear_row(self.caches[row[0]], row[1])
+        self.free.append(row)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for c in self.caches for t in c.values())
+
+
+class _PrefillCtx:
+    """Model-side state of one in-flight dense prefill: its row of the
+    engine's `_DenseRows` ((batch cache index, row))."""
+
+    def __init__(self, row: Tuple[int, int]):
+        self.row = row
         self.consumed = 0
         self.first_token: Optional[int] = None
 
@@ -467,7 +577,8 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
 
     def __init__(self, instance_id: int, dp_ids: Sequence[int], chunk: int,
                  spec: EngineSpec, bus: KVHandoffBus,
-                 page_native: bool = False, share_prefix: bool = False):
+                 page_native: bool = False, share_prefix: bool = False,
+                 cache_budget_tokens: Optional[int] = None):
         super().__init__(instance_id, dp_ids, chunk, cost=None)
         _WorkerOwner.__init__(self, f"prefill-{instance_id}")
         self.spec = spec
@@ -485,12 +596,34 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
             self.pool = BlockPool(spec.paged_prefill_blocks, spec.block_size)
             self.cache = spec.prefill_paged_cache()
             if share_prefix:
-                self.binder = PagePrefixBinder(self.pool)
+                self.binder = PagePrefixBinder(
+                    self.pool, budget_tokens=cache_budget_tokens)
             self._free_slots: List[int] = list(
                 range(spec.paged_prefill_slots))
             self._pctx: Dict[int, _PagedPrefillCtx] = {}
         elif share_prefix:
             raise ValueError("share_prefix requires page_native=True")
+        else:
+            self.rows = _DenseRows(spec, spec.paged_prefill_slots)
+            # the graphs' static batch-1 cache (every chunk length's)
+            self._work = (spec.request_cache() if self.graphs is not None
+                          else None)
+        if self.graphs is not None:
+            # capture the full chunk's graph now, before the runtime's
+            # threads start; a prompt's last chunk (any shorter length)
+            # is captured at that length's first use
+            tokens = torch.zeros((1, chunk), dtype=torch.int32,
+                                 device=spec.device)
+            if self.page_native:
+                self.graphs.prepare(("prefill", 0, chunk), spec.prefill_fn,
+                                    self.cache, tokens=tokens,
+                                    slot=self._free_slots[-1])
+            else:
+                self.graphs.prepare(("prefill-dense", chunk),
+                                    spec.prefill_chunk_fn,
+                                    _dense_step(self._work,
+                                                self.rows.caches[0], 0),
+                                    tokens=tokens)
         # page-native stats (read after the run; only the worker writes
         # chunks_run, only the runtime thread writes full_hits)
         self.chunks_run = 0
@@ -636,18 +769,17 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
             return
         ctx = self._ctx.get(req.rid)
         if ctx is None:
-            ctx = self._ctx[req.rid] = _PrefillCtx(self.spec)
+            ctx = self._ctx[req.rid] = _PrefillCtx(self.rows.take())
         ids = (req.tokens or ())[ctx.consumed: ctx.consumed + tok]
         if ids:
-            arr = torch.tensor([ids], dtype=torch.int32,
-                               device=self.spec.device)
-            with self.spec.step_guard():    # an eager step
-                logits, ctx.cache = prefill_chunk(self.spec.cfg,
-                                                  self.spec.params, arr,
-                                                  ctx.cache)
+            arr = self.spec.upload(ids)
+            b, row = ctx.row
+            logits = self.spec.dense_prefill(
+                self.graphs, arr, self.rows.caches[b], row, ctx.consumed,
+                self._work)
             ctx.consumed += len(ids)
             if ctx.consumed >= req.input_len and ctx.first_token is None:
-                # a host sync: the cache is complete once this returns
+                # a host sync: the row is complete once this returns
                 ctx.first_token = int(logits[0].argmax())
 
     def _run_chunk_paged(self, req: Request, tok: int) -> None:
@@ -658,7 +790,7 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         ids = (req.tokens or ())[ctx.consumed: ctx.consumed + tok]
         if not ids:
             return
-        arr = torch.tensor([ids], dtype=torch.int32, device=self.spec.device)
+        arr = self.spec.upload(ids)
         logits, self.cache = self.spec.paged_prefill(self.graphs, arr,
                                                      self.cache, ctx.slot)
         self.chunks_run += 1
@@ -678,8 +810,13 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
                 raise RuntimeError(
                     f"request {req.rid} completed prefill without model "
                     f"state (tokens shorter than input_len?)")
-            # the paper's KV transfer: park cache + first token on the bus
-            self.bus.publish(req.rid, ctx.cache, ctx.first_token)
+            # the paper's KV transfer: park a copy of the row + the first
+            # token on the bus (the bus never holds a pool row), then
+            # reset the row for its next tenant
+            b, row = ctx.row
+            self.bus.publish(req.rid, cache_take(self.rows.caches[b], row),
+                             ctx.first_token)
+            self.rows.release(ctx.row)
             req.generated = 1
         return res
 

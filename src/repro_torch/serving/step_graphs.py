@@ -1,14 +1,18 @@
-"""Compiled serving steps: every decode step and every page-native
-prefill chunk replays a CUDA graph.
+"""Compiled serving steps: every decode step and every prefill chunk,
+dense or page-native, replays a CUDA graph.
 
 Counterpart of the jit lines of the reference's `EngineSpec.__post_init__`
 (`repro/serving/real_engine.py`): there each step is one compiled XLA
 program, traced once per shape, with `slot` a traced scalar.  Here each
 engine owns a `StepGraphs`, and each step it runs through `run` is
 captured once as a `torch.cuda.CUDAGraph` per key — (decode, DP unit),
-whose rows and table width are fixed, or (prefill, cache, chunk length),
-since a prompt's last chunk can be any length (a prefill engine has one
-cache, the unified engine one per DP unit) — and replayed from then on.
+whose rows and table width are fixed; (prefill, cache, chunk length),
+since a prompt's last chunk can be any length (a page-native prefill
+engine has one cache, the unified engine one per DP unit); or
+(prefill-dense, chunk length), a dense prefill chunk over the engine's
+static batch-1 working cache, into which `EngineSpec.dense_prefill`
+copies a pool row's K/V and kv_pos before the replay and from which it
+copies them back after — and replayed from then on.
 All graphs of one engine share one memory pool: they replay one at a
 time, on the engine's worker thread.
 
@@ -41,12 +45,12 @@ Capture runs in `thread_local` error mode on a side stream, under the
 spec's `step_lock`, which every engine of the spec also holds while it
 queues a step (the reference's `_mesh_lock`): the P/D server's prefill
 and decode workers share the card's default stream from separate
-threads.  Decode graphs are captured when the engine is built, before
-the runtime's threads start; prefill graphs at a chunk length's first
-use.  On the CPU nothing is captured: the same static buffers are
+threads.  Decode graphs and a prefill engine's full-chunk graph are
+captured when the engine is built, before the runtime's threads start;
+other prefill chunk lengths at their first use.  On the CPU nothing is captured: the same static buffers are
 filled and the step function is called on them, so the CPU parity tests
 run this buffer handling.  A spec with `step_graphs=False` does not use
-this module (today's eager path, kept for the A/B and the tests).
+this module (the eager path, kept for the A/B and the tests).
 """
 from __future__ import annotations
 

@@ -1071,8 +1071,8 @@ def test_graph_servers_match_eager_on_cuda(dev, dtype, arch, plane):
     and without give the same tokens on the card; on pages with
     prefix_cache=True (joins by PageHandoff over shared pages and
     copy-on-write tails) also the same reuse counters.  Graph mode
-    replays its decode steps and page-native chunks: the graph counts
-    are read back."""
+    replays its decode steps and its page-native or dense prefill
+    chunks: the graph counts are read back."""
     from repro_torch.serving.real_engine import EngineSpec
     cfg = get_arch(arch, reduced=True)
     params = _to(init_params(cfg, seed=0, device="cpu", dtype=dtype), dev)
@@ -1114,6 +1114,9 @@ def test_graph_servers_match_eager_on_cuda(dev, dtype, arch, plane):
             if plane in ("unified", "pd-prefix"):
                 assert any(k[0] == "prefill" for e in engines
                            for k in e.graphs._entries)
+            if plane == "pd-padded":
+                assert all(k[0] == "prefill-dense" and e.graphs.replays > 0
+                           for e in srv.engines for k in e.graphs._entries)
         else:
             assert all(e.graphs is None for e in engines)
     assert out[True] == out[False]
@@ -1257,3 +1260,108 @@ def test_swapped_pool_raises_on_cuda(dev):
     finally:
         params["layers"][1]["mlp"]["w_up"] = w
     assert runner.captured == 1 and runner.replays == 1
+
+
+# ---------------------------------------------------------------------------
+# compiled dense prefill: a prefill engine's pool rows through the graphs
+# ---------------------------------------------------------------------------
+
+_DENSE_ARCHS = ["deepseek-7b", "h2o-danube-3-4b", "mamba2-370m",
+                "jamba-hybrid", "granite-moe-1b-a400m"]
+
+
+def _dense_arch(name):
+    """A reduced config; "jamba-hybrid" is reduced jamba with the layer
+    pattern (SSM, DENSE) (no MoE layer)."""
+    import dataclasses
+    from repro_torch.config.base import LayerKind
+    if name != "jamba-hybrid":
+        return get_arch(name, reduced=True)
+    return dataclasses.replace(get_arch("jamba-v0.1-52b", reduced=True),
+                               layer_pattern=(LayerKind.SSM, LayerKind.DENSE))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", _DENSE_ARCHS)
+def test_dense_prefill_graphs_match_eager_on_cuda(dev, dtype, arch):
+    """Prompts interleaved chunk by chunk (16-token chunks and shorter
+    tails; h2o-danube's window-64 ring wraps; a released row is reused)
+    through `EngineSpec.dense_prefill` with step graphs — each chunk
+    length captured once and replayed, the rows' K/V and positions
+    copied through the static working cache — and eagerly on the rows
+    of a second pool: bit-identical logits and rows (cursor, kv_pos, the
+    written K/V, SSM and conv states).  The first capture runs with the
+    sync debug mode set to "error": a host sync in the step would
+    raise."""
+    from repro_torch.models.model import cache_row
+    from repro_torch.serving.real_engine import EngineSpec, _DenseRows
+    cfg = _dense_arch(arch)
+    params = _to(init_params(cfg, seed=0, device="cpu", dtype=dtype), dev)
+    rng = random.Random(8)
+    lens = (80, 29, 53, 21)
+    prompts = [[rng.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in lens]
+    schedule = [(0, 16), (1, 16), (0, 16), (1, 13), (0, 32), (0, 16),
+                (2, 16), (2, 7), (3, 16), (2, 30), (3, 5)]
+    modes = {}
+    for graphs in (True, False):
+        spec = EngineSpec(cfg, params, max_len=96, device=dev,
+                          step_graphs=graphs)
+        modes[graphs] = (spec, spec.step_graphs_for(), _DenseRows(spec, 2),
+                         spec.request_cache() if graphs else None, {})
+    at = {i: 0 for i in range(len(prompts))}
+    for p, n in schedule:
+        toks = torch.tensor([prompts[p][at[p]:at[p] + n]], dtype=torch.int32,
+                            device=dev)
+        out = {}
+        for graphs, (spec, g, rows, work, row_of) in modes.items():
+            if p not in row_of:
+                row_of[p] = rows.take()
+            b, r = row_of[p]
+            first = graphs and not g._entries
+            if first:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lg = spec.dense_prefill(g, toks, rows.caches[b], r, at[p],
+                                        work)
+            finally:
+                if first:
+                    torch.cuda.set_sync_debug_mode("default")
+            out[graphs] = (lg, cache_row(rows.caches[b], r))
+        torch.cuda.synchronize()
+        (lg_g, row_g), (lg_e, row_e) = out[True], out[False]
+        assert torch.equal(lg_g, lg_e)
+        assert torch.equal(row_g["cur"], row_e["cur"])
+        assert torch.equal(row_g["kv_pos"], row_e["kv_pos"])
+        written = row_e["kv_pos"][0] >= 0
+        for name in ("k", "v", "ssm", "conv_x", "conv_bc"):
+            if name in row_e:
+                a, e = row_g[name], row_e[name]
+                if name in ("k", "v"):
+                    a, e = a[:, :, written], e[:, :, written]
+                assert torch.equal(a, e), name
+        at[p] += n
+        if at[p] == len(prompts[p]):
+            for _s, _g, rows, _w, row_of in modes.values():
+                rows.release(row_of.pop(p))
+    g = modes[True][1]
+    assert g.captured == 6 and g.replays == len(schedule)
+
+
+def test_dense_prefill_engine_captures_its_chunk_at_build(dev):
+    """A dense prefill engine with step graphs captures its full chunk's
+    graph when it is built, so a prompt of whole chunks captures nothing
+    while it is served; a page-native one captures its full chunk too."""
+    from repro_torch.serving.real_engine import (
+        EngineSpec, KVHandoffBus, RealPrefillEngine)
+    cfg = get_arch("deepseek-7b", reduced=True)
+    params = _to(init_params(cfg, seed=0, device="cpu"), dev)
+    for native in (False, True):
+        spec = EngineSpec(cfg, params, max_len=96, max_batch=4,
+                          block_size=16 if native else 0, device=dev)
+        eng = RealPrefillEngine(0, [0], 32, spec, KVHandoffBus(),
+                                page_native=native)
+        key = ("prefill", 0, 32) if native else ("prefill-dense", 32)
+        assert list(eng.graphs._entries) == [key]
+        assert eng.graphs.captured == 1

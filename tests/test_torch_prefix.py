@@ -707,3 +707,102 @@ def test_pd_prefix_serve_moe_and_mla_match_jax_server(arch):
     assert stats["port"]["prefill_full_hits"] == 1
     assert stats["port"]["decode_cow_copies"] == 6
     _drain_pools(tsrv)
+
+
+# ---------------------------------------------------------------------------
+# a budgeted prefill binder (RealPrefillEngine's cache_budget_tokens)
+# ---------------------------------------------------------------------------
+
+class _Loop:
+    """The `post` target of an engine driven without a runtime."""
+
+    def __init__(self):
+        self.done = threading.Event()
+
+    def post(self, kind, payload):
+        self.done.set()
+
+
+def _prefill_until_done(eng, loop):
+    """Run `eng`'s passes until its queue is empty; returns the completed
+    requests."""
+    done = []
+    while eng.has_work():
+        loop.done.clear()
+        assert eng.start_pass(0.0) is not None     # each package's ASYNC
+        assert loop.done.wait(120)
+        done += eng.finish_pass(0.0).completed
+    return done
+
+
+def test_prefill_cache_budget_matches_jax_engine(oracle, port):
+    """`RealPrefillEngine(..., cache_budget_tokens=N)` bounds its prefix
+    binder as the reference's engine does: the same prompts through a
+    page-native prefill engine of each package, with a 64-token budget
+    (4 pages of a 13-page pool), give after every completion the same
+    evicted entries and pages, pool free count, hit and seen tokens, full
+    hits and chunks run, and the same first tokens.  The prompts repeat
+    one another (a full hit), share a prefix, and overflow the budget so
+    that entries are evicted and a later repeat misses."""
+    from repro.core.types import DispatchCommand as JDispatchCommand
+    from repro.core.types import Request as JRequest
+    from repro.serving.real_engine import EngineSpec as JEngineSpec
+    from repro.serving.real_engine import KVHandoffBus as JBus
+    from repro.serving.real_engine import RealPrefillEngine as JPrefill
+    tcfg, tparams = port
+    kw = dict(max_len=MAX_LEN, max_batch=4, block_size=BLOCK,
+              prefill_slots=2, prefill_pool_blocks=13)
+    pkgs = {
+        "jax": (JPrefill(0, [0], 32, JEngineSpec(oracle.cfg, oracle.params,
+                                                 **kw), JBus(),
+                         page_native=True, share_prefix=True,
+                         cache_budget_tokens=4 * BLOCK),
+                JRequest, JDispatchCommand),
+        "torch": (RealPrefillEngine(0, [0], 32,
+                                    EngineSpec(tcfg, tparams, device="cpu",
+                                               **kw), KVHandoffBus(),
+                                    page_native=True, share_prefix=True,
+                                    cache_budget_tokens=4 * BLOCK),
+                  Request, DispatchCommand)}
+    evicted = {}
+    for name, (eng, _r, _c) in pkgs.items():
+        count = evicted[name] = {"entries": 0, "pages": 0}
+        inner = eng.binder.tree._on_evict
+
+        def on_evict(node, _count=count, _inner=inner):
+            _count["entries"] += 1
+            _count["pages"] += len(node.blocks or ())
+            _inner(node)
+        eng.binder.tree._on_evict = on_evict
+    rng = random.Random(23)
+    a = [rng.randrange(tcfg.vocab_size) for _ in range(40)]
+    b = a[:2 * BLOCK] + [rng.randrange(tcfg.vocab_size) for _ in range(20)]
+    c = [rng.randrange(tcfg.vocab_size) for _ in range(56)]
+    d = [rng.randrange(tcfg.vocab_size) for _ in range(33)]
+    prompts = [a, a, b, c, d, a, b]
+    loops = {name: _Loop() for name in pkgs}
+    for name, (eng, _r, _c) in pkgs.items():
+        eng.bind_loop(loops[name])
+        eng.start()
+    try:
+        for rid, prompt in enumerate(prompts):
+            seen = {}
+            for name, (eng, R, Cmd) in pkgs.items():
+                req = R(rid=rid, arrival_time=0.0, input_len=len(prompt),
+                        output_len=2, tokens=tuple(prompt))
+                claim, _full = eng.binder.peek(prompt)
+                req.remaining_prefill = 0
+                eng.enqueue(Cmd(0, {0: [(req, len(prompt) - claim)]}), 0.0)
+                done = _prefill_until_done(eng, loops[name])
+                assert [r.rid for r in done] == [rid]
+                seen[name] = (eng.bus.gen(rid).tokens[0], dict(evicted[name]),
+                              eng.pool.free_count, eng.binder.hit_tokens,
+                              eng.binder.seen_tokens, eng.full_hits,
+                              eng.chunks_run, eng.binder.tree.size)
+            assert seen["torch"] == seen["jax"], (rid, seen)
+    finally:
+        for eng, _r, _c in pkgs.values():
+            eng.stop()
+            eng.join_worker()
+    assert evicted["torch"]["entries"] > 0
+    assert pkgs["torch"][0].full_hits >= 1

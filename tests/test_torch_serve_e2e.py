@@ -11,7 +11,10 @@ against the reference `examples/serve_e2e.py`, on the CPU:
       `run_sweep`s on the same JAX-made weights gives identical tokens;
   (c) every mode of the twin finishes every request at `--reduced
       --device cpu`, and writes exactly the reference's section keys (as
-      in BENCH_e2e.json) plus `device`; no timing gate is asserted;
+      in BENCH_e2e.json) plus `device` and, in each overload leg, the
+      interactive requests' TTFT (`ttft_interactive`, the quantity the
+      overload gate fails on at published width); no timing gate is
+      asserted;
   (d) `--sharded-bench` raises NotImplementedError naming ROADMAP item
       11, and the card default raises where there is no card;
   (e) chip_smoke.py's twin phases (checked serves, structural checks)
@@ -266,6 +269,10 @@ def test_twin_mode_finishes_on_cpu(twin, monkeypatch, tmp_path, key):
         got = json.load(f)[key]
     assert got["device"] == "cpu"
     want["device"] = None
+    if key == "real_plane_overload":
+        for leg in ("drain_only", "preempt"):
+            want[leg] = sorted(want[leg] + ["ttft_interactive"])
+            assert len(got[leg]["ttft_interactive"]) == 2
     assert _keys(got) == want
 
 
