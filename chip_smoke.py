@@ -87,7 +87,8 @@ Phases (any failure exits non-zero and prints no result):
      error is also printed on a line of its own beside the recorded
      sensitivity of the check to a 1e-7 perturbation of kernel #4;
      every dense chunk (kernel #4 inside) replays a graph; then eagerly;
-  6c. SWA serve: full-width h2o-danube-3-4b (24 layers, d 3840, 32
+  6c. SWA serve: h2o-danube-3-4b at full width, depth cut to SWA_LAYERS
+     of its 24 layers (d 3840, 32
      heads over 8 KV heads of 120, window 4096; bf16 from seed 0) behind
      the P/D serve's deployment with its requests; the same checks at
      head dim 120: kernels #3 and #2 (contiguous entry) launch, #1, #2's
@@ -118,18 +119,39 @@ Phases (any failure exits non-zero and prints no result):
      routing flips between the served path and the plain forward, and
      the capacity drops of every chunk, each on a line of its own; and
      the eager A/B of phase 5;
-  6f. MLA serve: full-width minicpm3-4b (62 layers, d 2560, 40 heads,
+  6f. MLA serve: minicpm3-4b at full width, depth cut to MLA_LAYERS of
+     its 62 layers (d 2560, 40 heads,
      q_lora 768, kv_lora 256, rope 32; bf16 from seed 0) behind the
      shared-prefix P/D deployment of phase 6c with the same two waves:
      latent pages through page-native prefill, claims, `PageHandoff`,
      adoption and copy-on-write; the same checks, each computed prompt's
      logits against the NON-absorbed plain forward, and no kernel of the
      port launched (absorbed MLA runs as torch ops);
+  6g. the sharded DP+EP plane on four logical shards of the card
+     (`make_engine_mesh(4, devices=["cuda"] * 4)`): (a) the EP layer
+     (`moe_block_ep`, explicit all-to-all, per-source capacity) at
+     full-width granite-moe-1b-a400m's MoE shape in bf16 against its
+     plain version (`moe_block_ep_reference`) at the merged decode
+     step's 32 rows and a 256-token chunk, with its exchanges, bytes
+     and times; (b) full-width granite-moe-1b-a400m (24 layers, bf16
+     from seed 0) behind `RealSBSServer(mesh=...)`, P/D (2 prefill ×
+     1 DP with 256-token dense chunks, 1 decode instance × 4 DP merged
+     into one cache of 16-token pages, requests 50 ms apart) and
+     unified (4 DP merged, the burst dispatched whole), sbs-la, eager
+     (sharded steps have no graphs), 8 requests of the serves' traffic
+     each: every request finishes, the merged caches drain, every step
+     that decoded covered the merged slots and made EP exchanges,
+     kernels #1 and #2 (contiguous on P/D, paged on unified) launch and
+     no other, and first-token logits agree with a plain forward over
+     the served chunks and the served expert sets; TTFT, ITL, step
+     times and the EP exchanges, bytes and device time per decode step
+     on lines of their own;
   7. the serving benchmark twin (`examples/serve_e2e_torch.py`, loaded
-     by path): its five A/Bs through its CLI entry point at the flags of
+     by path): its six A/Bs through its CLI entry point at the flags of
      `scripts/ci.sh --real-smoke` (paged vs padded on granite-moe; the
      scheduler sweep, the prefix, overload and mixed A/Bs on
-     deepseek-7b), in bf16 as the CLI serves them, every serve checked:
+     deepseek-7b; the sharded A/B on granite-moe, on four logical
+     shards of the card), in bf16 as the CLI serves them, every serve checked:
      every request finishes with its tokens, the decode rows and pools
      drain (prefix-cached pools after eviction), the plane's kernels
      launch and no other, each computed prompt's first-token logits agree
@@ -141,7 +163,8 @@ Phases (any failure exits non-zero and prints no result):
      chunk replays a graph; then each A/B's structural counters (paged
      residency above padded; the cached leg's saved FLOPs, hits and
      shared pages; preemptions only with preemption; mixed steps only
-     piggybacked) and, printed but not checked, its timing gate's
+     piggybacked; EP exchanges in every merged decode step of the
+     sharded legs) and, printed but not checked, its timing gate's
      verdict; then the prefill-pass split of the overload A/B
      (`scripts/prefill_pass_split.py`, two more runs of it: pass wall,
      step_lock wait, token upload and host calls per pass with the
@@ -213,6 +236,11 @@ PD_CHUNK = 256                     # prefill chunk of the P/D serve
 # dtype of the MoE serve and of its logits check: the check holds in
 # bf16 despite the routing flips bf16 causes (counts in PERF.md)
 MOE_CHECK_DTYPE = "bfloat16"
+# depth of two earlier serves, cut (width, traffic and checks as before)
+# so that the sharded phase fits the smoke's time limit (PERF.md §6):
+# h2o-danube-3-4b has 24 layers, minicpm3-4b 62
+SWA_LAYERS = 8
+MLA_LAYERS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -1108,7 +1136,8 @@ def _plain_mla(cfg, a, h, pos, mask):
     return o.reshape(1, S, -1) @ a["w_o"].reshape(H * m.v_head_dim, -1)
 
 
-def dense_forward_logits(cfg, params, tokens, device, chunks=None):
+def dense_forward_logits(cfg, params, tokens, device, chunks=None,
+                         moe_fn=None):
     """Last-position logits of a plain forward over the prompt: no pages,
     no kernels.  Attention is GQA (projections, RoPE, masked einsum) or
     MLA (`_plain_mla`) over the whole prompt: without a window ring it
@@ -1117,13 +1146,16 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None):
     prefill chunk the serve used (`chunks`, lengths; None is one call
     over the prompt), as the served steps call it.  A sliding window
     masks as the reference's; a ring cache gives the same result only
-    while the prompt fits the window (the serves' prompts do)."""
+    while the prompt fits the window (the serves' prompts do).
+    `moe_fn(h, params, mc)` replaces `moe_block` for each chunk's MoE
+    (the sharded unified plane's, `ep_chunk_moe`)."""
     import torch
     from repro_torch.config.base import AttentionKind
     from repro_torch.models.attention import build_mask, gqa_reference
     from repro_torch.models.layers import apply_rope, rms_norm, swiglu
     from repro_torch.models.model import logits_from_hidden
     from repro_torch.models.moe import moe_block
+    moe_fn = moe_fn or moe_block
     ids = torch.tensor([list(tokens)], dtype=torch.long, device=device)
     S = ids.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=device)[None]
@@ -1151,7 +1183,7 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None):
             x = x + o.reshape(1, S, H * hd) @ a["w_o"].reshape(H * hd, D)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if "moe" in p:
-            x = x + torch.cat([moe_block(h[:, lo:hi], p["moe"], cfg.moe)[0]
+            x = x + torch.cat([moe_fn(h[:, lo:hi], p["moe"], cfg.moe)[0]
                                for lo, hi in zip(bounds, bounds[1:])], 1)
         else:
             m = p["mlp"]
@@ -1329,7 +1361,7 @@ def replay_routes(cfg, params, prompt, chunks, max_len, device):
 def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                  tag, forward=dense_forward_logits, chunks=None,
                  info_forward=None, prefilled_before=0, prefix_cached=False,
-                 routes=False):
+                 routes=False, memo=None):
     """Every request finished with its tokens, the decode caches drained,
     and each first-token logits agree with a plain forward (`forward`,
     over the chunk boundaries `chunks` the serve used; with `routes`, a
@@ -1339,9 +1371,10 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
     `prefix_cached` the pools keep published pages until they are
     evicted (`drain_prefix_pools`) and a prompt found whole in the cache
     runs no chunk: only the prompts with recorded logits are compared,
-    and the prefilled tokens are not counted.  Returns (worst
-    max|d|/max|ref|, argmax agreements, the worst error against
-    `info_forward` or None)."""
+    and the prefilled tokens are not counted.  `memo` (a dict) keeps the
+    plain references by (prompt, chunks) across the serves of one A/B.
+    Returns (worst max|d|/max|ref|, argmax agreements, the worst error
+    against `info_forward` or None)."""
     done = {g.rid: g for g in gens}
     if sorted(done) != sorted(r.rid for r in reqs):
         raise AssertionError(f"{tag}: unfinished requests: {len(gens)} of "
@@ -1367,7 +1400,7 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
         raise AssertionError(f"{tag}: prefill token count mismatch")
     return compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                                 forward, chunks, info_forward,
-                                spec.max_len if routes else None)
+                                spec.max_len if routes else None, memo)
 
 
 def prefilled_tokens(srv):
@@ -1399,21 +1432,26 @@ def graphs_report(srv, before):
 
 
 @contextlib.contextmanager
-def forced_routes(routes, n_chunks, n_moe):
+def forced_routes(routes, n_chunks, n_moe, slices=None):
     """Within it, the calls of `repro_torch.models.moe.route` that a plain
     forward over `n_chunks` chunks makes (layer-major: each MoE layer's
     chunks in order) return the expert ids the served path chose in the
     same call (`routes`, chunk-major, as `replay_routes` returns
     them), weighted by this call's own router as `route` weights its own
-    choice.  Yields {"flips": (token, layer) pairs whose served expert
-    set differs from this router's own, "pairs": pairs compared}."""
+    choice.  `slices[c]` is the number of `route` calls one MoE layer
+    makes for chunk c (its token slices on the EP path; default 1).
+    Yields {"flips": (token, layer) pairs whose served expert set
+    differs from this router's own, "pairs": pairs compared}."""
     import torch
     from repro_torch.models import moe
-    if len(routes) != n_chunks * n_moe:
+    slices = slices or [1] * n_chunks
+    if len(routes) != sum(slices) * n_moe:
         raise AssertionError(f"{len(routes)} MoE calls recorded for "
                              f"{n_chunks} chunks of {n_moe} MoE layers")
-    order = iter([routes[c * n_moe + layer] for layer in range(n_moe)
-                  for c in range(n_chunks)])
+    at = [sum(slices[:c]) * n_moe for c in range(n_chunks)]
+    order = iter([routes[at[c] + layer * slices[c] + j]
+                  for layer in range(n_moe) for c in range(n_chunks)
+                  for j in range(slices[c])])
     count = {"flips": 0, "pairs": 0}
     inner = moe.route
 
@@ -1437,7 +1475,7 @@ def forced_routes(routes, n_chunks, n_moe):
 
 def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                          forward=dense_forward_logits, chunks=None,
-                         info_forward=None, routes_max_len=None):
+                         info_forward=None, routes_max_len=None, memo=None):
     """Each request's first-token logits against a plain forward (see
     `check_served`); raises past LOGITS_REL_TOL.  With `routes_max_len`
     (the spec's max_len of a dense P/D serve of an MoE model), the plain
@@ -1445,8 +1483,10 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     (`replay_routes`, then `forced_routes`), so that a near-tie the two
     routers break apart moves no logit; the flips this hides are
     printed, and how far the served logits lie from the eager replay's.
-    Returns (worst max|d|/max|ref|, argmax agreements, the worst error
-    against `info_forward` or None)."""
+    `memo` (a dict) keeps each (prompt, chunk lengths)'s plain reference
+    (and replay) for later calls: the same prompt over the same chunks
+    has the same reference.  Returns (worst max|d|/max|ref|, argmax
+    agreements, the worst error against `info_forward` or None)."""
     import torch
     worst = 0.0
     agree = 0
@@ -1455,19 +1495,27 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     n_moe = sum("moe" in p for p in params["layers"])
     flips = {"flips": 0, "pairs": 0}
     replay_d = 0.0
+    memo = {} if memo is None else memo
     for r in reqs:
         got = first_logits.get(r.rid)
         prompt = r.tokens[:r.input_len]
-        if routes_max_len is None:
-            ref = forward(cfg, params, prompt, device, chunks.get(r.rid))
-        else:
-            routes, eager = replay_routes(cfg, params, prompt, chunks[r.rid],
-                                          routes_max_len, device)
+        key = (tuple(prompt), tuple(chunks.get(r.rid) or ()))
+        if key not in memo:
+            if routes_max_len is None:
+                memo[key] = (forward(cfg, params, prompt, device,
+                                     chunks.get(r.rid)), None, None)
+            else:
+                routes, eager = replay_routes(cfg, params, prompt,
+                                              chunks[r.rid], routes_max_len,
+                                              device)
+                with forced_routes(routes, len(chunks[r.rid]), n_moe) as n:
+                    ref = forward(cfg, params, prompt, device, chunks[r.rid])
+                memo[key] = (ref, eager, dict(n))
+        ref, eager, n = memo[key]
+        if routes_max_len is not None:
             if got is not None:
                 replay_d = max(replay_d, float((got.float() - eager.float())
                                                .abs().max()))
-            with forced_routes(routes, len(chunks[r.rid]), n_moe) as n:
-                ref = forward(cfg, params, prompt, device, chunks[r.rid])
             flips = {k: flips[k] + n[k] for k in flips}
         if got is None or got.shape != (cfg.vocab_size,) \
                 or not torch.isfinite(got).all():
@@ -2297,6 +2345,11 @@ TWIN_PHASES = [
     ("overload", ["--timeout", "150", "--overload-bench"],
      "real_plane_overload"),
     ("mixed", ["--timeout", "150", "--mixed-bench"], "real_plane_mixed"),
+    # the sharded A/B on four logical shards of the card ("{device}" is
+    # the phase's device)
+    ("sharded", ["--arch", "granite-moe-1b-a400m", "--timeout", "150",
+                 "--sharded-bench", "--mesh-devices", "{device}x4"],
+     "real_plane_sharded"),
 ]
 
 
@@ -2322,6 +2375,8 @@ def twin_plane(srv):
         return ("P/D paged prefix_cache",
                 {"paged_decode_attention", "paged_prefill_attention"})
     pre = " preemption" if s.preemption else ""
+    if srv.spec.sharded:
+        pre += f" sharded over {srv.spec.n_dp} DP"
     if s.block_size:
         return (f"P/D paged{pre}", {"paged_decode_attention", "flash_prefill"})
     return "P/D padded", {"decode_attention", "flash_prefill"}
@@ -2359,6 +2414,7 @@ def checked_twin_server(tag, counters, device, log, servers):
     that of its computed twin in the same serve.  Appends the serve's
     figures to `log` and each server to `servers`."""
     from repro_torch.serving.server import RealSBSServer
+    memo = {}       # plain references: the A/B serves the same prompts
 
     class Checked(RealSBSServer):
         def __init__(self, *args, scheduler="sbs", **kw):
@@ -2386,7 +2442,7 @@ def checked_twin_server(tag, counters, device, log, servers):
                 self.cfg, self.spec.params, self.spec, self, requests, gens,
                 seen, device, stag, chunks=chunks,
                 prefilled_before=prefilled, prefix_cached=self.prefix_cache,
-                routes=routes)
+                routes=routes, memo=memo)
             if counts is not None:
                 check_replayed(stag, self.spec, counts, device)
             for name, n in launches.items():
@@ -2476,6 +2532,26 @@ def twin_verdicts(phase, s):
               f"{'holds' if gates['preempt goodput > drain-only'] else 'FAILS'}",
               flush=True)
         return gates
+    if phase == "sharded":
+        i, b = s["immediate"], s["sbs-la"]
+        if not (s["ep_all_to_all_active"] and i["runs"] == b["runs"] == 5
+                and i["ep_exchanges_per_step"] > 0
+                and b["ep_exchanges_per_step"] > 0):
+            raise AssertionError(f"{tag}: no EP exchange in the merged "
+                                 f"steps, or a leg ran short: {s}")
+        key = "sbs-la ttft_p99 < immediate at >= 0.95 of its throughput"
+        gates = {key: (b["ttft_p99"] < i["ttft_p99"]
+                       and b["throughput"] >= 0.95 * i["throughput"])}
+        print(f"{tag} mesh {s['mesh_devices']!r}; per-step sync "
+              f"t_step_sharded_ms={s['t_step_sharded_ms']!r} "
+              f"t_step_local_ms={s['t_step_local_ms']!r}", flush=True)
+        for leg, f in (("immediate", i), ("sbs-la", b)):
+            print(f"{tag} {leg}: {json.dumps(f)}", flush=True)
+        print(f"{tag} timing gate {key}: ttft_p99 sbs-la={b['ttft_p99']!r} "
+              f"immediate={i['ttft_p99']!r}; throughput sbs-la="
+              f"{b['throughput']!r} immediate={i['throughput']!r} tok/s -> "
+              f"{'holds' if gates[key] else 'FAILS'}", flush=True)
+        return gates
     p, d = s["piggyback"], s["disjoint"]
     if not (p["mixed_steps"] > 0 and d["mixed_steps"] == 0
             and p["runs"] == d["runs"] == 3):
@@ -2503,6 +2579,7 @@ def twin_phase(twin, phase, flags, key, counters, device, bench,
     tag = f"[twin {phase}]"
     log, servers = [], []
     Checked = checked_twin_server(tag, counters, device, log, servers)
+    flags = [f.format(device=device) for f in flags]
     argv = flags + ["--device", device, "--bench-json", bench]
     if reduced:
         argv.append("--reduced")
@@ -2574,7 +2651,7 @@ def prefill_split(device, reduced=False):
 
 
 def serve_twin(counters, device, reduced=False, elapsed=None):
-    """Phase 7: the twin's five A/Bs (`TWIN_PHASES`) at published width
+    """Phase 7: the twin's six A/Bs (`TWIN_PHASES`) at published width
     in bf16 (`reduced`: the reference's reduced configs in fp32, for a
     CPU rehearsal), each writing its section to a file of its own under
     build/.  Returns {phase: report}."""
@@ -2596,7 +2673,7 @@ def serve_twin(counters, device, reduced=False, elapsed=None):
 # ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve, swa, twin):
+                 moe_serve, swa, twin, sharded):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
@@ -2633,6 +2710,11 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
     fp_k = "src/repro/kernels/flash_prefill/kernel.py:87"
     on_prefix = pd_prefix["launches"]
     on_moe = moe_serve["launches"]
+
+    def on_sharded(name):
+        return {f"launches_sharded_{k}_serve": sharded[k]["launches"][name]
+                for k in ("pd", "unified")
+                if sharded[k]["launches"][name]}
     return [
         item("paged_decode_attention", csrc + "paged_decode_attention.cu",
              dec_k + ":115", mixed, dec, "mixed serve",
@@ -2641,7 +2723,7 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
                  "paged_decode_attention_per_decode_step"],
              launches_moe_serve=on_moe["paged_decode_attention"],
              launches_per_step_moe_serve=on_moe["paged_decode_attention"]
-             / moe_serve["steps"]),
+             / moe_serve["steps"], **on_sharded("paged_decode_attention")),
         item("paged_prefill_attention", csrc + "flash_prefill.cu", fp_k,
              mixed, pfx, "mixed serve",
              launches_pd_prefix_serve=on_prefix["paged_prefill_attention"],
@@ -2649,9 +2731,10 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
                  "paged_prefill_attention_per_prefill_pass"],
              launches_moe_serve=on_moe["paged_prefill_attention"],
              launches_per_step_moe_serve=on_moe["paged_prefill_attention"]
-             / moe_serve["steps"]),
+             / moe_serve["steps"], **on_sharded("paged_prefill_attention")),
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
-             "P/D serve", **hd120(fla, "flash_prefill")),
+             "P/D serve", **hd120(fla, "flash_prefill"),
+             **on_sharded("flash_prefill")),
         item("decode_attention", csrc + "decode_attention.cu",
              dec_k + ":166", pd, dense, "P/D serve",
              **hd120(dense, "decode_attention")),
@@ -2789,6 +2872,320 @@ def serve_mla(counters, device, n_layers=None):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 6g: the sharded DP+EP plane on four logical shards of the card
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4                       # data ranks (decode DP units) of the mesh
+
+
+def shard_mesh(device):
+    """Four logical shards of one device: the mesh the sharded serves run
+    on (the twin's A/B also runs on four cards, cuda:0..3)."""
+    from repro_torch.launch.mesh import make_engine_mesh
+    return make_engine_mesh(N_SHARDS, devices=[device] * N_SHARDS)
+
+
+def check_ep_layer(device):
+    """Phase 6g (a): the EP layer (`moe_block_ep`) at full-width
+    granite-moe-1b-a400m's MoE shape (d 1024, 32 experts top-8 of 512,
+    capacity factor 1.25: it binds) in bf16 on four logical shards of
+    the card, against its plain version (`moe_block_ep_reference`, the
+    same per-source capacity on one device) on the same inputs: the
+    merged decode step's rows (4 DP units × 8 slots) and a 256-token
+    prefill chunk.  Prints each shape's exchanges, bytes between EP
+    ranks and their device time, and the layer's and the plain version's
+    time per call.  Returns {"errs", "shapes": {T: figures}}."""
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.moe import init_moe_params
+    from repro_torch.models.moe_ep import (
+        count_exchanges, moe_block_ep, moe_block_ep_reference,
+    )
+    cfg = get_arch("granite-moe-1b-a400m")
+    mc = cfg.moe
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    p = init_moe_params(g, cfg.d_model, mc, torch.bfloat16)
+    mesh = shard_mesh(device)
+    out = {"errs": [], "shapes": {}}
+    for T in (N_SHARDS * 2 * MAX_BATCH, PD_CHUNK):
+        xs = [(torch.randn(T, cfg.d_model,
+                           generator=torch.Generator().manual_seed(T + i))
+               * 0.5).to(device, torch.bfloat16) for i in range(4)]
+
+        def ep(i):
+            return moe_block_ep(xs[i], p, mc, mesh, ("data",),
+                                ("data", "model"))[0]
+
+        def ref(i):
+            return moe_block_ep_reference(xs[i], p, mc, N_SHARDS)[0]
+        with count_exchanges(timed=device != "cpu") as st:
+            got = ep(0)
+        compare(f"[ep layer] T={T}", got, ref(0), out["errs"])
+        f = {"exchanges": st.exchanges, "bytes": st.bytes,
+             "exchange_ms": (st.seconds() * 1e3 if device != "cpu"
+                             else None)}
+        if device != "cpu":
+            f["ms"], f["wall_ms"] = time_ms(ep, len(xs))
+            f["plain_ms"], f["plain_wall_ms"] = time_ms(ref, len(xs))
+        out["shapes"][T] = f
+        print(f"[ep layer] T={T} on {N_SHARDS} logical shards: "
+              f"{json.dumps(f)}", flush=True)
+    return out
+
+
+def sharded_scfg(mixed):
+    """The sharded serves' deployments: the unified plane of phase 6e or
+    the P/D deployment of phase 6, with 4 decode DP units merged on the
+    mesh (16-token pages)."""
+    from repro_torch.config.base import ServingConfig
+    if mixed:
+        return ServingConfig(
+            num_prefill_instances=1, prefill_dp_per_instance=1,
+            num_decode_instances=1, decode_dp_per_instance=N_SHARDS,
+            chunk_size=256, t_default=0.05, l_net=0.001,
+            max_batch_per_dp=MAX_BATCH, block_size=BLOCK,
+            mixed_batch=True, mixed_chunk=256)
+    return ServingConfig(
+        num_prefill_instances=2, prefill_dp_per_instance=1,
+        num_decode_instances=1, decode_dp_per_instance=N_SHARDS,
+        chunk_size=PD_CHUNK, t_default=0.05, l_net=0.001,
+        max_batch_per_dp=MAX_BATCH, block_size=BLOCK, n_limit=64)
+
+
+def ep_chunk_moe(n_slices):
+    """The MoE of one prefill chunk as the sharded unified plane runs it
+    (`moe_fn` of `dense_forward_logits`): per-source capacity over
+    `n_slices` token slices where the chunk's tokens divide over them
+    (the EP path), the single-program `moe_block` otherwise."""
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.moe_ep import moe_block_ep_reference
+
+    def fn(h, p, mc):
+        if (h.numel() // h.shape[-1]) % n_slices == 0:
+            return moe_block_ep_reference(h, p, mc, n_slices)
+        return moe_block(h, p, mc)
+    return fn
+
+
+def replay_sharded_routes(spec, prompt, chunks):
+    """The expert ids the sharded unified plane chose for `prompt`, chunk-
+    major (each chunk's MoE layers in order, each layer's token slices in
+    order): its chunks through the spec's page-native step (the step a
+    granted chunk runs, under the mesh context) into a fresh merged
+    cache.  A chunk's step depends only on its own pages and tokens, so
+    this recomputes what the serve computed.  Launch counts are
+    restored: these calls are not the serve's."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.model import paged_install_row
+    from repro_torch.serving.step_graphs import _wrappers
+    out, inner = [], moe.route
+    counters = _wrappers()
+    launches = [w.launches for w in counters]
+
+    def route(x2d, p, mc):
+        r = inner(x2d, p, mc)
+        out.append(r[1])
+        return r
+    moe.route = route
+    try:
+        cache = spec.merged_paged_cache()
+        cache = paged_install_row(cache, 0, torch.arange(
+            1, spec.nbt + 1, dtype=torch.int32, device=spec.device), 0)
+        at = 0
+        for n in chunks:
+            ids = torch.tensor([list(prompt[at:at + n])], dtype=torch.int32,
+                               device=spec.device)
+            _lg, cache = spec.prefill_fn(cache, ids, 0)
+            at += n
+    finally:
+        moe.route = inner
+        for w, n in zip(counters, launches):
+            w.launches = n
+    return out
+
+
+def serve_sharded(cfg, params, device, counters, mixed,
+                  n_requests=N_REQUESTS, lens=(128, 1024), outs=(16, 32)):
+    """Phase 6g (b): `cfg` behind `RealSBSServer(mesh=...)` on four
+    logical shards of the card (sbs-la; the unified plane with the burst
+    dispatched whole, or P/D with requests 50 ms apart), eager (sharded
+    steps have no graphs).  The measured server first serves the same
+    requests once.  Checks: every request finishes and the merged caches
+    drain; every step that decoded rows covered the merged slot axis and
+    made EP exchanges; #1 and #2 (the paged entry on the unified plane,
+    the contiguous one for P/D's dense prefill) launch and nothing else;
+    each first-token logits row agrees with a plain forward over the
+    served chunks and the served expert sets (P/D: `replay_routes`; the
+    unified plane: `replay_sharded_routes`, with each chunk's MoE under
+    the per-source capacity the EP path gives it).  Returns the serve
+    report."""
+    import torch
+    from repro_torch.serving.real_engine import EngineSpec
+    from repro_torch.serving.server import RealSBSServer
+    tag = f"[sharded {'unified' if mixed else 'pd'} serve]"
+    mesh = shard_mesh(device)
+    scfg = sharded_scfg(mixed)
+    spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
+                      max_new=outs[1], block_size=BLOCK,
+                      decode_slots=scfg.resolved_decode_slots, mesh=mesh,
+                      step_graphs=False)
+
+    def requests():
+        return make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs,
+                             burst=mixed)
+    t0 = time.monotonic()
+    srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec,
+                        mesh=mesh)
+    build_s = time.monotonic() - t0
+    if mixed:
+        dispatch_bursts_whole(srv, n_requests)
+    srv.serve(requests(), timeout=600)
+    eng = srv.decode_engines[0]
+    mark = (eng.steps, len(eng.itl), len(eng.step_samples),
+            prefilled_tokens(srv))
+    if mixed:
+        first_logits, chunks = record_first_logits(eng)
+        undo = lambda: eng.__dict__.pop("finish_step")      # noqa: E731
+    else:
+        first_logits, chunks, _counts, undo = record_prefill_logits(srv)
+    reqs = requests()
+    for w in counters:
+        w.launches = 0
+    t0 = time.monotonic()
+    try:
+        gens = srv.serve(reqs, timeout=600)
+    finally:
+        undo()
+    wall = time.monotonic() - t0
+    launches = {w.__name__: w.launches for w in counters}
+    samples = eng.step_samples[mark[2]:]
+    ep = eng.ep_samples[mark[2]:]
+    rows = len(eng._group.slots)
+    for (_d, active, r), (ex, _b, _s) in zip(samples, ep):
+        if r != rows:
+            raise AssertionError(f"{tag}: a step covered {r} rows, the "
+                                 f"merged cache has {rows}")
+        if active and ex <= 0:
+            raise AssertionError(f"{tag}: a merged decode step made no EP "
+                                 f"exchange")
+    launched = ({"paged_decode_attention", "paged_prefill_attention"}
+                if mixed else {"paged_decode_attention", "flash_prefill"})
+    for name, n in launches.items():
+        if name in launched and device != "cpu" and n <= 0:
+            raise AssertionError(f"{tag}: {name} never launched")
+        if name not in launched and n != 0:
+            raise AssertionError(f"{tag}: {name} launched {n} times")
+    n_moe = sum("moe" in p for p in params["layers"])
+    flips = {"flips": 0, "pairs": 0}
+    forward = dense_forward_logits
+    if mixed:
+        def forward(cfg_, params_, prompt, device_, ch):
+            routes = replay_sharded_routes(spec, prompt, ch)
+            slices = [N_SHARDS if n % N_SHARDS == 0 else 1 for n in ch]
+            with forced_routes(routes, len(ch), n_moe, slices) as n:
+                ref = dense_forward_logits(cfg_, params_, prompt, device_,
+                                           ch, moe_fn=ep_chunk_moe(N_SHARDS))
+            flips["flips"] += n["flips"]
+            flips["pairs"] += n["pairs"]
+            return ref
+    worst, agree, _ = check_served(cfg, params, spec, srv, reqs, gens,
+                                   first_logits, device, tag, forward,
+                                   chunks, prefilled_before=mark[3],
+                                   routes=not mixed)
+    if mixed:
+        print(f"{tag} the plain forward replayed the served expert sets: "
+              f"{flips['flips']} of {flips['pairs']} (token, layer) pairs "
+              f"differ from its own router's choice", flush=True)
+    ttft = [g.ttft for g in gens]
+    itl = eng.itl[mark[1]:]
+    decode = [(d, x) for (d, a, _r), x in zip(samples, ep) if a]
+    ep_ms = [x[2] * 1e3 for _d, x in decode if x[2] is not None]
+    n = max(len(decode), 1)
+    return {
+        "plane": ("unified mixed-batch, sharded" if mixed
+                  else "P/D, sharded paged decode"),
+        "model": cfg.name,
+        "dtype": str(params["embed"].dtype).replace("torch.", ""),
+        "mesh": [str(d) for d in mesh.devices], "mode": "eager",
+        "scheduler": "sbs-la",
+        "traffic": (f"{n_requests} requests at t = 0" if mixed
+                    else f"{n_requests} requests 50 ms apart"),
+        "requests": len(reqs), "prompt_tokens": [r.input_len for r in reqs],
+        "new_tokens": [len(g.tokens) for g in gens], "wall_s": wall,
+        "server_build_s": build_s,
+        "ttft_p50_s": percentile(ttft, 0.5),
+        "ttft_p99_s": percentile(ttft, 0.99),
+        "itl_p50_s": percentile(itl, 0.5),
+        "itl_p99_s": percentile(itl, 0.99),
+        "steps": eng.steps - mark[0], "decode_steps": len(decode),
+        "merged_rows": rows,
+        "step_p50_s": percentile([d for d, _a, _r in samples], 0.5),
+        "step_p99_s": percentile([d for d, _a, _r in samples], 0.99),
+        "decode_step_p50_s": percentile([d for d, _x in decode], 0.5),
+        "ep_exchanges_per_decode_step": sum(x[0] for _d, x in decode) / n,
+        "ep_bytes_per_decode_step": sum(x[1] for _d, x in decode) / n,
+        "ep_ms_per_decode_step_p50": percentile(ep_ms, 0.5),
+        "ep_ms_per_decode_step_mean": sum(ep_ms) / len(ep_ms) if ep_ms
+        else None,
+        "mixed_steps": getattr(eng, "mixed_steps", None),
+        "launches": launches,
+        "launches_per_decode_step": {
+            k: v / n for k, v in launches.items()},
+        "logits_rel_err": worst, "argmax_agree": agree,
+        "expert_sets_replayed": True,
+        "route_flips_hidden": flips if mixed else None,
+        "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
+    }
+
+
+def report_sharded(tag, rep):
+    """A sharded serve's figures, each on a line of its own."""
+    print(f"{tag} ttft_p50_s={rep['ttft_p50_s']!r} "
+          f"ttft_p99_s={rep['ttft_p99_s']!r}", flush=True)
+    print(f"{tag} itl_p50_s={rep['itl_p50_s']!r} "
+          f"itl_p99_s={rep['itl_p99_s']!r}", flush=True)
+    print(f"{tag} wall_s={rep['wall_s']!r} steps={rep['steps']} "
+          f"decode_steps={rep['decode_steps']} merged_rows="
+          f"{rep['merged_rows']}", flush=True)
+    print(f"{tag} step_p50_s={rep['step_p50_s']!r} "
+          f"step_p99_s={rep['step_p99_s']!r} decode_step_p50_s="
+          f"{rep['decode_step_p50_s']!r}", flush=True)
+    print(f"{tag} ep per decode step: exchanges="
+          f"{rep['ep_exchanges_per_decode_step']!r} bytes="
+          f"{rep['ep_bytes_per_decode_step']!r} exchange_ms p50="
+          f"{rep['ep_ms_per_decode_step_p50']!r} mean="
+          f"{rep['ep_ms_per_decode_step_mean']!r}", flush=True)
+    print(f"{tag} launches={rep['launches']!r} logits_rel_err="
+          f"{rep['logits_rel_err']!r} (limit {LOGITS_REL_TOL})", flush=True)
+
+
+def serve_sharded_phase(counters, device, n_layers=None):
+    """Phase 6g: the EP layer against its plain version, then full-width
+    granite-moe-1b-a400m (bf16 from seed 0) behind the sharded P/D and
+    unified deployments on four logical shards of the card.  `n_layers`
+    cuts depth for a CPU rehearsal.  Returns {"ep_layer", "pd",
+    "unified"}."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    out = {"ep_layer": check_ep_layer(device)}
+    cfg = get_arch("granite-moe-1b-a400m")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    for key, mixed in (("pd", False), ("unified", True)):
+        rep = serve_sharded(cfg, params, device, counters, mixed)
+        report_sharded(f"[sharded {key} serve]", rep)
+        out[key] = rep
+        if device != "cpu":
+            free_device_memory()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2906,7 +3303,7 @@ def main() -> int:
         report_pd_modes("[ssm serve]", ssm, ssm["eager"])
         del sparams
         free_device_memory()
-        swa = serve_swa(counters, device)
+        swa = serve_swa(counters, device, n_layers=SWA_LAYERS)
         elapsed("SWA serve")
         free_device_memory()
         t0 = time.monotonic()
@@ -2940,14 +3337,17 @@ def main() -> int:
         moe_rep = serve_moe(counters, device)
         elapsed("MoE serve (graphs and eager)")
         free_device_memory()
-        mla = serve_mla(counters, device)
+        mla = serve_mla(counters, device, n_layers=MLA_LAYERS)
         elapsed("MLA serve")
+        free_device_memory()
+        sharded = serve_sharded_phase(counters, device)
+        elapsed("sharded serves")
         free_device_memory()
         twin = serve_twin(counters, device, elapsed=elapsed)
         split = prefill_split(device)
         elapsed("prefill pass split")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
-                               moe_rep, swa, twin)
+                               moe_rep, swa, twin, sharded)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -2959,6 +3359,7 @@ def main() -> int:
         print(json.dumps({"serve_swa": swa}), flush=True)
         print(json.dumps({"serve_moe": moe_rep}), flush=True)
         print(json.dumps({"serve_mla": mla}), flush=True)
+        print(json.dumps({"serve_sharded": sharded}), flush=True)
         print(json.dumps({"serve_twin": twin}), flush=True)
         print(json.dumps({"prefill_pass_split": split}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,7 @@ TTFT plus the decode plane's peak concurrent residency.
     PYTHONPATH=src python examples/serve_e2e_torch.py [--requests 8]
         [--arch ID] [--schedulers immediate,sbs,sbs-la] [--timeout 120]
         [--block-size 16] [--compare-padded] [--bench-json BENCH_torch.json]
-        [--device cuda|cpu] [--reduced]
+        [--device cuda|cpu] [--reduced] [--mesh-devices cuda:0x4]
 
 Every trace, deployment, warm-up serve, repetition count, median and
 gate is the reference's (each trace is built by a module-level function
@@ -30,8 +30,13 @@ what the card requires:
   * each timed serve's line also gives the step graphs its servers
     captured during it (a chunk length first seen inside a timed serve
     is captured there, as the reference compiles a new jitted shape);
-  * `--sharded-bench` raises NotImplementedError: the sharded DP+EP
-    plane is not ported yet (ROADMAP Queue 1 item 11).
+  * `--sharded-bench` serves on an `EngineMesh` of torch devices, the
+    first four cards by default; `--mesh-devices` chooses them
+    (`cuda:0x4`: four logical shards on one card; `cpux4` on the CPU),
+    and the section records the choice; "EP all-to-all in the step HLO"
+    becomes the exchange counter of `repro_torch.models.moe_ep`, which
+    must be above 0 in every merged decode step; the sharded steps run
+    eagerly (no step graphs: ROADMAP Queue 1 item 11-rest).
 
 `--compare-padded` re-runs the sweep with padded max_len slots at the
 SAME KV memory budget and requires the paged plane to sustain strictly
@@ -62,6 +67,17 @@ Requires piggybacking to post a strictly lower ITL p99 at
 equal-or-higher throughput, and records both sides in the payload's
 `real_plane_mixed` section.
 
+`--sharded-bench` runs the sharded DP+EP A/B instead: the deployment is
+mesh-native (4 decode DP units merged into one cache held as one shard
+per data rank of a 4-device mesh, every decode step one cross-DP step
+with the explicit EP all-to-all in each MoE layer), served under
+immediate dispatch vs SBS staggered batch formation.  Requires sbs-la to
+post a strictly lower TTFT p99 at equal-or-higher throughput, records
+per-step sync stall, the EP exchanges per step and the measured
+per-step sync cost that calibrates `CostModel.t_sync`, and writes the
+payload's `real_plane_sharded` section.  Use the granite MoE config
+(`--arch granite-moe-1b-a400m`) so the expert count divides the mesh.
+
 Exit code: 0 when every request finished and every gate held; 1
 otherwise (the failing gate or the unfinished rids are printed).
 """
@@ -77,7 +93,9 @@ import torch
 
 from repro_torch.config import ServingConfig, get_arch
 from repro_torch.core.types import Request
+from repro_torch.launch.mesh import make_engine_mesh, parse_mesh_devices
 from repro_torch.models.model import init_params
+from repro_torch.models.moe_ep import count_exchanges
 from repro_torch.serving.costmodel import CostModel
 from repro_torch.serving.metrics import percentile
 from repro_torch.serving.real_engine import EngineSpec
@@ -541,6 +559,209 @@ def run_mixed_bench(cfg, params, args):
     return ok, section
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _measure_step_sync(spec_sh, spec_lo, reps=20):
+    """Per-step DP sync cost, measured: wall time of the merged sharded
+    decode step (the EP all-to-all over every DP's rows) minus the
+    equivalent single-device per-DP step, both eager.  The minimum over
+    `reps` filters scheduler noise.  Also returns the merged step's EP
+    exchanges, which must be above 0."""
+    import time
+
+    def best(spec, cache):
+        n = (sum(c["cur"].shape[0] for c in cache["shards"])
+             if "shards" in cache else cache["cur"].shape[0])
+        toks = torch.zeros((n, 1), dtype=torch.int32, device=spec.device)
+        with count_exchanges() as ep:
+            spec.decode_fn(cache, toks)             # warm-up
+        _sync(spec.device)
+        t = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            spec.decode_fn(cache, toks)
+            _sync(spec.device)
+            t = min(t, time.perf_counter() - t0)
+        return t, ep.exchanges
+
+    t_sh, ex = best(spec_sh, spec_sh.merged_paged_cache())
+    t_lo, _ = best(spec_lo, spec_lo.paged_cache())
+    return max(t_sh - t_lo, 0.0), t_sh, t_lo, ex
+
+
+def sharded_trace(cfg, args):
+    """The sharded A/B's deployment and requests: (scfg, fresh, out) — a
+    burst of 16 alternating 144- and 16-token prompts, 16 new tokens, 2
+    prefill instances × 1 DP, 1 decode instance × 4 DP."""
+    n_dp = 4
+    bs = args.block_size or 16
+    long_in, short_in, out = 144, 16, 16     # lifetime 160 == max_len
+    scfg = ServingConfig(
+        num_prefill_instances=2, prefill_dp_per_instance=1,
+        num_decode_instances=1, decode_dp_per_instance=n_dp,
+        chunk_size=64, t_default=0.02, l_net=0.001,
+        max_batch_per_dp=2, block_size=bs,
+        # the burst IS the experiment: keep PBAA's overload detection
+        # from shedding it
+        n_limit=1000)
+    rng = random.Random(args.seed)
+    lens = [long_in if i % 2 == 0 else short_in for i in range(16)]
+    toks = [tuple(rng.randrange(cfg.vocab_size) for _ in range(L))
+            for L in lens]
+    spacing = min(args.arrival_spacing, 0.005)
+
+    def fresh():
+        return [Request(rid=i, arrival_time=i * spacing,
+                        input_len=lens[i], output_len=out, tokens=toks[i])
+                for i in range(len(lens))]
+    return scfg, fresh, out
+
+
+def run_sharded_bench(cfg, params, args):
+    """Sharded DP+EP A/B on the real plane: the SAME trace served by a
+    mesh-native deployment (4 decode DP units merged into ONE cache held
+    as one shard per data rank of a 4-device mesh, every decode step a
+    cross-DP step with the explicit EP all-to-all) under immediate
+    dispatch vs SBS staggered batch formation.  Returns
+    (ok, report-section).
+
+    Gate: sbs-la must post a strictly lower TTFT p99 at equal-or-higher
+    throughput (5% tolerance; latencies are medians of five timed
+    serves, throughput the best serve).  The section also records the
+    per-step sync-stall integral Σ dur·(1 − active/rows) from the
+    engines' step samples, the EP exchanges per decode step (every
+    merged decode step must carry some), and the measured per-step sync
+    cost that calibrates `CostModel.t_sync`."""
+    n_dp = 4
+    devices = (parse_mesh_devices(args.mesh_devices)
+               if args.mesh_devices else None)
+    mesh = make_engine_mesh(n_dp, devices=devices)
+    scfg, fresh, out = sharded_trace(cfg, args)
+    bs = scfg.block_size
+    spec = EngineSpec(cfg, params, max_len=MAX_LEN,
+                      max_batch=scfg.max_batch_per_dp, max_new=out,
+                      block_size=bs, decode_slots=scfg.resolved_decode_slots,
+                      mesh=mesh, step_graphs=False)
+    spec_lo = EngineSpec(cfg, params, max_len=MAX_LEN,
+                         max_batch=scfg.max_batch_per_dp, max_new=out,
+                         block_size=bs,
+                         decode_slots=scfg.resolved_decode_slots,
+                         device=mesh.lead, step_graphs=False)
+    t_sync, t_sh, t_lo, probe_ex = _measure_step_sync(spec, spec_lo)
+    ep_active = probe_ex > 0
+    cost = CostModel(cfg).with_measured_sync(t_sync)
+    print(f"\n#### sharded DP+EP A/B: 16 requests (144/16 alternating, "
+          f"{out} out) on a {n_dp}-shard data mesh "
+          f"{[str(d) for d in mesh.devices]}, merged decode cache "
+          f"{n_dp}x{spec.paged_slots} rows, block_size={bs}, EP exchanges "
+          f"in the merged step: {probe_ex}")
+    print(f"  measured per-step sync: sharded={t_sh*1000:.2f}ms "
+          f"local={t_lo*1000:.2f}ms -> t_sync={t_sync*1000:.2f}ms "
+          f"(CostModel default {CostModel(cfg).t_sync*1000:.1f}ms)")
+    ok = ep_active
+    section = {
+        "block_size": bs, "n_dp": n_dp, "requests": 16,
+        "ep_all_to_all_active": ep_active,
+        "t_sync_measured_ms": t_sync * 1000,
+        "t_step_sharded_ms": t_sh * 1000,
+        "t_step_local_ms": t_lo * 1000,
+        "t_sync_calibrated_costmodel_ms": cost.t_sync * 1000,
+        "device": device_name(mesh.lead),
+        "mesh_devices": [str(d) for d in mesh.devices],
+    }
+    for sched in ("immediate", "sbs-la"):
+        srv = RealSBSServer(cfg, params, serving_cfg=scfg, scheduler=sched,
+                            max_len=MAX_LEN, max_new=out, spec=spec,
+                            mesh=mesh)
+        # warm-up serve of the same trace (cuBLAS handles, the allocator,
+        # the adaptive interval)
+        srv.serve(fresh(), timeout=args.timeout)
+        samples = []
+        for _ in range(5):
+            for e in srv.decode_engines:
+                e.step_samples.clear()
+                e.ep_samples.clear()
+            reqs = fresh()
+            gens = srv.serve(reqs, timeout=args.timeout)
+            if len(gens) < len(reqs):
+                missing = sorted(set(r.rid for r in reqs)
+                                 - set(g.rid for g in gens))
+                print(f"  {sched}: UNFINISHED rids {missing}")
+                ok = False
+                break
+            steps = [(s, x) for e in srv.decode_engines
+                     for s, x in zip(e.step_samples, e.ep_samples)]
+            if any(x[0] <= 0 for _s, x in steps):
+                print(f"  {sched}: a merged decode step made no EP "
+                      f"exchange")
+                ok = False
+            ttfts = [g.ttft for g in gens]
+            total = sum(r.generated for r in reqs)
+            span = max((r.finish_time for r in reqs
+                        if r.finish_time is not None), default=0.0)
+            stall = sum(d * (1 - a / r) for (d, a, r), _x in steps if r)
+            occ = (sum(a / r for (_d, a, r), _x in steps if r)
+                   / max(len(steps), 1))
+            n = max(len(steps), 1)
+            ep_s = [x[2] for _s, x in steps if x[2] is not None]
+            samples.append({
+                "ttft_p99": percentile(ttfts, 99) if ttfts else 0.0,
+                "ttft_mean": sum(ttfts) / max(len(ttfts), 1),
+                "throughput": total / span if span > 0 else 0.0,
+                "sync_stall_ms": stall * 1000,
+                "decode_steps": len(steps),
+                "mean_occupancy": occ,
+                "step_p50_ms": percentile([d for (d, _a, _r), _x in steps],
+                                   50) * 1000 if steps else 0.0,
+                "ep_exchanges_per_step": sum(x[0] for _s, x in steps) / n,
+                "ep_bytes_per_step": sum(x[1] for _s, x in steps) / n,
+                "ep_ms_per_step": (sum(ep_s) / n * 1000 if ep_s
+                                   else None),
+            })
+        if not samples:
+            continue
+        med = {k: (sorted(s[k] for s in samples)[len(samples) // 2]
+                   if samples[0][k] is not None else None)
+               for k in samples[0]}
+        # throughput = tokens / burst makespan, a MAX over requests that
+        # host jitter only inflates: the best serve is the stable
+        # estimator (latencies stay medians), as in the reference
+        med["throughput"] = max(s["throughput"] for s in samples)
+        med["runs"] = len(samples)
+        section[sched] = med
+        ep_ms = ("n/a" if med["ep_ms_per_step"] is None
+                 else f"{med['ep_ms_per_step']:.2f}ms")
+        print(f"  {sched:>9}: ttft_p99={med['ttft_p99']*1000:7.1f}ms "
+              f"mean={med['ttft_mean']*1000:7.1f}ms "
+              f"thr={med['throughput']:6.1f} tok/s "
+              f"stall={med['sync_stall_ms']:7.1f}ms "
+              f"steps={med['decode_steps']} "
+              f"occ={med['mean_occupancy']*100:5.1f}% "
+              f"ep={med['ep_exchanges_per_step']:.0f}/step "
+              f"({med['ep_bytes_per_step'] / 1e6:.2f} MB, {ep_ms})")
+    if ok and "immediate" in section and "sbs-la" in section:
+        i, s = section["immediate"], section["sbs-la"]
+        if not (s["ttft_p99"] < i["ttft_p99"]
+                and s["throughput"] >= 0.95 * i["throughput"]):
+            print("  sharded gate FAILED: need sbs-la ttft_p99 strictly "
+                  "below immediate at equal-or-higher throughput "
+                  "(5% tolerance)")
+            ok = False
+        else:
+            dstall = ((1 - s["sync_stall_ms"] / i["sync_stall_ms"]) * 100
+                      if i["sync_stall_ms"] else 0.0)
+            print(f"  gate OK: ttft_p99 "
+                  f"{(1 - s['ttft_p99'] / i['ttft_p99']) * 100:+.1f}% "
+                  f"thr {(s['throughput'] / i['throughput'] - 1) * 100:+.1f}%"
+                  f" stall {dstall:+.1f}% vs immediate")
+    elif ok:
+        ok = False
+    return ok, section
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
@@ -576,8 +797,15 @@ def parse_args(argv=None):
                          "chunked prefill vs the disjoint stall-the-rows "
                          "ablation) instead of the scheduler sweep")
     ap.add_argument("--sharded-bench", action="store_true",
-                    help="the sharded DP+EP A/B: not ported yet (raises "
-                         "NotImplementedError, ROADMAP Queue 1 item 11)")
+                    help="run the sharded DP+EP A/B (4 decode DP units "
+                         "merged on a 4-device mesh, EP all-to-all; "
+                         "immediate vs sbs-la) instead of the scheduler "
+                         "sweep")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="the sharded A/B's mesh devices, comma-separated, "
+                         "each optionally repeated with xN (cuda:0x4: four "
+                         "logical shards on one card; cpux4); default: the "
+                         "first 4 cards")
     ap.add_argument("--device", default="cuda",
                     help="where weights and caches live (cuda or cpu); "
                          "cuda with no GPU raises")
@@ -622,19 +850,19 @@ def write_section(path, key, section):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sharded_bench:
-        raise NotImplementedError(
-            "--sharded-bench: the sharded DP+EP plane (merged decode cache, "
-            "EP all-to-all) is not ported yet (ROADMAP Queue 1 item 11)")
     cfg, params = load_model(args)
 
-    if args.prefix_bench or args.overload_bench or args.mixed_bench:
+    if (args.prefix_bench or args.overload_bench or args.mixed_bench
+            or args.sharded_bench):
         if args.prefix_bench:
             key, (ok, section) = ("real_plane_prefix",
                                   run_prefix_bench(cfg, params, args))
         elif args.overload_bench:
             key, (ok, section) = ("real_plane_overload",
                                   run_overload_bench(cfg, params, args))
+        elif args.sharded_bench:
+            key, (ok, section) = ("real_plane_sharded",
+                                  run_sharded_bench(cfg, params, args))
         else:
             key, (ok, section) = ("real_plane_mixed",
                                   run_mixed_bench(cfg, params, args))

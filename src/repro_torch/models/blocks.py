@@ -428,17 +428,37 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
     return _mlp(p, x, cfg), entry
 
 
+def attend_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool,
+                        kv_pos_pool, block_tab, pos):
+    """The attention half of `block_decode_paged`: x plus the attention
+    of its rows over their pages (pools written in place)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
+              else attn_decode_paged)
+    return x + attend(p["attn"], h, cfg, k_pool, v_pool, kv_pos_pool,
+                      block_tab, pos)
+
+
 def block_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
                        block_tab, pos):
     """Single-token decode block over a paged cache (pools written in
     place; an MLA layer's pools are its latent and rope-key pools).
     Returns the new hidden states (B, 1, D)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
-              else attn_decode_paged)
-    x = x + attend(p["attn"], h, cfg, k_pool, v_pool, kv_pos_pool,
-                   block_tab, pos)
-    return _mlp(p, x, cfg)
+    return _mlp(p, attend_decode_paged(p, x, cfg, k_pool, v_pool,
+                                       kv_pos_pool, block_tab, pos), cfg)
+
+
+def mlp_shards(ps, xs, cfg: ModelConfig):
+    """The FFN half of one layer over the rows of every shard of the
+    sharded plane (`ps`, `xs`: each shard's replica of the layer's params
+    and its hidden states, on its device): an MoE FFN takes every
+    shard's tokens in one `moe_block` call (the EP all-to-all under a
+    mesh context), a dense FFN runs on each shard alone."""
+    if "moe" not in ps[0]:
+        return [_mlp(p, x, cfg) for p, x in zip(ps, xs)]
+    hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    outs, _ = moe_block(hs, ps[0]["moe"], cfg.moe)
+    return [x + o for x, o in zip(xs, outs)]
 
 
 def block_extend_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,

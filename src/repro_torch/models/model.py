@@ -16,6 +16,19 @@ the rows of a prefill engine's dense pool); and the paged family
 stacked layer axis; here the layers are a Python list and the step
 functions loop over them.
 
+The sharded plane's forms of the paged family (the reference gets them
+from GSPMD over a data-sharded cache) take the MERGED cache of
+`repro_torch.distributed.sharding` ({"shards": one paged cache per data
+rank, "slots": S, "blocks": B}, global slot and block ids; a DP unit's
+view adds "home": its shard) and dispatch at their top: the decode step
+runs each layer's attention on each shard's device over its rows and
+pages, then the layer's FFN over every shard's tokens at once (an MoE's
+EP all-to-all under the spec's mesh context), so one step advances
+every DP's rows; a prefill chunk and the page surgery run on the shard
+that owns the slot or the DP.  A dense `prefill_chunk` needs no form of
+its own: it runs on the lead device, and its MoE reaches the split
+expert weights (`repro_torch.models.moe`).
+
 Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
              "layers": [{"ln1", "attn": {w_q, w_k, w_v, w_o} (GQA) or
@@ -65,9 +78,10 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
+from repro_torch.distributed.sharding import is_merged, params_on
 from repro_torch.models.blocks import (
-    ATTN_KINDS, block_decode, block_decode_paged, block_extend,
-    block_extend_paged, init_block_params,
+    ATTN_KINDS, attend_decode_paged, block_decode, block_decode_paged,
+    block_extend, block_extend_paged, init_block_params, mlp_shards,
 )
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba import ssm_dims
@@ -317,6 +331,11 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
     its KV tokens are written (in place) into the physical blocks named
     by `tab_row` ((nbt,) int32, -1 padding routes to the null block), and
     the slot's table row and token count are set."""
+    if is_merged(dst):
+        k, c, s = _shard_slot(dst, slot)
+        src = {n: t.to(c["cur"].device) for n, t in src.items()}
+        return _with_shard(dst, k, paged_cache_join(
+            cfg, c, src, s, _local_blocks(dst, k, tab_row)))
     nbt = dst["block_tab"].shape[1]
     bs = dst["kv_pos"].shape[1]
     if src["kv_pos"].shape[1] != nbt * bs:
@@ -339,6 +358,9 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
 def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
     """Extract slot `slot` of a paged cache as a dense batch-1 cache (the
     inverse of paged_cache_join: preemption and drain park it)."""
+    if is_merged(src):
+        _k, c, s = _shard_slot(src, slot)
+        return paged_cache_take(cfg, c, s)
     tab_row = src["block_tab"][slot]
     nbt = tab_row.shape[0]
     bs = src["kv_pos"].shape[1]
@@ -357,6 +379,9 @@ def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
 def paged_cache_clear_slot(cache: Dict, slot) -> Dict:
     """Leave-on-finish: drop slot `slot`'s table row so its future
     (garbage) writes route to the null block."""
+    if is_merged(cache):
+        k, c, s = _shard_slot(cache, slot)
+        return _with_shard(cache, k, paged_cache_clear_slot(c, s))
     out = dict(cache)
     out["block_tab"] = _with(cache, "block_tab", slot, -1)
     return out
@@ -429,6 +454,8 @@ def paged_decode_step(cfg: ModelConfig, params, token, cache):
     """One decode step over a paged cache.  token (slots, 1) int; returns
     (logits (slots, V), cache with `cur` + 1).  The pools are written in
     place."""
+    if is_merged(cache):
+        return _sharded_decode(cfg, params, token, cache)
     pos = cache["cur"]
     tab = cache["block_tab"]
     x = params["embed"][token.long()]                    # (slots, 1, D)
@@ -464,6 +491,13 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, cache, slot):
     nothing reads it back to the host).  Returns (last-position logits
     (1, V), cache); the pools are written in place."""
     _require_pageable_prefill(cfg)
+    if is_merged(cache):
+        k, c, s = _shard_slot(cache, slot)
+        dev = c["cur"].device
+        logits, new = paged_prefill_step(cfg, params_on(params, dev),
+                                         tokens.to(dev, non_blocking=True),
+                                         c, s)
+        return logits.to(tokens.device), _with_shard(cache, k, new)
     Sc = tokens.shape[1]
     if isinstance(slot, torch.Tensor):
         slot = slot.reshape(1).long()
@@ -491,6 +525,8 @@ def paged_decode_masked(cfg: ModelConfig, params, token, cache,
     -1 table (the null block) and keep `cur`.  With every row masked in,
     the same as `paged_decode_step`.  Returns (logits (slots, V),
     cache)."""
+    if is_merged(cache):
+        return _sharded_decode(cfg, params, token, cache, decode_mask)
     tab = cache["block_tab"]
     cur = cache["cur"]
     dcache = dict(cache)
@@ -539,6 +575,11 @@ def mixed_step(cfg: ModelConfig, params, token, cache,
 def paged_copy_block(cfg: ModelConfig, cache: Dict, src, dst) -> Dict:
     """Copy physical block `src` -> `dst` across every pool and the
     position map, in place (the copy half of copy-on-write)."""
+    if is_merged(cache):
+        k = cache["home"]
+        base = k * cache["blocks"]
+        return _with_shard(cache, k, paged_copy_block(
+            cfg, cache["shards"][k], src - base, dst - base))
     cache["kv_pos"][dst] = cache["kv_pos"][src]
     for name in ("k", "v"):
         cache[name][:, dst] = cache[name][:, src]
@@ -565,6 +606,14 @@ def paged_adopt_blocks(cfg: ModelConfig, dst: Dict, payload: Dict, slot,
     their kv_pos reset; rows under neither (shared prefix pages already
     resident) are not touched.  Masked-out traffic routes to the null
     block."""
+    if is_merged(dst):
+        k, c, s = _shard_slot(dst, slot)
+        dev = c["cur"].device
+        payload = {n: t.to(dev, non_blocking=True)
+                   for n, t in payload.items()}
+        return _with_shard(dst, k, paged_adopt_blocks(
+            cfg, c, payload, s, _local_blocks(dst, k, tab_row),
+            copy_mask.to(dev), clear_mask.to(dev), cur))
     phys = tab_row.clamp_min(0)
     ids_clear = torch.where(clear_mask, phys, 0).long()
     ids_copy = torch.where(copy_mask, phys, 0).long()
@@ -583,5 +632,107 @@ def paged_clear_rows(cache: Dict, ids) -> Dict:
     int32; -1 padding routes to the null block).  Freshly allocated
     blocks must be cleared before a slot attends through them: stale
     positions from a previous tenant would alias as valid history."""
+    if is_merged(cache):
+        k = cache["home"]
+        return _with_shard(cache, k, paged_clear_rows(
+            cache["shards"][k], _local_blocks(cache, k, ids)))
     cache["kv_pos"][ids.clamp_min(0).long()] = -1
     return dict(cache)
+
+
+def paged_set_table(cache: Dict, slot: int, col: int, block: int) -> Dict:
+    """`cache` with entry `col` of slot `slot`'s block-table row set to
+    physical block `block` (a new `block_tab` tensor: a cache dict handed
+    out earlier keeps its own)."""
+    if is_merged(cache):
+        k, c, s = _shard_slot(cache, slot)
+        return _with_shard(cache, k, paged_set_table(
+            c, s, col, block - k * cache["blocks"]))
+    out = dict(cache)
+    out["block_tab"] = cache["block_tab"].clone()
+    out["block_tab"][slot, col] = block
+    return out
+
+
+def paged_install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
+                      ) -> Dict:
+    """`cache` with slot `slot`'s block-table row and cursor set (new
+    `block_tab`/`cur` tensors: a cache dict handed out earlier keeps its
+    own)."""
+    if is_merged(cache):
+        k, c, s = _shard_slot(cache, slot)
+        return _with_shard(cache, k, paged_install_row(
+            c, s, _local_blocks(cache, k, tab), cur))
+    out = dict(cache)
+    out["block_tab"] = cache["block_tab"].clone()
+    out["block_tab"][slot] = tab
+    out["cur"] = cache["cur"].clone()
+    out["cur"][slot] = cur
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded plane: the merged paged cache
+# ---------------------------------------------------------------------------
+
+def _shard_slot(cache: Dict, slot) -> Tuple[int, Dict, int]:
+    """(shard index, shard cache, local slot) of global slot `slot` of a
+    merged cache."""
+    if isinstance(slot, torch.Tensor):
+        raise TypeError("the merged cache takes host slot ids")
+    k = slot // cache["slots"]
+    return k, cache["shards"][k], slot - k * cache["slots"]
+
+
+def _local_blocks(cache: Dict, k: int, ids: torch.Tensor) -> torch.Tensor:
+    """Global block ids of shard k (-1 padding kept) as its local ids, on
+    its device."""
+    ids = ids.to(cache["shards"][k]["cur"].device, non_blocking=True)
+    return torch.where(ids >= 0, ids - k * cache["blocks"], ids)
+
+
+def _with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
+    """`cache` (a merged cache or a DP's view of it) with shard k
+    replaced."""
+    shards = list(cache["shards"])
+    shards[k] = shard
+    return dict(cache, shards=shards)
+
+
+def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
+                    decode_mask=None):
+    """One decode step over every shard of a merged cache: per layer, each
+    shard's attention over its rows and pages on its device, then the
+    FFN over all shards' rows (`mlp_shards`).  token (n·S, 1) and the
+    optional `decode_mask` (n·S,) in global slot order; masked-out rows
+    decode against a -1 table and keep `cur` (as `paged_decode_masked`).
+    Returns (logits (n·S, V) on token's device, the merged cache)."""
+    S = cache["slots"]
+    lead = token.device
+    ps, xs, rows = [], [], []
+    for k, c in enumerate(cache["shards"]):
+        dev = c["cur"].device
+        p = params_on(params, dev)
+        tab, mask = c["block_tab"], None
+        if decode_mask is not None:
+            mask = decode_mask[k * S:(k + 1) * S].to(dev, non_blocking=True)
+            tab = torch.where(mask[:, None], tab, -1)
+        tok = token[k * S:(k + 1) * S].to(dev, non_blocking=True)
+        ps.append(p)
+        xs.append(p["embed"][tok.long()])                     # (S, 1, D)
+        rows.append((c, tab, mask))
+    for l in range(len(params["layers"])):
+        lp = [p["layers"][l] for p in ps]
+        xs = [attend_decode_paged(p, x, cfg, c["k"][l], c["v"][l],
+                                  c["kv_pos"], tab, c["cur"])
+              for p, x, (c, tab, _m) in zip(lp, xs, rows)]
+        xs = mlp_shards(lp, xs, cfg)
+    logits, shards = [], []
+    for p, x, (c, _tab, mask) in zip(ps, xs, rows):
+        x = rms_norm(x, p["ln_f"], cfg.norm_eps)
+        logits.append(logits_from_hidden(cfg, p, x[:, 0]).to(lead))
+        out = dict(c)
+        out["cur"] = (c["cur"] + 1 if mask is None
+                      else torch.where(mask, c["cur"] + 1, c["cur"]))
+        shards.append(out)
+    return torch.cat(logits), dict(cache, shards=shards)

@@ -17,9 +17,15 @@ batched decode equals serial decode only while no expert overflows (as
 in the reference).  Everything runs as torch ops on the tensors' device;
 C comes from shapes, so dispatch needs no host sync.
 
-The reference's expert-parallel branch (`moe_block_ep`, an explicit
-all-to-all under a mesh) belongs to the sharded plane, which the port
-does not have yet (ROADMAP Queue 1 item 11).
+Under a mesh context (`repro_torch.distributed.annotate.activate(...,
+ep_shard_map=True)`, which the sharded engine spec sets around its
+steps) `moe_block` takes the explicit all-to-all EP path
+(`repro_torch.models.moe_ep.moe_block_ep`, per-source capacity) when
+the context names expert axes, E divides over them and the tokens over
+the mesh's devices, as the reference's dispatch rule does.  Otherwise it
+keeps the single-program semantics above; where the expert weights are
+split over a mesh (`ExpertShards`, a sharded spec's params), each
+expert group computes on its home device and the rows come back.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config.base import MoEConfig
+from repro_torch.distributed import annotate
+from repro_torch.distributed.sharding import ExpertShards, axis_size
 from repro_torch.models.layers import init_linear
 
 
@@ -110,21 +118,16 @@ def _shared(x2d, params):
     return hs @ params["shared_down"]
 
 
-def moe_block(x: torch.Tensor, params: Dict, mc: MoEConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply the MoE FFN.  x (B, S, D) or (T, D).  Returns (out of x's
-    shape, aux loss)."""
-    orig_shape = x.shape
-    x2d = x.reshape(-1, x.shape[-1])
+def _local_dispatch(x2d, top_w, top_e, E: int, C: int):
+    """Sort-based dispatch of one call's (or, on the EP path, one source
+    device's) T tokens: the (token, expert) pairs sorted by expert,
+    token-major within each, each expert keeping its first C.  Returns
+    (buckets (E, C, D), pos_tk (T, k): each pair's capacity slot, C where
+    it was dropped).  The reference's `moe_ep._local_dispatch`, which
+    its `moe_block` inlines."""
     T, D = x2d.shape
-    E, k = mc.num_experts, mc.top_k
+    k = top_e.shape[-1]
     dev = x2d.device
-
-    top_w, top_e, probs = route(x2d, params, mc)
-    laux = aux_loss(probs, top_e, E)
-    C = capacity(T, mc)
-
-    # ---- sort-based dispatch: token-major within each expert ----
     flat_e = top_e.reshape(-1)                                # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -137,19 +140,83 @@ def moe_block(x: torch.Tensor, params: Dict, mc: MoEConfig
     tok_buf = torch.full((E, C + 1), T, dtype=torch.long, device=dev)
     tok_buf[sorted_e, c_idx] = torch.where(keep, tok, T)
     x_pad = torch.cat([x2d, x2d.new_zeros(1, D)])
-    h = x_pad[tok_buf[:, :C]]                                 # (E, C, D)
-
-    # ---- expert SwiGLU on the occupied slots ----
-    g = torch.bmm(h, params["w_gate"])
-    u = torch.bmm(h, params["w_up"])
-    act = torch.nn.functional.silu(g.float()).to(h.dtype) * u
-    y = torch.bmm(act, params["w_down"])                      # (E, C, D)
-
-    # ---- combine: a per-token gather of its k expert outputs ----
     pos_tk = torch.empty(T * k, dtype=torch.long, device=dev)
     pos_tk[order] = c_idx
+    return x_pad[tok_buf[:, :C]], pos_tk.reshape(T, k)
+
+
+def _ep_route(x, mc: MoEConfig):
+    """(mesh, token axes, expert axes) when the active mesh context sends
+    this call down the EP path, else None: the context asks for it and
+    names expert axes, E divides over them, and the T tokens over the
+    mesh's devices (at least one each)."""
+    ctx = annotate.active()
+    if ctx is None or not ctx.get("ep"):
+        return None
+    mesh = ctx["mesh"]
+    ep = annotate.axes_of(ctx, "experts")
+    if isinstance(x, (list, tuple)):
+        T = sum(t.numel() // t.shape[-1] for t in x)
+    else:
+        T = x.numel() // x.shape[-1]
+    G = axis_size(mesh, ep) if ep else 0
+    if (ep and G and mc.num_experts % G == 0 and T % mesh.size == 0
+            and T // mesh.size >= 1):
+        return mesh, annotate.axes_of(ctx, "tokens"), ep
+    return None
+
+
+def _experts(h, params):
+    """The expert SwiGLU over the capacity buckets h (E, C, D): on h's
+    device, or, for weights split over a mesh (`ExpertShards`), each EP
+    rank's experts on their home device, the rows moved there and
+    back."""
+    w = params["w_gate"]
+    if not isinstance(w, ExpertShards):
+        g = torch.bmm(h, params["w_gate"])
+        u = torch.bmm(h, params["w_up"])
+        act = torch.nn.functional.silu(g.float()).to(h.dtype) * u
+        return torch.bmm(act, params["w_down"])
+    out = []
+    for r in range(w.G):
+        wg, wu, wd = (params[n].home(r) for n in ("w_gate", "w_up", "w_down"))
+        hr = h[r * w.E_per:(r + 1) * w.E_per].to(wg.device,
+                                                  non_blocking=True)
+        out.append(_experts(hr, {"w_gate": wg, "w_up": wu, "w_down": wd})
+                   .to(h.device, non_blocking=True))
+    return torch.cat(out)
+
+
+def moe_block(x, params: Dict, mc: MoEConfig):
+    """Apply the MoE FFN.  x (B, S, D) or (T, D); or, on the sharded
+    plane's merged decode step, a list of per-shard tensors (one output
+    per shard, in place).  Returns (out of x's shape, aux loss)."""
+    ep = _ep_route(x, mc)
+    if ep is not None:
+        from repro_torch.models.moe_ep import moe_block_ep
+        return moe_block_ep(x, params, mc, *ep)
+    if isinstance(x, (list, tuple)):
+        # single-program semantics over every shard's tokens at once
+        lead = x[0].device
+        out, laux = moe_block(torch.cat([t.to(lead) for t in x]), params,
+                              mc)
+        sizes = [t.shape[0] for t in x]
+        return [o.to(t.device) for o, t in zip(out.split(sizes), x)], laux
+    orig_shape = x.shape
+    x2d = x.reshape(-1, x.shape[-1])
+    T, D = x2d.shape
+    E = mc.num_experts
+
+    top_w, top_e, probs = route(x2d, params, mc)
+    laux = aux_loss(probs, top_e, E)
+    h, pos_tk = _local_dispatch(x2d, top_w, top_e, E, capacity(T, mc))
+
+    # ---- expert SwiGLU on the occupied slots ----
+    y = _experts(h, params)                                   # (E, C, D)
+
+    # ---- combine: a per-token gather of its k expert outputs ----
     y_pad = torch.cat([y, y.new_zeros(E, 1, D)], dim=1)
-    contrib = y_pad[top_e, pos_tk.reshape(T, k)]              # (T, k, D)
+    contrib = y_pad[top_e, pos_tk]                            # (T, k, D)
     out = (contrib * top_w[..., None].to(y.dtype)).sum(dim=1)
 
     if mc.num_shared:

@@ -3,8 +3,9 @@
 Counterpart of `repro/serving/real_engine.py`: `EngineSpec`,
 `PageHandoff`, `GenState`, `KVHandoffBus`, `_Worker`/`_WorkerOwner`,
 `_PrefillCtx`/`_PagedPrefillCtx` and `RealPrefillEngine` (dense and
-page-native), `_DPDecodeState`/`_DPPagedState`, `RealDecodeEngine`
-(padded and paged) and `RealUnifiedEngine`.  They plug
+page-native), `_DPDecodeState`/`_DPPagedState`, `_ShardedGroup`/
+`_DPShardedState`, `RealDecodeEngine` (padded, paged and sharded) and
+`RealUnifiedEngine`.  They plug
 into `ClusterRuntime` exactly where the simulated instances do — same
 scheduler feedback, same DecodeDPState accounting — but every pass/step
 is a real forward of the port's model on the engine's worker thread.
@@ -59,6 +60,23 @@ occupied DP behind the instance sync barrier; finished requests leave
 their slot (paged: also their table row and pages).  The unified engine
 (paged only) runs chunked prefill inside the same steps (`mixed_step`).
 
+With a `mesh` (`EngineSpec(mesh=, parallel=)`, paged only) the spec is
+SHARDED, as the reference's: its params are placed on the mesh
+(`distributed.sharding.place_params`: expert weights split over the
+expert axes, the rest replicated), its paged steps run under the mesh
+context (`distributed.annotate.activate(..., ep_shard_map=True)`), so
+MoE layers take the explicit all-to-all of `models.moe_ep`, and a
+decode instance merges its DP units' rows into ONE cache held as one
+shard per data rank (`merged_paged_cache`; `_ShardedGroup`).  Each step
+is then one cross-DP step over every DP's rows, with the EP exchange in
+each MoE layer: the paper's DP sync barrier on this plane.  Each DP keeps
+its own admission control (`_DPShardedState`: a `BlockPool` of global
+block ids from its base offset, its own slot range, a private binder)
+and reads the merged cache through its view.  Every sharded step and
+page surgery runs under the spec's `step_lock` (the reference's mesh
+lock); the exchanges each step made (`ep_samples`) are counted beside
+its `step_samples`.  Sharded steps run eagerly (no step graphs).
+
 Differences from the JAX engines:
 
   * no jit and no mesh: with `EngineSpec.step_graphs` (the default)
@@ -101,11 +119,16 @@ Differences from the JAX engines:
     pages.  The runtime thread stages page-native prefill rows (clears
     fresh pages, installs the table row and cursor) only while no pass is
     in flight, and reads no cursor or table back to the host;
-  * the sharded plane is not ported yet (ROADMAP Queue 1 item 11).
+  * the sharded plane is single-controller as in the reference, on
+    an `EngineMesh` of torch devices that may repeat (logical shards
+    on one card or the CPU); it runs without step graphs (ROADMAP
+    Queue 1 item 11-rest), and a join copies a handed-off payload onto
+    the destination shard's device.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -114,17 +137,26 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.config.base import PAGED_SLOTS_FACTOR, ModelConfig
+from repro_torch.config.base import (
+    PAGED_SLOTS_FACTOR, ModelConfig, ParallelConfig,
+)
 from repro_torch.core.types import DispatchCommand, Request, RequestPhase
+from repro_torch.distributed import annotate
+from repro_torch.distributed.sharding import (
+    axis_size, data_axes_of, expert_axes_of, place_params,
+    shard_paged_cache,
+)
 from repro_torch.models.model import (
     _require_pageable_prefill, cache_clear_row, cache_join, cache_row,
     cache_take, decode_step, init_cache, init_paged_cache, mixed_step,
     paged_adopt_blocks,
     paged_cache_clear_slot, paged_cache_join, paged_cache_take,
     paged_clear_rows, paged_copy_block, paged_decode_masked,
-    paged_decode_step, paged_gather_blocks, paged_layout,
-    paged_prefill_step, prefill_chunk, require_supported,
+    paged_decode_step, paged_gather_blocks, paged_install_row,
+    paged_layout, paged_prefill_step, paged_set_table, prefill_chunk,
+    require_supported,
 )
+from repro_torch.models.moe_ep import count_exchanges
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
 from repro_torch.serving.kv_pool import BlockPool, pad_block_table
 from repro_torch.serving.page_share import PagePrefixBinder
@@ -156,7 +188,13 @@ class EngineSpec:
     `step_graphs` (default) runs every decode step and prefill chunk
     (dense or page-native) through each engine's `StepGraphs`: CUDA
     graphs on the card, the same static buffers around direct calls on
-    the CPU.  False runs every step eagerly (the A/B and the tests)."""
+    the CPU.  False runs every step eagerly (the A/B and the tests).
+
+    A `mesh` (an `EngineMesh` of "data" ranks, one per decode DP unit)
+    makes the spec SHARDED (`_init_sharded`): paged only, eager only
+    (`step_graphs=True` raises ValueError), its device the mesh's lead.
+    `parallel` (a `ParallelConfig`) names the expert axes; the default
+    is EP over the whole mesh when the expert count divides it."""
     cfg: ModelConfig
     params: Any
     max_len: int = 256
@@ -169,12 +207,16 @@ class EngineSpec:
     prefill_pool_blocks: int = 0  # page-native prefill pool (0 = auto)
     device: str = "cuda"
     step_graphs: bool = True    # compiled decode steps and prefill chunks
+    mesh: Any = None            # EngineMesh -> sharded engines
+    parallel: Any = None        # ParallelConfig (None = EP over the mesh)
 
     def __post_init__(self):
         require_supported(self.cfg)
         if self.block_size:
             self.nbt, _ = paged_layout(self.cfg, self.max_len,
                                        self.block_size)
+        if self.mesh is not None:
+            self.device = self.mesh.lead
         self.device = torch.device(self.device)
         self.dtype = self.params["embed"].dtype
         if self.params["embed"].device.type != self.device.type:
@@ -186,8 +228,83 @@ class EngineSpec:
             from repro_torch.kernels.build import load_kernels
             load_kernels()
         # held by every engine of the spec while it queues a step, and
-        # while it captures one (step graphs only)
+        # while it captures one (step graphs only); on a sharded spec by
+        # every step and every page surgery (the reference's mesh lock)
         self.step_lock = threading.RLock()
+        self.n_dp = 1
+        self.axis_map = None
+        if self.mesh is not None:
+            self._init_sharded()
+
+    def _init_sharded(self) -> None:
+        """Place the params on the mesh and record the axis map the
+        steps' mesh context carries: tokens over the data axes, experts
+        over the expert axes (EP over the whole mesh when E divides it,
+        as the reference's `launch/dryrun` default)."""
+        if not self.block_size:
+            raise ValueError(
+                "sharded engines are paged-only (set block_size > 0)")
+        if self.step_graphs:
+            raise ValueError(
+                "step graphs of sharded steps are not ported (ROADMAP Queue "
+                "1 item 11-rest): a sharded spec needs step_graphs=False")
+        mesh = self.mesh
+        if mesh.size != mesh.shape.get("data", 0):
+            raise NotImplementedError(
+                f"a sharded spec on {mesh}: only data-axis meshes are "
+                f"ported (tensor parallelism is ROADMAP Queue 1 item "
+                f"11-rest)")
+        if self.parallel is None:
+            par = ParallelConfig()
+            mc = self.cfg.moe
+            E = mc.num_experts if mc is not None else 0
+            for cand in (("data", "model"), ("model",)):
+                if E and E % axis_size(mesh, [a for a in cand
+                                              if a in mesh.shape]) == 0:
+                    par = dataclasses.replace(par, expert_axes=cand)
+                    break
+            self.parallel = par
+        par = self.parallel
+        self.n_dp = mesh.shape["data"]
+        self.axis_map = {"tokens": data_axes_of(mesh, par),
+                         "experts": expert_axes_of(mesh, par)}
+        self.params = place_params(self.cfg, self.params, mesh, par)
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    def device_lock(self):
+        """The step lock on a sharded spec, else a no-op context (the
+        reference's `device_lock`)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return self.step_lock
+
+    def _on_mesh(self):
+        """The mesh context a sharded spec's paged steps run under."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return annotate.activate(self.mesh, self.axis_map, ep_shard_map=True)
+
+    def merged_paged_cache(self) -> Dict:
+        """ONE instance-wide decode cache holding every DP unit's rows
+        (sharded plane), as one shard per data rank on its device: slot s
+        belongs to DP s // paged_slots, physical block b to DP
+        b // paged_pool_blocks, matching the per-DP `BlockPool(base=...)`
+        allocators."""
+        return {"shards": [init_paged_cache(
+                    self.cfg, self.paged_slots, self.paged_pool_blocks,
+                    self.max_len, self.block_size, dtype=self.dtype,
+                    device=dev) for dev in self.mesh.devices],
+                "slots": self.paged_slots, "blocks": self.paged_pool_blocks}
+
+    def shard_cache(self, cache: Dict) -> Dict:
+        """A paged cache of n_dp·paged_slots rows over n_dp·pool blocks in
+        global ids as the merged form (no-op for unsharded specs)."""
+        if self.mesh is None:
+            return cache
+        return shard_paged_cache(cache, self.mesh)
 
     def step_graphs_for(self) -> Optional[StepGraphs]:
         """A new engine's compiled steps (None on the eager path)."""
@@ -195,16 +312,22 @@ class EngineSpec:
             return None
         return StepGraphs(self.params, self.device, self.step_lock)
 
-    # the steps the graphs capture: fn(cache, **static inputs)
+    # the steps the graphs capture: fn(cache, **static inputs); a
+    # sharded spec runs its paged steps under the mesh context
     def decode_fn(self, cache, token):
         step = paged_decode_step if self.paged else decode_step
-        return step(self.cfg, self.params, token, cache)
+        with self._on_mesh():
+            return step(self.cfg, self.params, token, cache)
 
     def masked_decode_fn(self, cache, token, mask):
-        return paged_decode_masked(self.cfg, self.params, token, cache, mask)
+        with self._on_mesh():
+            return paged_decode_masked(self.cfg, self.params, token, cache,
+                                       mask)
 
     def prefill_fn(self, cache, tokens, slot):
-        return paged_prefill_step(self.cfg, self.params, tokens, cache, slot)
+        with self._on_mesh():
+            return paged_prefill_step(self.cfg, self.params, tokens, cache,
+                                      slot)
 
     def prefill_chunk_fn(self, cache, tokens):
         return prefill_chunk(self.cfg, self.params, tokens, cache)
@@ -367,19 +490,6 @@ def _set_row(cache: Dict, row: int, new: Dict) -> None:
     for name, t in new.items():
         if name not in IN_PLACE:
             view[name].copy_(t)
-
-
-def _install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
-                 ) -> Dict:
-    """`cache` with slot `slot`'s block-table row and cursor set (new
-    `block_tab`/`cur` tensors: a cache dict handed out earlier keeps its
-    own)."""
-    out = dict(cache)
-    out["block_tab"] = cache["block_tab"].clone()
-    out["block_tab"][slot] = tab
-    out["cur"] = cache["cur"].clone()
-    out["cur"][slot] = cur
-    return out
 
 
 @dataclasses.dataclass
@@ -686,12 +796,17 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
             # reused pages keep their previous tenant's kv_pos; any stale
             # pos <= the reader's cursor would alias as valid history
             cache = paged_clear_rows(cache, self.spec.table(fresh))
-        self.cache = _install_row(cache, ctx.slot,
-                                  self.spec.table(ctx.table), ctx.claimed)
+        self.cache = paged_install_row(cache, ctx.slot,
+                                       self.spec.table(ctx.table),
+                                       ctx.claimed)
         return True
 
     def start_pass(self, now: float) -> StartResult:
         self._raise_worker_error()
+        with self.spec.device_lock():
+            return self._start_pass(now)
+
+    def _start_pass(self, now: float) -> StartResult:
         if self.page_native and not self.busy:
             # stage before batch-forming, in queue order, so _begin_pass
             # only hands the worker requests with a live cache row
@@ -758,7 +873,8 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         try:
             for taken in batch.values():
                 for req, tok in taken:
-                    self._run_chunk(req, tok)
+                    with self.spec.device_lock():
+                        self._run_chunk(req, tok)
         except BaseException as e:      # surface on the runtime thread
             self._error = e
         post("pass_end", self)
@@ -801,7 +917,12 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
     def finish_pass(self, now: float) -> PassResult:
         self._raise_worker_error()
         res = super().finish_pass(now)
-        for req in res.completed:
+        with self.spec.device_lock():
+            self._publish(res.completed)
+        return res
+
+    def _publish(self, completed: Sequence[Request]) -> None:
+        for req in completed:
             if self.page_native:
                 self._complete_paged(req)
                 continue
@@ -818,7 +939,6 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
                              ctx.first_token)
             self.rows.release(ctx.row)
             req.generated = 1
-        return res
 
     def _complete_paged(self, req: Request) -> None:
         """Page-native completion: gather ONLY the prompt's pages as the
@@ -929,6 +1049,63 @@ class _DPPagedState(_DPDecodeState):
         self.pool.free(self.held.pop(rid))
 
 
+class _ShardedGroup:
+    """Instance-wide device state of the SHARDED decode plane: ONE merged
+    paged cache (slot s ↔ DP s // paged_slots, physical block b ↔ DP
+    b // paged_pool_blocks), one shard per data rank on its device.  A
+    step is a single cross-DP step: the paper's DP sync barrier is the
+    step's own EP exchanges, not the worker's serial per-DP job loop the
+    single-device plane approximates it with."""
+
+    def __init__(self, spec: EngineSpec):
+        n = spec.n_dp
+        self.cache: Dict = spec.merged_paged_cache()
+        self.slots: List[Optional[Request]] = [None] * (n * spec.paged_slots)
+        self.next_tok: List[int] = [0] * (n * spec.paged_slots)
+
+
+class _DPShardedState(_DPPagedState):
+    """One DP unit's VIEW of the merged sharded cache.  Admission control
+    stays strictly per-DP — the `BlockPool` hands out GLOBAL block ids
+    from this DP's base-offset range, `free_slot` scans this DP's global
+    slot range, the optional prefix binder is private — while `cache`
+    reads and writes through to the shared group (as the merged cache
+    with "home": this DP's shard, which the page surgery of
+    `models.model` works on), so the inherited joins, leaves and
+    `finish_step` work unchanged."""
+
+    def __init__(self, spec: EngineSpec, group: _ShardedGroup, k: int,
+                 share_prefix: bool = False):
+        self.group = group
+        self.k = k
+        S = spec.paged_slots
+        self.lo, self.hi = k * S, (k + 1) * S
+        self.slots = group.slots            # SHARED global slot list
+        self.next_tok = group.next_tok      # SHARED global feed tokens
+        self.pool = BlockPool(spec.paged_pool_blocks, spec.block_size,
+                              base=k * spec.paged_pool_blocks)
+        self.held: Dict[int, List[int]] = {}
+        self.binder: Optional[PagePrefixBinder] = (
+            PagePrefixBinder(self.pool) if share_prefix else None)
+
+    @property
+    def cache(self) -> Dict:
+        return dict(self.group.cache, home=self.k)
+
+    @cache.setter
+    def cache(self, value: Dict) -> None:
+        self.group.cache = {n: v for n, v in value.items() if n != "home"}
+
+    def free_slot(self) -> Optional[int]:
+        for i in range(self.lo, self.hi):
+            if self.slots[i] is None:
+                return i
+        return None
+
+    def occupied(self) -> bool:
+        return any(r is not None for r in self.slots[self.lo:self.hi])
+
+
 class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
     """Continuous batched decode: join-on-handoff / leave-on-finish per
     step.  Request/DPState bookkeeping is inherited from the simulated
@@ -948,10 +1125,23 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         if share_prefix and not spec.prefix_sharable:
             raise ValueError(
                 "share_prefix requires a paged attention-only config")
-        self._dp: Dict[int, _DPDecodeState] = {
-            d: (_DPPagedState(spec, share_prefix=share_prefix)
-                if spec.paged else _DPDecodeState(spec))
-            for d in dp_ids}
+        self._group: Optional[_ShardedGroup] = None
+        if spec.sharded:
+            if len(dp_ids) != spec.n_dp:
+                raise ValueError(
+                    f"a sharded decode instance must own exactly the "
+                    f"mesh's data axis: {len(dp_ids)} dp_ids vs "
+                    f"data={spec.n_dp}")
+            self._group = _ShardedGroup(spec)
+            self._dp: Dict[int, _DPDecodeState] = {
+                d: _DPShardedState(spec, self._group, k,
+                                   share_prefix=share_prefix)
+                for k, d in enumerate(dp_ids)}
+        else:
+            self._dp = {
+                d: (_DPPagedState(spec, share_prefix=share_prefix)
+                    if spec.paged else _DPDecodeState(spec))
+                for d in dp_ids}
         self._pending: List[Tuple[int, Request]] = []
         self._deferred: set = set()   # rids whose join failed can_admit
         self._slot_of: Dict[int, Tuple[int, int]] = {}   # rid -> (dp, slot)
@@ -964,6 +1154,10 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         # per-step samples (worker appends, read after the run):
         # (wall seconds, active decode rows, cache rows stepped)
         self.step_samples: List[Tuple[float, int, int]] = []
+        # sharded: (EP exchanges, bytes between EP ranks, their device
+        # seconds on the card, else None) of each step, beside its
+        # step_samples entry
+        self.ep_samples: List[Tuple[int, int, Optional[float]]] = []
         self._step_active = 0
         self._step_rows = 0
         self.graphs = spec.step_graphs_for()
@@ -1045,8 +1239,9 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         if req is None:
             return None
         st = self._dp[dp_id]
-        self.bus.gen(rid).cache = self._take(st, slot)
-        st.leave(rid, slot)
+        with self.spec.device_lock():
+            self.bus.gen(rid).cache = self._take(st, slot)
+            st.leave(rid, slot)
         del self._slot_of[rid]
         self.running[dp_id].remove(req)
         return req
@@ -1175,9 +1370,7 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             new = st.pool.alloc(1)[0]
             old = table[lw]
             cache = paged_copy_block(cfg, st.cache, old, new)
-            cache["block_tab"] = cache["block_tab"].clone()
-            cache["block_tab"][slot, lw] = new
-            st.cache = cache
+            st.cache = paged_set_table(cache, slot, lw, new)
             table[lw] = new
             st.pool.free([old])
             self.cow_copies += 1
@@ -1192,7 +1385,9 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         if self.busy:
             return None
         if self._pending:
-            self._apply_joins(now if now is not None else 0.0, dp_states)
+            with self.spec.device_lock():
+                self._apply_joins(now if now is not None else 0.0,
+                                  dp_states)
         if not super().has_work():
             return None
         self.busy = True
@@ -1205,10 +1400,18 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
                 continue
             self._participants[d] = [
                 (r, self._slot_of[r.rid][1]) for r in self.running[d]]
-            jobs.append((d, st.cache, self._feed_tokens(st)))
+            if self._group is None:
+                jobs.append((d, st.cache, self._feed_tokens(st)))
+        g = self._group
+        if g is not None and self._participants:
+            # the instance sync barrier lives INSIDE the step: one step
+            # over the merged cache advances every DP's rows under the
+            # same exchanges (dp_id -1 marks the merged job)
+            jobs.append((-1, g.cache, self._feed_tokens(g)))
         self._step_active = sum(len(v) for v in self._participants.values())
-        self._step_rows = sum(len(self._dp[d].slots)
-                              for d in self._participants)
+        self._step_rows = (len(g.slots) if g is not None
+                           else sum(len(self._dp[d].slots)
+                                    for d in self._participants))
         epoch = self.epoch
         post = self._post
         self._submit(lambda: self._exec_step(jobs, epoch, post))
@@ -1216,20 +1419,44 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
 
     def _exec_step(self, jobs, epoch: int, post) -> None:
         # worker thread: one batched decode step per occupied DP (the
-        # instance-level sync barrier = all DPs in one serial job)
+        # instance-level sync barrier = all DPs in one serial job), or
+        # one merged cross-DP step on the sharded plane
         t0 = time.monotonic()
-        try:
-            res: Dict[int, Tuple[Dict, List[int]]] = {}
-            for dp_id, cache, toks in jobs:
-                logits, new_cache = self._decode(dp_id, cache, toks)
-                # a host sync: the step's cache writes are done after it
-                res[dp_id] = (new_cache, logits.argmax(dim=-1).tolist())
-            self._result = res
-        except BaseException as e:      # surface on the runtime thread
-            self._error = e
-        dur = time.monotonic() - t0
+        with self._counted() as ep:
+            try:
+                res: Dict[int, Tuple[Dict, List[int]]] = {}
+                for dp_id, cache, toks in jobs:
+                    with self.spec.device_lock():
+                        logits, new_cache = self._decode(dp_id, cache, toks)
+                        # a host sync: the step's cache writes are done
+                        nxt = logits.argmax(dim=-1).tolist()
+                    if dp_id < 0:
+                        # merged job: slots are global, so the same
+                        # (cache, next tokens) pair fans back to every
+                        # participating DP
+                        for d in self._participants:
+                            res[d] = (new_cache, nxt)
+                    else:
+                        res[dp_id] = (new_cache, nxt)
+                self._result = res
+            except BaseException as e:      # surface on the runtime thread
+                self._error = e
+        self._sample(time.monotonic() - t0, ep)
+        post("step_end", (self, epoch, self.step_samples[-1][0]))
+
+    def _counted(self):
+        """Counts the EP exchanges of a sharded step, and on the card
+        times them (a no-op context otherwise)."""
+        if self._group is None:
+            return contextlib.nullcontext()
+        return count_exchanges(timed=self.spec.device.type == "cuda")
+
+    def _sample(self, dur: float, ep) -> None:
         self.step_samples.append((dur, self._step_active, self._step_rows))
-        post("step_end", (self, epoch, dur))
+        if ep is not None:
+            self.ep_samples.append((ep.exchanges, ep.bytes,
+                                    ep.seconds() if self._error is None
+                                    else None))
 
     def finish_step(self, now: float, dp_states) -> List[Request]:
         self._raise_worker_error()
@@ -1244,9 +1471,10 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
                 self.bus.gen(req.rid).tokens.append(tok)
                 st.next_tok[slot] = tok
         finished = super().finish_step(now, dp_states)
-        for req in finished:
-            dp_id, slot = self._slot_of.pop(req.rid)
-            self._dp[dp_id].leave(req.rid, slot)     # leave-on-finish
+        with self.spec.device_lock():
+            for req in finished:
+                dp_id, slot = self._slot_of.pop(req.rid)
+                self._dp[dp_id].leave(req.rid, slot)     # leave-on-finish
         if self._join_finished:
             # requests satisfied at join time (never occupied a slot):
             # report them with this step's completions
@@ -1273,10 +1501,11 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         # migrate resident KV back to the bus (the pre-step snapshot: the
         # settled step's result is dropped) so re-dispatch can re-join
         # the requests, with their generation state, on a healthy instance
-        for rid, (dp_id, slot) in list(self._slot_of.items()):
-            st = self._dp[dp_id]
-            self.bus.gen(rid).cache = self._take(st, slot)
-            st.leave(rid, slot)
+        with self.spec.device_lock():
+            for rid, (dp_id, slot) in list(self._slot_of.items()):
+                st = self._dp[dp_id]
+                self.bus.gen(rid).cache = self._take(st, slot)
+                st.leave(rid, slot)
         self._slot_of.clear()
         for dp_id, req in self._pending:
             out.setdefault(dp_id, []).append(req)
@@ -1394,8 +1623,8 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             tab = self.spec.table(ids)
             # reused pages keep their previous tenant's kv_pos; stale
             # pos <= the reader's cursor would alias as valid history
-            st.cache = _install_row(paged_clear_rows(st.cache, tab), slot,
-                                    tab, 0)
+            st.cache = paged_install_row(paged_clear_rows(st.cache, tab),
+                                         slot, tab, 0)
             st.slots[slot] = req
             self._slot_of[req.rid] = (dp_id, slot)
             self._consumed[req.rid] = 0
@@ -1447,7 +1676,9 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
         if self.busy:
             return None
         if self._pending:
-            self._apply_joins(now if now is not None else 0.0, dp_states)
+            with self.spec.device_lock():
+                self._apply_joins(now if now is not None else 0.0,
+                                  dp_states)
         if not (SimDecodeInstance.has_work(self)
                 or any(self.prefilling[d] for d in self.dp_ids)):
             return None
@@ -1492,23 +1723,52 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             jobs.append((d, st.cache, toks, tuple(chunks), mask))
         if not jobs:
             return None
+        if self._group is not None:
+            jobs = self._merge_sharded_jobs(jobs)
         self.busy = True
         self.steps += 1
         self._step_active = sum(len(v) for v in self._participants.values())
-        self._step_rows = sum(len(self._dp[d].slots)
-                              for d, _c, toks, _ch, _m in jobs
-                              if toks is not None)
+        self._step_rows = (
+            len(self._group.slots) if self._group is not None
+            else sum(len(self._dp[d].slots)
+                     for d, _c, toks, _ch, _m in jobs if toks is not None))
         epoch = self.epoch
         post = self._post
         self._submit(lambda: self._exec_mixed(jobs, epoch, post))
         return ASYNC
 
+    def _merge_sharded_jobs(self, jobs):
+        """Collapse the per-DP mixed jobs into ONE cross-DP step over the
+        merged cache: global decode-token rows, every DP's chunk grant in
+        one tuple (slot ids are already global; grant order matches
+        `self._grants` iteration order, which the fan-back in
+        `_exec_mixed` relies on), one decode mask over the merged slot
+        axis.  The mask is unconditional whenever anything decodes: all
+        DPs share the one cache, so another DP's prefilling (or
+        disjoint-stalled) resident rows must never see a decode write."""
+        g = self._group
+        chunks = tuple(c for _d, _c, _t, cs, _m in jobs for c in cs)
+        if not self._participants:
+            return [(-1, g.cache, None, chunks, None)]
+        m = [False] * len(g.slots)
+        for lst in self._participants.values():
+            for _r, s in lst:
+                m[s] = True
+        return [(-1, g.cache, self._feed_tokens(g), chunks,
+                 torch.tensor(m, dtype=torch.bool, device=self.spec.device))]
+
     def _exec_mixed(self, jobs, epoch: int, post) -> None:
         # worker thread: one fused mixed step per DP with decode rows
         # (masked when prefilling residents share the cache), a plain
         # paged decode when nothing is prefilling, a serial chunk loop
-        # when nothing is decoding
+        # when nothing is decoding; one merged job on the sharded plane
         t0 = time.monotonic()
+        with self._counted() as ep:
+            self._run_mixed(jobs)
+        self._sample(time.monotonic() - t0, ep)
+        post("step_end", (self, epoch, self.step_samples[-1][0]))
+
+    def _run_mixed(self, jobs) -> None:
         cfg, params = self.spec.cfg, self.spec.params
         try:
             res: Dict[int, Tuple[Dict, List[int]]] = {}
@@ -1522,38 +1782,50 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
                 def prefill(ctoks, c, slot, _d=dp_id):
                     return self.spec.paged_prefill(self.graphs, ctoks, c,
                                                    slot, _d)
-                if toks is None:
-                    new_cache = cache
-                    clogits = []
-                    for ctoks, slot in chunks:
-                        lg, new_cache = prefill(ctoks, new_cache, slot)
-                        clogits.append(lg)
-                elif mask is not None or self.graphs is not None:
-                    # with step graphs a plain decode step is the masked
-                    # one with every row masked in (one graph per DP)
-                    if mask is None:
-                        mask = self._all_rows(self._dp[dp_id])
-                    logits, clogits, new_cache = mixed_step(
-                        cfg, params, toks, cache, chunks, mask, decode,
-                        prefill)
-                    if chunks:
-                        self.mixed_steps += 1
-                    nxt = logits.argmax(dim=-1).tolist()
-                else:
-                    logits, new_cache = paged_decode_step(cfg, params, toks,
-                                                          cache)
-                    clogits = ()
-                    nxt = logits.argmax(dim=-1).tolist()
+                with self.spec.device_lock():
+                    if toks is None:
+                        new_cache = cache
+                        clogits = []
+                        for ctoks, slot in chunks:
+                            lg, new_cache = prefill(ctoks, new_cache, slot)
+                            clogits.append(lg)
+                    elif mask is not None or self.graphs is not None:
+                        # with step graphs a plain decode step is the
+                        # masked one with every row masked in (one graph
+                        # per DP)
+                        if mask is None:
+                            mask = self._all_rows(self._dp[dp_id])
+                        logits, clogits, new_cache = mixed_step(
+                            cfg, params, toks, cache, chunks, mask, decode,
+                            prefill)
+                        if chunks:
+                            self.mixed_steps += 1
+                        nxt = logits.argmax(dim=-1).tolist()
+                    else:
+                        logits, new_cache = paged_decode_step(
+                            cfg, params, toks, cache)
+                        clogits = ()
+                        nxt = logits.argmax(dim=-1).tolist()
+                    # (first token, the logits it was sampled from)
+                    firsts = [(int(lg[0].argmax()), lg[0]) for lg in clogits]
+                if dp_id < 0:
+                    # merged cross-DP job: one cache and next-token list
+                    # fan back to every decoding DP (slots are global);
+                    # the chunk firsts split by per-DP grant counts in
+                    # the order _merge_sharded_jobs flattened them
+                    i = 0
+                    for d, lst in self._grants.items():
+                        cres[d] = firsts[i:i + len(lst)]
+                        i += len(lst)
+                    for d in self._participants or self.dp_ids[:1]:
+                        res[d] = (new_cache, nxt)
+                    continue
                 res[dp_id] = (new_cache, nxt)
-                # (first token, the logits it was sampled from)
-                cres[dp_id] = [(int(lg[0].argmax()), lg[0]) for lg in clogits]
+                cres[dp_id] = firsts
             self._result = res
             self._chunk_result = cres
         except BaseException as e:      # surface on the runtime thread
             self._error = e
-        dur = time.monotonic() - t0
-        self.step_samples.append((dur, self._step_active, self._step_rows))
-        post("step_end", (self, epoch, dur))
 
     def finish_step(self, now: float, dp_states) -> List[Request]:
         cres = self._chunk_result or {}
@@ -1600,7 +1872,8 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
                                   reserve_len=req.input_len + req.output_len)
                     self._last_emit.pop(req.rid, None)
                     self._slot_of.pop(req.rid)
-                    st.leave(req.rid, slot)
+                    with self.spec.device_lock():
+                        st.leave(req.rid, slot)
                     finished.append(req)
                 else:
                     st.next_tok[slot] = first
@@ -1624,7 +1897,8 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             st = self._dp[d]
             for req in pre[d]:
                 _dp, slot = self._slot_of.pop(req.rid)
-                st.leave(req.rid, slot)
+                with self.spec.device_lock():
+                    st.leave(req.rid, slot)
                 del self._consumed[req.rid]
                 req.remaining_prefill = req.input_len
             self._starve[d] = 0

@@ -28,6 +28,15 @@ and cache-aware placement; it needs a paged deployment of an
 attention-only model (ValueError otherwise).  `prefix_stats()` reads the
 engines' reuse counters.
 
+`mesh` (an `EngineMesh`, `repro_torch.launch.mesh.make_engine_mesh`)
+makes the deployment SHARDED, as in the JAX server (paged only): each
+decode instance merges its DP units' rows into one cache held as one
+shard per data rank of the mesh, every step is one cross-DP step with
+the EP all-to-all in each MoE layer, and the mesh's data size must equal
+`decode_dp_per_instance` (ValueError otherwise).  Its spec is built
+without step graphs (ROADMAP Queue 1 item 11-rest), and its device is
+the mesh's lead device.
+
 Build fresh Request objects per serve() call: progress fields are
 mutated in place by a run.
 """
@@ -73,7 +82,7 @@ class RealSBSServer:
     server — 'sbs-la' keeps SBS prefill dispatch and switches the decode
     pool to Load-Aware Global Allocation; 'immediate' is the baseline on
     both phases.  `device` places the caches (the params must already
-    live there)."""
+    live there); with a `mesh`, the mesh's lead device does."""
 
     def __init__(self, cfg: ModelConfig, params,
                  serving_cfg: Optional[ServingConfig] = None,
@@ -82,7 +91,7 @@ class RealSBSServer:
                  watchdog_multiplier: float = 0.0,
                  spec: Optional[EngineSpec] = None,
                  prefix_cache: bool = False,
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
         scfg = serving_cfg or _default_serving_config()
         if scheduler not in ("sbs", "sbs-la", "immediate"):
             raise ValueError(scheduler)
@@ -104,14 +113,15 @@ class RealSBSServer:
             self.state, scfg, scheduler,
             watchdog_multiplier=watchdog_multiplier,
             cache_aware=True if prefix_cache else None)
-        # a spec may be shared across server instances over one model
+        # a spec may be shared across server instances over one model;
+        # `mesh` turns the deployment SHARDED (see the module docstring)
         self.spec = spec or EngineSpec(
             cfg, params, max_len=max_len,
             max_batch=scfg.max_batch_per_dp, max_new=max_new,
             block_size=scfg.block_size,
             decode_slots=(scfg.resolved_decode_slots
                           if scfg.block_size else 0),
-            device=device)
+            device=device, mesh=mesh, step_graphs=mesh is None)
         # prefix_cache turns on block-granular prefix reuse end to end:
         # page-native prefill engines with shared refcounted pages (a
         # cached prefix's chunks are never computed), PageHandoff

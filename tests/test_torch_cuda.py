@@ -1365,3 +1365,100 @@ def test_dense_prefill_engine_captures_its_chunk_at_build(dev):
         key = ("prefill", 0, 32) if native else ("prefill-dense", 32)
         assert list(eng.graphs._entries) == [key]
         assert eng.graphs.captured == 1
+
+
+# ---------------------------------------------------------------------------
+# The sharded DP+EP plane on the card
+# ---------------------------------------------------------------------------
+
+def _granite_moe(dev, dtype, D=1024, E=32, k=8, F=512, cf=1.25):
+    """An MoE layer of full-width granite-moe-1b-a400m's shape on `dev`."""
+    from repro_torch.config.base import MoEConfig
+    from repro_torch.models.moe import init_moe_params
+    mc = MoEConfig(num_experts=E, top_k=k, d_expert=F, capacity_factor=cf)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    return mc, init_moe_params(g, D, mc, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_ep_on_logical_card_mesh(dev, dtype):
+    """The EP layer on four logical shards of one card (cuda:0 × 4) at
+    granite's width against its plain version on the same inputs in the
+    same dtype, with the binding capacity of the config: every exchange
+    counted, and timed on the card."""
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models.moe_ep import (
+        count_exchanges, moe_block_ep, moe_block_ep_reference,
+    )
+    mc, p = _granite_moe(dev, dtype)
+    mesh = make_engine_mesh(4, devices=[dev] * 4)
+    x = (torch.randn(256, 1024, generator=torch.Generator().manual_seed(1))
+         * 0.5).to(dev, dtype)
+    with count_exchanges(timed=True) as st:
+        out, _ = moe_block_ep(x, p, mc, mesh, ("data",), ("data", "model"))
+    ref, _ = moe_block_ep_reference(x, p, mc, 4)
+    assert st.exchanges == 2 and st.bytes > 0 and st.seconds() > 0
+    _assert_close(out, ref.float(), dtype)
+
+
+def test_sharded_decode_step_on_card_matches_unsharded(dev):
+    """A merged decode step of reduced granite-moe on four logical shards
+    of the card (kernel #1 on each shard, the EP exchange per MoE layer)
+    against the unsharded step on the same cache, at the reduced
+    config's non-binding capacity factor."""
+    from repro_torch.distributed.sharding import unshard_paged_cache
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models.model import (
+        init_paged_cache, paged_decode_masked,
+    )
+    from repro_torch.models.moe_ep import count_exchanges
+    from repro_torch.serving.real_engine import EngineSpec
+    cfg = get_arch("granite-moe-1b-a400m", reduced=True)
+    params = init_params(cfg, seed=0, device=dev)
+    spec = EngineSpec(cfg, params, max_len=64, max_batch=2, block_size=8,
+                      mesh=make_engine_mesh(4, devices=[dev] * 4),
+                      step_graphs=False)
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    glob = init_paged_cache(cfg, 4 * S, 4 * B, 64, 8, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    glob["k"].normal_(generator=g)
+    glob["v"].normal_(generator=g)
+    for s in range(4 * S):
+        blk = (s // S) * B + 1 + (s % S)
+        glob["block_tab"][s, 0] = blk
+        glob["kv_pos"][blk, :5] = torch.arange(5, device=dev)
+        glob["cur"][s] = 5
+    merged = spec.shard_cache({n: t.clone() for n, t in glob.items()})
+    tok = torch.randint(0, cfg.vocab_size, (4 * S, 1), device=dev)
+    mask = torch.ones(4 * S, dtype=torch.bool, device=dev)
+    n0 = paged_decode_attention.launches
+    with count_exchanges() as st:
+        lg_s, out_s = spec.masked_decode_fn(merged, tok, mask)
+    assert paged_decode_attention.launches - n0 == 4 * cfg.num_layers
+    assert st.exchanges == 2 * cfg.num_layers
+    lg_1, out_1 = paged_decode_masked(cfg, params, tok, glob, mask)
+    assert float((lg_s - lg_1).abs().max()) <= 1e-4
+    back = unshard_paged_cache(out_s, dev)
+    assert torch.equal(back["cur"], out_1["cur"])
+
+
+def test_ep_all_to_all_over_distinct_cards():
+    """The exchange as peer copies between four cards (skipped with
+    fewer): slice g of every source lands on card g."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 NVIDIA GPUs")
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models.moe_ep import count_exchanges, ep_all_to_all
+    mesh = make_engine_mesh(4)
+    blocks = [(torch.arange(4 * 1000, dtype=torch.float32).reshape(4, 1000)
+               + 10000 * s).to(f"cuda:{s}") for s in range(4)]
+    with count_exchanges(timed=True) as st:
+        out = ep_all_to_all(blocks, mesh)
+    for g in range(4):
+        assert out[g].device == torch.device(f"cuda:{g}")
+        for s in range(4):
+            assert torch.equal(out[g][s].cpu(), blocks[s][g].cpu())
+    assert st.exchanges == 1 and st.bytes == 12 * 1000 * 4
+    assert st.seconds() > 0

@@ -55,7 +55,10 @@ def _close(j, t, tol=TOL):
 def test_import_guard_server_pulls_no_jax():
     twin = os.path.join(REPO, "examples", "serve_e2e_torch.py")
     code = ("import importlib.util, sys, repro_torch.serving.server\n"
-            "import repro_torch.bridge\n"
+            "import repro_torch.bridge, repro_torch.launch.mesh\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.distributed.annotate\n"
+            "import repro_torch.models.moe_ep\n"
             f"s = importlib.util.spec_from_file_location('twin', {twin!r})\n"
             "s.loader.exec_module(importlib.util.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"

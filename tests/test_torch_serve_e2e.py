@@ -10,13 +10,17 @@ against the reference `examples/serve_e2e.py`, on the CPU:
   (b) token parity: one reduced paged sweep (sbs-la) through both
       `run_sweep`s on the same JAX-made weights gives identical tokens;
   (c) every mode of the twin finishes every request at `--reduced
-      --device cpu`, and writes exactly the reference's section keys (as
-      in BENCH_e2e.json) plus `device` and, in each overload leg, the
+      --device cpu` (the sharded A/B on four logical CPU shards,
+      `--mesh-devices cpux4`), and writes exactly the reference's section
+      keys (as in BENCH_e2e.json) plus `device`, in each overload leg the
       interactive requests' TTFT (`ttft_interactive`, the quantity the
-      overload gate fails on at published width); no timing gate is
+      overload gate fails on at published width), and in the sharded
+      section the mesh's devices and each leg's step p50 and EP
+      exchanges, bytes and device time per step; no timing gate is
       asserted;
-  (d) `--sharded-bench` raises NotImplementedError naming ROADMAP item
-      11, and the card default raises where there is no card;
+  (d) `--sharded-bench` raises where its default mesh (the first four
+      cards) does not exist, and the card default raises where there is
+      no card;
   (e) chip_smoke.py's twin phases (checked serves, structural checks)
       rehearsed on two A/Bs at the reduced size.
 """
@@ -178,7 +182,7 @@ def test_twin_traces_equal_reference(ref, twin, monkeypatch, flags):
         twin, argv + ["--reduced", "--device", "cpu"], monkeypatch,
         lambda cfg, **kw: {"embed": torch.zeros(1)})
     assert {k: v for k, v in twin_args.items()
-            if k not in ("device", "reduced")} == ref_args
+            if k not in ("device", "reduced", "mesh_devices")} == ref_args
     assert [e[0] for e in got] == [e[0] for e in want]
     assert got == want
     assert sum(e[0] == "serve" for e in want) >= 2
@@ -237,7 +241,12 @@ MODES = {
                           "--prefix-bench"],
     "real_plane_overload": FLAG_SETS["overload"],
     "real_plane_mixed": FLAG_SETS["mixed"],
+    "real_plane_sharded": ["--arch", "granite-moe-1b-a400m", "--timeout",
+                           "150", "--sharded-bench", "--mesh-devices",
+                           "cpux4"],
 }
+SHARDED_LEG_EXTRA = ["ep_bytes_per_step", "ep_exchanges_per_step",
+                     "ep_ms_per_step", "step_p50_ms"]
 
 
 def _keys(section):
@@ -273,6 +282,14 @@ def test_twin_mode_finishes_on_cpu(twin, monkeypatch, tmp_path, key):
         for leg in ("drain_only", "preempt"):
             want[leg] = sorted(want[leg] + ["ttft_interactive"])
             assert len(got[leg]["ttft_interactive"]) == 2
+    if key == "real_plane_sharded":
+        want["mesh_devices"] = None
+        assert got["mesh_devices"] == ["cpu"] * 4
+        assert got["ep_all_to_all_active"]
+        for leg in ("immediate", "sbs-la"):
+            want[leg] = sorted(want[leg] + SHARDED_LEG_EXTRA)
+            assert got[leg]["ep_exchanges_per_step"] > 0
+            assert got[leg]["ep_ms_per_step"] is None    # timed on CUDA
     assert _keys(got) == want
 
 
@@ -280,8 +297,9 @@ def test_twin_mode_finishes_on_cpu(twin, monkeypatch, tmp_path, key):
 # (d) what the twin refuses
 # ---------------------------------------------------------------------------
 
-def test_twin_sharded_bench_raises(twin):
-    with pytest.raises(NotImplementedError, match="item 11"):
+def test_twin_sharded_bench_raises(twin, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
         twin.main(["--sharded-bench", "--reduced", "--device", "cpu"])
 
 
@@ -298,12 +316,13 @@ def test_twin_needs_a_card_by_default(twin, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("phase", ["sweep_paged_vs_padded", "overload",
-                                   "mixed"])
+                                   "mixed", "sharded"])
 def test_chip_smoke_twin_phase_on_cpu(twin, phase, tmp_path):
     """The smoke's checked serves (every request finished, the pools
     drained, first-token logits against the plain forward, an MoE
     model's with the served expert sets) and its structural checks on
-    one A/B, through the twin's CLI on the CPU.  The paged-vs-padded
+    one A/B, through the twin's CLI on the CPU (the sharded A/B on four
+    logical CPU shards).  The paged-vs-padded
     residency depends on how the prefills and decodes interleave: it
     reads 4 against 2 when, on both DP units at once, a second request
     joins while the first still decodes (every run on the CPU and the
@@ -325,7 +344,8 @@ def test_chip_smoke_twin_phase_on_cpu(twin, phase, tmp_path):
     assert rep["serves"] and all(
         e["logits_rel_err"] <= chip_smoke.LOGITS_REL_TOL
         and e["computed_prompts"] == e["requests"] for e in rep["serves"])
-    assert all(e["expert_sets_replayed"] == (phase == "sweep_paged_vs_padded")
+    assert all(e["expert_sets_replayed"]
+               == (phase in ("sweep_paged_vs_padded", "sharded"))
                for e in rep["serves"])
     assert set(rep["launches"].values()) == {0}     # plain versions on CPU
     assert rep["section"]["device"] == "cpu"
