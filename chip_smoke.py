@@ -137,15 +137,22 @@ Phases (any failure exits non-zero and prints no result):
      from seed 0) behind `RealSBSServer(mesh=...)`, P/D (2 prefill ×
      1 DP with 256-token dense chunks, 1 decode instance × 4 DP merged
      into one cache of 16-token pages, requests 50 ms apart) and
-     unified (4 DP merged, the burst dispatched whole), sbs-la, eager
-     (sharded steps have no graphs), 8 requests of the serves' traffic
-     each: every request finishes, the merged caches drain, every step
-     that decoded covered the merged slots and made EP exchanges,
-     kernels #1 and #2 (contiguous on P/D, paged on unified) launch and
-     no other, and first-token logits agree with a plain forward over
-     the served chunks and the served expert sets; TTFT, ITL, step
-     times and the EP exchanges, bytes and device time per decode step
-     on lines of their own;
+     unified (4 DP merged, the burst dispatched whole), sbs-la, with
+     step graphs (one graph a merged decode step, a page-native chunk
+     by shard, a dense chunk), 8 requests of the serves' traffic each:
+     every request finishes, the merged caches drain, every step that
+     decoded covered the merged slots and made EP exchanges, every step
+     of the measured run replayed a graph, kernels #1 and #2
+     (contiguous on P/D, paged on unified) launch and no other, counted
+     through the replays, and first-token logits agree with a plain
+     forward over the served chunks and the served expert sets; TTFT,
+     ITL, step times, captures, replays and capture seconds, the EP
+     exchanges and bytes per decode step and their device time from an
+     eager probe step, on lines of their own; (c) the sharded P/D
+     serve's graphs-vs-eager A/B on an `immediate` burst with the
+     decode joins placed together, at SHARDED_BITS_LAYERS of the 24
+     layers (width and traffic as above): chunks, tokens and
+     first-token logits identical, bit for bit;
   7. the serving benchmark twin (`examples/serve_e2e_torch.py`, loaded
      by path): its six A/Bs through its CLI entry point at the flags of
      `scripts/ci.sh --real-smoke` (paged vs padded on granite-moe; the
@@ -241,6 +248,10 @@ MOE_CHECK_DTYPE = "bfloat16"
 # h2o-danube-3-4b has 24 layers, minicpm3-4b 62
 SWA_LAYERS = 8
 MLA_LAYERS = 16
+# depth of the sharded P/D serve's graphs-vs-eager bit A/B (both legs;
+# granite-moe-1b-a400m has 24 layers): its eager leg is host-bound, and
+# the measured sharded serves stay at full depth
+SHARDED_BITS_LAYERS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -3007,50 +3018,114 @@ def replay_sharded_routes(spec, prompt, chunks):
     return out
 
 
+def hold_handoffs_whole(srv, n):
+    """Place the P/D burst's decode joins all at once, in rid order: the
+    decode scheduler (`immediate`) holds each KV handoff of a run until
+    all `n` have arrived and then places them one by one as it would
+    have.  The merged cache's rows share each MoE layer's expert
+    capacity, so a row's tokens depend on which rows decode beside it;
+    held this way, every run steps the same rows, whatever a step
+    costs."""
+    sched = srv.dsched
+    inner = sched.on_handoff
+    held = []
+
+    def on_handoff(req, now):
+        held.append(req)
+        if len(held) < n:
+            return None
+        out = {}
+        for r in sorted(held, key=lambda r: r.rid):
+            for d, reqs in (inner(r, now) or {}).items():
+                out.setdefault(d, []).extend(reqs)
+        held.clear()
+        return out
+    sched.on_handoff = on_handoff
+
+
+def probe_exchange_ms(spec, device):
+    """Device time of the EP exchanges of one EAGER merged decode step
+    (CUDA events around each exchange; a replayed graph records none):
+    the second of two eager steps on a fresh merged cache.  Returns
+    (ms, exchanges); ms None on the CPU.  Launch counts are restored:
+    these calls are not the serve's."""
+    import torch
+    from repro_torch.models.moe_ep import count_exchanges
+    from repro_torch.serving.step_graphs import _wrappers
+    wrappers = _wrappers()
+    launches = [w.launches for w in wrappers]
+    cache = spec.merged_paged_cache()
+    toks = [torch.zeros((spec.paged_slots, 1), dtype=torch.int32, device=d)
+            for d in spec.mesh.devices]
+    try:
+        for _ in range(2):
+            with count_exchanges(timed=device != "cpu") as ep:
+                _lg, cache = spec.decode_fn(cache, toks)
+            secs = ep.seconds()
+    finally:
+        for w, n in zip(wrappers, launches):
+            w.launches = n
+    return (None if secs is None else secs * 1e3), ep.exchanges
+
+
 def serve_sharded(cfg, params, device, counters, mixed,
-                  n_requests=N_REQUESTS, lens=(128, 1024), outs=(16, 32)):
+                  n_requests=N_REQUESTS, lens=(128, 1024), outs=(16, 32),
+                  step_graphs=True, scheduler="sbs-la", burst=None,
+                  tag=None, keep=None):
     """Phase 6g (b): `cfg` behind `RealSBSServer(mesh=...)` on four
     logical shards of the card (sbs-la; the unified plane with the burst
-    dispatched whole, or P/D with requests 50 ms apart), eager (sharded
-    steps have no graphs).  The measured server first serves the same
-    requests once.  Checks: every request finishes and the merged caches
-    drain; every step that decoded rows covered the merged slot axis and
-    made EP exchanges; #1 and #2 (the paged entry on the unified plane,
-    the contiguous one for P/D's dense prefill) launch and nothing else;
-    each first-token logits row agrees with a plain forward over the
-    served chunks and the served expert sets (P/D: `replay_routes`; the
-    unified plane: `replay_sharded_routes`, with each chunk's MoE under
-    the per-source capacity the EP path gives it).  Returns the serve
-    report."""
+    dispatched whole, or P/D with requests 50 ms apart, or with `burst`
+    at t = 0 and the decode joins held until all are handed off), with
+    step graphs (every merged decode step, dense or page-native chunk
+    replays one) or eagerly.  The measured server first serves the same
+    requests once.  Checks: every request finishes and the merged
+    caches drain; every step that decoded rows covered the merged slot
+    axis and made EP exchanges; with graphs on the card, every step of
+    the measured run replayed (the merged engine's replays equal its
+    decode steps plus, unified, its chunks; every dense chunk replayed);
+    #1 and #2 (the paged entry on the unified plane, the contiguous one
+    for P/D's dense prefill) launch and nothing else; each first-token
+    logits row agrees with a plain forward over the served chunks and
+    the served expert sets (P/D: `replay_routes`; the unified plane:
+    `replay_sharded_routes`, with each chunk's MoE under the per-source
+    capacity the EP path gives it).  The exchanges' device time comes
+    from `probe_exchange_ms` (an eager step).  `keep`, a dict, receives
+    the first-token logits by rid.  Returns the serve report."""
     import torch
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
-    tag = f"[sharded {'unified' if mixed else 'pd'} serve]"
+    burst = mixed if burst is None else burst
+    tag = tag or f"[sharded {'unified' if mixed else 'pd'} serve]"
     mesh = shard_mesh(device)
     scfg = sharded_scfg(mixed)
     spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
                       max_new=outs[1], block_size=BLOCK,
                       decode_slots=scfg.resolved_decode_slots, mesh=mesh,
-                      step_graphs=False)
+                      step_graphs=step_graphs)
 
     def requests():
         return make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs,
-                             burst=mixed)
+                             burst=burst)
     t0 = time.monotonic()
-    srv = RealSBSServer(cfg, params, scfg, scheduler="sbs-la", spec=spec,
+    srv = RealSBSServer(cfg, params, scfg, scheduler=scheduler, spec=spec,
                         mesh=mesh)
     build_s = time.monotonic() - t0
     if mixed:
         dispatch_bursts_whole(srv, n_requests)
+    elif burst:
+        hold_handoffs_whole(srv, n_requests)
     srv.serve(requests(), timeout=600)
     eng = srv.decode_engines[0]
     mark = (eng.steps, len(eng.itl), len(eng.step_samples),
-            prefilled_tokens(srv))
+            prefilled_tokens(srv),
+            eng.graphs.replays if eng.graphs is not None else 0)
+    g0 = graph_stats(srv)
     if mixed:
         first_logits, chunks = record_first_logits(eng)
+        counts = None
         undo = lambda: eng.__dict__.pop("finish_step")      # noqa: E731
     else:
-        first_logits, chunks, _counts, undo = record_prefill_logits(srv)
+        first_logits, chunks, counts, undo = record_prefill_logits(srv)
     reqs = requests()
     for w in counters:
         w.launches = 0
@@ -3061,6 +3136,7 @@ def serve_sharded(cfg, params, device, counters, mixed,
         undo()
     wall = time.monotonic() - t0
     launches = {w.__name__: w.launches for w in counters}
+    graphs = graphs_report(srv, g0)
     samples = eng.step_samples[mark[2]:]
     ep = eng.ep_samples[mark[2]:]
     rows = len(eng._group.slots)
@@ -3071,6 +3147,19 @@ def serve_sharded(cfg, params, device, counters, mixed,
         if active and ex <= 0:
             raise AssertionError(f"{tag}: a merged decode step made no EP "
                                  f"exchange")
+    decode = [(d, x) for (d, a, _r), x in zip(samples, ep) if a]
+    n_chunks = sum(len(v) for v in chunks.values()) if mixed else 0
+    replays = (eng.graphs.replays - mark[4]) if eng.graphs is not None \
+        else None
+    if counts is not None:
+        check_replayed(tag, spec, counts, device)
+    print(f"{tag} merged engine: {replays} replays for {len(decode)} "
+          f"decode steps and {n_chunks} chunks; graphs {graphs!r}",
+          flush=True)
+    if (device != "cpu" and step_graphs
+            and replays != len(decode) + n_chunks):
+        raise AssertionError(f"{tag}: {len(decode) + n_chunks - replays} "
+                             f"steps of the measured run ran eagerly")
     launched = ({"paged_decode_attention", "paged_prefill_attention"}
                 if mixed else {"paged_decode_attention", "flash_prefill"})
     for name, n in launches.items():
@@ -3099,23 +3188,28 @@ def serve_sharded(cfg, params, device, counters, mixed,
         print(f"{tag} the plain forward replayed the served expert sets: "
               f"{flips['flips']} of {flips['pairs']} (token, layer) pairs "
               f"differ from its own router's choice", flush=True)
+    if keep is not None:
+        keep.update(first_logits)
+    ep_ms, ep_probe_ex = probe_exchange_ms(spec, device)
     ttft = [g.ttft for g in gens]
     itl = eng.itl[mark[1]:]
-    decode = [(d, x) for (d, a, _r), x in zip(samples, ep) if a]
-    ep_ms = [x[2] * 1e3 for _d, x in decode if x[2] is not None]
     n = max(len(decode), 1)
     return {
         "plane": ("unified mixed-batch, sharded" if mixed
                   else "P/D, sharded paged decode"),
         "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
-        "mesh": [str(d) for d in mesh.devices], "mode": "eager",
-        "scheduler": "sbs-la",
-        "traffic": (f"{n_requests} requests at t = 0" if mixed
+        "mesh": [str(d) for d in mesh.devices],
+        "mode": "step graphs" if step_graphs else "eager",
+        "scheduler": scheduler,
+        "traffic": (f"{n_requests} requests at t = 0" if burst
                     else f"{n_requests} requests 50 ms apart"),
         "requests": len(reqs), "prompt_tokens": [r.input_len for r in reqs],
         "new_tokens": [len(g.tokens) for g in gens], "wall_s": wall,
-        "server_build_s": build_s,
+        "tokens": {g.rid: g.tokens for g in gens},
+        "server_build_s": build_s, "graphs": graphs,
+        "merged_replays": replays,
+        "dense_chunks": counts,
         "ttft_p50_s": percentile(ttft, 0.5),
         "ttft_p99_s": percentile(ttft, 0.99),
         "itl_p50_s": percentile(itl, 0.5),
@@ -3127,9 +3221,8 @@ def serve_sharded(cfg, params, device, counters, mixed,
         "decode_step_p50_s": percentile([d for d, _x in decode], 0.5),
         "ep_exchanges_per_decode_step": sum(x[0] for _d, x in decode) / n,
         "ep_bytes_per_decode_step": sum(x[1] for _d, x in decode) / n,
-        "ep_ms_per_decode_step_p50": percentile(ep_ms, 0.5),
-        "ep_ms_per_decode_step_mean": sum(ep_ms) / len(ep_ms) if ep_ms
-        else None,
+        "ep_ms_per_decode_step_eager_probe": ep_ms,
+        "ep_exchanges_eager_probe": ep_probe_ex,
         "mixed_steps": getattr(eng, "mixed_steps", None),
         "launches": launches,
         "launches_per_decode_step": {
@@ -3139,6 +3232,53 @@ def serve_sharded(cfg, params, device, counters, mixed,
         "route_flips_hidden": flips if mixed else None,
         "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
     }
+
+
+def serve_sharded_bits(cfg, params, device, counters, n_requests=N_REQUESTS,
+                       lens=(128, 1024), outs=(16, 32)):
+    """The graphs-vs-eager A/B of the sharded P/D serve: its requests all
+    at t = 0 under `immediate` (each pass takes its queue in order, so
+    the chunk boundaries do not depend on step times) with the decode
+    joins placed together (`hold_handoffs_whole`: the merged rows share
+    expert capacity), served with step graphs and eagerly.  Every
+    request's chunks, tokens and first-token logits must be identical,
+    bit for bit.  Returns the A/B's report."""
+    import torch
+    reps, logits = {}, {}
+    for graphs in (True, False):
+        logits[graphs] = {}
+        reps[graphs] = serve_sharded(
+            cfg, params, device, counters, False, n_requests=n_requests,
+            lens=lens, outs=outs, step_graphs=graphs,
+            scheduler="immediate", burst=True,
+            tag=f"[sharded pd bits {'graphs' if graphs else 'eager'}]",
+            keep=logits[graphs])
+        if device != "cpu":
+            free_device_memory()
+    g, e = reps[True], reps[False]
+    same_chunks = g["prefill_chunks"] == e["prefill_chunks"]
+    same_tokens = g["tokens"] == e["tokens"]
+    diff = max(float((logits[True][r] - logits[False][r]).abs().max())
+               for r in logits[True])
+    same_logits = all(torch.equal(logits[True][r], logits[False][r])
+                      for r in logits[True])
+    print(f"[sharded pd bits] graphs vs eager on the same chunks: chunks "
+          f"equal {same_chunks}, tokens equal {same_tokens}, first-token "
+          f"logits bit-identical {same_logits} (max|d|={diff!r}); wall "
+          f"graphs={g['wall_s']!r} eager={e['wall_s']!r}; decode step p50 "
+          f"graphs={g['decode_step_p50_s']!r} "
+          f"eager={e['decode_step_p50_s']!r}; ttft_p99 "
+          f"graphs={g['ttft_p99_s']!r} eager={e['ttft_p99_s']!r}",
+          flush=True)
+    if not (same_chunks and same_tokens and same_logits):
+        raise AssertionError("[sharded pd bits]: the graph and eager "
+                             "serves differ")
+    keys = ("wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p99_s",
+            "decode_step_p50_s", "dense_chunks", "graphs")
+    return {"same_chunks": same_chunks, "same_tokens": same_tokens,
+            "same_first_logits": same_logits, "max_abs_logit_diff": diff,
+            "graphs": {k: g[k] for k in keys},
+            "eager": {k: e[k] for k in keys if k != "graphs"}}
 
 
 def report_sharded(tag, rep):
@@ -3155,9 +3295,11 @@ def report_sharded(tag, rep):
           f"{rep['decode_step_p50_s']!r}", flush=True)
     print(f"{tag} ep per decode step: exchanges="
           f"{rep['ep_exchanges_per_decode_step']!r} bytes="
-          f"{rep['ep_bytes_per_decode_step']!r} exchange_ms p50="
-          f"{rep['ep_ms_per_decode_step_p50']!r} mean="
-          f"{rep['ep_ms_per_decode_step_mean']!r}", flush=True)
+          f"{rep['ep_bytes_per_decode_step']!r} exchange_ms (eager probe)="
+          f"{rep['ep_ms_per_decode_step_eager_probe']!r}", flush=True)
+    print(f"{tag} mode={rep['mode']} graphs={rep['graphs']!r} merged "
+          f"replays={rep['merged_replays']!r} server_build_s="
+          f"{rep['server_build_s']!r}", flush=True)
     print(f"{tag} launches={rep['launches']!r} logits_rel_err="
           f"{rep['logits_rel_err']!r} (limit {LOGITS_REL_TOL})", flush=True)
 
@@ -3165,9 +3307,12 @@ def report_sharded(tag, rep):
 def serve_sharded_phase(counters, device, n_layers=None):
     """Phase 6g: the EP layer against its plain version, then full-width
     granite-moe-1b-a400m (bf16 from seed 0) behind the sharded P/D and
-    unified deployments on four logical shards of the card.  `n_layers`
-    cuts depth for a CPU rehearsal.  Returns {"ep_layer", "pd",
-    "unified"}."""
+    unified deployments on four logical shards of the card, with step
+    graphs, and the sharded P/D serve's graphs-vs-eager bit A/B
+    (`serve_sharded_bits`, at SHARDED_BITS_LAYERS of the 24 layers: the
+    first layers of the same weights).  `n_layers` cuts depth for a CPU
+    rehearsal.
+    Returns {"ep_layer", "pd" (with "bits"), "unified"}."""
     import dataclasses
     import torch
     from repro_torch.config.base import get_arch
@@ -3183,6 +3328,11 @@ def serve_sharded_phase(counters, device, n_layers=None):
         out[key] = rep
         if device != "cpu":
             free_device_memory()
+    bits_layers = n_layers or SHARDED_BITS_LAYERS
+    out["pd"]["bits"] = serve_sharded_bits(
+        dataclasses.replace(cfg, num_layers=bits_layers),
+        dict(params, layers=params["layers"][:bits_layers]), device,
+        counters)
     return out
 
 

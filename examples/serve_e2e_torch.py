@@ -35,8 +35,11 @@ what the card requires:
     (`cuda:0x4`: four logical shards on one card; `cpux4` on the CPU),
     and the section records the choice; "EP all-to-all in the step HLO"
     becomes the exchange counter of `repro_torch.models.moe_ep`, which
-    must be above 0 in every merged decode step; the sharded steps run
-    eagerly (no step graphs: ROADMAP Queue 1 item 11-rest).
+    must be above 0 in every merged decode step; the sharded steps
+    replay step graphs as every other serve's (on four logical shards
+    of one card one graph a step, on four cards one a card between the
+    moves that cross cards), so `ep_ms_per_step` (exchange device time
+    from CUDA events) is null with graphs: a replay records no event.
 
 `--compare-padded` re-runs the sweep with padded max_len slots at the
 SAME KV memory budget and requires the paged plane to sustain strictly
@@ -165,8 +168,9 @@ def run_sweep(label, cfg, params, scfg, fresh, args):
           + (f"paged block_size={scfg.block_size} "
              f"slots/DP={scfg.resolved_decode_slots}" if scfg.block_size
              else f"padded slots/DP={scfg.max_batch_per_dp}"))
-    # one shared spec per backend (the kernels build once; each server
-    # captures its engines' decode graphs when it is built)
+    # one shared spec per backend (the kernels build once, each dense
+    # chunk length's graph is captured once for the whole sweep; each
+    # server captures its engines' decode graphs when it is built)
     spec = EngineSpec(cfg, params, max_len=MAX_LEN,
                       max_batch=scfg.max_batch_per_dp, max_new=args.max_new,
                       block_size=scfg.block_size,
@@ -567,22 +571,36 @@ def _sync(device):
 def _measure_step_sync(spec_sh, spec_lo, reps=20):
     """Per-step DP sync cost, measured: wall time of the merged sharded
     decode step (the EP all-to-all over every DP's rows) minus the
-    equivalent single-device per-DP step, both eager.  The minimum over
-    `reps` filters scheduler noise.  Also returns the merged step's EP
-    exchanges, which must be above 0."""
+    equivalent single-device per-DP step, both compiled as the serves
+    run them (each spec's decode step replays its CUDA graph, as the
+    reference's probe times the jitted steps; eager where a spec has
+    `step_graphs=False`).  The minimum over `reps` filters scheduler
+    noise.  Also returns the merged step's EP exchanges, which must be
+    above 0."""
     import time
 
     def best(spec, cache):
-        n = (sum(c["cur"].shape[0] for c in cache["shards"])
-             if "shards" in cache else cache["cur"].shape[0])
-        toks = torch.zeros((n, 1), dtype=torch.int32, device=spec.device)
+        if "shards" in cache:
+            toks = [torch.zeros((c["cur"].shape[0], 1), dtype=torch.int32,
+                                device=c["cur"].device)
+                    for c in cache["shards"]]
+        else:
+            toks = torch.zeros((cache["cur"].shape[0], 1),
+                               dtype=torch.int32, device=spec.device)
+        graphs = spec.step_graphs_for()
+
+        def step(c):
+            if graphs is None:
+                return spec.decode_fn(c, toks)
+            return graphs.run(("decode", "probe"), spec.decode_fn, c,
+                              token=toks)
         with count_exchanges() as ep:
-            spec.decode_fn(cache, toks)             # warm-up
+            _lg, cache = step(cache)                # warm-up (capture)
         _sync(spec.device)
         t = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()
-            spec.decode_fn(cache, toks)
+            _lg, cache = step(cache)
             _sync(spec.device)
             t = min(t, time.perf_counter() - t0)
         return t, ep.exchanges
@@ -644,12 +662,12 @@ def run_sharded_bench(cfg, params, args):
     spec = EngineSpec(cfg, params, max_len=MAX_LEN,
                       max_batch=scfg.max_batch_per_dp, max_new=out,
                       block_size=bs, decode_slots=scfg.resolved_decode_slots,
-                      mesh=mesh, step_graphs=False)
+                      mesh=mesh)
     spec_lo = EngineSpec(cfg, params, max_len=MAX_LEN,
                          max_batch=scfg.max_batch_per_dp, max_new=out,
                          block_size=bs,
                          decode_slots=scfg.resolved_decode_slots,
-                         device=mesh.lead, step_graphs=False)
+                         device=mesh.lead)
     t_sync, t_sh, t_lo, probe_ex = _measure_step_sync(spec, spec_lo)
     ep_active = probe_ex > 0
     cost = CostModel(cfg).with_measured_sync(t_sync)
@@ -680,6 +698,7 @@ def run_sharded_bench(cfg, params, args):
         # the adaptive interval)
         srv.serve(fresh(), timeout=args.timeout)
         samples = []
+        g0 = graphs_captured(srv)
         for _ in range(5):
             for e in srv.decode_engines:
                 e.step_samples.clear()
@@ -741,7 +760,8 @@ def run_sharded_bench(cfg, params, args):
               f"steps={med['decode_steps']} "
               f"occ={med['mean_occupancy']*100:5.1f}% "
               f"ep={med['ep_exchanges_per_step']:.0f}/step "
-              f"({med['ep_bytes_per_step'] / 1e6:.2f} MB, {ep_ms})")
+              f"({med['ep_bytes_per_step'] / 1e6:.2f} MB, {ep_ms}) "
+              f"graphs_captured={graphs_captured(srv) - g0}")
     if ok and "immediate" in section and "sbs-la" in section:
         i, s = section["immediate"], section["sbs-la"]
         if not (s["ttft_p99"] < i["ttft_p99"]

@@ -88,6 +88,36 @@ class ShardedParams(dict):
     replicas: Dict[torch.device, Dict]
 
 
+def param_leaves(params) -> List[torch.Tensor]:
+    """Every weight tensor of `params` once, in a fixed order: the tensors
+    of a plain params tree (dicts and lists); of `ShardedParams`, every
+    distinct device's replica and every `ExpertShards` slice (the
+    "replicas" maps of the MoE dicts point back into the replicas and
+    are not walked).  A step graph holds these addresses."""
+    out: List[torch.Tensor] = []
+    seen = set()
+
+    def walk(tree):
+        if isinstance(tree, torch.Tensor):
+            if id(tree) not in seen:
+                seen.add(id(tree))
+                out.append(tree)
+        elif isinstance(tree, ExpertShards):
+            for t in tree.shards:
+                walk(t)
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                if k != "replicas":
+                    walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+    replicas = getattr(params, "replicas", None)
+    for tree in ([params] if replicas is None else replicas.values()):
+        walk(tree)
+    return out
+
+
 def params_on(params, device) -> Dict:
     """The replica of `params` on `device` (`params` itself when it is
     not sharded)."""

@@ -79,6 +79,7 @@ import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
 from repro_torch.distributed.sharding import is_merged, params_on
+from repro_torch.distributed.transfer import move
 from repro_torch.models.blocks import (
     ATTN_KINDS, attend_decode_paged, block_decode, block_decode_paged,
     block_extend, block_extend_paged, init_block_params, mlp_shards,
@@ -332,9 +333,9 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
     by `tab_row` ((nbt,) int32, -1 padding routes to the null block), and
     the slot's table row and token count are set."""
     if is_merged(dst):
-        k, c, s = _shard_slot(dst, slot)
+        k, c, s = shard_slot(dst, slot)
         src = {n: t.to(c["cur"].device) for n, t in src.items()}
-        return _with_shard(dst, k, paged_cache_join(
+        return with_shard(dst, k, paged_cache_join(
             cfg, c, src, s, _local_blocks(dst, k, tab_row)))
     nbt = dst["block_tab"].shape[1]
     bs = dst["kv_pos"].shape[1]
@@ -359,7 +360,7 @@ def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
     """Extract slot `slot` of a paged cache as a dense batch-1 cache (the
     inverse of paged_cache_join: preemption and drain park it)."""
     if is_merged(src):
-        _k, c, s = _shard_slot(src, slot)
+        _k, c, s = shard_slot(src, slot)
         return paged_cache_take(cfg, c, s)
     tab_row = src["block_tab"][slot]
     nbt = tab_row.shape[0]
@@ -380,8 +381,8 @@ def paged_cache_clear_slot(cache: Dict, slot) -> Dict:
     """Leave-on-finish: drop slot `slot`'s table row so its future
     (garbage) writes route to the null block."""
     if is_merged(cache):
-        k, c, s = _shard_slot(cache, slot)
-        return _with_shard(cache, k, paged_cache_clear_slot(c, s))
+        k, c, s = shard_slot(cache, slot)
+        return with_shard(cache, k, paged_cache_clear_slot(c, s))
     out = dict(cache)
     out["block_tab"] = _with(cache, "block_tab", slot, -1)
     return out
@@ -492,12 +493,11 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, cache, slot):
     (1, V), cache); the pools are written in place."""
     _require_pageable_prefill(cfg)
     if is_merged(cache):
-        k, c, s = _shard_slot(cache, slot)
+        k, c, s = shard_slot(cache, slot)
         dev = c["cur"].device
         logits, new = paged_prefill_step(cfg, params_on(params, dev),
-                                         tokens.to(dev, non_blocking=True),
-                                         c, s)
-        return logits.to(tokens.device), _with_shard(cache, k, new)
+                                         move([tokens], [dev])[0], c, s)
+        return move([logits], [tokens.device])[0], with_shard(cache, k, new)
     Sc = tokens.shape[1]
     if isinstance(slot, torch.Tensor):
         slot = slot.reshape(1).long()
@@ -578,7 +578,7 @@ def paged_copy_block(cfg: ModelConfig, cache: Dict, src, dst) -> Dict:
     if is_merged(cache):
         k = cache["home"]
         base = k * cache["blocks"]
-        return _with_shard(cache, k, paged_copy_block(
+        return with_shard(cache, k, paged_copy_block(
             cfg, cache["shards"][k], src - base, dst - base))
     cache["kv_pos"][dst] = cache["kv_pos"][src]
     for name in ("k", "v"):
@@ -607,11 +607,11 @@ def paged_adopt_blocks(cfg: ModelConfig, dst: Dict, payload: Dict, slot,
     resident) are not touched.  Masked-out traffic routes to the null
     block."""
     if is_merged(dst):
-        k, c, s = _shard_slot(dst, slot)
+        k, c, s = shard_slot(dst, slot)
         dev = c["cur"].device
         payload = {n: t.to(dev, non_blocking=True)
                    for n, t in payload.items()}
-        return _with_shard(dst, k, paged_adopt_blocks(
+        return with_shard(dst, k, paged_adopt_blocks(
             cfg, c, payload, s, _local_blocks(dst, k, tab_row),
             copy_mask.to(dev), clear_mask.to(dev), cur))
     phys = tab_row.clamp_min(0)
@@ -634,7 +634,7 @@ def paged_clear_rows(cache: Dict, ids) -> Dict:
     positions from a previous tenant would alias as valid history."""
     if is_merged(cache):
         k = cache["home"]
-        return _with_shard(cache, k, paged_clear_rows(
+        return with_shard(cache, k, paged_clear_rows(
             cache["shards"][k], _local_blocks(cache, k, ids)))
     cache["kv_pos"][ids.clamp_min(0).long()] = -1
     return dict(cache)
@@ -645,8 +645,8 @@ def paged_set_table(cache: Dict, slot: int, col: int, block: int) -> Dict:
     physical block `block` (a new `block_tab` tensor: a cache dict handed
     out earlier keeps its own)."""
     if is_merged(cache):
-        k, c, s = _shard_slot(cache, slot)
-        return _with_shard(cache, k, paged_set_table(
+        k, c, s = shard_slot(cache, slot)
+        return with_shard(cache, k, paged_set_table(
             c, s, col, block - k * cache["blocks"]))
     out = dict(cache)
     out["block_tab"] = cache["block_tab"].clone()
@@ -660,8 +660,8 @@ def paged_install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
     `block_tab`/`cur` tensors: a cache dict handed out earlier keeps its
     own)."""
     if is_merged(cache):
-        k, c, s = _shard_slot(cache, slot)
-        return _with_shard(cache, k, paged_install_row(
+        k, c, s = shard_slot(cache, slot)
+        return with_shard(cache, k, paged_install_row(
             c, s, _local_blocks(cache, k, tab), cur))
     out = dict(cache)
     out["block_tab"] = cache["block_tab"].clone()
@@ -675,7 +675,7 @@ def paged_install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
 # Sharded plane: the merged paged cache
 # ---------------------------------------------------------------------------
 
-def _shard_slot(cache: Dict, slot) -> Tuple[int, Dict, int]:
+def shard_slot(cache: Dict, slot) -> Tuple[int, Dict, int]:
     """(shard index, shard cache, local slot) of global slot `slot` of a
     merged cache."""
     if isinstance(slot, torch.Tensor):
@@ -691,7 +691,7 @@ def _local_blocks(cache: Dict, k: int, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(ids >= 0, ids - k * cache["blocks"], ids)
 
 
-def _with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
+def with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
     """`cache` (a merged cache or a DP's view of it) with shard k
     replaced."""
     shards = list(cache["shards"])
@@ -703,23 +703,29 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
                     decode_mask=None):
     """One decode step over every shard of a merged cache: per layer, each
     shard's attention over its rows and pages on its device, then the
-    FFN over all shards' rows (`mlp_shards`).  token (n·S, 1) and the
-    optional `decode_mask` (n·S,) in global slot order; masked-out rows
-    decode against a -1 table and keep `cur` (as `paged_decode_masked`).
-    Returns (logits (n·S, V) on token's device, the merged cache)."""
+    FFN over all shards' rows (`mlp_shards`).  `token` (n·S, 1) and the
+    optional `decode_mask` (n·S,) in global slot order, or each a list
+    of the n shards' rows on their devices (the engines' form: a step
+    graph's static inputs per shard); masked-out rows decode against a
+    -1 table and keep `cur` (as `paged_decode_masked`).  Returns
+    (logits (n·S, V) on shard 0's device, the merged cache)."""
     S = cache["slots"]
-    lead = token.device
+    devs = [c["cur"].device for c in cache["shards"]]
+
+    def per_shard(t):
+        if t is None or isinstance(t, (list, tuple)):
+            return t
+        return move([t[k * S:(k + 1) * S] for k in range(len(devs))], devs)
+    toks, masks = per_shard(token), per_shard(decode_mask)
     ps, xs, rows = [], [], []
     for k, c in enumerate(cache["shards"]):
-        dev = c["cur"].device
-        p = params_on(params, dev)
+        p = params_on(params, devs[k])
         tab, mask = c["block_tab"], None
-        if decode_mask is not None:
-            mask = decode_mask[k * S:(k + 1) * S].to(dev, non_blocking=True)
+        if masks is not None:
+            mask = masks[k]
             tab = torch.where(mask[:, None], tab, -1)
-        tok = token[k * S:(k + 1) * S].to(dev, non_blocking=True)
         ps.append(p)
-        xs.append(p["embed"][tok.long()])                     # (S, 1, D)
+        xs.append(p["embed"][toks[k].long()])                 # (S, 1, D)
         rows.append((c, tab, mask))
     for l in range(len(params["layers"])):
         lp = [p["layers"][l] for p in ps]
@@ -730,9 +736,12 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
     logits, shards = [], []
     for p, x, (c, _tab, mask) in zip(ps, xs, rows):
         x = rms_norm(x, p["ln_f"], cfg.norm_eps)
-        logits.append(logits_from_hidden(cfg, p, x[:, 0]).to(lead))
+        logits.append(logits_from_hidden(cfg, p, x[:, 0]))
         out = dict(c)
         out["cur"] = (c["cur"] + 1 if mask is None
                       else torch.where(mask, c["cur"] + 1, c["cur"]))
         shards.append(out)
-    return torch.cat(logits), dict(cache, shards=shards)
+    # the logits' move to shard 0 is the step's last cut on distinct
+    # cards (`distributed.transfer`)
+    logits = torch.cat(move(logits, [devs[0]] * len(devs)))
+    return logits, dict(cache, shards=shards)

@@ -37,6 +37,7 @@ import torch
 from repro_torch.config.base import MoEConfig
 from repro_torch.distributed import annotate
 from repro_torch.distributed.sharding import ExpertShards, axis_size
+from repro_torch.distributed.transfer import move
 from repro_torch.models.layers import init_linear
 
 
@@ -177,20 +178,20 @@ def _experts(h, params):
         u = torch.bmm(h, params["w_up"])
         act = torch.nn.functional.silu(g.float()).to(h.dtype) * u
         return torch.bmm(act, params["w_down"])
-    out = []
-    for r in range(w.G):
-        wg, wu, wd = (params[n].home(r) for n in ("w_gate", "w_up", "w_down"))
-        hr = h[r * w.E_per:(r + 1) * w.E_per].to(wg.device,
-                                                  non_blocking=True)
-        out.append(_experts(hr, {"w_gate": wg, "w_up": wu, "w_down": wd})
-                   .to(h.device, non_blocking=True))
-    return torch.cat(out)
+    homes = [params[n].home for n in ("w_gate", "w_up", "w_down")]
+    hs = move([h[r * w.E_per:(r + 1) * w.E_per] for r in range(w.G)],
+              [homes[0](r).device for r in range(w.G)])
+    ys = [_experts(hr, {"w_gate": homes[0](r), "w_up": homes[1](r),
+                        "w_down": homes[2](r)})
+          for r, hr in enumerate(hs)]
+    return torch.cat(move(ys, [h.device] * w.G))
 
 
 def moe_block(x, params: Dict, mc: MoEConfig):
     """Apply the MoE FFN.  x (B, S, D) or (T, D); or, on the sharded
     plane's merged decode step, a list of per-shard tensors (one output
-    per shard, in place).  Returns (out of x's shape, aux loss)."""
+    per shard, in place).  Returns (out of x's shape, aux loss; the EP
+    path's list form gives each device's aux loss, on it)."""
     ep = _ep_route(x, mc)
     if ep is not None:
         from repro_torch.models.moe_ep import moe_block_ep
@@ -198,10 +199,10 @@ def moe_block(x, params: Dict, mc: MoEConfig):
     if isinstance(x, (list, tuple)):
         # single-program semantics over every shard's tokens at once
         lead = x[0].device
-        out, laux = moe_block(torch.cat([t.to(lead) for t in x]), params,
+        out, laux = moe_block(torch.cat(move(x, [lead] * len(x))), params,
                               mc)
         sizes = [t.shape[0] for t in x]
-        return [o.to(t.device) for o, t in zip(out.split(sizes), x)], laux
+        return move(list(out.split(sizes)), [t.device for t in x]), laux
     orig_shape = x.shape
     x2d = x.reshape(-1, x.shape[-1])
     T, D = x2d.shape

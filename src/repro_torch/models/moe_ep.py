@@ -9,9 +9,9 @@ compute locally, the inverse all-to-all brings the rows home, and the
 combine is a local gather.  The reference runs the body under
 `shard_map` from one process; the port is single-controller too: one
 thread runs every device's body in turn, and `ep_all_to_all` moves the
-blocks between the devices with `tensor.to(device, non_blocking=True)`
-(peer copies between cards, a local permutation where the devices
-repeat).
+blocks between the devices with `distributed.transfer.move` (peer
+copies between cards, a local permutation where the devices repeat; a
+cut between graph segments in a step captured across cards).
 
 Semantics, as in the reference: capacity is enforced PER SOURCE device,
 C_dev = max(ceil(T_loc·k/E·cf), 1) with T_loc = T / n_dev, so each
@@ -24,7 +24,10 @@ each token slice alone).
 `ep_all_to_all` counts its exchanges, the bytes that cross between EP
 ranks and, when asked, the device time of each exchange, into the
 `count_exchanges` block around it (a context variable, so each
-engine's worker thread counts its own steps).
+engine's worker thread counts its own steps).  A replayed step graph
+runs no Python: `add_exchanges` counts the exchanges its capture made,
+and a replay records no event, so exchange device time comes from an
+eager step (`timed`) or from the profiler.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 
 from repro_torch.config.base import MoEConfig
 from repro_torch.distributed.sharding import ExpertShards, axis_size
+from repro_torch.distributed.transfer import move
 from repro_torch.models import moe as _moe
 
 
@@ -71,6 +75,16 @@ _STATS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_ep_stats", default=None)
 
 
+def add_exchanges(exchanges: int, nbytes: int) -> None:
+    """Count `exchanges` exchanges moving `nbytes` bytes between EP ranks
+    into this thread's `count_exchanges` block, if any (a step graph's
+    replay: the exchanges its capture made)."""
+    stats = _STATS.get()
+    if stats is not None:
+        stats.exchanges += exchanges
+        stats.bytes += nbytes
+
+
 @contextlib.contextmanager
 def count_exchanges(timed: bool = False):
     """Yields an `ExchangeStats` that counts this thread's exchanges
@@ -103,33 +117,29 @@ def ep_all_to_all(blocks: Sequence[torch.Tensor], mesh,
     stats = _STATS.get()
     timed = (stats is not None and stats.timed
              and blocks[0].device.type == "cuda")
-    pairs = []
 
     def mark(dev):
         with torch.cuda.device(dev):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
         return ev
+    starts = [mark(d) for d in dict.fromkeys(devs)] if timed else []
     if all(d == devs[0] for d in devs):
-        start = mark(devs[0]) if timed else None
         out = list(torch.stack(list(blocks), dim=1).unbind(0))
-        if timed:
-            pairs.append((start, mark(devs[0])))
     else:
-        out = []
-        for g, dev in enumerate(devs):
-            start = mark(dev) if timed else None
-            out.append(torch.stack([b[g].to(dev, non_blocking=True)
-                                    for b in blocks]))
-            if timed:
-                pairs.append((start, mark(dev)))
+        # one `move` for the whole exchange: one cut in a segmented
+        # capture (`repro_torch.distributed.transfer`)
+        moved = move([b[g] for g in range(G) for b in blocks],
+                     [dev for dev in devs for _b in blocks])
+        out = [torch.stack(moved[g * G:(g + 1) * G]) for g in range(G)]
     if stats is not None:
         stats.exchanges += 1
         # every source keeps its own slice and sends the other G - 1
         stats.bytes += sum(b.numel() // G * b.element_size() * (G - 1)
                            for b in blocks)
         if timed:
-            stats._events.append(pairs)
+            stats._events.append(list(zip(starts, [
+                mark(d) for d in dict.fromkeys(devs)])))
     return out
 
 
@@ -165,7 +175,8 @@ def moe_block_ep(x, params: Dict, mc: MoEConfig, mesh,
     owned as `_token_slots` says and moved to their devices, the result
     coming back on x's device in x's shape; or a list of `mesh.size`
     tensors (T_loc, ..., D), mesh device i's slice on device i, with a
-    list of outputs in the same places (the merged decode step's form).
+    list of outputs in the same places and a list of each device's aux
+    loss on it (the merged decode step's form).
     `params` is the layer's "moe" dict: expert weights as
     `ExpertShards` over `ep_axes` (or whole tensors, split here), router
     and shared experts read from each device's replica.  Requires
@@ -194,8 +205,8 @@ def moe_block_ep(x, params: Dict, mc: MoEConfig, mesh,
             raise ValueError(f"{T} tokens over {n_dev} devices")
         T_loc = T // n_dev
         slots = _token_slots(mesh, token_axes)
-        xs = [x2d[s * T_loc:(s + 1) * T_loc].to(dev, non_blocking=True)
-              for s, dev in zip(slots, mesh.devices)]
+        xs = move([x2d[s * T_loc:(s + 1) * T_loc] for s in slots],
+                  mesh.devices)
     C = _moe.capacity(T_loc, mc)                  # C_dev, per source
     weights = {name: (params[name] if isinstance(params[name], ExpertShards)
                       else ExpertShards(params[name], mesh, ep_axes))
@@ -229,12 +240,14 @@ def moe_block_ep(x, params: Dict, mc: MoEConfig, mesh,
         if mc.num_shared:
             out = out + _moe._shared(xs[i], reps[i])
         outs.append(out)
-    lead = outs[0].device
-    laux = torch.stack([r[3].to(lead) for r in routed]).mean()
     if listed:
-        return [o.reshape(s) for o, s in zip(outs, shapes)], laux
+        return ([o.reshape(s) for o, s in zip(outs, shapes)],
+                [r[3] for r in routed])
     order = sorted(range(n_dev), key=lambda i: slots[i])
-    out = torch.cat([outs[i].to(x.device) for i in order])
+    back_home = move([outs[i] for i in order] + [r[3] for r in routed],
+                     [x.device] * (2 * n_dev))
+    out = torch.cat(back_home[:n_dev])
+    laux = torch.stack(back_home[n_dev:]).mean()
     return out.reshape(x.shape), laux
 
 

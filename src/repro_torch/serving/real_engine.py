@@ -75,7 +75,14 @@ block ids from its base offset, its own slot range, a private binder)
 and reads the merged cache through its view.  Every sharded step and
 page surgery runs under the spec's `step_lock` (the reference's mesh
 lock); the exchanges each step made (`ep_samples`) are counted beside
-its `step_samples`.  Sharded steps run eagerly (no step graphs).
+its `step_samples`.  With step graphs (the default) every sharded step
+replays CUDA graphs as the reference runs its mesh programs: the
+merged decode step (key ("decode", "merged"), captured when the engine
+is built), each page-native chunk on its shard's cache (("prefill",
+shard, chunk length)) and a sharded P/D prefill engine's dense chunk;
+on shards that share a card each step is one graph, on separate cards
+one graph a card between the moves that cross cards
+(`repro_torch.serving.step_graphs`).
 
 Differences from the JAX engines:
 
@@ -121,8 +128,7 @@ Differences from the JAX engines:
     in flight, and reads no cursor or table back to the host;
   * the sharded plane is single-controller as in the reference, on
     an `EngineMesh` of torch devices that may repeat (logical shards
-    on one card or the CPU); it runs without step graphs (ROADMAP
-    Queue 1 item 11-rest), and a join copies a handed-off payload onto
+    on one card or the CPU); a join copies a handed-off payload onto
     the destination shard's device.
 """
 from __future__ import annotations
@@ -143,8 +149,8 @@ from repro_torch.config.base import (
 from repro_torch.core.types import DispatchCommand, Request, RequestPhase
 from repro_torch.distributed import annotate
 from repro_torch.distributed.sharding import (
-    axis_size, data_axes_of, expert_axes_of, place_params,
-    shard_paged_cache,
+    axis_size, data_axes_of, expert_axes_of, is_merged, params_on,
+    place_params, shard_paged_cache,
 )
 from repro_torch.models.model import (
     _require_pageable_prefill, cache_clear_row, cache_join, cache_row,
@@ -154,7 +160,7 @@ from repro_torch.models.model import (
     paged_clear_rows, paged_copy_block, paged_decode_masked,
     paged_decode_step, paged_gather_blocks, paged_install_row,
     paged_layout, paged_prefill_step, paged_set_table, prefill_chunk,
-    require_supported,
+    require_supported, shard_slot, with_shard,
 )
 from repro_torch.models.moe_ep import count_exchanges
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
@@ -188,11 +194,14 @@ class EngineSpec:
     `step_graphs` (default) runs every decode step and prefill chunk
     (dense or page-native) through each engine's `StepGraphs`: CUDA
     graphs on the card, the same static buffers around direct calls on
-    the CPU.  False runs every step eagerly (the A/B and the tests).
+    the CPU; the dense chunks' graphs are the spec's, shared by its
+    prefill engines (`dense_graphs`).  False runs every step eagerly
+    (the A/B and the tests).
 
     A `mesh` (an `EngineMesh` of "data" ranks, one per decode DP unit)
-    makes the spec SHARDED (`_init_sharded`): paged only, eager only
-    (`step_graphs=True` raises ValueError), its device the mesh's lead.
+    makes the spec SHARDED (`_init_sharded`): paged only, its device
+    the mesh's lead, its step graphs captured across the mesh's
+    devices.
     `parallel` (a `ParallelConfig`) names the expert axes; the default
     is EP over the whole mesh when the expert count divides it."""
     cfg: ModelConfig
@@ -231,6 +240,7 @@ class EngineSpec:
         # while it captures one (step graphs only); on a sharded spec by
         # every step and every page surgery (the reference's mesh lock)
         self.step_lock = threading.RLock()
+        self._dense: Optional[Tuple[StepGraphs, Dict]] = None
         self.n_dp = 1
         self.axis_map = None
         if self.mesh is not None:
@@ -244,10 +254,6 @@ class EngineSpec:
         if not self.block_size:
             raise ValueError(
                 "sharded engines are paged-only (set block_size > 0)")
-        if self.step_graphs:
-            raise ValueError(
-                "step graphs of sharded steps are not ported (ROADMAP Queue "
-                "1 item 11-rest): a sharded spec needs step_graphs=False")
         mesh = self.mesh
         if mesh.size != mesh.shape.get("data", 0):
             raise NotImplementedError(
@@ -310,7 +316,28 @@ class EngineSpec:
         """A new engine's compiled steps (None on the eager path)."""
         if not self.step_graphs:
             return None
-        return StepGraphs(self.params, self.device, self.step_lock)
+        return StepGraphs(self.params, self.device, self.step_lock,
+                          devices=None if self.mesh is None
+                          else self.mesh.distinct)
+
+    def dense_graphs(self) -> Tuple[Optional[StepGraphs], Optional[Dict]]:
+        """A new dense prefill engine's compiled chunks and the static
+        batch-1 working cache they run on ((None, None) on the eager
+        path).  Both are the spec's, as the reference compiles each chunk
+        shape once for every engine of a spec: the first engine gets the
+        runner that owns them, every later one a runner over the same
+        graphs with counters of its own (`StepGraphs.share`), so a chunk
+        length is captured once, not once an engine.  `dense_prefill`
+        holds `step_lock` from the copy into the working cache to the
+        copy back, so the engines' chunks take turns on it."""
+        if not self.step_graphs:
+            return None, None
+        with self.step_lock:
+            if self._dense is None:
+                self._dense = (self.step_graphs_for(), self.request_cache())
+                return self._dense
+            graphs, work = self._dense
+            return graphs.share(), work
 
     # the steps the graphs capture: fn(cache, **static inputs); a
     # sharded spec runs its paged steps under the mesh context
@@ -329,6 +356,19 @@ class EngineSpec:
             return paged_prefill_step(self.cfg, self.params, tokens, cache,
                                       slot)
 
+    def shard_prefill_fn(self, k: int):
+        """The page-native chunk step of shard k of a merged cache: on
+        that shard's cache, with its device's replica of the params and
+        a slot local to the shard (what `paged_prefill_step` does for a
+        merged cache, with the shard picked on the host)."""
+        params = params_on(self.params, self.mesh.devices[k])
+
+        def fn(cache, tokens, slot):
+            with self._on_mesh():
+                return paged_prefill_step(self.cfg, params, tokens, cache,
+                                          slot)
+        return fn
+
     def prefill_chunk_fn(self, cache, tokens):
         return prefill_chunk(self.cfg, self.params, tokens, cache)
 
@@ -336,7 +376,24 @@ class EngineSpec:
                       slot, unit: int = 0):
         """One page-native prefill chunk into the cache of `unit` (the
         unified engine's DP; a prefill engine has one cache): the graph
-        of its length, or the eager step."""
+        of its length, or the eager step.  On a merged cache the chunk
+        runs on the shard that holds `slot` (key ("prefill", shard,
+        length)) and its logits come back to the spec's device; a length
+        that does not divide over the mesh's devices takes the
+        single-program MoE (`models.moe._ep_route`, the reference's
+        rule), so no chunk is padded."""
+        if is_merged(cache):
+            k, shard, local = shard_slot(cache, slot)
+            dev = shard["cur"].device
+            fn = self.shard_prefill_fn(k)
+            tokens = tokens.to(dev, non_blocking=True)
+            if graphs is None:
+                logits, new = fn(shard, tokens, local)
+            else:
+                logits, new = graphs.run(("prefill", k, tokens.shape[1]), fn,
+                                         shard, tokens=tokens, slot=local)
+            return (logits.to(self.device, non_blocking=True),
+                    with_shard(cache, k, new))
         if graphs is None:
             return self.prefill_fn(cache, tokens, slot)
         return graphs.run(("prefill", unit, tokens.shape[1]),
@@ -695,7 +752,6 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
         self.bus = bus
         self._post = None
         self._ctx: Dict[int, _PrefillCtx] = {}
-        self.graphs = spec.step_graphs_for()
         self.page_native = bool(page_native)
         self.binder: Optional[PagePrefixBinder] = None
         if self.page_native:
@@ -711,17 +767,19 @@ class RealPrefillEngine(SimPrefillInstance, _WorkerOwner):
             self._free_slots: List[int] = list(
                 range(spec.paged_prefill_slots))
             self._pctx: Dict[int, _PagedPrefillCtx] = {}
+            self.graphs = spec.step_graphs_for()
         elif share_prefix:
             raise ValueError("share_prefix requires page_native=True")
         else:
             self.rows = _DenseRows(spec, spec.paged_prefill_slots)
-            # the graphs' static batch-1 cache (every chunk length's)
-            self._work = (spec.request_cache() if self.graphs is not None
-                          else None)
+            # the spec's chunk graphs and their static batch-1 cache
+            # (every chunk length's), shared by its dense prefill engines
+            self.graphs, self._work = spec.dense_graphs()
         if self.graphs is not None:
             # capture the full chunk's graph now, before the runtime's
             # threads start; a prompt's last chunk (any shorter length)
-            # is captured at that length's first use
+            # is captured at that length's first use (dense: the first
+            # use by any engine of the spec)
             tokens = torch.zeros((1, chunk), dtype=torch.int32,
                                  device=spec.device)
             if self.page_native:
@@ -1162,24 +1220,34 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self._step_rows = 0
         self.graphs = spec.step_graphs_for()
         if self.graphs is not None and self.graphs.cuda:
-            # capture every DP's decode step now, before the runtime's
+            # capture every DP's decode step now (the sharded plane: the
+            # merged step over every DP's rows), before the runtime's
             # threads start (on the CPU the static buffers are made at
             # the first step, on the cache the DP has then)
-            for d, st in self._dp.items():
-                st.cache = (spec.paged_cache() if spec.paged
-                            else spec.batch_cache())
-                self._prepare_decode(d, st)
+            if self._group is not None:
+                self._prepare_decode(-1, self._group)
+            else:
+                for d, st in self._dp.items():
+                    st.cache = (spec.paged_cache() if spec.paged
+                                else spec.batch_cache())
+                    self._prepare_decode(d, st)
 
-    def _prepare_decode(self, dp_id: int, st: _DPDecodeState) -> None:
-        self.graphs.prepare(("decode", dp_id), self.spec.decode_fn,
+    @staticmethod
+    def _decode_key(dp_id: int) -> Tuple:
+        """The decode graph of DP `dp_id`; -1 is the sharded plane's
+        merged job."""
+        return ("decode", "merged" if dp_id < 0 else dp_id)
+
+    def _prepare_decode(self, dp_id: int, st) -> None:
+        self.graphs.prepare(self._decode_key(dp_id), self.spec.decode_fn,
                             st.cache, token=self._feed_tokens(st))
 
-    def _decode(self, dp_id: int, cache: Dict, toks: torch.Tensor):
-        """One batched decode step of DP `dp_id`: its graph, or the eager
-        step."""
+    def _decode(self, dp_id: int, cache: Dict, toks):
+        """One batched decode step of DP `dp_id` (-1: the merged job): its
+        graph, or the eager step."""
         if self.graphs is None:
             return self.spec.decode_fn(cache, toks)
-        return self.graphs.run(("decode", dp_id), self.spec.decode_fn,
+        return self.graphs.run(self._decode_key(dp_id), self.spec.decode_fn,
                                cache, token=toks)
 
     # -- lifecycle -------------------------------------------------------
@@ -1375,9 +1443,22 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             st.pool.free([old])
             self.cow_copies += 1
 
-    def _feed_tokens(self, st: _DPDecodeState) -> torch.Tensor:
-        return torch.tensor([[t] for t in st.next_tok], dtype=torch.int32,
-                            device=self.spec.device)
+    def _feed_tokens(self, st):
+        """Each row's next token, (rows, 1) int32 on the spec's device; for
+        the sharded group one (S, 1) tensor a shard, on its device (the
+        merged step's static inputs)."""
+        rows = [[t] for t in st.next_tok]
+        if isinstance(st, _ShardedGroup):
+            return self._per_shard(rows, torch.int32)
+        return torch.tensor(rows, dtype=torch.int32, device=self.spec.device)
+
+    def _per_shard(self, rows: List, dtype) -> List[torch.Tensor]:
+        """Values of the merged slot axis as one tensor a shard (its
+        paged_slots rows) on the shard's device."""
+        S = self.spec.paged_slots
+        return [torch.tensor(rows[k * S:(k + 1) * S], dtype=dtype,
+                             device=dev)
+                for k, dev in enumerate(self.spec.mesh.devices)]
 
     def start_step(self, dp_states, now: Optional[float] = None
                    ) -> StartResult:
@@ -1446,10 +1527,12 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
 
     def _counted(self):
         """Counts the EP exchanges of a sharded step, and on the card
-        times them (a no-op context otherwise)."""
+        times those of an eager step (a replayed graph records no event;
+        a no-op context off the sharded plane)."""
         if self._group is None:
             return contextlib.nullcontext()
-        return count_exchanges(timed=self.spec.device.type == "cuda")
+        return count_exchanges(timed=self.spec.device.type == "cuda"
+                               and self.graphs is None)
 
     def _sample(self, dur: float, ep) -> None:
         self.step_samples.append((dur, self._step_active, self._step_rows))
@@ -1566,22 +1649,27 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
         self.forced_grants = 0      # starvation-bound activations
         self.mixed_steps = 0        # steps that ran decode+prefill fused
 
-    def _prepare_decode(self, dp_id: int, st: _DPDecodeState) -> None:
-        # one graph per DP for both decode branches: the decode half of
-        # mixed_step, with every row masked in when nothing prefills
-        self.graphs.prepare(("decode", dp_id), self.spec.masked_decode_fn,
-                            st.cache, token=self._feed_tokens(st),
+    def _prepare_decode(self, dp_id: int, st) -> None:
+        # one graph per DP (the sharded plane: one merged graph) for both
+        # decode branches: the decode half of mixed_step, with every row
+        # masked in when nothing prefills
+        self.graphs.prepare(self._decode_key(dp_id),
+                            self.spec.masked_decode_fn, st.cache,
+                            token=self._feed_tokens(st),
                             mask=self._all_rows(st))
 
     def _decode_masked(self, dp_id: int, token, cache: Dict, mask):
-        """The decode half of DP `dp_id`'s mixed step: its graph, or the
-        eager step."""
+        """The decode half of DP `dp_id`'s mixed step (-1: the merged
+        job): its graph, or the eager step."""
         if self.graphs is None:
             return self.spec.masked_decode_fn(cache, token, mask)
-        return self.graphs.run(("decode", dp_id), self.spec.masked_decode_fn,
-                               cache, token=token, mask=mask)
+        return self.graphs.run(self._decode_key(dp_id),
+                               self.spec.masked_decode_fn, cache,
+                               token=token, mask=mask)
 
-    def _all_rows(self, st: _DPDecodeState) -> torch.Tensor:
+    def _all_rows(self, st):
+        if isinstance(st, _ShardedGroup):
+            return self._per_shard([True] * len(st.slots), torch.bool)
         return torch.ones(len(st.slots), dtype=torch.bool,
                           device=self.spec.device)
 
@@ -1743,7 +1831,7 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
         one tuple (slot ids are already global; grant order matches
         `self._grants` iteration order, which the fan-back in
         `_exec_mixed` relies on), one decode mask over the merged slot
-        axis.  The mask is unconditional whenever anything decodes: all
+        axis (as the tokens, one tensor a shard).  The mask is unconditional whenever anything decodes: all
         DPs share the one cache, so another DP's prefilling (or
         disjoint-stalled) resident rows must never see a decode write."""
         g = self._group
@@ -1755,7 +1843,7 @@ class RealUnifiedEngine(RealDecodeEngine, UnifiedEngine):
             for _r, s in lst:
                 m[s] = True
         return [(-1, g.cache, self._feed_tokens(g), chunks,
-                 torch.tensor(m, dtype=torch.bool, device=self.spec.device))]
+                 self._per_shard(m, torch.bool))]
 
     def _exec_mixed(self, jobs, epoch: int, post) -> None:
         # worker thread: one fused mixed step per DP with decode rows

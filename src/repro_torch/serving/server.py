@@ -33,9 +33,10 @@ makes the deployment SHARDED, as in the JAX server (paged only): each
 decode instance merges its DP units' rows into one cache held as one
 shard per data rank of the mesh, every step is one cross-DP step with
 the EP all-to-all in each MoE layer, and the mesh's data size must equal
-`decode_dp_per_instance` (ValueError otherwise).  Its spec is built
-without step graphs (ROADMAP Queue 1 item 11-rest), and its device is
-the mesh's lead device.
+`decode_dp_per_instance` (ValueError otherwise).  Its steps replay CUDA
+graphs as every spec's do (one graph a step where the shards share a
+card, one a card between the moves that cross cards otherwise), and its
+device is the mesh's lead device.
 
 Build fresh Request objects per serve() call: progress fields are
 mutated in place by a run.
@@ -121,7 +122,7 @@ class RealSBSServer:
             block_size=scfg.block_size,
             decode_slots=(scfg.resolved_decode_slots
                           if scfg.block_size else 0),
-            device=device, mesh=mesh, step_graphs=mesh is None)
+            device=device, mesh=mesh)
         # prefix_cache turns on block-granular prefix reuse end to end:
         # page-native prefill engines with shared refcounted pages (a
         # cached prefix's chunks are never computed), PageHandoff

@@ -1352,7 +1352,10 @@ def test_dense_prefill_graphs_match_eager_on_cuda(dev, dtype, arch):
 def test_dense_prefill_engine_captures_its_chunk_at_build(dev):
     """A dense prefill engine with step graphs captures its full chunk's
     graph when it is built, so a prompt of whole chunks captures nothing
-    while it is served; a page-native one captures its full chunk too."""
+    while it is served; a page-native one captures its full chunk too.
+    A second dense engine of the same spec captures nothing: it replays
+    the spec's graphs (`EngineSpec.dense_graphs`), while a second
+    page-native engine, with a cache of its own, captures its own."""
     from repro_torch.serving.real_engine import (
         EngineSpec, KVHandoffBus, RealPrefillEngine)
     cfg = get_arch("deepseek-7b", reduced=True)
@@ -1365,6 +1368,13 @@ def test_dense_prefill_engine_captures_its_chunk_at_build(dev):
         key = ("prefill", 0, 32) if native else ("prefill-dense", 32)
         assert list(eng.graphs._entries) == [key]
         assert eng.graphs.captured == 1
+        other = RealPrefillEngine(1, [1], 32, spec, KVHandoffBus(),
+                                  page_native=native)
+        assert list(other.graphs._entries) == [key]
+        assert other.graphs.captured == (1 if native else 0)
+        assert (other.graphs._entries is eng.graphs._entries) != native
+        if not native:      # the pools are the first engine's
+            assert other.graphs.pool_bytes() == 0 < eng.graphs.pool_bytes()
 
 
 # ---------------------------------------------------------------------------
@@ -1462,3 +1472,184 @@ def test_ep_all_to_all_over_distinct_cards():
             assert torch.equal(out[g][s].cpu(), blocks[s][g].cpu())
     assert st.exchanges == 1 and st.bytes == 12 * 1000 * 4
     assert st.seconds() > 0
+
+
+# ---------------------------------------------------------------------------
+# Compiled sharded steps: the merged decode graph and the chunk graphs by
+# shard, on logical shards of one card and across cards
+# ---------------------------------------------------------------------------
+
+def _sharded_spec(devices, dtype=torch.float32, **kw):
+    """A sharded spec of reduced granite-moe on a 4-shard mesh over
+    `devices` (params made on the mesh's first device)."""
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.serving.real_engine import EngineSpec
+    mesh = make_engine_mesh(4, devices=devices)
+    cfg = get_arch("granite-moe-1b-a400m", reduced=True)
+    params = init_params(cfg, seed=0, device=mesh.lead, dtype=dtype)
+    return EngineSpec(cfg, params, max_len=64, max_batch=2, block_size=8,
+                      mesh=mesh, **kw)
+
+
+def _sharded_case(spec, seed):
+    """A merged cache whose rows (one idle a shard) hold random prefixes,
+    per-shard feed tokens, and a second cache with the same contents."""
+    S = spec.paged_slots
+    g = torch.Generator().manual_seed(seed)
+    caches = (spec.merged_paged_cache(), spec.merged_paged_cache())
+    for shards in zip(*(c["shards"] for c in caches)):
+        k = torch.randn(shards[0]["k"].shape, generator=g) * 0.5
+        v = torch.randn(shards[0]["v"].shape, generator=g) * 0.5
+        tab = torch.full(shards[0]["block_tab"].shape, -1, dtype=torch.int32)
+        kvp = torch.full(shards[0]["kv_pos"].shape, -1, dtype=torch.int32)
+        cur = torch.zeros(S, dtype=torch.int32)
+        for s in range(S - 1):
+            L = int(torch.randint(1, 24, (), generator=g))
+            blocks = [1 + 3 * s + j for j in range(-(-L // 8))]
+            tab[s, :len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+            for t in range(L):
+                kvp[blocks[t // 8], t % 8] = t
+            cur[s] = L
+        for c in shards:
+            dev = c["k"].device
+            c["k"].copy_(k.to(c["k"].dtype))
+            c["v"].copy_(v.to(c["v"].dtype))
+            c["block_tab"] = tab.to(dev)
+            c["kv_pos"].copy_(kvp.to(dev))
+            c["cur"] = cur.to(dev)
+    toks = [torch.randint(0, spec.cfg.vocab_size, (S, 1), generator=g,
+                          dtype=torch.int32).to(d)
+            for d in spec.mesh.devices]
+    return caches[0], caches[1], toks
+
+
+def _same_cache(a, b):
+    for x, y in zip(a["shards"], b["shards"]):
+        for name in ("k", "v", "kv_pos", "cur", "block_tab"):
+            assert torch.equal(x[name], y[name]), name
+
+
+def _staged_chunk(spec, cache, k):
+    """`cache` with shard k's idle row installed at cursor 0 over two
+    fresh blocks: (cache, global slot)."""
+    from repro_torch.models.model import paged_clear_rows, paged_install_row
+    from repro_torch.serving.kv_pool import pad_block_table
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    tab = torch.tensor(pad_block_table([k * B + 10, k * B + 11], spec.nbt),
+                       dtype=torch.int32, device=spec.device)
+    cache = paged_clear_rows(dict(cache, home=k), tab[:2])
+    cache.pop("home")
+    slot = k * S + S - 1
+    return paged_install_row(cache, slot, tab, 0), slot
+
+
+def _check_sharded_graphs(spec, steps=3):
+    """Merged decode steps and a chunk on each shard, replayed against the
+    eager steps on a copy of the cache: bit-identical logits and caches,
+    and the wrapper launches and EP exchanges counted through replays."""
+    from repro_torch.models.moe_ep import count_exchanges
+    runner = spec.step_graphs_for()
+    graph_c, eager_c, toks = _sharded_case(spec, 5)
+    mask = [torch.arange(spec.paged_slots, device=d) % 3 != 1
+            for d in spec.mesh.devices]
+    key = ("decode", "merged")
+    L = spec.cfg.num_layers
+    runner.prepare(key, spec.masked_decode_fn, graph_c, token=toks,
+                   mask=mask)
+    for _ in range(steps):
+        n0 = paged_decode_attention.launches
+        with count_exchanges() as ex:
+            lg_g, graph_c = runner.run(key, spec.masked_decode_fn, graph_c,
+                                       token=toks, mask=mask)
+        assert paged_decode_attention.launches - n0 == 4 * L
+        assert ex.exchanges == 2 * L and ex.bytes > 0
+        with count_exchanges() as ex_e:
+            lg_e, eager_c = spec.masked_decode_fn(eager_c, toks, mask)
+        assert (ex_e.exchanges, ex_e.bytes) == (ex.exchanges, ex.bytes)
+        assert torch.equal(lg_g, lg_e)
+        _same_cache(graph_c, eager_c)
+        toks = [t.argmax(-1, keepdim=True).to(torch.int32).to(d)
+                for t, d in zip(lg_g.split(spec.paged_slots),
+                                spec.mesh.devices)]
+    assert runner.replays == steps and runner.captured == 1
+    for k in range(4):
+        graph_c, slot = _staged_chunk(spec, graph_c, k)
+        eager_c, _ = _staged_chunk(spec, eager_c, k)
+        ids = torch.randint(0, spec.cfg.vocab_size, (1, 16),
+                            generator=torch.Generator().manual_seed(k),
+                            dtype=torch.int32).to(spec.device)
+        n0 = paged_prefill_attention.launches
+        lg_g, graph_c = spec.paged_prefill(runner, ids, graph_c, slot)
+        lg_g, graph_c = spec.paged_prefill(runner, ids[:, :8], graph_c,
+                                           slot)
+        assert paged_prefill_attention.launches - n0 == 2 * L
+        lg_e, eager_c = spec.paged_prefill(None, ids, eager_c, slot)
+        lg_e, eager_c = spec.paged_prefill(None, ids[:, :8], eager_c, slot)
+        assert torch.equal(lg_g, lg_e)
+        _same_cache(graph_c, eager_c)
+    assert ("prefill", 3, 16) in runner._entries
+    return runner
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_graphs_match_eager_on_logical_shards(dev, dtype):
+    """On four logical shards of one card each step is ONE graph (no
+    move crosses devices), bit-identical to the eager step."""
+    runner = _check_sharded_graphs(_sharded_spec([dev] * 4, dtype))
+    assert all(len(g) == 1 and not c for e in runner._entries.values()
+               for g, c in e.segments)
+    assert all(len(e.segments) == 1 for e in runner._entries.values())
+
+
+def test_sharded_capture_has_no_host_sync(dev):
+    spec = _sharded_spec([dev] * 4, torch.bfloat16)
+    runner = spec.step_graphs_for()
+    cache, _c, toks = _sharded_case(spec, 6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.prepare(("decode", "merged"), spec.decode_fn, cache,
+                       token=toks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert runner.captured == 1
+
+
+def test_sharded_replay_after_a_swapped_shard_pool_raises(dev):
+    spec = _sharded_spec([dev] * 4)
+    runner = spec.step_graphs_for()
+    cache, _c, toks = _sharded_case(spec, 7)
+    key = ("decode", "merged")
+    _lg, cache = runner.run(key, spec.decode_fn, cache, token=toks)
+    for name in ("k", "v", "kv_pos"):
+        shards = list(cache["shards"])
+        shards[1] = dict(shards[1], **{name: shards[1][name].clone()})
+        with pytest.raises(RuntimeError, match="of shard 1 is not the"):
+            runner.run(key, spec.decode_fn, dict(cache, shards=shards),
+                       token=toks)
+    w = spec.params["layers"][0]["moe"]["w_down"]
+    old = w.shards[2]
+    w.shards[2] = old.clone()
+    try:
+        with pytest.raises(RuntimeError, match="weights"):
+            runner.run(key, spec.decode_fn, cache, token=toks)
+    finally:
+        w.shards[2] = old
+    assert runner.replays == 1
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_segmented_sharded_graphs_across_cards(cards):
+    """With the shards on `cards` cards each step is captured in segments
+    (one graph a card between the moves that cross cards), and still
+    agrees with the eager step bit for bit (skipped with fewer cards)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} NVIDIA GPUs")
+    devices = [f"cuda:{i * cards // 4}" for i in range(4)]
+    runner = _check_sharded_graphs(_sharded_spec(devices))
+    entry = runner._entries[("decode", "merged")]
+    n_moe = sum("moe" in p for p in runner.params["layers"])
+    # a cut at each exchange (2 an MoE layer) and at the logits' return
+    assert len(entry.segments) == 2 * n_moe + 2
+    assert all(len(g) == cards for g, _c in entry.segments)
+    assert sum(len(c) for _g, c in entry.segments) > 0

@@ -21,7 +21,9 @@ calls the step.
     instead of deferring a prompt, and counts it;
   * the P/D server on the padded plane gives the same tokens with step
     graphs and without, and the JAX server's, under sbs, sbs-la and
-    immediate.
+    immediate;
+  * the dense prefill engines of every server built on one spec share
+    its chunk graphs and working cache, with counters of their own.
 """
 import dataclasses
 import random
@@ -345,3 +347,50 @@ def test_pd_padded_server_graphs_eager_and_jax_agree(scheduler):
                 assert len(e.rows.free) == e.rows.n * len(e.rows.caches)
     assert sorted(out["jax"]) == list(range(len(prompts)))
     assert out["graphs"] == out["eager"] == out["jax"]
+
+
+def test_dense_prefill_engines_share_the_specs_chunk_graphs():
+    """Every dense prefill engine of a spec, in every server built on
+    it, replays the spec's chunk graphs over the spec's working cache
+    (`EngineSpec.dense_graphs`): one set of entries, so a chunk length
+    is captured once a spec, as the reference compiles a chunk shape
+    once; each engine's runner counts its own replays and only the first
+    owns the pools.  Two servers on one spec serve the same requests in
+    turn, and give the tokens the eager server gives."""
+    _c, _j, tcfg, tp = _pair("deepseek-7b")
+    scfg = _pd_scfg()
+    prompts = _prompts(tcfg.vocab_size, (37, 16, 50, 21), seed=9)
+
+    def serve(srv):
+        reqs = [Request(rid=i, arrival_time=0.02 * i, input_len=len(p),
+                        output_len=4, tokens=tuple(p))
+                for i, p in enumerate(prompts)]
+        return {g.rid: g.tokens for g in srv.serve(reqs, timeout=120)}
+
+    spec = EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=4, max_new=4,
+                      device="cpu")
+    servers = [RealSBSServer(tcfg, tp, scfg, scheduler="sbs", spec=spec,
+                             device="cpu") for _ in range(2)]
+    first = servers[0].engines[0]
+    engines = [e for s in servers for e in s.engines]
+    assert len(engines) == 4 and len({id(e.graphs) for e in engines}) == 4
+    assert all(e.graphs._entries is first.graphs._entries
+               and e._work is first._work for e in engines)
+    assert [e.graphs._owns_pools for e in engines] == [True] + [False] * 3
+    assert list(first.graphs._entries) == [("prefill-dense", 16)]
+    eager = RealSBSServer(tcfg, tp, scfg, scheduler="sbs", device="cpu",
+                          spec=EngineSpec(tcfg, tp, max_len=MAX_LEN,
+                                          max_batch=4, max_new=4,
+                                          device="cpu", step_graphs=False))
+    want = serve(eager)
+    assert sorted(want) == list(range(len(prompts)))
+    assert serve(servers[0]) == want
+    keys = set(first.graphs._entries)
+    assert len(keys) > 1 and all(k[0] == "prefill-dense" and 0 < k[1] <= 16
+                                 for k in keys)
+    assert serve(servers[1]) == want
+    assert set(first.graphs._entries) >= keys
+    assert all(e.graphs._entries is first.graphs._entries for e in engines)
+    # the CPU captures nothing; each runner counted only its own steps
+    assert all(e.graphs.captured == 0 and e.graphs.replays == 0
+               for e in engines)

@@ -15,8 +15,9 @@ CPU mesh (`make_engine_mesh(4, devices=["cpu"] * 4)`), in fp32:
     merged decode step equals the unsharded step on the same cache at a
     non-binding capacity factor; each page surgery on a DP's view of
     the merged cache equals the same surgery on the unsharded cache;
-  * what a sharded deployment refuses: step graphs, a mesh whose data
-    size differs from the decode DP count, a padded plane;
+  * what a sharded deployment refuses: tensor parallelism inside a DP,
+    a mesh whose data size differs from the decode DP count, a padded
+    plane (a mesh spec builds with step graphs);
   * chip_smoke.py's sharded phase (the EP layer at granite's full MoE
     width against its plain version, the checked sharded P/D and
     unified serves) rehearsed on reduced granite-moe-1b-a400m.
@@ -323,9 +324,12 @@ def test_page_surgery_on_a_dp_view_equals_unsharded():
 
 def test_sharded_deployments_refuse():
     _cfg, _jp, tcfg, tp = _pair("granite-moe-1b-a400m")
-    with pytest.raises(ValueError, match="11-rest"):
-        EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2, block_size=8,
-                   mesh=_mesh())
+    # a mesh spec builds with step graphs (its default); tensor
+    # parallelism inside a DP is still refused
+    assert EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2, block_size=8,
+                      mesh=_mesh()).step_graphs
+    with pytest.raises(NotImplementedError):
+        make_engine_mesh(4, model=2, devices=["cpu"] * 8)
     with pytest.raises(ValueError, match="paged-only"):
         EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2, block_size=0,
                    mesh=_mesh(), step_graphs=False)
