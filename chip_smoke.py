@@ -54,8 +54,10 @@ Phases (any failure exits non-zero and prints no result):
      drain, kernels #1 and #2 (paged entry) must have launched, each
      request's first-token logits must agree with a plain dense
      forward, and the two modes must run the same steps and chunks with
-     the same launches per step and profiled device busy time within 5%
-     of each other (the trace must hold the graphs' kernels);
+     the same launches per step and profiled device time within 5% of
+     each other, as medians over two profiled runs of each mode made
+     in turn, graph, eager, graph, eager (every graph run's trace must
+     hold the graphs' kernels);
   5b. the SSD intra-chunk kernel (kernel #4) against its plain version:
      full-width mamba2-370m's 256-token chunk (32 heads of 64, d_state
      128) in bf16 and fp32, a ragged chunk padded with dt = 0, B·nc > 1,
@@ -153,6 +155,23 @@ Phases (any failure exits non-zero and prints no result):
      decode joins placed together, at SHARDED_BITS_LAYERS of the 24
      layers (width and traffic as above): chunks, tokens and
      first-token logits identical, bit for bit;
+  6h. the hybrid: jamba-v0.1-52b at full width, depth cut to
+     HYBRID_LAYERS of its 32 (one period: 7 SSM layers, 4 of them
+     SSM_MOE with 16 experts top-2, 1 attention layer; bf16 from seed
+     0, made on the card), (a) behind the P/D deployment of phase 6 on
+     the paged plane with 16-token pages: the dense chunks run #4 in the
+     SSM layers and #2's contiguous entry in the attention layer, the
+     handoff joins pages and the slot's per-slot SSM state, decode runs
+     #1; every request finishes, the pools drain, #1, #2 contiguous and
+     #4 launch through replays and no other kernel, each first-token
+     logits row agrees with a plain forward over the served chunks and
+     the served expert sets, and the same requests at t = 0 under
+     `immediate`, the decode joins placed together, give the same
+     chunks, tokens and first-token logits with graphs and eagerly, bit
+     for bit; (b) behind the sharded P/D deployment of phase 6g (four
+     logical shards, EP over the 16 experts, four a shard), with step
+     graphs: every request finishes, the merged cache drains, and each
+     merged decode step makes 8 exchanges (2 in each MoE layer);
   7. the serving benchmark twin (`examples/serve_e2e_torch.py`, loaded
      by path): its six A/Bs through its CLI entry point at the flags of
      `scripts/ci.sh --real-smoke` (paged vs padded on granite-moe; the
@@ -213,6 +232,7 @@ import json
 import math
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -1155,7 +1175,10 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None,
     does not depend on prefill chunk boundaries.  An MoE FFN does: expert
     capacity counts the tokens of one call, so `moe_block` runs once per
     prefill chunk the serve used (`chunks`, lengths; None is one call
-    over the prompt), as the served steps call it.  A sliding window
+    over the prompt), as the served steps call it.  So does a hybrid's
+    SSM layer (jamba): `mamba_forward` through `ssd_chunked` (the plain
+    SSD scan) runs chunk by chunk, carrying its state and conv tails, as
+    `ssm_forward_logits` does.  A sliding window
     masks as the reference's; a ring cache gives the same result only
     while the prompt fits the window (the serves' prompts do).
     `moe_fn(h, params, mc)` replaces `moe_block` for each chunk's MoE
@@ -1164,6 +1187,7 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None,
     from repro_torch.config.base import AttentionKind
     from repro_torch.models.attention import build_mask, gqa_reference
     from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+    from repro_torch.models.mamba import mamba_forward, ssd_chunked
     from repro_torch.models.model import logits_from_hidden
     from repro_torch.models.moe import moe_block
     moe_fn = moe_fn or moe_block
@@ -1178,13 +1202,22 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None,
     bounds = [0]
     for n in chunks or [S]:
         bounds.append(bounds[-1] + n)
+    spans = list(zip(bounds, bounds[1:]))
     x = params["embed"][ids]
     for p in params["layers"]:
-        a = p["attn"]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if cfg.attention == AttentionKind.MLA:
+        if "mamba" in p:
+            ys, state = [], (None, None)
+            for lo, hi in spans:
+                y, state = mamba_forward(h[:, lo:hi], p["mamba"], cfg.ssm,
+                                         *state, scan=ssd_chunked)
+                ys.append(y)
+            x = x + torch.cat(ys, 1)
+        elif cfg.attention == AttentionKind.MLA:
+            a = p["attn"]
             x = x + _plain_mla(cfg, a, h, pos, mask)
         else:
+            a = p["attn"]
             q = apply_rope((h @ a["w_q"].reshape(D, -1)).reshape(
                 1, S, H, hd), pos, cfg.rope_theta)
             k = apply_rope((h @ a["w_k"].reshape(D, -1)).reshape(
@@ -1192,11 +1225,12 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None,
             v = (h @ a["w_v"].reshape(D, -1)).reshape(1, S, K, hd)
             o = gqa_reference(q, k, v, mask)
             x = x + o.reshape(1, S, H * hd) @ a["w_o"].reshape(H * hd, D)
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if "moe" in p:
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
             x = x + torch.cat([moe_fn(h[:, lo:hi], p["moe"], cfg.moe)[0]
-                               for lo, hi in zip(bounds, bounds[1:])], 1)
-        else:
+                               for lo, hi in spans], 1)
+        elif "mlp" in p:
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
             m = p["mlp"]
             x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -1567,8 +1601,9 @@ def mixed_scfg():
         mixed_batch=True, mixed_chunk=256)
 
 
-def pd_scfg():
-    """The P/D serve's deployment.  SBS's flow control rejects a prompt
+def pd_scfg(block_size=0):
+    """The P/D serve's deployment (`block_size` > 0: on the paged plane).
+    SBS's flow control rejects a prompt
     that waited more than n_limit × (2 or 3) dispatch cycles; with the
     default n_limit=8 the smoke's burst (8 prompts, about 5,000 tokens
     within 0.35 s, against 2 × 256 tokens per pass) trips it at full
@@ -1579,7 +1614,7 @@ def pd_scfg():
         num_prefill_instances=2, prefill_dp_per_instance=1,
         num_decode_instances=1, decode_dp_per_instance=2,
         chunk_size=PD_CHUNK, t_default=0.05, l_net=0.001,
-        max_batch_per_dp=MAX_BATCH, block_size=0, n_limit=64)
+        max_batch_per_dp=MAX_BATCH, block_size=block_size, n_limit=64)
 
 
 def dispatch_bursts_whole(srv, n):
@@ -1601,7 +1636,8 @@ def dispatch_bursts_whole(srv, n):
 
 
 def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
-          lens=(128, 1024), outs=(16, 32), tag="[serve]", step_graphs=True):
+          lens=(128, 1024), outs=(16, 32), tag="[serve]", step_graphs=True,
+          profile=True):
     """Drive the unified mixed-batch plane with 8 requests arriving at
     once; returns the serve report.  The burst, dispatched whole
     (`dispatch_bursts_whole`), makes the engine's step sequence
@@ -1614,7 +1650,9 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
     first-token logits are held against `dense_forward_logits` over the
     chunks the serve ran (they matter for an MoE model's expert
     capacity).  The size arguments let the same code rehearse on the
-    CPU with a reduced config."""
+    CPU with a reduced config.  With `profile=False` the report's
+    "profile" is None and "profile_run" a function that makes one
+    profiled run on the same server (`serve_modes` interleaves them)."""
     import torch
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
@@ -1659,9 +1697,11 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
     itl = eng.itl[mark[1]:]
     durs = [d for d, _a, _r in eng.step_samples[mark[2]:]]
     prefill_chunks = {r.rid: list(chunks.get(r.rid) or []) for r in reqs}
-    profile = profile_serve(lambda: srv, cfg, None, None, None, device,
-                            waves=lambda: [requests()])
-    return {
+
+    def profile_run():
+        return profile_serve(lambda: srv, cfg, None, None, None, device,
+                             waves=lambda: [requests()])
+    rep = {
         "plane": "unified mixed-batch, paged", "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
         "mode": "step graphs" if step_graphs else "eager",
@@ -1679,8 +1719,35 @@ def serve(cfg, params, device, counters, n_requests=N_REQUESTS,
         "peak_memory_bytes": peak, "server_build_s": build_s,
         "graphs": graphs,
         "prefill_chunks": prefill_chunks,
-        "profile": profile,
+        "profile": profile_run() if profile else None,
     }
+    if not profile:
+        rep["profile_run"] = profile_run
+    return rep
+
+
+def serve_modes(cfg, params, device, counters, tag, runs=2):
+    """The graphs-vs-eager A/B of a unified serve: `serve` with step
+    graphs and eagerly, each on its own server after its own warm-up and
+    measured run, then their profiled runs interleaved (graph, eager,
+    graph, eager, ...: `runs` of each), so that both modes meet the
+    card in the same states; `compare_modes` holds the medians.  Each
+    report's "profile" is its mode's last run.  Returns (graph report,
+    eager report)."""
+    graph = serve(cfg, params, device, counters, tag=tag, profile=False)
+    eager = serve(cfg, params, device, counters, tag=f"{tag[:-1]} eager]",
+                  step_graphs=False, profile=False)
+    prof = {True: [], False: []}
+    if device != "cpu":             # "cpu": a rehearsal, no profile
+        for _ in range(runs):
+            for mode, rep in ((True, graph), (False, eager)):
+                prof[mode].append(rep["profile_run"]())
+    for mode, rep in ((True, graph), (False, eager)):
+        del rep["profile_run"]
+        rep["profile"] = prof[mode][-1] if prof[mode] else None
+    graph["ab"] = compare_modes(tag, graph, eager, device,
+                                runs=(prof[True], prof[False]))
+    return graph, eager
 
 
 def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
@@ -1688,10 +1755,12 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
              forward=dense_forward_logits, info_forward=None,
              launched=("decode_attention", "flash_prefill"),
              step_graphs=True, scheduler="sbs-la", burst=False,
-             profile=True, keep=None):
-    """Drive the P/D-separated deployment on the padded plane (requests
-    50 ms apart, or with `burst` all at t = 0); returns the serve report
-    (as `serve`).  With `step_graphs` every decode step and dense
+             profile=True, keep=None, block_size=0, routes=False,
+             hold=False):
+    """Drive the P/D-separated deployment on the padded plane, or with
+    `block_size` > 0 on the paged plane (requests 50 ms apart, or with
+    `burst` all at t = 0, with `hold` the decode joins placed together,
+    `hold_handoffs_whole`); returns the serve report (as `serve`).  With `step_graphs` every decode step and dense
     prefill chunk replays a graph (each server captures its decode
     steps and its full 256-token chunk when it is built, a chunk of
     another length at its first use), and every dense chunk must have
@@ -1706,13 +1775,16 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     second one (see `check_served`).  On the card every wrapper named in
     `launched` must run and every other one of `counters` must not.
     `profile=False` skips the profiled second run; `keep`, a dict,
-    receives the first-token logits by rid."""
+    receives the first-token logits by rid; `routes` replays the served
+    expert sets in the plain forward (an MoE model, `check_served`)."""
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
-    scfg = pd_scfg()
+    scfg = pd_scfg(block_size)
     spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
-                      max_new=outs[1], block_size=0, device=device,
-                      step_graphs=step_graphs)
+                      max_new=outs[1], block_size=block_size,
+                      decode_slots=(scfg.resolved_decode_slots
+                                    if block_size else 0),
+                      device=device, step_graphs=step_graphs)
 
     def requests():
         return make_requests(cfg, n_requests, seed=1, lens=lens, outs=outs,
@@ -1720,6 +1792,8 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     t0 = time.monotonic()
     srv = RealSBSServer(cfg, params, scfg, scheduler=scheduler, spec=spec)
     build_s = time.monotonic() - t0
+    if hold:
+        hold_handoffs_whole(srv, n_requests)
     srv.serve(requests(), timeout=600)
     eng = srv.decode_engines[0]
     mark = (eng.steps, len(eng.itl), len(eng.step_samples),
@@ -1740,7 +1814,8 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     worst, agree, info = check_served(cfg, params, spec, srv, reqs, gens,
                                       first_logits, device, tag, forward,
                                       chunks, info_forward,
-                                      prefilled_before=mark[4])
+                                      prefilled_before=mark[4],
+                                      routes=routes)
     check_replayed(tag, spec, counts, device)
     for name, n in launches.items():
         if name in launched and device != "cpu" and n <= 0:
@@ -1762,7 +1837,8 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
         prof = profile_serve(lambda: srv, cfg, None, None, None, device,
                              waves=lambda: [requests()])
     return {
-        "plane": "P/D, padded decode", "model": cfg.name,
+        "plane": "P/D, paged decode" if block_size else "P/D, padded decode",
+        "model": cfg.name,
         "dtype": str(params["embed"].dtype).replace("torch.", ""),
         "mode": "step graphs" if step_graphs else "eager",
         "scheduler": scheduler,
@@ -1807,23 +1883,26 @@ def report_pd_modes(tag, graph, eager):
           f"{graph['dense_rows']!r}", flush=True)
 
 
-def serve_pd_bits(cfg, params, device, counters):
+def serve_pd_bits(cfg, params, device, counters, tag="[pd serve bits]",
+                  **kw):
     """The graphs-vs-eager A/B of the P/D serve: its 8 requests all at
     t = 0 under `immediate`, so that every arrival is bound to a prefill
     instance at once and each pass takes its queue in order (the chunk
     boundaries do not depend on step times; the padded decode rows never
-    interact), served with step graphs and eagerly.  Every request's
-    chunks, tokens and first-token logits must be identical, bit for
-    bit.  Returns the A/B's report."""
+    interact; rows whose MoE layers share expert capacity in a paged
+    decode step need `hold=True`), served with step graphs and eagerly.
+    Every request's chunks, tokens and first-token logits must be
+    identical, bit for bit.  `kw` goes to `serve_pd`.  Returns the A/B's
+    report."""
     import torch
     reps, logits = {}, {}
     for graphs in (True, False):
         logits[graphs] = {}
         reps[graphs] = serve_pd(
             cfg, params, device, counters,
-            tag=f"[pd serve bits {'graphs' if graphs else 'eager'}]",
+            tag=f"{tag[:-1]} {'graphs' if graphs else 'eager'}]",
             step_graphs=graphs, scheduler="immediate", burst=True,
-            profile=False, keep=logits[graphs])
+            profile=False, keep=logits[graphs], **kw)
         if device != "cpu":
             free_device_memory()
     g, e = reps[True], reps[False]
@@ -1833,15 +1912,14 @@ def serve_pd_bits(cfg, params, device, counters):
                for r in logits[True])
     same_logits = all(torch.equal(logits[True][r], logits[False][r])
                       for r in logits[True])
-    print(f"[pd serve bits] graphs vs eager on the same chunks: chunks "
+    print(f"{tag} graphs vs eager on the same chunks: chunks "
           f"equal {same_chunks}, tokens equal {same_tokens}, first-token "
           f"logits bit-identical {same_logits} (max|d|={diff!r}); wall "
           f"graphs={g['wall_s']!r} eager={e['wall_s']!r}; ttft_p99 "
           f"graphs={g['ttft_p99_s']!r} eager={e['ttft_p99_s']!r}",
           flush=True)
     if not (same_chunks and same_tokens and same_logits):
-        raise AssertionError("[pd serve bits]: the graph and eager serves "
-                             "differ")
+        raise AssertionError(f"{tag}: the graph and eager serves differ")
     return {"same_chunks": same_chunks, "same_tokens": same_tokens,
             "same_first_logits": same_logits, "max_abs_logit_diff": diff,
             "graphs": {k: g[k] for k in ("wall_s", "ttft_p50_s",
@@ -2193,16 +2271,18 @@ def report_serve(tag, rep):
     print(f"{tag} mode={rep['mode']} graphs={rep['graphs']!r}", flush=True)
 
 
-def compare_modes(tag, graph, eager, device="cuda"):
+def compare_modes(tag, graph, eager, device="cuda", runs=None):
     """The A/B of one serve: its figures with step graphs and eagerly,
     side by side.  Both runs must have done the same work (the same
     steps and prefill chunks, which the burst traffic makes
     independent of step time), and their profiles must show that work
     whole: the trace must hold the kernels the graphs launch, else the
-    graph run's idle share would read too high.  So the device time of
-    the named groups (the matmuls and the repo's kernels, which run
-    only inside graphs in graph mode) must be within 5% of the eager
-    one.  The total busy time, the device op counts and the eager
+    graph run's idle share would read too high.  So the median over a
+    mode's profiled runs (`runs`: the graph runs and the eager runs,
+    which `serve_modes` interleaves; default each report's one profile)
+    of the device time of the named groups (the matmuls and the repo's
+    kernels, which run only inside graphs in graph mode) must be within
+    5% of the eager one; every run's figures are printed.  The total busy time, the device op counts and the eager
     run's ten longest kernels in both runs are printed beside it but
     not held to 5%: the same launches of the small elementwise and copy
     kernels ("other") take a few percent less device time each replayed
@@ -2214,16 +2294,33 @@ def compare_modes(tag, graph, eager, device="cuda"):
                 "itl_p99_s", "step_p50_s", "step_p99_s"):
         print(f"{tag} A/B {key}: graphs={graph[key]!r} eager={eager[key]!r}",
               flush=True)
+    if runs is None:
+        runs = tuple([r["profile"]] if r["profile"] else []
+                     for r in (graph, eager))
     gp, ep = graph["profile"] or {}, eager["profile"] or {}
-    gb, eb = gp.get("device_busy_s"), ep.get("device_busy_s")
-    print(f"{tag} A/B device_busy_s: graphs={gb!r} eager={eb!r}; "
+
+    def median(xs):
+        return statistics.median(xs) if xs else None
+
+    def named_s(p):
+        return sum(v for k, v in p["by_group_s"].items() if k != "other")
+    gb, eb = (median([p["device_busy_s"] for p in r]) for r in runs)
+    for mode, r in zip(("graphs", "eager"), runs):
+        for i, p in enumerate(r):
+            print(f"{tag} A/B profiled run {i + 1} {mode}: device_busy_s="
+                  f"{p['device_busy_s']!r} named groups device_s="
+                  f"{named_s(p)!r} idle_share={p['idle_share']!r}",
+                  flush=True)
+    print(f"{tag} A/B device_busy_s (median of {len(runs[0])} and "
+          f"{len(runs[1])} runs): graphs={gb!r} eager={eb!r}; "
           f"idle_share: graphs={gp.get('idle_share')!r} "
           f"eager={ep.get('idle_share')!r}; same steps and chunks: {same}",
           flush=True)
     # the trace's kernel groups: kernel #1, and #2 (both of its entries
-    # share the kernel's name)
+    # share the kernel's name), in every graph run
     attn = ("paged_decode_attention", "flash_prefill")
-    seen = all(gp.get("by_group_s", {}).get(k, 0.0) > 0 for k in attn)
+    seen = bool(runs[0]) and all(p["by_group_s"].get(k, 0.0) > 0
+                                 for p in runs[0] for k in attn)
     print(f"{tag} A/B the trace holds graph-launched kernels (attention "
           f"kernels run only inside graphs in graph mode): {seen}",
           flush=True)
@@ -2236,11 +2333,10 @@ def compare_modes(tag, graph, eager, device="cuda"):
         if gb is None or eb is None:
             raise AssertionError(f"{tag}: a run's profile holds no device "
                                  f"time (graphs {gb}, eager {eb})")
-        gn, en = (sum(v for k, v in p["by_group_s"].items() if k != "other")
-                  for p in (gp, ep))
+        gn, en = (median([named_s(p) for p in r]) for r in runs)
         named = [gn, en]
-        print(f"{tag} A/B device_s of the named groups: graphs={gn!r} "
-              f"eager={en!r}; of 'other': graphs="
+        print(f"{tag} A/B device_s of the named groups (medians): graphs="
+              f"{gn!r} eager={en!r}; of 'other' (last runs): graphs="
               f"{gp['by_group_s'].get('other')!r} "
               f"eager={ep['by_group_s'].get('other')!r}; device ops: "
               f"graphs={gp['device_ops']} eager={ep['device_ops']}",
@@ -2264,7 +2360,11 @@ def compare_modes(tag, graph, eager, device="cuda"):
                              f"{eager['launches_per_step']}")
     return {"same_work": same, "device_busy_s": [gb, eb],
             "busy_rel_diff": abs(gb - eb) / eb if gb and eb else None,
-            "named_groups_device_s": named, "graph_kernels_seen": seen}
+            "named_groups_device_s": named, "graph_kernels_seen": seen,
+            "runs": {mode: [{"device_busy_s": p["device_busy_s"],
+                             "named_groups_device_s": named_s(p),
+                             "idle_share": p["idle_share"]} for p in r]
+                     for mode, r in zip(("graphs", "eager"), runs)}}
 
 
 def _kernel_group(name: str) -> str:
@@ -2684,13 +2784,14 @@ def serve_twin(counters, device, reduced=False, elapsed=None):
 # ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve, swa, twin, sharded):
+                 moe_serve, swa, twin, sharded, hybrid):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
     contiguous entry also on the SWA serve, with their figures at its
-    head dim 120), and on each A/B of the serving benchmark twin
-    (`launches_twin`)."""
+    head dim 120; #1, #2's contiguous entry and #4 also on the hybrid's
+    paged and sharded P/D serves), and on each A/B of the serving
+    benchmark twin (`launches_twin`)."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -2723,9 +2824,14 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
     on_moe = moe_serve["launches"]
 
     def on_sharded(name):
-        return {f"launches_sharded_{k}_serve": sharded[k]["launches"][name]
-                for k in ("pd", "unified")
-                if sharded[k]["launches"][name]}
+        out = {f"launches_sharded_{k}_serve": sharded[k]["launches"][name]
+               for k in ("pd", "unified")
+               if sharded[k]["launches"][name]}
+        if name in HYBRID_KERNELS:
+            out.update({f"launches_hybrid_{k}_serve":
+                        hybrid[k]["launches"][name]
+                        for k in ("pd", "sharded")})
+        return out
     return [
         item("paged_decode_attention", csrc + "paged_decode_attention.cu",
              dec_k + ":115", mixed, dec, "mixed serve",
@@ -2753,6 +2859,7 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              "src/repro/kernels/ssd_scan/kernel.py:54", ssm, ssd,
              "SSM serve (P/D, padded)",
              launches_per_prefill_pass=ssm["ssd_chunk_per_prefill_pass"],
+             **on_sharded("ssd_chunk"),
              library_note="none: no single PyTorch call computes the SSD "
                           "intra-chunk term"),
     ]
@@ -2777,7 +2884,7 @@ def serve_moe(counters, device, n_layers=None):
         torch.cuda.synchronize()
     print(f"[init] {cfg.name} {dt} weights in {time.monotonic() - t0:.1f} s",
           flush=True)
-    rep = serve(cfg, params, device, counters, tag="[moe serve]")
+    rep, eager = serve_modes(cfg, params, device, counters, "[moe serve]")
     for name, n in rep["launches"].items():
         on_path = name in ("paged_decode_attention", "paged_prefill_attention")
         if on_path and device != "cpu" and n <= 0:
@@ -2802,12 +2909,7 @@ def serve_moe(counters, device, n_layers=None):
     print(f"[moe serve] capacity drops per chunk (plain forward): "
           f"{pdrops!r}", flush=True)
     report_serve("[moe serve]", rep)
-    if device != "cpu":
-        free_device_memory()
-    eager = serve(cfg, params, device, counters, tag="[moe serve eager]",
-                  step_graphs=False)
     report_serve("[moe serve eager]", eager)
-    rep["ab"] = compare_modes("[moe serve]", rep, eager, device)
     rep["eager"] = {k: v for k, v in eager.items() if k != "prefill_chunks"}
     return rep
 
@@ -3080,7 +3182,8 @@ def serve_sharded(cfg, params, device, counters, mixed,
     replays one) or eagerly.  The measured server first serves the same
     requests once.  Checks: every request finishes and the merged
     caches drain; every step that decoded rows covered the merged slot
-    axis and made EP exchanges; with graphs on the card, every step of
+    axis and made EP exchanges (on P/D 2 in each MoE layer, dispatch and
+    combine); with graphs on the card, every step of
     the measured run replayed (the merged engine's replays equal its
     decode steps plus, unified, its chunks; every dense chunk replayed);
     #1 and #2 (the paged entry on the unified plane, the contiguous one
@@ -3140,6 +3243,7 @@ def serve_sharded(cfg, params, device, counters, mixed,
     samples = eng.step_samples[mark[2]:]
     ep = eng.ep_samples[mark[2]:]
     rows = len(eng._group.slots)
+    n_moe = sum("moe" in p for p in params["layers"])
     for (_d, active, r), (ex, _b, _s) in zip(samples, ep):
         if r != rows:
             raise AssertionError(f"{tag}: a step covered {r} rows, the "
@@ -3147,6 +3251,11 @@ def serve_sharded(cfg, params, device, counters, mixed,
         if active and ex <= 0:
             raise AssertionError(f"{tag}: a merged decode step made no EP "
                                  f"exchange")
+        # a P/D step decodes only: dispatch and combine in each MoE layer
+        if active and not mixed and ex != 2 * n_moe:
+            raise AssertionError(f"{tag}: a merged decode step made {ex} "
+                                 f"EP exchanges, not 2 in each of its "
+                                 f"{n_moe} MoE layers")
     decode = [(d, x) for (d, a, _r), x in zip(samples, ep) if a]
     n_chunks = sum(len(v) for v in chunks.values()) if mixed else 0
     replays = (eng.graphs.replays - mark[4]) if eng.graphs is not None \
@@ -3162,12 +3271,13 @@ def serve_sharded(cfg, params, device, counters, mixed,
                              f"steps of the measured run ran eagerly")
     launched = ({"paged_decode_attention", "paged_prefill_attention"}
                 if mixed else {"paged_decode_attention", "flash_prefill"})
+    if any("mamba" in p for p in params["layers"]):
+        launched.add("ssd_chunk")           # a hybrid's SSM prefill
     for name, n in launches.items():
         if name in launched and device != "cpu" and n <= 0:
             raise AssertionError(f"{tag}: {name} never launched")
         if name not in launched and n != 0:
             raise AssertionError(f"{tag}: {name} launched {n} times")
-    n_moe = sum("moe" in p for p in params["layers"])
     flips = {"flips": 0, "pairs": 0}
     forward = dense_forward_logits
     if mixed:
@@ -3336,6 +3446,82 @@ def serve_sharded_phase(counters, device, n_layers=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6h: a hybrid's per-slot SSM state beside paged K/V (jamba)
+# ---------------------------------------------------------------------------
+
+# jamba-v0.1-52b's depth on one card: one period of the published 32
+# layers (7 SSM layers, 4 of them SSM_MOE with 16 experts top-2, and 1
+# attention layer; 13.27 B parameters, 26.5 GB in bf16); the 32 layers
+# (102.9 GB) run on four cards in `scripts/jamba_four_cards.py`
+HYBRID_LAYERS = 8
+HYBRID_KERNELS = ("paged_decode_attention", "flash_prefill", "ssd_chunk")
+
+
+def serve_hybrid_phase(counters, device, cfg=None, params=None,
+                       n_requests=N_REQUESTS, lens=(128, 1024),
+                       outs=(16, 32)):
+    """Phase 6h: jamba-v0.1-52b at full width, HYBRID_LAYERS of its 32
+    layers (random bf16 weights from seed 0, made on the card), (a)
+    behind the P/D server on the paged plane (dense prefill: #4 in the
+    SSM layers, #2's contiguous entry in the attention layer; the
+    handoff joined into pages and the slot's SSM rows; paged decode: #1),
+    with step graphs: every request finishes, the pools drain, #1, #2
+    contiguous and #4 launch through replays and nothing else, and each
+    first-token logits row agrees with a plain forward over the served
+    chunks and the served expert sets (`dense_forward_logits`, its SSM
+    layers through `ssd_chunked`); then its graphs-vs-eager bit A/B on an
+    `immediate` burst with the decode joins placed together; (b) behind
+    the sharded P/D plane on four logical shards of the card
+    (`serve_sharded`: 1 decode × 4 DP merged, EP over the 16 experts,
+    four a shard), with step graphs: every request finishes, the merged
+    cache drains, and every merged decode step makes 2 exchanges in each
+    of the 4 MoE layers.  `cfg`, `params` and the sizes let a CPU
+    rehearsal pass a reduced model.  Returns {"pd" (with "bits"),
+    "sharded"}."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"),
+                                  num_layers=HYBRID_LAYERS)
+        t0 = time.monotonic()
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                             device=device)
+        torch.cuda.synchronize()
+        print(f"[init] {cfg.name} at {cfg.num_layers} of 32 layers, bf16 "
+              f"weights in {time.monotonic() - t0:.1f} s", flush=True)
+    size = dict(n_requests=n_requests, lens=lens, outs=outs)
+    pd = serve_pd(cfg, params, device, counters, tag="[hybrid pd serve]",
+                  launched=HYBRID_KERNELS, block_size=BLOCK, routes=True,
+                  **size)
+    replays = (pd["graphs"] or {}).get("replays_in_run", 0)
+    if device != "cpu" and replays <= 0:
+        raise AssertionError("[hybrid pd serve]: no step replayed a graph")
+    report_serve("[hybrid pd serve]", pd)
+    print(f"[hybrid pd serve] launches per decode step: "
+          f"paged_decode_attention="
+          f"{pd['launches']['paged_decode_attention'] / max(pd['decode_steps'], 1)!r}"
+          f", per prefill pass: flash_prefill="
+          f"{pd['flash_prefill_per_prefill_pass']!r} ssd_chunk="
+          f"{pd['ssd_chunk_per_prefill_pass']!r} (decode_steps="
+          f"{pd['decode_steps']}, prefill_passes={pd['prefill_passes']}, "
+          f"replays in the measured run {replays})", flush=True)
+    if device != "cpu":
+        free_device_memory()
+    pd["bits"] = serve_pd_bits(cfg, params, device, counters,
+                               tag="[hybrid pd bits]",
+                               launched=HYBRID_KERNELS, block_size=BLOCK,
+                               routes=True, hold=True, **size)
+    if device != "cpu":
+        free_device_memory()
+    sharded = serve_sharded(cfg, params, device, counters, False,
+                            tag="[hybrid sharded pd serve]", **size)
+    report_sharded("[hybrid sharded pd serve]", sharded)
+    return {"pd": pd, "sharded": sharded}
+
+
 def main() -> int:
     try:
         import torch
@@ -3390,17 +3576,14 @@ def main() -> int:
               f"{time.monotonic() - t0:.1f} s", flush=True)
         counters = [paged_decode_attention, paged_prefill_attention,
                     flash_prefill, decode_attention, ssd_chunk]
-        mixed = serve(cfg, params, device, counters)
+        mixed, mixed_eager = serve_modes(cfg, params, device, counters,
+                                         "[serve]")
         for name in ("paged_decode_attention", "paged_prefill_attention"):
             if mixed["launches"][name] <= 0:
                 raise AssertionError(f"{name} never launched on the mixed "
                                      f"serve")
         report_serve("[serve]", mixed)
-        free_device_memory()
-        mixed_eager = serve(cfg, params, device, counters,
-                            tag="[serve eager]", step_graphs=False)
         report_serve("[serve eager]", mixed_eager)
-        mixed["ab"] = compare_modes("[serve]", mixed, mixed_eager, device)
         mixed["eager"] = {k: v for k, v in mixed_eager.items()
                           if k != "prefill_chunks"}
         elapsed("mixed serve (graphs and eager)")
@@ -3493,11 +3676,14 @@ def main() -> int:
         sharded = serve_sharded_phase(counters, device)
         elapsed("sharded serves")
         free_device_memory()
+        hybrid = serve_hybrid_phase(counters, device)
+        elapsed("hybrid serves (jamba, paged and sharded)")
+        free_device_memory()
         twin = serve_twin(counters, device, elapsed=elapsed)
         split = prefill_split(device)
         elapsed("prefill pass split")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
-                               moe_rep, swa, twin, sharded)
+                               moe_rep, swa, twin, sharded, hybrid)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -3510,6 +3696,7 @@ def main() -> int:
         print(json.dumps({"serve_moe": moe_rep}), flush=True)
         print(json.dumps({"serve_mla": mla}), flush=True)
         print(json.dumps({"serve_sharded": sharded}), flush=True)
+        print(json.dumps({"serve_hybrid": hybrid}), flush=True)
         print(json.dumps({"serve_twin": twin}), flush=True)
         print(json.dumps({"prefill_pass_split": split}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)

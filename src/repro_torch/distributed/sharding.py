@@ -21,7 +21,10 @@ pieces; the port places the pieces itself:
     s // S as local slot s % S, global block b in shard b // B as local
     block b % B, which is what `BlockPool(base=k·B)` hands out to DP k
     (its ids run k·B+1 .. (k+1)·B-1, so local block 0, global k·B, is
-    the shard's null block).  Block tables in a shard hold local ids.
+    the shard's null block).  Block tables in a shard hold local ids.  A
+    hybrid's per-slot SSM states and conv tails go with their slots
+    (shard k holds rows [k·S, (k+1)·S)), as the reference's
+    `paged_cache_pspecs` shard them over the data axes.
 
 The TPU-production rules (FSDP over data, the pod axis, tensor-parallel
 heads and FFN, sequence-parallel long-context decode) are not ported
@@ -37,6 +40,9 @@ import torch
 from repro_torch.config.base import ParallelConfig
 
 _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+# a hybrid's per-slot entries of a paged cache (and the SSM entries of a
+# dense one), (L_ssm, rows, ...)
+SSM_STACKS = ("ssm", "conv_x", "conv_bc")
 
 
 def axis_size(mesh, axes: Sequence[str]) -> int:
@@ -185,8 +191,8 @@ def _local_table(tab: torch.Tensor, base: int, blocks: int) -> torch.Tensor:
 def shard_paged_cache(cache: Dict, mesh) -> Dict:
     """A paged cache of n·S slots over n·B blocks, in global ids, as the
     merged form over the n data ranks of a data-axis mesh: shard k holds
-    slots [k·S, (k+1)·S) and blocks [k·B, (k+1)·B) in local ids, on
-    mesh device k."""
+    slots [k·S, (k+1)·S) (their per-slot SSM entries too) and blocks
+    [k·B, (k+1)·B) in local ids, on mesh device k."""
     devs = mesh.devices
     n = len(devs)
     slots, nblocks = cache["cur"].shape[0], cache["kv_pos"].shape[0]
@@ -205,6 +211,9 @@ def shard_paged_cache(cache: Dict, mesh) -> Dict:
             "k": cache["k"][:, b].to(dev, copy=True),
             "v": cache["v"][:, b].to(dev, copy=True),
         })
+        for name in SSM_STACKS:
+            if name in cache:
+                shards[-1][name] = cache[name][:, s].to(dev, copy=True)
     return {"shards": shards, "slots": S, "blocks": B}
 
 
@@ -215,10 +224,12 @@ def unshard_paged_cache(merged: Dict, device) -> Dict:
     shards = merged["shards"]
     tabs = [torch.where(c["block_tab"] >= 0, c["block_tab"] + k * B, -1)
             for k, c in enumerate(shards)]
-    return {
+    out = {
         "cur": torch.cat([c["cur"].to(device) for c in shards]),
         "kv_pos": torch.cat([c["kv_pos"].to(device) for c in shards]),
         "block_tab": torch.cat([t.to(device) for t in tabs]).to(torch.int32),
-        "k": torch.cat([c["k"].to(device) for c in shards], 1),
-        "v": torch.cat([c["v"].to(device) for c in shards], 1),
     }
+    for name in ("k", "v") + SSM_STACKS:
+        if name in shards[0]:
+            out[name] = torch.cat([c[name].to(device) for c in shards], 1)
+    return out

@@ -11,8 +11,9 @@ Counterpart of `repro/models/blocks.py` (`init_attn_params`,
 `attn_decode`, `attn_extend`, `mla_decode`, `mla_extend`,
 `block_decode`, `block_extend` with their SSM arms; the paged
 `_paged_write_site(s)`, `attn_decode_paged`, `attn_extend_paged`,
-`mla_decode_paged`, `mla_extend_paged`, `block_decode_paged`,
-`block_extend_paged`, which are attention-only).  GQA attention runs
+`mla_decode_paged`, `mla_extend_paged`, `block_extend_paged`, which
+are attention-only, and `block_decode_paged`, whose SSM arm keeps the
+state per slot beside the pages).  GQA attention runs
 through the port's kernels (`repro_torch.kernels`), the SSM prefill
 through the SSD kernel (`repro_torch.models.mamba`); each takes its
 plain version on the CPU.  MLA is the absorbed form over the latent
@@ -428,24 +429,35 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
     return _mlp(p, x, cfg), entry
 
 
-def attend_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool,
-                        kv_pos_pool, block_tab, pos):
-    """The attention half of `block_decode_paged`: x plus the attention
-    of its rows over their pages (pools written in place)."""
+def mixer_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,
+                       kv_pos_pool, block_tab, pos):
+    """The mixer half of `block_decode_paged`: an attention layer's
+    attention of its rows over their pages (`entry` = (k_pool, v_pool),
+    written in place and handed back), or an SSM layer's decode of its
+    rows from their per-slot state (`entry` = (ssm_state, (conv_x,
+    conv_bc)), one row a slot as in `block_decode`; the new state is
+    returned, the one read left intact).  Returns (x, the layer's
+    entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
-              else attn_decode_paged)
-    return x + attend(p["attn"], h, cfg, k_pool, v_pool, kv_pos_pool,
-                      block_tab, pos)
+    if kind in ATTN_KINDS:
+        attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
+                  else attn_decode_paged)
+        return x + attend(p["attn"], h, cfg, entry[0], entry[1],
+                          kv_pos_pool, block_tab, pos), entry
+    y, entry = mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0], entry[1])
+    return x + y, entry
 
 
-def block_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
-                       block_tab, pos):
-    """Single-token decode block over a paged cache (pools written in
-    place; an MLA layer's pools are its latent and rope-key pools).
-    Returns the new hidden states (B, 1, D)."""
-    return _mlp(p, attend_decode_paged(p, x, cfg, k_pool, v_pool,
-                                       kv_pos_pool, block_tab, pos), cfg)
+def block_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,
+                       kv_pos_pool, block_tab, pos):
+    """Single-token decode block over a paged cache: attention through
+    the block table (an MLA layer's pools are its latent and rope-key
+    pools), or an SSM layer's per-slot state, which the reference keeps
+    beside the pages unpaged (see `mixer_decode_paged`).  Returns (the
+    new hidden states (B, 1, D), the layer's entry)."""
+    x, entry = mixer_decode_paged(p, x, kind, cfg, entry, kv_pos_pool,
+                                  block_tab, pos)
+    return _mlp(p, x, cfg), entry
 
 
 def mlp_shards(ps, xs, cfg: ModelConfig):

@@ -8,11 +8,13 @@ Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
 `decode_step` (with the port's `cache_row` and `cache_clear_row`, for
 the rows of a prefill engine's dense pool); and the paged family
 `paged_layout`, `init_paged_cache`,
-`paged_cache_join/take/clear_slot`, `paged_decode_step`,
-`paged_prefill_step` (with `_require_pageable_prefill`), `mixed_step`
-(its decode half is `paged_decode_masked`),
-`paged_copy_block`, `paged_gather_blocks`, `paged_adopt_blocks`,
-`paged_clear_rows` (attention-only).  The JAX package scans over a
+`paged_cache_join/take/clear_slot`, `paged_decode_step` (a hybrid's SSM
+layers keep their state per slot beside the pages, as the reference's
+`_paged_entry_struct`), `paged_prefill_step` (with
+`_require_pageable_prefill`), `mixed_step` (its decode half is
+`paged_decode_masked`), `paged_copy_block`, `paged_gather_blocks`,
+`paged_adopt_blocks`, `paged_clear_rows` (attention-only, as the
+reference's).  The JAX package scans over a
 stacked layer axis; here the layers are a Python list and the step
 functions loop over them.
 
@@ -21,8 +23,9 @@ from GSPMD over a data-sharded cache) take the MERGED cache of
 `repro_torch.distributed.sharding` ({"shards": one paged cache per data
 rank, "slots": S, "blocks": B}, global slot and block ids; a DP unit's
 view adds "home": its shard) and dispatch at their top: the decode step
-runs each layer's attention on each shard's device over its rows and
-pages, then the layer's FFN over every shard's tokens at once (an MoE's
+runs each layer's mixer on each shard's device over its rows (attention
+over its pages, a hybrid's SSM layer from its slots' states), then the
+layer's FFN over every shard's tokens at once (an MoE's
 EP all-to-all under the spec's mesh context), so one step advances
 every DP's rows; a prefill chunk and the page surgery run on the shard
 that owns the slot or the DP.  A dense `prefill_chunk` needs no form of
@@ -40,7 +43,10 @@ Layouts (torch):
                          axis first) [, shared_gate, shared_up,
                          shared_down]}}, ...]}
     paged   {"cur" (slots,) int32, "kv_pos" (N, bs) int32,
-    cache    "block_tab" (slots, nbt) int32, "k"/"v" (L, N, bs, K, hd)}
+    cache    "block_tab" (slots, nbt) int32,
+             "k"/"v" (L_attn, N, bs, K, hd),
+             "ssm"/"conv_x"/"conv_bc" (L_ssm, slots, ...) as in the dense
+             cache, one row a slot               if any SSM layer}
     dense   {"cur" (B,) int32, "kv_pos" (B, S) int32,
     cache    "k"/"v" (L_attn, B, S, K, hd)       if any attention layer,
              "ssm" (L_ssm, B, nh, hp, ds) fp32,
@@ -78,11 +84,11 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
-from repro_torch.distributed.sharding import is_merged, params_on
+from repro_torch.distributed.sharding import SSM_STACKS, is_merged, params_on
 from repro_torch.distributed.transfer import move
 from repro_torch.models.blocks import (
-    ATTN_KINDS, attend_decode_paged, block_decode, block_decode_paged,
-    block_extend, block_extend_paged, init_block_params, mlp_shards,
+    ATTN_KINDS, block_decode, block_decode_paged, block_extend,
+    block_extend_paged, init_block_params, mixer_decode_paged, mlp_shards,
 )
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mamba import ssm_dims
@@ -208,21 +214,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["k"] = torch.zeros(k_shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(v_shape, dtype=dtype, device=device)
     if n_ssm:
-        sc = cfg.ssm
-        di, nh, _ = ssm_dims(cfg.d_model, sc)
-        tail = (n_ssm, batch, sc.d_conv - 1)
-        cache["ssm"] = torch.zeros((n_ssm, batch, nh, sc.head_dim,
-                                    sc.d_state), dtype=torch.float32,
-                                   device=device)
-        cache["conv_x"] = torch.zeros(tail + (di,), dtype=dtype,
-                                      device=device)
-        cache["conv_bc"] = torch.zeros(
-            tail + (2 * sc.n_groups * sc.d_state,), dtype=dtype,
-            device=device)
+        cache.update(_ssm_stacks(cfg, n_ssm, batch, dtype, device))
     return cache
 
 
-_ROW_STACKS = ("k", "v", "ssm", "conv_x", "conv_bc")   # (L, B, ...) entries
+def _ssm_stacks(cfg: ModelConfig, n_ssm: int, rows: int, dtype,
+                device) -> Dict:
+    """Zero SSM states (fp32) and conv tails (`dtype`) of `n_ssm` layers
+    for `rows` rows (dense rows, or a paged cache's slots)."""
+    sc = cfg.ssm
+    di, nh, _ = ssm_dims(cfg.d_model, sc)
+    tail = (n_ssm, rows, sc.d_conv - 1)
+    return {
+        "ssm": torch.zeros((n_ssm, rows, nh, sc.head_dim, sc.d_state),
+                           dtype=torch.float32, device=device),
+        "conv_x": torch.zeros(tail + (di,), dtype=dtype, device=device),
+        "conv_bc": torch.zeros(tail + (2 * sc.n_groups * sc.d_state,),
+                               dtype=dtype, device=device),
+    }
+
+
+_ROW_STACKS = ("k", "v") + SSM_STACKS         # (L, B, ...) entries
 
 
 def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
@@ -269,7 +281,7 @@ def cache_clear_row(cache: Dict, row: int) -> Dict:
     prefill engine's pool."""
     cache["kv_pos"][row] = -1
     cache["cur"][row] = 0
-    for name in ("ssm", "conv_x", "conv_bc"):
+    for name in SSM_STACKS:
         if name in cache:
             cache[name][:, row] = 0
     return cache
@@ -282,14 +294,12 @@ def cache_clear_row(cache: Dict, row: int) -> Dict:
 def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
                  ) -> Tuple[int, int]:
     """(nbt, block_size) table geometry for a paged cache equivalent to a
-    dense max_len cache.  Validates the config supports paging."""
+    dense max_len cache.  Validates the config supports paging: it needs
+    an attention layer (a hybrid's SSM layers keep per-slot state beside
+    the pages)."""
     require_supported(cfg)
     if not _has_attn_cache(cfg):
         raise ValueError(f"{cfg.name}: no attention cache to page")
-    if any(k not in ATTN_KINDS for k in cfg.layer_kinds()):
-        raise NotImplementedError(
-            f"{cfg.name}: per-slot SSM state beside paged K/V is not "
-            f"ported yet (ROADMAP Queue 1 item 12)")
     if cfg.attention == AttentionKind.SWA and cfg.sliding_window:
         raise ValueError(
             f"{cfg.name}: SWA ring caches are already bounded — use the "
@@ -305,18 +315,25 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
                      max_len: int, block_size: int, dtype=torch.float32,
                      device="cuda") -> Dict:
     """Paged decode cache for one DP unit: `slots` batch rows sharing
-    `num_blocks` physical blocks (block 0 reserved as the null block)."""
+    `num_blocks` physical blocks (block 0 reserved as the null block):
+    K/V pools over the attention layers, and for a hybrid's SSM layers
+    per-slot SSM states and conv tails laid out as `init_cache`'s."""
     nbt, _ = paged_layout(cfg, max_len, block_size)
-    k_shape, v_shape = _kv_shapes(cfg, (cfg.num_layers, num_blocks,
-                                        block_size))
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    k_shape, v_shape = _kv_shapes(cfg, (n_attn, num_blocks, block_size))
     i32 = dict(dtype=torch.int32, device=device)
-    return {
+    cache = {
         "cur": torch.zeros(slots, **i32),
         "kv_pos": torch.full((num_blocks, block_size), -1, **i32),
         "block_tab": torch.full((slots, nbt), -1, **i32),
         "k": torch.zeros(k_shape, dtype=dtype, device=device),
         "v": torch.zeros(v_shape, dtype=dtype, device=device),
     }
+    if len(kinds) > n_attn:
+        cache.update(_ssm_stacks(cfg, len(kinds) - n_attn, slots, dtype,
+                                 device))
+    return cache
 
 
 def _with(cache: Dict, key: str, idx, value) -> torch.Tensor:
@@ -330,8 +347,10 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
                      tab_row) -> Dict:
     """Install the dense batch-1 cache `src` into slot `slot` of `dst`:
     its KV tokens are written (in place) into the physical blocks named
-    by `tab_row` ((nbt,) int32, -1 padding routes to the null block), and
-    the slot's table row and token count are set."""
+    by `tab_row` ((nbt,) int32, -1 padding routes to the null block), its
+    SSM states and conv tails (a hybrid) into the slot's rows (in place,
+    as `cache_join`: between steps), and the slot's table row and token
+    count are set."""
     if is_merged(dst):
         k, c, s = shard_slot(dst, slot)
         src = {n: t.to(c["cur"].device) for n, t in src.items()}
@@ -350,6 +369,9 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
                                       + tuple(pool.shape[3:]))
         pool[:, ids] = new.to(pool.dtype)
     dst["kv_pos"][ids] = src["kv_pos"][0].reshape(nbt, bs)
+    for name in SSM_STACKS:
+        if name in dst:
+            dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
     out = dict(dst)
     out["cur"] = _with(dst, "cur", slot, src["cur"][0])
     out["block_tab"] = _with(dst, "block_tab", slot, tab_row)
@@ -358,7 +380,9 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
 
 def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
     """Extract slot `slot` of a paged cache as a dense batch-1 cache (the
-    inverse of paged_cache_join: preemption and drain park it)."""
+    inverse of paged_cache_join: preemption and drain park it).  New
+    tensors: the pages' K/V gathered, a hybrid's per-slot states
+    cloned."""
     if is_merged(src):
         _k, c, s = shard_slot(src, slot)
         return paged_cache_take(cfg, c, s)
@@ -374,12 +398,17 @@ def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
         g = pool[:, ids]                                   # (L, nbt, bs, ...)
         out[name] = g.reshape((pool.shape[0], 1, nbt * bs)
                               + tuple(pool.shape[3:]))
+    for name in SSM_STACKS:
+        if name in src:
+            out[name] = src[name][:, slot:slot + 1].clone()
     return out
 
 
 def paged_cache_clear_slot(cache: Dict, slot) -> Dict:
     """Leave-on-finish: drop slot `slot`'s table row so its future
-    (garbage) writes route to the null block."""
+    (garbage) writes route to the null block.  A hybrid's per-slot SSM
+    state is left as it is, as in the reference: the row steps on
+    garbage until the next join overwrites it."""
     if is_merged(cache):
         k, c, s = shard_slot(cache, slot)
         return with_shard(cache, k, paged_cache_clear_slot(c, s))
@@ -397,25 +426,44 @@ def _dense_layers(cfg: ModelConfig, params, x, cache, block, where):
     block_decode, `where` the positions (B, Sc) or cursors (B,).  K/V are
     written in place; the new SSM and conv states are stacked into new
     tensors.  Returns (hidden, the cache's new entries)."""
-    ssm: List = []
-    conv_x: List = []
-    conv_bc: List = []
+    states: List = []
     for p, (kind, i) in zip(params["layers"], stack_index(cfg)):
-        if kind in ATTN_KINDS:
-            entry = (cache["k"][i], cache["v"][i])
-        else:
-            entry = (cache["ssm"][i],
-                     (cache["conv_x"][i], cache["conv_bc"][i]))
-        x, entry = block(p, x, kind, cfg, entry, cache["kv_pos"], where)
+        x, entry = block(p, x, kind, cfg, _layer_entry(cache, kind, i),
+                         cache["kv_pos"], where)
         if kind not in ATTN_KINDS:
-            ssm.append(entry[0])
-            conv_x.append(entry[1][0])
-            conv_bc.append(entry[1][1])
-    new: Dict = {}
-    if ssm:
-        new = {"ssm": torch.stack(ssm), "conv_x": torch.stack(conv_x),
-               "conv_bc": torch.stack(conv_bc)}
-    return x, new
+            states.append(entry)
+    return x, _stacked(states)
+
+
+def _layer_entry(cache: Dict, kind: LayerKind, i: int):
+    """Layer entry of stack index i: (k, v) of an attention layer (rows
+    or pools), (ssm_state, (conv_x, conv_bc)) of an SSM layer."""
+    if kind in ATTN_KINDS:
+        return cache["k"][i], cache["v"][i]
+    return cache["ssm"][i], (cache["conv_x"][i], cache["conv_bc"][i])
+
+
+def _stacked(states: List) -> Dict:
+    """The SSM layers' new (ssm_state, (conv_x, conv_bc)) entries, in
+    model order, as new cache stacks ({} without SSM layers)."""
+    if not states:
+        return {}
+    return {"ssm": torch.stack([s for s, _c in states]),
+            "conv_x": torch.stack([c[0] for _s, c in states]),
+            "conv_bc": torch.stack([c[1] for _s, c in states])}
+
+
+def _keep_masked(new: Dict, old: Dict, mask) -> Dict:
+    """`new`'s SSM stacks with the rows outside `mask` ((rows,) bool)
+    taken from `old`: a row masked out of a step keeps its state, as it
+    keeps `cur`.  (Attention needs no such care: its masked rows write
+    into the null block.)"""
+    out = dict(new)
+    for name in SSM_STACKS:
+        if name in new:
+            m = mask.reshape((1, -1) + (1,) * (new[name].dim() - 2))
+            out[name] = torch.where(m, new[name], old[name])
+    return out
 
 
 def prefill_chunk(cfg: ModelConfig, params, tokens, cache):
@@ -453,19 +501,24 @@ def decode_step(cfg: ModelConfig, params, token, cache):
 
 def paged_decode_step(cfg: ModelConfig, params, token, cache):
     """One decode step over a paged cache.  token (slots, 1) int; returns
-    (logits (slots, V), cache with `cur` + 1).  The pools are written in
-    place."""
+    (logits (slots, V), cache with `cur` + 1 and, for a hybrid, the new
+    per-slot SSM states; every slot steps, as in `decode_step`).  The
+    pools are written in place."""
     if is_merged(cache):
         return _sharded_decode(cfg, params, token, cache)
     pos = cache["cur"]
     tab = cache["block_tab"]
     x = params["embed"][token.long()]                    # (slots, 1, D)
-    for l, p in enumerate(params["layers"]):
-        x = block_decode_paged(p, x, cfg, cache["k"][l], cache["v"][l],
-                               cache["kv_pos"], tab, pos)
+    states: List = []
+    for p, (kind, i) in zip(params["layers"], stack_index(cfg)):
+        x, entry = block_decode_paged(p, x, kind, cfg,
+                                      _layer_entry(cache, kind, i),
+                                      cache["kv_pos"], tab, pos)
+        if kind not in ATTN_KINDS:
+            states.append(entry)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, x[:, 0])
-    out = dict(cache)
+    out = dict(cache, **_stacked(states))
     out["cur"] = pos + 1
     return logits, out
 
@@ -523,7 +576,11 @@ def paged_decode_masked(cfg: ModelConfig, params, token, cache,
     """The decode half of `mixed_step`: a paged decode step of the slots
     under `decode_mask` ((slots,) bool); the other rows decode against a
     -1 table (the null block) and keep `cur`.  With every row masked in,
-    the same as `paged_decode_step`.  Returns (logits (slots, V),
+    the same as `paged_decode_step`.  A hybrid's masked-out rows keep
+    their SSM states and conv tails too (`_keep_masked`): a token fed to
+    a row that is not decoding would corrupt its state for good.  The
+    reference never masks a hybrid (its unified engine refuses them), so
+    this only guards the port's own use.  Returns (logits (slots, V),
     cache)."""
     if is_merged(cache):
         return _sharded_decode(cfg, params, token, cache, decode_mask)
@@ -532,6 +589,7 @@ def paged_decode_masked(cfg: ModelConfig, params, token, cache,
     dcache = dict(cache)
     dcache["block_tab"] = torch.where(decode_mask[:, None], tab, -1)
     logits, out = paged_decode_step(cfg, params, token, dcache)
+    out = _keep_masked(out, cache, decode_mask)
     out["block_tab"] = tab
     out["cur"] = torch.where(decode_mask, cur + 1, cur)
     return logits, out
@@ -574,7 +632,8 @@ def mixed_step(cfg: ModelConfig, params, token, cache,
 
 def paged_copy_block(cfg: ModelConfig, cache: Dict, src, dst) -> Dict:
     """Copy physical block `src` -> `dst` across every pool and the
-    position map, in place (the copy half of copy-on-write)."""
+    position map, in place (the copy half of copy-on-write).  Per-slot
+    SSM entries are not pages: they are left alone."""
     if is_merged(cache):
         k = cache["home"]
         base = k * cache["blocks"]
@@ -589,7 +648,9 @@ def paged_copy_block(cfg: ModelConfig, cache: Dict, src, dst) -> Dict:
 def paged_gather_blocks(cfg: ModelConfig, cache: Dict, ids) -> Dict:
     """Block-granular handoff payload: the physical rows named by `ids`
     ((nbt,) int32, -1 padding) of every pool, plus their kv_pos rows
-    (-1 on padding).  New tensors."""
+    (-1 on padding).  New tensors.  Pages only: a cache's per-slot SSM
+    entries are not part of it (page-native prefill, the only producer,
+    refuses hybrids)."""
     g = ids.clamp_min(0).long()
     out: Dict = {"kv_pos": torch.where(ids[:, None] < 0, -1,
                                        cache["kv_pos"][g])}
@@ -702,13 +763,14 @@ def with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
 def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
                     decode_mask=None):
     """One decode step over every shard of a merged cache: per layer, each
-    shard's attention over its rows and pages on its device, then the
-    FFN over all shards' rows (`mlp_shards`).  `token` (n·S, 1) and the
-    optional `decode_mask` (n·S,) in global slot order, or each a list
-    of the n shards' rows on their devices (the engines' form: a step
-    graph's static inputs per shard); masked-out rows decode against a
-    -1 table and keep `cur` (as `paged_decode_masked`).  Returns
-    (logits (n·S, V) on shard 0's device, the merged cache)."""
+    shard's mixer over its rows on its device (attention over its pages,
+    or a hybrid's SSM decode from its slots' states), then the FFN over
+    all shards' rows (`mlp_shards`).  `token` (n·S, 1) and the optional
+    `decode_mask` (n·S,) in global slot order, or each a list of the n
+    shards' rows on their devices (the engines' form: a step graph's
+    static inputs per shard); masked-out rows decode against a -1 table
+    and keep `cur` and their SSM states (as `paged_decode_masked`).
+    Returns (logits (n·S, V) on shard 0's device, the merged cache)."""
     S = cache["slots"]
     devs = [c["cur"].device for c in cache["shards"]]
 
@@ -727,19 +789,27 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
         ps.append(p)
         xs.append(p["embed"][toks[k].long()])                 # (S, 1, D)
         rows.append((c, tab, mask))
-    for l in range(len(params["layers"])):
+    states: List[List] = [[] for _ in devs]
+    for l, (kind, i) in enumerate(stack_index(cfg)):
         lp = [p["layers"][l] for p in ps]
-        xs = [attend_decode_paged(p, x, cfg, c["k"][l], c["v"][l],
-                                  c["kv_pos"], tab, c["cur"])
-              for p, x, (c, tab, _m) in zip(lp, xs, rows)]
+        outs = [mixer_decode_paged(p, x, kind, cfg, _layer_entry(c, kind, i),
+                                   c["kv_pos"], tab, c["cur"])
+                for p, x, (c, tab, _m) in zip(lp, xs, rows)]
+        xs = [x for x, _e in outs]
+        if kind not in ATTN_KINDS:
+            for st, (_x, e) in zip(states, outs):
+                st.append(e)
         xs = mlp_shards(lp, xs, cfg)
     logits, shards = [], []
-    for p, x, (c, _tab, mask) in zip(ps, xs, rows):
+    for p, x, (c, _tab, mask), st in zip(ps, xs, rows, states):
         x = rms_norm(x, p["ln_f"], cfg.norm_eps)
         logits.append(logits_from_hidden(cfg, p, x[:, 0]))
-        out = dict(c)
-        out["cur"] = (c["cur"] + 1 if mask is None
-                      else torch.where(mask, c["cur"] + 1, c["cur"]))
+        out = dict(c, **_stacked(st))
+        if mask is None:
+            out["cur"] = c["cur"] + 1
+        else:
+            out = _keep_masked(out, c, mask)
+            out["cur"] = torch.where(mask, c["cur"] + 1, c["cur"])
         shards.append(out)
     # the logits' move to shard 0 is the step's last cut on distinct
     # cards (`distributed.transfer`)

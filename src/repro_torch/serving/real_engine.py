@@ -42,7 +42,7 @@ engine:
       models; per-row SSM and conv state for SSM layers); a free SLOT is
       the admission token.  Joins copy the parked batch-1 cache into the
       row (`cache_join`).  The plane of SSM models (SSM state has no
-      page form) and, in the port, of hybrids.
+      page form).
   paged  (block_size>0)  each DP owns a `BlockPool` + block-table cache
       (`init_paged_cache`); a request's lifetime pages are reserved at
       join and returned at leave/drain, so admission is by free-block
@@ -51,9 +51,15 @@ engine:
       `paged_adopt_blocks`, and with `share_prefix` its prefix pages
       already resident on the DP are pointed at, not copied, its pages
       are published into the DP's binder, and the partial tail block is
-      copied on write at join.  Attention-only models: a paged spec of a
-      config without attention raises ValueError (`paged_layout`), and
-      one of a hybrid NotImplementedError.
+      copied on write at join.  A hybrid's SSM layers keep their state
+      per slot beside the pages, as the reference's: a join sets the
+      slot's rows, preemption and drain take them with the pages
+      (`paged_cache_take`), and the decode step returns new ones.  A
+      paged spec of a config without attention raises ValueError
+      (`paged_layout`).  Page-native prefill, page sharing and the
+      unified engine are attention-only, as in the reference, and raise
+      ValueError for a hybrid: its paged plane is P/D with dense
+      prefill.
 
 Every step runs one batched `decode_step`/`paged_decode_step` per
 occupied DP behind the instance sync barrier; finished requests leave
@@ -69,7 +75,12 @@ MoE layers take the explicit all-to-all of `models.moe_ep`, and a
 decode instance merges its DP units' rows into ONE cache held as one
 shard per data rank (`merged_paged_cache`; `_ShardedGroup`).  Each step
 is then one cross-DP step over every DP's rows, with the EP exchange in
-each MoE layer: the paper's DP sync barrier on this plane.  Each DP keeps
+each MoE layer (a hybrid's SSM_MOE layers too; its SSM layers decode
+each shard's rows from their per-slot state): the paper's DP sync
+barrier on this plane.  A dense prefill chunk runs on the lead device
+outside the mesh context, as the reference's `jit_prefill_chunk`, so
+its MoE is the single-program one over the split expert weights and no
+chunk length has to divide over the mesh's devices.  Each DP keeps
 its own admission control (`_DPShardedState`: a `BlockPool` of global
 block ids from its base offset, its own slot range, a private binder)
 and reads the merged cache through its view.  Every sharded step and

@@ -11,12 +11,13 @@ Counterpart of `repro/serving/server.py`, for two deployments:
       runtime heap) to `RealDecodeEngine`s, which decode over the padded
       plane (`block_size=0`: dense max_len rows, a ring for SWA models,
       per-row SSM and conv state for SSM layers) or the paged plane
-      (`block_size>0`: block-table pools, attention-only models).
+      (`block_size>0`: block-table pools for the attention layers; a
+      hybrid's SSM layers keep per-slot state beside them).
   unified mixed-batch (`mixed_batch=True`, paged only)
       a decode-pool-only deployment of `RealUnifiedEngine`s, where
       chunked prefill rides the same paged steps as decode and no KV
-      handoff happens.  An SSM config raises ValueError there, as in
-      JAX: its state has no page form.
+      handoff happens.  An SSM or hybrid config raises ValueError
+      there, as in JAX: page-native prefill is attention-only.
 
 `immediate`, `sbs` and `sbs-la` schedule both exactly as in the JAX
 server, and `watchdog_multiplier > 0` arms the decode watchdog (a drain

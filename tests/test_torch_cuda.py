@@ -1653,3 +1653,134 @@ def test_segmented_sharded_graphs_across_cards(cards):
     assert len(entry.segments) == 2 * n_moe + 2
     assert all(len(g) == cards for g, _c in entry.segments)
     assert sum(len(c) for _g, c in entry.segments) > 0
+
+
+# ---------------------------------------------------------------------------
+# a hybrid's per-slot SSM state beside paged K/V, through the graphs
+# ---------------------------------------------------------------------------
+
+def _hybrid_join(cfg, params, cache, slot, tab, L, g, dev, dtype, max_len):
+    """Prefill a random prompt of L tokens densely (16-token chunks) and
+    join it into `slot` of the paged cache over the table row `tab`."""
+    from repro_torch.models.model import paged_cache_join
+    one = init_cache(cfg, 1, max_len, dtype=dtype, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, L), generator=g)
+    for at in range(0, L, 16):
+        _, one = prefill_chunk(cfg, params, ids[:, at:at + 16].to(dev), one)
+    return paged_cache_join(cfg, cache, one, slot, tab)
+
+
+def _same_entries(a, b):
+    for name in ("k", "v", "kv_pos", "cur", "block_tab", "ssm", "conv_x",
+                 "conv_bc"):
+        assert torch.equal(a[name], b[name]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "jamba-hybrid"])
+def test_paged_hybrid_decode_graph_matches_eager_on_cuda(dev, dtype, arch):
+    """Reduced jamba (and the MoE-free hybrid) on a paged cache whose
+    SSM layers keep per-slot state: four decode steps replayed from a
+    CUDA graph, each reading the state the last one returned, against
+    the same steps run eagerly on a copy of the cache: bit-identical
+    logits, pools, cursors and SSM states; then a replay after a
+    swapped SSM weight raises."""
+    import dataclasses
+    from repro_torch.config.base import LayerKind
+    from repro_torch.models.model import init_paged_cache, paged_decode_step
+    cfg = get_arch("jamba-v0.1-52b", reduced=True)
+    if arch == "jamba-hybrid":
+        cfg = dataclasses.replace(cfg, layer_pattern=(LayerKind.SSM,
+                                                      LayerKind.DENSE))
+    params = _to(init_params(cfg, seed=0, device="cpu", dtype=dtype), dev)
+    cache = init_paged_cache(cfg, 4, 4 * 6 + 1, 96, 16, dtype=dtype,
+                             device=dev)
+    g = torch.Generator().manual_seed(4)
+    for b, L in enumerate([70, 21, 0, 40]):
+        if L:
+            tab = torch.arange(1 + 6 * b, 7 + 6 * b, dtype=torch.int32,
+                               device=dev)
+            cache = _hybrid_join(cfg, params, cache, b, tab, L, g, dev,
+                                 dtype, 96)
+    assert "ssm" in cache
+
+    def fn(c, token):
+        return paged_decode_step(cfg, params, token, c)
+    tok = torch.tensor([[3], [5], [7], [11]], dtype=torch.int32, device=dev)
+    eager = {k: v.clone() for k, v in cache.items()}
+    runner = _graph_runner(params, dev)
+    for _ in range(4):
+        before = cache["ssm"].clone()
+        lg_e, eager = fn(eager, tok)
+        lg_g, new = runner.run(("decode", 0), fn, cache, token=tok)
+        assert torch.equal(cache["ssm"], before)       # the snapshot kept
+        cache = new
+        assert torch.equal(lg_g, lg_e)
+        _same_entries(cache, eager)
+        tok = lg_e.argmax(-1).to(torch.int32)[:, None]
+    assert runner.captured == 1 and runner.replays == 4
+    mp = params["layers"][0]["mamba"]
+    name = next(iter(mp))
+    w = mp[name]
+    mp[name] = w.clone()
+    try:
+        with pytest.raises(RuntimeError, match="weights"):
+            runner.run(("decode", 0), fn, cache, token=tok)
+    finally:
+        mp[name] = w
+    assert runner.replays == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merged_hybrid_graph_matches_eager_on_logical_shards(dev, dtype):
+    """Reduced jamba on the sharded plane over four logical shards of the
+    card: the merged decode step (masked, one row of three masked out)
+    replayed from ONE graph against the eager step, three times:
+    bit-identical logits and shards (SSM states included; a masked-out
+    row's state kept), the SSM_MOE layer's two EP exchanges counted
+    through each replay."""
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models.moe_ep import count_exchanges
+    from repro_torch.serving.real_engine import EngineSpec
+    mesh = make_engine_mesh(4, devices=[dev] * 4)
+    cfg = get_arch("jamba-v0.1-52b", reduced=True)
+    params = init_params(cfg, seed=0, device=mesh.lead, dtype=dtype)
+    spec = EngineSpec(cfg, params, max_len=64, max_batch=2, block_size=8,
+                      mesh=mesh)
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    g = torch.Generator().manual_seed(5)
+    caches = [spec.merged_paged_cache(), spec.merged_paged_cache()]
+    for k in range(4):
+        for s in range(S - 1):
+            L = int(torch.randint(1, 24, (), generator=g))
+            tab = spec.table([k * B + 1 + 3 * s + j
+                              for j in range(-(-L // 8))])
+            state = g.get_state()
+            for i, c in enumerate(caches):
+                g.set_state(state)
+                caches[i] = _hybrid_join(cfg, spec.params, c, k * S + s,
+                                         tab, L, g, dev, dtype, 64)
+    graph_c, eager_c = caches
+    toks = [torch.randint(0, cfg.vocab_size, (S, 1), generator=g,
+                          dtype=torch.int32).to(dev) for _ in range(4)]
+    mask = [torch.arange(S, device=dev) % 3 != 1 for _ in range(4)]
+    runner = spec.step_graphs_for()
+    key = ("decode", "merged")
+    runner.prepare(key, spec.masked_decode_fn, graph_c, token=toks,
+                   mask=mask)
+    for _ in range(3):
+        kept = [c["ssm"][:, 1].clone() for c in graph_c["shards"]]
+        with count_exchanges() as ex:
+            lg_g, graph_c = runner.run(key, spec.masked_decode_fn, graph_c,
+                                       token=toks, mask=mask)
+        assert ex.exchanges == 2 and ex.bytes > 0
+        lg_e, eager_c = spec.masked_decode_fn(eager_c, toks, mask)
+        assert torch.equal(lg_g, lg_e)
+        for a, b, old in zip(graph_c["shards"], eager_c["shards"], kept):
+            _same_entries(a, b)
+            assert torch.equal(a["ssm"][:, 1], old)
+        toks = [t.argmax(-1, keepdim=True).to(torch.int32)
+                for t in lg_g.split(S)]
+    assert runner.replays == 3 and runner.captured == 1
+    entry = runner._entries[key]
+    assert len(entry.segments) == 1 and len(entry.segments[0][0]) == 1

@@ -697,8 +697,9 @@ def test_cache_take_roundtrip_matches_jax(model_pair):
 
 def test_paged_layout_refuses_ssm_layers():
     """SSM state has no page form: a config without attention cannot be
-    paged (ValueError, as JAX's paged_layout); a hybrid's per-slot SSM
-    state beside paged K/V is not ported yet."""
+    paged (ValueError, as JAX's paged_layout); a hybrid pages its
+    attention layers, with its SSM state per slot beside the pages, to
+    the same table geometry as JAX's."""
     for arch in ("mamba2-370m",):
         with pytest.raises(ValueError):
             JM.paged_layout(get_arch(arch, reduced=True), MAX_LEN, BLOCK)
@@ -706,8 +707,10 @@ def test_paged_layout_refuses_ssm_layers():
             TM.paged_layout(t_get_arch(arch, reduced=True), MAX_LEN, BLOCK)
     hybrid = dataclasses.replace(t_get_arch("jamba-v0.1-52b", reduced=True),
                                  layer_pattern=(TLK.SSM, TLK.DENSE))
-    with pytest.raises(NotImplementedError):
-        TM.paged_layout(hybrid, MAX_LEN, BLOCK)
+    jhybrid = dataclasses.replace(get_arch("jamba-v0.1-52b", reduced=True),
+                                  layer_pattern=(JLK.SSM, JLK.DENSE))
+    assert TM.paged_layout(hybrid, MAX_LEN, BLOCK) == (NBT, BLOCK)
+    assert JM.paged_layout(jhybrid, MAX_LEN, BLOCK) == (NBT, BLOCK)
 
 
 def test_ssm_cache_stacks_by_kind():
