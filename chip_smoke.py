@@ -43,6 +43,15 @@ Phases (any failure exits non-zero and prints no result):
      also at head dim 120 (G = 4: packed segments, attn_extend's chunk,
      a wrapped window-96 ring), timed at h2o-danube's prefill chunk
      beside SDPA;
+  4b. kernel #2's contiguous entry as the full-sequence path calls it,
+     in bf16 and fp32: not causal at whisper-large-v3's shapes (the
+     encoder's self-attention, 4 x 1500 x 1500, 20 heads of 64;
+     cross-attention of 1, 16 and 77 queries over 1500 encoder
+     positions; a row whose keys are all padding, exactly 0), causal at
+     internvl2-1b's G = 7 (14 heads over 2 KV heads of 64, 256 + 200
+     tokens, a padded row and an all-pad row, exactly 0); kernel #3 at
+     G = 7 over internvl2-1b's padded cache; #2 not causal timed at the
+     encoder's shape beside SDPA;
   5. mixed serve: full-width deepseek-7b (random bf16 weights from a
      seed) behind `RealSBSServer` (unified mixed-batch plane, sbs-la, 2
      DP units, 16-token pages) answers 8 requests of 128-1024 prompt
@@ -172,6 +181,21 @@ Phases (any failure exits non-zero and prints no result):
      logical shards, EP over the 16 experts, four a shard), with step
      graphs: every request finishes, the merged cache drains, and each
      merged decode step makes 8 exchanges (2 in each MoE layer);
+  6i. the full-sequence path through the port's model-level entry
+     points (the serving engines refuse these models: their requests
+     carry no frame or patch embeddings): full-width whisper-large-v3
+     (32 encoder + 32 decoder layers, 4 requests of 1500 stub frame
+     embeddings and decoder prompts of 4, 17, 33 and 64 tokens) and
+     internvl2-1b (24 layers, 256 stub patch embeddings, prompts of 16,
+     77, 150 and 200 tokens), random bf16 weights from seed 0: `prefill`
+     with per-row lengths into a dense cache (max_len 256 and 512), one
+     16-token `prefill_chunk`, 32 greedy `decode_step`s; #2 (causal:
+     the decoder's prefill and chunk; not causal: the encoder and every
+     cross-attention) and #3 must launch exactly as the path calls
+     them, and each request's logits after the prefill and after the
+     chunk agree with a plain forward over the same tokens (encoder and
+     cross-attention included); the phase's wall time on a line of its
+     own;
   7. the serving benchmark twin (`examples/serve_e2e_torch.py`, loaded
      by path): its six A/Bs through its CLI entry point at the flags of
      `scripts/ci.sh --real-smoke` (paged vs padded on granite-moe; the
@@ -204,8 +228,8 @@ Phases (any failure exits non-zero and prints no result):
      memory where they apply; the A/B serves' graph and eager figures
      side by side), one JSON line with the kernels (device and wall time
      per call, launches on their path's serve, bound; #3 and #2's
-     contiguous entry also at head dim 120), the card's name and power
-     limit, and the contract line last.
+     contiguous entry also at head dim 120; #2 not causal a row of its
+     own), the card's name and power limit, and the contract line last.
 
 Launch counts are set to 0 just before each serve (each twin A/B) and
 read just after, so each kernel's `launches` is its count on its own
@@ -1005,6 +1029,124 @@ def extend_case(device, seed, dt, S=MAX_LEN, p0=512, Sc=256, H=32, K=32,
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: #2's contiguous entry not causal (encoder self-attention,
+# cross-attention) and at G = 7; #3 at G = 7
+# ---------------------------------------------------------------------------
+
+WHISPER_FRAMES = 1500              # whisper-large-v3's encoder positions
+
+
+def full_case(B, Sq, Skv, H, K, hd, device, seed, dt, encoder=False):
+    """q (B, Sq, H, hd) over K/V (B, Skv, K, hd) as the full-sequence
+    path calls #2: `encoder` (or a causal prefill) numbers the positions
+    0 .. S-1 on both sides (Sq = Skv); cross-attention has every
+    position and segment 0.  Segments all 0."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.randn(B, Sq, H, hd, generator=g) * 0.5).to(dt)
+    k = (torch.randn(B, Skv, K, hd, generator=g) * 0.5).to(dt)
+    v = (torch.randn(B, Skv, K, hd, generator=g) * 0.5).to(dt)
+    if encoder:
+        qp = torch.arange(Sq, dtype=torch.int32).repeat(B, 1)
+        kp = torch.arange(Skv, dtype=torch.int32).repeat(B, 1)
+    else:
+        qp = torch.zeros(B, Sq, dtype=torch.int32)
+        kp = torch.zeros(B, Skv, dtype=torch.int32)
+    qs = torch.zeros(B, Sq, dtype=torch.int32)
+    ks = torch.zeros(B, Skv, dtype=torch.int32)
+    return [t.to(device) for t in (q, k, v, qp, kp, qs, ks)]
+
+
+def check_flash_full(device):
+    """Phase 4b: kernel #2's contiguous entry as the full-sequence path
+    calls it, against its plain version in bf16 and fp32: not causal at
+    whisper-large-v3's shapes (the encoder's self-attention, 4 x 1500 x
+    1500, 20 heads of 64; cross-attention of 1, 16 and 77 queries over
+    the 1500 encoder positions; a row whose keys are all padding, exactly
+    0), and causal at internvl2-1b's G = 7 (14 heads over 2 KV heads of
+    64: 256 patch + 200 text tokens, a row padded after 300 tokens, an
+    all-pad row, exactly 0); kernel #3 at G = 7 over internvl2-1b's
+    padded cache (S = 512, an empty row exactly 0); then #2 not causal
+    timed at the encoder's shape beside SDPA.  Returns the kernel-line
+    figures of the non-causal row ("errs"), with "errs_g7" (#2 causal at
+    G = 7) and "errs_dense_g7" (#3)."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_plain)
+    out = {"errs": [], "errs_g7": [], "errs_dense_g7": []}
+    F = WHISPER_FRAMES
+    for dt in (torch.bfloat16, torch.float32):
+        for tag, B, Sq, enc in (("encoder self-attention", 4, F, True),
+                                ("cross-attention Sq=1", 4, 1, False),
+                                ("cross-attention Sq=16", 4, 16, False),
+                                ("cross-attention Sq=77", 4, 77, False),
+                                ("cross-attention, row 1 all pad", 2, 77,
+                                 False)):
+            q, k, v, qp, kp, qs, ks = full_case(B, Sq, F, 20, 20, 64, device,
+                                                B + Sq, dt, enc)
+            if "all pad" in tag:
+                ks[1] = -1
+            got = flash_prefill(q, k, v, qp, kp, qs, ks, causal=False)
+            ref = flash_prefill_plain(q.float(), k.float(), v.float(), qp,
+                                      kp, qs, ks, causal=False)
+            label = (f"[flash prefill] not causal, {tag} Skv={F} H=K=20 "
+                     f"hd=64")
+            if "all pad" in tag:
+                check_zero(label, got[1])
+            compare(label, got, ref, out["errs"])
+        # internvl2-1b's causal prefill: G = 7 (one head a CTA: 7 does
+        # not divide the 64 rows of a tile)
+        S = 256 + 200
+        q, k, v, pos, _kp, seg, _ks = full_case(3, S, S, 14, 2, 64, device,
+                                                77, dt, encoder=True)
+        seg[1, 300:] = -1
+        seg[2] = -1
+        got = flash_prefill(q, k, v, pos, pos, seg, seg, causal=True)
+        ref = flash_prefill_plain(q.float(), k.float(), v.float(), pos, pos,
+                                  seg, seg, causal=True)
+        label = (f"[flash prefill] causal G=7 H=14 K=2 hd=64 S={S}, row 1 "
+                 f"padded after 300, row 2 all pad")
+        check_zero(label, got[2])
+        check_zero(label, got[1, 300:])
+        compare(label, got, ref, out["errs_g7"])
+        q, kc, vc, kvp, posn = dense_decode_case(14, 2, 64, 512,
+                                                 [471, 300, 257, 40], device,
+                                                 70, dt, empty=(3,))
+        got = decode_attention(q, kc, vc, kvp, posn)
+        ref = decode_attention_plain(q.float(), kc.float(), vc.float(), kvp,
+                                     posn)
+        label = "[dense decode] G=7 H=14 K=2 hd=64 S=512, row 3 empty"
+        check_zero(label, got[3])
+        compare(label, got, ref, out["errs_dense_g7"])
+    # time the encoder's self-attention (bf16), inputs rotated over copies
+    q, k, v, qp, kp, qs, ks = full_case(4, F, F, 20, 20, 64, device, 1,
+                                        torch.bfloat16, encoder=True)
+    n = 4
+    kk, vv = copies(k, n), copies(v, n)
+    out["ms"], out["wall_ms"] = time_ms(lambda i: flash_prefill(
+        q, kk[i], vv[i], qp, kp, qs, ks, causal=False), n, iters=30)
+    out["plain_ms"], _ = time_ms(lambda i: flash_prefill_plain(
+        q, kk[i], vv[i], qp, kp, qs, ks, causal=False), n, iters=5)
+    kt = [t.transpose(1, 2).contiguous() for t in kk]
+    vt = [t.transpose(1, 2).contiguous() for t in vv]
+    qt = q.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["library_ms"], out["library_wall_ms"] = time_ms(
+        lambda i: sdpa(qt, kt[i], vt[i]), n, iters=30)
+    esz = q.element_size()
+    nbytes, flops = attention_work(
+        q, 2 * k.numel() * esz, 4 * F * F, q.numel() * esz,
+        extra=4 * (2 * qp.numel() + 2 * kp.numel()))
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+    out["shape"] = (f"B=4 Sq=Skv={F} H=K=20 hd=64 bf16, causal=False "
+                    f"(whisper-large-v3's encoder self-attention; SDPA "
+                    f"without a mask)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: the SSD intra-chunk kernel
 # ---------------------------------------------------------------------------
 
@@ -1168,7 +1310,7 @@ def _plain_mla(cfg, a, h, pos, mask):
 
 
 def dense_forward_logits(cfg, params, tokens, device, chunks=None,
-                         moe_fn=None):
+                         moe_fn=None, embeds=None, at=None):
     """Last-position logits of a plain forward over the prompt: no pages,
     no kernels.  Attention is GQA (projections, RoPE, masked einsum) or
     MLA (`_plain_mla`) over the whole prompt: without a window ring it
@@ -1182,30 +1324,70 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None,
     masks as the reference's; a ring cache gives the same result only
     while the prompt fits the window (the serves' prompts do).
     `moe_fn(h, params, mc)` replaces `moe_block` for each chunk's MoE
-    (the sharded unified plane's, `ep_chunk_moe`)."""
+    (the sharded unified plane's, `ep_chunk_moe`).  `embeds` is one
+    request's stub embeddings: a VLM's patches (P, D), prepended to the
+    tokens, or an encoder-decoder's frames (F, D), run through the
+    encoder (sinusoidal positions, bidirectional attention without RoPE,
+    `enc_ln_f`), whose output the decoder layers' cross-attention reads.
+    `at` (positions) gives the logits at those positions instead."""
     import torch
     from repro_torch.config.base import AttentionKind
     from repro_torch.models.attention import build_mask, gqa_reference
-    from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+    from repro_torch.models.layers import (
+        apply_rope, rms_norm, sinusoid_pos_embedding, swiglu)
     from repro_torch.models.mamba import mamba_forward, ssd_chunked
     from repro_torch.models.model import logits_from_hidden
     from repro_torch.models.moe import moe_block
     moe_fn = moe_fn or moe_block
+    D, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, eps = cfg.resolved_head_dim, cfg.norm_eps
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int32, device=device)[None]
+
+    def attend(a, h, src, mask, pos=None):
+        """GQA attention of `h` over `src`, with RoPE at `pos` unless
+        None (the encoder and cross-attention)."""
+        Sq, Sk = h.shape[1], src.shape[1]
+        q = (h @ a["w_q"].reshape(D, -1)).reshape(1, Sq, H, hd)
+        k = (src @ a["w_k"].reshape(D, -1)).reshape(1, Sk, K, hd)
+        v = (src @ a["w_v"].reshape(D, -1)).reshape(1, Sk, K, hd)
+        if pos is not None:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        o = gqa_reference(q, k, v, mask)
+        return o.reshape(1, Sq, H * hd) @ a["w_o"].reshape(H * hd, D)
+
+    def mlp(p, x):
+        m = p["mlp"]
+        return x + swiglu(rms_norm(x, p["ln2"], eps), m["w_gate"],
+                          m["w_up"], m["w_down"])
     ids = torch.tensor([list(tokens)], dtype=torch.long, device=device)
-    S = ids.shape[1]
-    pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+    x = params["embed"][ids]
+    enc = None
+    if embeds is not None and cfg.is_encoder_decoder:
+        F = embeds.shape[0]
+        e = embeds[None].to(x.dtype) + sinusoid_pos_embedding(
+            F, D, device)[None].to(x.dtype)
+        fpos = arange(F)
+        for p in params["encoder"]:
+            h = rms_norm(e, p["ln1"], eps)
+            e = mlp(p, e + attend(p["attn"], h, h, build_mask(
+                fpos, fpos, causal=False)))
+        enc = rms_norm(e, params["enc_ln_f"], eps)
+    elif embeds is not None:
+        x = torch.cat([embeds[None].to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    pos = arange(S)
     window = (cfg.sliding_window if cfg.attention == AttentionKind.SWA
               else 0)
     mask = build_mask(pos, pos, causal=True, window=window)
-    D, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim
     bounds = [0]
     for n in chunks or [S]:
         bounds.append(bounds[-1] + n)
     spans = list(zip(bounds, bounds[1:]))
-    x = params["embed"][ids]
     for p in params["layers"]:
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = rms_norm(x, p["ln1"], eps)
         if "mamba" in p:
             ys, state = [], (None, None)
             for lo, hi in spans:
@@ -1214,27 +1396,23 @@ def dense_forward_logits(cfg, params, tokens, device, chunks=None,
                 ys.append(y)
             x = x + torch.cat(ys, 1)
         elif cfg.attention == AttentionKind.MLA:
-            a = p["attn"]
-            x = x + _plain_mla(cfg, a, h, pos, mask)
+            x = x + _plain_mla(cfg, p["attn"], h, pos, mask)
         else:
-            a = p["attn"]
-            q = apply_rope((h @ a["w_q"].reshape(D, -1)).reshape(
-                1, S, H, hd), pos, cfg.rope_theta)
-            k = apply_rope((h @ a["w_k"].reshape(D, -1)).reshape(
-                1, S, K, hd), pos, cfg.rope_theta)
-            v = (h @ a["w_v"].reshape(D, -1)).reshape(1, S, K, hd)
-            o = gqa_reference(q, k, v, mask)
-            x = x + o.reshape(1, S, H * hd) @ a["w_o"].reshape(H * hd, D)
+            x = x + attend(p["attn"], h, h, mask, pos)
+        if "xattn" in p:
+            h = rms_norm(x, p["ln_x"], eps)
+            x = x + attend(p["xattn"], h, enc, build_mask(
+                torch.zeros_like(pos), torch.zeros_like(arange(F)),
+                causal=False))
         if "moe" in p:
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            h = rms_norm(x, p["ln2"], eps)
             x = x + torch.cat([moe_fn(h[:, lo:hi], p["moe"], cfg.moe)[0]
                                for lo, hi in spans], 1)
         elif "mlp" in p:
-            h = rms_norm(x, p["ln2"], cfg.norm_eps)
-            m = p["mlp"]
-            x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return logits_from_hidden(cfg, params, x[0, -1])
+            x = mlp(p, x)
+    x = rms_norm(x, params["ln_f"], eps)
+    return logits_from_hidden(cfg, params,
+                              x[0, -1] if at is None else x[0, list(at)])
 
 
 def ssm_forward_logits(cfg, params, tokens, device, chunks=None,
@@ -1533,7 +1711,7 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     has the same reference.  Returns (worst max|d|/max|ref|, argmax
     agreements, the worst error against `info_forward` or None)."""
     import torch
-    worst = 0.0
+    worst, worst_at = 0.0, None
     agree = 0
     info = None if info_forward is None else 0.0
     chunks = chunks or {}
@@ -1568,6 +1746,8 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                                  f"logits")
         rel = float((got.float() - ref.float()).abs().max()
                     / ref.float().abs().max())
+        if rel >= worst:
+            worst_at = f"request {r.rid}, chunks {chunks.get(r.rid)}"
         worst = max(worst, rel)
         agree += int(int(got.argmax()) == int(ref.argmax()))
         if info_forward is not None:
@@ -1575,8 +1755,8 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
             info = max(info, float((got.float() - alt).abs().max()
                                    / alt.abs().max()))
     print(f"{tag} first-token logits vs plain forward: worst "
-          f"max|d|/max|ref|={worst:.3e} (tol {LOGITS_REL_TOL}), argmax "
-          f"agrees on {agree}/{len(reqs)}", flush=True)
+          f"max|d|/max|ref|={worst:.3e} ({worst_at}; tol {LOGITS_REL_TOL}),"
+          f" argmax agrees on {agree}/{len(reqs)}", flush=True)
     if routes_max_len is not None:
         print(f"{tag} the plain forward replayed the served expert sets: "
               f"{flips['flips']} of {flips['pairs']} (token, layer) pairs "
@@ -2416,6 +2596,13 @@ def profile_serve(make_server, cfg, n_requests, lens, outs, device,
             srv.serve(reqs, timeout=600)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    return device_profile(prof, wall)
+
+
+def device_profile(prof, wall):
+    """Device time by kernel group of a finished profile over `wall`
+    seconds, the device's idle share of them and the top kernels; None
+    when the profiler recorded no device time."""
     groups, by_name = {}, {}
     for e in _device_events(prof):
         s, n = by_name.get(e.name(), (0.0, 0))
@@ -2784,14 +2971,18 @@ def serve_twin(counters, device, reduced=False, elapsed=None):
 # ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve, swa, twin, sharded, hybrid):
+                 moe_serve, swa, twin, sharded, hybrid, full, encdec):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
     contiguous entry also on the SWA serve, with their figures at its
     head dim 120; #1, #2's contiguous entry and #4 also on the hybrid's
-    paged and sharded P/D serves), and on each A/B of the serving
-    benchmark twin (`launches_twin`)."""
+    paged and sharded P/D serves; #2's contiguous entry, causal, and #3
+    also on phase 6i's whisper and internvl2-1b runs, with their errors
+    at G = 7), and on each A/B of the serving benchmark twin
+    (`launches_twin`); then #2's contiguous entry not causal, a row of
+    its own, measured at whisper's encoder shape, its launches on phase
+    6i's whisper run."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -2809,6 +3000,12 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
             launches_twin={phase: rep_["launches"][name]
                            for phase, rep_ in twin.items()},
             **extra)
+
+    def on_encdec(name, errs_g7):
+        return {"launches_encdec_serve": {
+                    arch: rep["launches_by_mode"][name]
+                    for arch, rep in encdec.items()}} | {
+            f"g7_{k}": v for k, v in errs(errs_g7).items()}
 
     def hd120(r, name):
         h = r["hd120"]
@@ -2851,10 +3048,28 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              / moe_serve["steps"], **on_sharded("paged_prefill_attention")),
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
              "P/D serve", **hd120(fla, "flash_prefill"),
-             **on_sharded("flash_prefill")),
+             **on_sharded("flash_prefill"),
+             **on_encdec("flash_prefill_causal", full["errs_g7"])),
         item("decode_attention", csrc + "decode_attention.cu",
              dec_k + ":166", pd, dense, "P/D serve",
-             **hd120(dense, "decode_attention")),
+             **hd120(dense, "decode_attention"),
+             **on_encdec("decode_attention", full["errs_dense_g7"])),
+        dict(name="flash_prefill (causal=False)", route="cuda",
+             source=csrc + "flash_prefill.cu", replaces=fp_k,
+             launches=encdec["whisper-large-v3"]["launches_by_mode"][
+                 "flash_prefill_noncausal"], **errs(full["errs"]),
+             rel_tol=REL_TOL, ms=full["ms"], wall_ms=full["wall_ms"],
+             plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
+             bound_by=full["bound_by"], library_ms=full["library_ms"],
+             library_wall_ms=full["library_wall_ms"],
+             path="phase 6i, whisper-large-v3 (encoder self-attention and "
+                  "cross-attention)",
+             launches_per_decode_step=encdec["whisper-large-v3"][
+                 "noncausal_per_decode_step"],
+             shape=full["shape"],
+             launches_encdec_serve={
+                 arch: rep["launches_by_mode"]["flash_prefill_noncausal"]
+                 for arch, rep in encdec.items()}),
         item("ssd_chunk", csrc + "ssd_chunk.cu",
              "src/repro/kernels/ssd_scan/kernel.py:54", ssm, ssd,
              "SSM serve (P/D, padded)",
@@ -3522,6 +3737,176 @@ def serve_hybrid_phase(counters, device, cfg=None, params=None,
     return {"pd": pd, "sharded": sharded}
 
 
+# ---------------------------------------------------------------------------
+# phase 6i: the full-sequence path on whisper-large-v3 and internvl2-1b
+# ---------------------------------------------------------------------------
+
+# (arch, prompt lengths, cache length): whisper's decoder prompts after
+# its 1500 stub frame embeddings, internvl2-1b's text prompts after its
+# 256 stub patch embeddings (256 + 200 + 16 + 32 = 504 of 512)
+ENCDEC_SERVES = (("whisper-large-v3", (4, 17, 33, 64), 256),
+                 ("internvl2-1b", (16, 77, 150, 200), 512))
+ENCDEC_CHUNK = 16
+ENCDEC_STEPS = 32
+
+
+def serve_encdec(cfg, params, device, counters, lens, max_len, tag):
+    """One model's full-sequence serve through the port's entry points:
+    `prefill` of len(lens) requests (prompts of `lens` tokens, with stub
+    frame or patch embeddings of 0.1 · N(0, 1) from seed 7), one
+    ENCDEC_CHUNK-token `prefill_chunk`, then ENCDEC_STEPS greedy
+    `decode_step`s.  Launch counts are set to 0 just before and read
+    just after; on the card #2 (causal and not) and #3 must have
+    launched exactly as the path calls them.  Each request's logits
+    after the prefill and after the chunk are held against a plain
+    forward over the same tokens (`dense_forward_logits`) within
+    LOGITS_REL_TOL; every logit finite, every token in the vocabulary."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.model import decode_step, prefill, prefill_chunk
+    B, S, C = len(lens), max(lens), ENCDEC_CHUNK
+    g = torch.Generator(device="cpu").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + C), generator=g)
+    n_emb = (cfg.encoder_seq_len if cfg.is_encoder_decoder
+             else cfg.num_patch_tokens)
+    embeds = (torch.randn(B, n_emb, cfg.d_model, generator=g) * 0.1).to(
+        device=device, dtype=params["embed"].dtype)
+    n_pre = 0 if cfg.is_encoder_decoder else n_emb
+    chunk = torch.stack([tokens[b, n:n + C] for b, n in enumerate(lens)])
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def run():
+        """prefill -> chunk -> decode steps; (prefill and chunk logits,
+        generated tokens, all logits finite, #2's non-causal launches
+        in the decode steps, [t0, t1, t2, t3])."""
+        sync()
+        ts = [time.monotonic()]
+        lg_p, cache = prefill(cfg, params, tokens[:, :S].to(device),
+                              embeds=embeds, lengths=lengths,
+                              max_len=max_len)
+        sync()
+        ts.append(time.monotonic())
+        lg_c, cache = prefill_chunk(cfg, params, chunk.to(device), cache)
+        sync()
+        ts.append(time.monotonic())
+        nxt = lg_c.argmax(-1)[:, None]
+        gen, finite = [nxt], bool(torch.isfinite(lg_p).all()
+                                  and torch.isfinite(lg_c).all())
+        nc0 = flash_prefill.launches_noncausal
+        for _ in range(ENCDEC_STEPS):
+            lg, cache = decode_step(cfg, params, nxt, cache)
+            finite = finite and bool(torch.isfinite(lg).all())
+            nxt = lg.argmax(-1)[:, None]
+            gen.append(nxt)
+        sync()
+        ts.append(time.monotonic())
+        return (lg_p, lg_c, torch.cat(gen, 1), finite,
+                flash_prefill.launches_noncausal - nc0, ts)
+    for w in counters:
+        w.launches = 0
+    flash_prefill.launches_noncausal = 0
+    lg_p, lg_c, gen, finite, nc_decode, (t0, t1, t2, t3) = run()
+    launches = {w.__name__: w.launches for w in counters}
+    noncausal = flash_prefill.launches_noncausal
+    if not finite or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{tag}: non-finite logits or bad tokens")
+    L = cfg.num_layers
+    n_enc = cfg.num_encoder_layers if cfg.is_encoder_decoder else 0
+    n_x = L if cfg.is_encoder_decoder else 0
+    expected = {"flash_prefill_causal": 2 * L,
+                "flash_prefill_noncausal": n_enc + n_x * (2 + ENCDEC_STEPS),
+                "flash_prefill_noncausal_decode": n_x * ENCDEC_STEPS,
+                "decode_attention": L * ENCDEC_STEPS}
+    got = {"flash_prefill_causal": launches["flash_prefill"] - noncausal,
+           "flash_prefill_noncausal": noncausal,
+           "flash_prefill_noncausal_decode": nc_decode,
+           "decode_attention": launches["decode_attention"]}
+    others = {k: n for k, n in launches.items()
+              if k not in ("flash_prefill", "decode_attention") and n}
+    print(f"{tag} launches {got!r} (the path's calls: {expected!r}), "
+          f"other kernels {others!r}", flush=True)
+    if device != "cpu" and (got != expected or others):
+        raise AssertionError(f"{tag}: launches {got} {others}, the path "
+                             f"calls {expected}")
+    worst = [0.0, 0.0]              # after the prefill, after the chunk
+    agree = 0
+    for b, n in enumerate(lens):
+        ref = dense_forward_logits(
+            cfg, params, tokens[b, :n + C].tolist(), device,
+            embeds=embeds[b], at=(n_pre + n - 1, n_pre + n + C - 1)).float()
+        for i, lg_ in enumerate((lg_p, lg_c)):
+            worst[i] = max(worst[i], float((lg_[b].float() - ref[i]).abs()
+                                           .max() / ref[i].abs().max()))
+            agree += int(int(lg_[b].argmax()) == int(ref[i].argmax()))
+    worst_p, worst_c = worst
+    print(f"{tag} logits vs plain forward: after prefill max|d|/max|ref|="
+          f"{worst_p:.3e}, after the chunk {worst_c:.3e} (tol "
+          f"{LOGITS_REL_TOL}), argmax agrees on {agree}/{2 * B}", flush=True)
+    if not max(worst_p, worst_c) <= LOGITS_REL_TOL:
+        raise AssertionError(f"{tag}: logits disagree: {worst_p} {worst_c}")
+    rep = dict(arch=cfg.name, layers=L, encoder_layers=n_enc,
+               prompt_lens=list(lens), embeds=n_emb, chunk=C,
+               decode_steps=ENCDEC_STEPS, wall_s=t3 - t0, prefill_s=t1 - t0,
+               chunk_s=t2 - t1, decode_step_ms=(t3 - t2) * 1e3
+               / ENCDEC_STEPS, logits_rel_err_prefill=worst_p,
+               logits_rel_err_chunk=worst_c, argmax_agree=agree,
+               launches=launches, launches_by_mode=got, expected=expected,
+               noncausal_per_decode_step=nc_decode / ENCDEC_STEPS,
+               profile=None)
+    print(f"{tag} wall_s={rep['wall_s']!r} (prefill {rep['prefill_s']!r} s, "
+          f"chunk {rep['chunk_s']!r} s, decode step "
+          f"{rep['decode_step_ms']!r} ms)", flush=True)
+    if device != "cpu":
+        # where the device time goes: the same run again, profiled
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            *_out, ts = run()
+        rep["profile"] = prof_ = device_profile(prof, ts[3] - ts[0])
+        if prof_ is not None:
+            print(f"{tag} profiled run: wall_s={prof_['wall_s']!r} "
+                  f"device_busy_s={prof_['device_busy_s']!r} idle_share="
+                  f"{prof_['idle_share']!r} by group "
+                  f"{prof_['by_group_s']!r}", flush=True)
+    return rep
+
+
+def serve_encdec_phase(counters, device, reduced=False):
+    """Phase 6i: full-width whisper-large-v3 (32 encoder + 32 decoder
+    layers, 1500 stub frames a request) and internvl2-1b (24 layers, 256
+    stub patches a request), random bf16 weights from seed 0, each
+    through `serve_encdec`: 4 requests of ENCDEC_SERVES' prompts, one
+    chunk, ENCDEC_STEPS decode steps.  `reduced` rehearses it on the CPU
+    at the reduced configs (fp32; prompts cut to their cache).  Returns
+    {arch: report}."""
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    out = {}
+    for arch, lens, max_len in ENCDEC_SERVES:
+        cfg = get_arch(arch, reduced=reduced)
+        if reduced:
+            lens = tuple(min(n, cfg.max_seq_len // 8) for n in lens)
+            max_len = 128
+        t0 = time.monotonic()
+        params = init_params(cfg, seed=0, dtype=torch.float32 if reduced
+                             else torch.bfloat16, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        print(f"[init] {cfg.name} weights in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        out[arch] = serve_encdec(cfg, params, device, counters, lens,
+                                 max_len, f"[encdec serve] {cfg.name}")
+        del params
+        if device != "cpu":
+            free_device_memory()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3559,11 +3944,12 @@ def main() -> int:
         dense = check_dense_decode(device)
         pfx = check_paged_prefill(device)
         fla = check_flash_prefill(device)
+        full = check_flash_full(device)
         ssd = check_ssd(device)
         elapsed("kernel checks")
         for tag, r in (("[decode]", dec), ("[dense decode]", dense),
                        ("[paged prefill]", pfx), ("[flash prefill]", fla),
-                       ("[ssd]", ssd)):
+                       ("[flash prefill not causal]", full), ("[ssd]", ssd)):
             report_timing(tag, r)
             if "hd120" in r:
                 report_timing(f"{tag} hd=120", r["hd120"])
@@ -3679,11 +4065,17 @@ def main() -> int:
         hybrid = serve_hybrid_phase(counters, device)
         elapsed("hybrid serves (jamba, paged and sharded)")
         free_device_memory()
+        t0 = time.monotonic()
+        encdec = serve_encdec_phase(counters, device)
+        print(f"[encdec serve] phase 6i wall_s="
+              f"{time.monotonic() - t0!r}", flush=True)
+        elapsed("full-sequence serves (whisper, internvl2-1b)")
         twin = serve_twin(counters, device, elapsed=elapsed)
         split = prefill_split(device)
         elapsed("prefill pass split")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
-                               moe_rep, swa, twin, sharded, hybrid)
+                               moe_rep, swa, twin, sharded, hybrid, full,
+                               encdec)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -3699,6 +4091,7 @@ def main() -> int:
         print(json.dumps({"serve_hybrid": hybrid}), flush=True)
         print(json.dumps({"serve_twin": twin}), flush=True)
         print(json.dumps({"prefill_pass_split": split}), flush=True)
+        print(json.dumps({"serve_encdec": encdec}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

@@ -12,7 +12,10 @@ model order, and one leading layer axis per cache stack (the attention
 layers' "k"/"v", the SSM layers' "ssm"/"conv_x"/"conv_bc", each in model
 order; see `repro_torch.models.model`).  A JAX SSM cache entry is
 `(ssm_state, (conv_x, conv_bc))`; an attention entry is `(k, v)`, for
-MLA `(latent, rope key)`, which the port keeps in "k" and "v".
+MLA `(latent, rope key)`, which the port keeps in "k" and "v"; a
+decoder layer of an encoder-decoder model has `(entry, (enc_k,
+enc_v))`, whose encoder K/V the port keeps in "enc_k"/"enc_v" over
+every layer.  The encoder's stacked layers ("encoder") become a list.
 """
 from __future__ import annotations
 
@@ -54,9 +57,12 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
                       device="cuda") -> Dict:
-    """The JAX `init_params` pytree (numpy leaves) as the port's params.
-    The multi-token-prediction head ("mtp", DeepSeek-V3) is left out: only
-    the reference's training loss reads it (ROADMAP Queue 1 item 14)."""
+    """The JAX `init_params` pytree (numpy leaves) as the port's params,
+    an encoder-decoder's cross-attention ("ln_x", "xattn" in every
+    decoder layer) and encoder ("encoder", "enc_ln_f") included.  The
+    multi-token-prediction head ("mtp", DeepSeek-V3) is left out: only
+    the reference's training loss reads it (the training half of ROADMAP
+    Queue 1 item 14)."""
     require_supported(cfg)
 
     def take(node, i, name=""):
@@ -71,6 +77,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
         params["lm_head"] = _tensor(tree["lm_head"], dtype, device)
     params["layers"] = [take(_group(tree, key), i)
                         for key, i in _layer_slots(cfg)]
+    if "encoder" in tree:
+        params["encoder"] = [take(tree["encoder"], i)
+                             for i in range(cfg.num_encoder_layers)]
+        params["enc_ln_f"] = _tensor(tree["enc_ln_f"], dtype, device)
     return params
 
 
@@ -91,10 +101,18 @@ def cache_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
     out = {key: _tensor(tree[key], torch.int32, device)
            for key in ("cur", "kv_pos", "block_tab") if key in tree}
     attn, ssm = _stacks(cfg)
+    enc = cfg.is_encoder_decoder
 
     def stack(slots, leaf, dt):
-        return torch.stack([_tensor(np.asarray(leaf(_group(tree, key)))[i],
+        def core(e):          # a decoder layer's own entry
+            return leaf(e[0] if enc else e)
+        return torch.stack([_tensor(np.asarray(core(_group(tree, key)))[i],
                                     dt, device) for key, i in slots])
+    if enc:
+        for j, name in enumerate(("enc_k", "enc_v")):
+            out[name] = torch.stack([
+                _tensor(np.asarray(_group(tree, key)[1][j])[i], dtype,
+                        device) for key, i in _layer_slots(cfg)])
     if attn:
         out["k"] = stack(attn, lambda e: e[0], dtype)
         out["v"] = stack(attn, lambda e: e[1], dtype)
@@ -123,6 +141,10 @@ def cache_to_numpy(cfg: ModelConfig, cache: Dict) -> Dict:
             entry = (leaf("k"), leaf("v"))
         else:
             entry = (leaf("ssm"), (leaf("conv_x"), leaf("conv_bc")))
+        if "enc_k" in cache:
+            ls = [l for l, (k, _) in enumerate(slots) if k == key]
+            entry = (entry, tuple(cache[n][ls].float().cpu().numpy()
+                                  for n in ("enc_k", "enc_v")))
         if key == "prefix":
             out["prefix"] = entry
         else:

@@ -15,7 +15,9 @@ device memory.  bf16 inputs run both products on the tensor cores
 body, so the fp32 path keeps its 1e-4 agreement — see the source note.
 
 Each wrapper launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; `<wrapper>.launches` counts launches.
+version only for CPU tensors; `<wrapper>.launches` counts launches, and
+`flash_prefill.launches_noncausal` those of them made with
+causal=False (the encoder's self-attention and cross-attention).
 """
 from __future__ import annotations
 
@@ -139,6 +141,8 @@ def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,
                                        bool(causal), int(window),
                                        q.shape[-1] ** -0.5)
     flash_prefill.launches += 1
+    if not causal:
+        flash_prefill.launches_noncausal += 1
     return out
 
 
@@ -161,4 +165,5 @@ def paged_prefill_attention(q, k_pool, v_pool, kv_pos_pool, block_tab,
 
 
 flash_prefill.launches = 0
+flash_prefill.launches_noncausal = 0
 paged_prefill_attention.launches = 0

@@ -1,33 +1,39 @@
 """Transformer blocks of the serving path: GQA or MLA attention, or a
-Mamba2 (SSM) mixer, then a dense SwiGLU or an MoE FFN.
+Mamba2 (SSM) mixer, then (in a decoder layer of an encoder-decoder
+model) cross-attention to the encoder's output, then a dense SwiGLU or
+an MoE FFN.
 
     kind DENSE   = attention + dense SwiGLU
     kind MOE     = attention + MoE
     kind SSM     = Mamba2 mixer + dense SwiGLU (or nothing when d_ff == 0)
     kind SSM_MOE = Mamba2 mixer + MoE           (jamba)
 
-Counterpart of `repro/models/blocks.py` (`init_attn_params`,
-`init_dense_mlp_params`, `init_block_params`; the dense-cache
-`attn_decode`, `attn_extend`, `mla_decode`, `mla_extend`,
-`block_decode`, `block_extend` with their SSM arms; the paged
-`_paged_write_site(s)`, `attn_decode_paged`, `attn_extend_paged`,
-`mla_decode_paged`, `mla_extend_paged`, `block_extend_paged`, which
-are attention-only, and `block_decode_paged`, whose SSM arm keeps the
-state per slot beside the pages).  GQA attention runs
-through the port's kernels (`repro_torch.kernels`), the SSM prefill
-through the SSD kernel (`repro_torch.models.mamba`); each takes its
-plain version on the CPU.  MLA is the absorbed form over the latent
-cache (the compressed KV `ckv` and the shared rope key `kr`, no head
-axis), as torch matmuls: the reference has no Pallas kernel for it.  The
-full-sequence `mla_full` belongs to the training path (ROADMAP Queue 1
-item 14).
+Counterpart of `repro/models/blocks.py` (`init_attn_params` with its
+`cross` form, `init_dense_mlp_params`, `init_block_params`; the
+full-sequence `_qkv_full`, `attn_full`, `cross_attn_full`, `mla_full`,
+`block_full`; the dense-cache `attn_decode`, `attn_extend`,
+`mla_decode`, `mla_extend`, `block_decode`, `block_extend` with their
+SSM and cross-attention arms; the paged `_paged_write_site(s)`,
+`attn_decode_paged`, `attn_extend_paged`, `mla_decode_paged`,
+`mla_extend_paged`, `block_extend_paged`, which are attention-only, and
+`block_decode_paged`, whose SSM arm keeps the state per slot beside the
+pages).  GQA attention runs through the port's kernels
+(`repro_torch.kernels`): the full-sequence forward and cross-attention
+(prefill, chunk and decode alike) through kernel #2's contiguous entry,
+causal or not, at every length; the SSM prefill through the SSD kernel
+(`repro_torch.models.mamba`); each takes its plain version on the CPU.
+MLA is the absorbed form over the latent cache (the compressed KV `ckv`
+and the shared rope key `kr`, no head axis) in decode and extend, and
+the non-absorbed form in `mla_full`, as torch matmuls: the reference
+has no Pallas kernel for it.
 
 Unlike the JAX functions, which return new caches, the attention arms
 write the new tokens' K/V (MLA: latent and rope key) and positions into
 the caches (dense rows or paged pools) IN PLACE.  The SSM arms return
 new state tensors and leave their inputs alone: an SSM step is not
 idempotent, so a step whose result is dropped (a drained one) must leave
-the state it read intact.
+the state it read intact.  The cross-attention arms read the encoder's
+K/V from the cache and never write them.
 """
 from __future__ import annotations
 
@@ -44,7 +50,8 @@ from repro_torch.kernels.flash_prefill import (
     flash_prefill, paged_prefill_attention,
 )
 from repro_torch.models.attention import (
-    NEG_INF, gather_paged, gather_paged_pos, mla_scores_decode,
+    NEG_INF, build_mask, gather_paged, gather_paged_pos, gqa_reference,
+    mla_scores_decode,
 )
 from repro_torch.models.layers import apply_rope, init_linear, rms_norm, swiglu
 from repro_torch.models.mamba import (
@@ -59,12 +66,15 @@ ATTN_KINDS = (LayerKind.DENSE, LayerKind.MOE)
 # Parameter init (same shapes and scales as the JAX init)
 # ---------------------------------------------------------------------------
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
+                     cross: bool = False) -> Dict:
+    """An attention sub-layer's weights: MLA's for an MLA config, GQA's
+    otherwise and for cross-attention (`cross`)."""
     D = cfg.d_model
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     dev = gen.device
-    if cfg.attention == AttentionKind.MLA:
+    if cfg.attention == AttentionKind.MLA and not cross:
         m = cfg.mla
         p: Dict = {}
         q_in = D
@@ -105,16 +115,20 @@ def init_dense_mlp_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig,
-                      kind: LayerKind, dtype) -> Dict:
+                      kind: LayerKind, dtype, cross: bool = False) -> Dict:
     """An attention block (DENSE, MOE) or an SSM block (SSM, SSM_MOE),
-    then the MoE FFN (MOE and SSM_MOE kinds of a config with experts) or
-    the dense MLP (when d_ff > 0)."""
+    then cross-attention ("ln_x", "xattn") in a decoder layer of an
+    encoder-decoder model (`cross`), then the MoE FFN (MOE and SSM_MOE
+    kinds of a config with experts) or the dense MLP (when d_ff > 0)."""
     D = cfg.d_model
     p: Dict = {"ln1": torch.ones(D, dtype=dtype, device=gen.device)}
     if kind in ATTN_KINDS:
         p["attn"] = init_attn_params(gen, cfg, dtype)
     else:
         p["mamba"] = init_mamba_params(gen, D, cfg.ssm, dtype)
+    if cross:
+        p["ln_x"] = torch.ones(D, dtype=dtype, device=gen.device)
+        p["xattn"] = init_attn_params(gen, cfg, dtype, cross=True)
     if kind in (LayerKind.MOE, LayerKind.SSM_MOE) and cfg.moe.num_experts:
         p["ln2"] = torch.ones(D, dtype=dtype, device=gen.device)
         p["moe"] = init_moe_params(gen, D, cfg.moe, dtype)
@@ -132,16 +146,18 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.sliding_window if cfg.attention == AttentionKind.SWA else 0
 
 
-def _qkv(p, x, cfg: ModelConfig, positions):
-    """Projections + RoPE.  x (B, S, D); positions (B, S)."""
+def _qkv_full(p, x, cfg: ModelConfig, positions, use_rope: bool = True):
+    """Projections, then RoPE unless `use_rope` is False (the whisper
+    encoder).  x (B, S, D); positions (B, S)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     q = (x @ p["w_q"].reshape(D, H * hd)).reshape(B, S, H, hd)
     k = (x @ p["w_k"].reshape(D, K * hd)).reshape(B, S, K, hd)
     v = (x @ p["w_v"].reshape(D, K * hd)).reshape(B, S, K, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -150,12 +166,63 @@ def _out_proj(p, o):
     return o.reshape(B, S, H * hd) @ p["w_o"].reshape(H * hd, -1)
 
 
+def _flash_full(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal, window=0):
+    """Kernel #2's contiguous entry over whole sequences: the int32
+    position and segment maps made contiguous, K/V in q's dtype."""
+    i32 = [t.to(torch.int32).contiguous()
+           for t in (q_pos, kv_pos, q_seg, kv_seg)]
+    o = flash_prefill(q.contiguous(), k.to(q.dtype).contiguous(),
+                      v.to(q.dtype).contiguous(), *i32, causal=causal,
+                      window=window)
+    return o.to(q.dtype)
+
+
+def attn_full(p, x, cfg: ModelConfig, positions, seg=None, causal=True,
+              use_rope=True):
+    """Full-sequence self-attention: every token attends to the tokens of
+    its segment (`seg` (B, S), -1 = pad; None = one segment) at
+    positions up to its own (`causal`) and within the window (SWA).
+    Kernel #2's contiguous entry at every length: the reference's switch
+    at FLASH_THRESHOLD chooses between two forms of the same function.
+    x (B, S, D); positions (B, S).  Returns (out (B, S, D), (k, v) of
+    shape (B, S, K, hd) for the cache)."""
+    q, k, v = _qkv_full(p, x, cfg, positions, use_rope)
+    seg = torch.zeros_like(positions) if seg is None else seg
+    o = _flash_full(q, k, v, positions, positions, seg, seg, causal,
+                    _window(cfg))
+    return _out_proj(p, o), (k, v)
+
+
+def cross_attn_full(p, x, enc_out, cfg: ModelConfig, enc_kv=None):
+    """Cross-attention of a decoder layer (whisper): no RoPE, every query
+    sees every encoder position.  Keys and values are projected from
+    `enc_out` (B, Se, D), or read from the cache (`enc_kv`, each (B, Se,
+    K, hd)).  Kernel #2's contiguous entry, not causal, with all
+    positions and segments 0 (the reference's mask), for prefill, chunk
+    and decode (Sq = 1) alike.  x (B, S, D).  Returns (out (B, S, D),
+    (k, v))."""
+    B, S, D = x.shape
+    hd = cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ p["w_q"].reshape(D, H * hd)).reshape(B, S, H, hd)
+    if enc_kv is None:
+        Se = enc_out.shape[1]
+        k = (enc_out @ p["w_k"].reshape(D, K * hd)).reshape(B, Se, K, hd)
+        v = (enc_out @ p["w_v"].reshape(D, K * hd)).reshape(B, Se, K, hd)
+    else:
+        k, v = enc_kv
+    zq = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    zk = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
+    o = _flash_full(q, k, v, zq, zk, zq, zk, causal=False)
+    return _out_proj(p, o), (k, v)
+
+
 def attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos, pos):
     """Single-token decode against a dense cache: write the new K/V (in
     place) at index pos % S (a ring for SWA caches; S == max_len
     otherwise, so the index is pos), then attend.  x (B, 1, D); caches
     (B, S, K, hd); kv_pos (B, S); pos (B,).  Returns (B, 1, D)."""
-    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    q, k, v = _qkv_full(p, x, cfg, pos[:, None])
     rows = torch.arange(x.shape[0], device=x.device)
     idx = (pos % k_cache.shape[1]).long()
     k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
@@ -176,7 +243,7 @@ def attn_extend(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos,
     a chunk's first queries no longer see the keys the chunk's later
     tokens overwrote.  x (B, Sc, D); positions (B, Sc).  Returns
     (B, Sc, D)."""
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv_full(p, x, cfg, positions)
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)[:, None]
     idx = (positions % k_cache.shape[1]).long()
@@ -215,7 +282,7 @@ def attn_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
     place) into the row's current physical block, then attend through the
     block table.  x (B, 1, D); pools (N, bs, K, hd); kv_pos_pool (N, bs);
     block_tab (B, nbt); pos (B,).  Returns (B, 1, D)."""
-    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    q, k, v = _qkv_full(p, x, cfg, pos[:, None])
     phys, off = _paged_write_site(block_tab, pos, k_pool.shape[1])
     k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
     v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
@@ -232,7 +299,7 @@ def attn_extend_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
     through the block table (earlier chunks and shared-prefix pages
     included) with causal position masking.  x (B, Sc, D); positions
     (B, Sc).  Returns (B, Sc, D)."""
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv_full(p, x, cfg, positions)
     phys, off = _paged_write_sites(block_tab, positions, k_pool.shape[1])
     k_pool[phys, off] = k.to(k_pool.dtype)
     v_pool[phys, off] = v.to(v_pool.dtype)
@@ -309,6 +376,54 @@ def _mla_extend_attend(p, cfg, q_nope, q_rope, ckv, kr, kv_pos, positions):
     o = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"])
     B, Sc, H, E = o.shape
     return o.reshape(B, Sc, H * E) @ p["w_o"].reshape(H * E, -1)
+
+
+FLASH_THRESHOLD = 2048   # past this length mla_full attends block by block
+FLASH_BLOCK = 512
+
+
+def _masked_attention(q, k, v, positions, seg):
+    """Causal masked attention within segments (`gqa_reference`).  Past
+    FLASH_THRESHOLD keys it runs FLASH_BLOCK queries at a time, so that
+    it holds B·H·FLASH_BLOCK·S scores rather than B·H·S²: the same
+    softmax row by row, as the reference's `flash_attention_xla` keeps
+    its memory bounded there."""
+    S = k.shape[1]
+    if S <= FLASH_THRESHOLD:
+        return gqa_reference(q, k, v, build_mask(positions, positions, seg,
+                                                 seg, True, 0))
+
+    def rows(lo, hi):
+        qs = None if seg is None else seg[:, lo:hi]
+        return gqa_reference(q[:, lo:hi], k, v, build_mask(
+            positions[:, lo:hi], positions, qs, seg, True, 0))
+    return torch.cat([rows(lo, lo + FLASH_BLOCK)
+                      for lo in range(0, q.shape[1], FLASH_BLOCK)], dim=1)
+
+
+def mla_full(p, x, cfg: ModelConfig, positions, seg=None):
+    """Full-sequence MLA in the non-absorbed form, as the reference's:
+    per-head k_nope and v expanded from the latent, the shared rope key
+    broadcast over the heads, causal masked attention within segments.
+    Torch matmuls and the plain masked attention (`_masked_attention`,
+    blockwise past FLASH_THRESHOLD): the q/k head dim (nope + rope, e.g.
+    96 or 192) and the v head dim lie outside kernel #2's contract
+    (`HEAD_DIMS`), and the reference has no Pallas kernel for MLA.
+    x (B, S, D); positions (B, S).  Returns (out (B, S, D), (latent
+    (B, S, r), rope key (B, S, dr)) for the cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = torch.einsum("bsr,rhe->bshe", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", ckv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    o = _masked_attention(q, k, v, positions, seg)
+    return o.reshape(B, S, H * m.v_head_dim) @ p["w_o"].reshape(
+        H * m.v_head_dim, -1), (ckv, k_rope)
 
 
 def mla_decode(p, x, cfg: ModelConfig, ckv_cache, kr_cache, kv_pos, pos):
@@ -393,12 +508,66 @@ def _mlp(p, x, cfg: ModelConfig):
     return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
+def _cross(p, x, cfg: ModelConfig, enc_kv):
+    """A decoder layer's cross-attention over the cached encoder K/V,
+    with its residual; x itself in a layer without one."""
+    if "xattn" not in p:
+        return x
+    h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    return x + cross_attn_full(p["xattn"], h, None, cfg, enc_kv=enc_kv)[0]
+
+
+def _split_enc(p, entry):
+    """(the layer's own entry, its encoder K/V or None): a decoder layer
+    of an encoder-decoder model gets (entry, (enc_k, enc_v))."""
+    return entry if "xattn" in p else (entry, None)
+
+
+def block_full(p, x, kind: LayerKind, cfg: ModelConfig, positions, seg=None,
+               causal=True, use_rope=True, enc_out=None, ssm_init=None,
+               conv_init=None):
+    """Full-sequence block (prefill, the encoder): the mixer over the
+    whole sequence (attention through `attn_full`/`mla_full`, an SSM
+    layer through `mamba_forward` from `ssm_init`/`conv_init`, the SSD
+    kernel on the card), cross-attention to `enc_out` in a decoder layer
+    of an encoder-decoder model, then the FFN.  Returns (hidden (B, S,
+    D), the layer's cache entry: (k, v), MLA's (latent, rope key) or an
+    SSM layer's (state, (conv_x, conv_bc)), paired with the encoder's
+    (k, v) in a cross-attention layer; the MoE aux loss, fp32 0 without
+    one)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind in ATTN_KINDS:
+        if cfg.attention == AttentionKind.MLA:
+            y, entry = mla_full(p["attn"], h, cfg, positions, seg)
+        else:
+            y, entry = attn_full(p["attn"], h, cfg, positions, seg, causal,
+                                 use_rope)
+    else:
+        y, entry = mamba_forward(h, p["mamba"], cfg.ssm, ssm_init,
+                                 conv_init)
+    x = x + y
+    if "xattn" in p:
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        y, enc_kv = cross_attn_full(p["xattn"], h, enc_out, cfg)
+        x = x + y
+        entry = (entry, enc_kv)
+    if "moe" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, laux = moe_block(h, p["moe"], cfg.moe)
+        return x + y, entry, aux + laux
+    return _mlp(p, x, cfg), entry, aux
+
+
 def block_decode(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
                  pos):
     """Single-token decode block over a dense cache entry: (k, v) rows of
     an attention layer, (latent, rope key) rows of an MLA layer (written
-    in place), or (ssm_state, (conv_x, conv_bc)) of an SSM layer.
-    Returns (hidden (B, 1, D), the layer's new entry)."""
+    in place), or (ssm_state, (conv_x, conv_bc)) of an SSM layer; in a
+    decoder layer of an encoder-decoder model, (that entry, (enc_k,
+    enc_v)), the encoder K/V only read.  Returns (hidden (B, 1, D), the
+    layer's new entry, without the encoder K/V)."""
+    entry, enc_kv = _split_enc(p, entry)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
         attend = (mla_decode if cfg.attention == AttentionKind.MLA
@@ -408,7 +577,7 @@ def block_decode(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
         y, entry = mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0],
                                      entry[1])
         x = x + y
-    return _mlp(p, x, cfg), entry
+    return _mlp(p, _cross(p, x, cfg, enc_kv), cfg), entry
 
 
 def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
@@ -417,6 +586,7 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
     `block_decode`).  The SSM arm scans the chunk with the SSD kernel,
     from the entry's state and conv tail.  Returns (hidden (B, Sc, D),
     the layer's new entry)."""
+    entry, enc_kv = _split_enc(p, entry)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
         attend = (mla_extend if cfg.attention == AttentionKind.MLA
@@ -426,7 +596,7 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
     else:
         y, entry = mamba_forward(h, p["mamba"], cfg.ssm, entry[0], entry[1])
         x = x + y
-    return _mlp(p, x, cfg), entry
+    return _mlp(p, _cross(p, x, cfg, enc_kv), cfg), entry
 
 
 def mixer_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,

@@ -1,4 +1,5 @@
-"""Primitive layers: RMS norm, RoPE, SwiGLU and the init helpers.
+"""Primitive layers: RMS norm, RoPE, the sinusoidal position embedding,
+SwiGLU and the init helpers.
 
 Counterpart of `repro/models/layers.py`; the arithmetic (fp32 norm and
 rotation, silu in fp32) follows it so the port is token-exact against
@@ -54,6 +55,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_pos_embedding(seq_len: int, dim: int,
+                           device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position embedding (S, D), fp32:
+    sines of the first half of the frequencies, then cosines."""
+    half = dim // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=device))
+    pos = torch.arange(seq_len, dtype=torch.float32,
+                       device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

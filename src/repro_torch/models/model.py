@@ -1,13 +1,20 @@
 """Model assembly for the serving path: decoders of GQA or MLA attention
 with dense or MoE FFNs (a `dense_prefix` of dense layers first, as in
-DeepSeek-V3), Mamba2 SSM stacks and hybrids of the two.
+DeepSeek-V3), Mamba2 SSM stacks and hybrids of the two, a decoder with
+patch embeddings prepended (the VLM, internvl2-1b) and an
+encoder-decoder (whisper-large-v3: a bidirectional encoder over frame
+embeddings, cross-attention in every decoder layer).
 
 Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
-`logits_from_hidden`; the dense (padded) family `kv_buffer_len`,
-`init_cache`, `cache_join`, `cache_take`, `prefill_chunk`,
-`decode_step` (with the port's `cache_row` and `cache_clear_row`, for
-the rows of a prefill engine's dense pool); and the paged family
-`paged_layout`, `init_paged_cache`,
+`logits_from_hidden`; the full-sequence `_run_encoder`, `forward_full`
+and `prefill` (the whole prompt in one forward, then the dense decode
+cache built from it: a SWA ring placed as the reference's, SSM states
+and conv tails, the encoder K/V of every decoder layer); the dense
+(padded) family `kv_buffer_len`, `init_cache`, `cache_join`,
+`cache_take`, `prefill_chunk`, `decode_step` (with the port's
+`cache_row` and `cache_clear_row`, for the rows of a prefill engine's
+dense pool), which continue from `prefill`'s cache; and the paged
+family `paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step` (a hybrid's SSM
 layers keep their state per slot beside the pages, as the reference's
 `_paged_entry_struct`), `paged_prefill_step` (with
@@ -36,12 +43,16 @@ Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
              "layers": [{"ln1", "attn": {w_q, w_k, w_v, w_o} (GQA) or
                          {[w_dq, q_norm,] w_uq, w_dkv, kv_norm, w_kr, w_uk,
-                         w_uv, w_o} (MLA), or "mamba": {...}, "ln2",
-                         "mlp": {w_gate, w_up, w_down} (an SSM layer has
-                         them only if d_ff > 0) or "moe": {router
-                         [, router_bias], w_gate, w_up, w_down (expert
-                         axis first) [, shared_gate, shared_up,
-                         shared_down]}}, ...]}
+                         w_uv, w_o} (MLA), or "mamba": {...},
+                         ["ln_x", "xattn": {w_q, w_k, w_v, w_o}] (a
+                         decoder layer of an encoder-decoder model),
+                         "ln2", "mlp": {w_gate, w_up, w_down} (an SSM
+                         layer has them only if d_ff > 0) or "moe":
+                         {router [, router_bias], w_gate, w_up, w_down
+                         (expert axis first) [, shared_gate, shared_up,
+                         shared_down]}}, ...],
+             "encoder": [dense layer dicts], "enc_ln_f" (D,)
+                                                 if encoder-decoder}
     paged   {"cur" (slots,) int32, "kv_pos" (N, bs) int32,
     cache    "block_tab" (slots, nbt) int32,
              "k"/"v" (L_attn, N, bs, K, hd),
@@ -51,7 +62,11 @@ Layouts (torch):
     cache    "k"/"v" (L_attn, B, S, K, hd)       if any attention layer,
              "ssm" (L_ssm, B, nh, hp, ds) fp32,
              "conv_x" (L_ssm, B, d_conv-1, d_inner),
-             "conv_bc" (L_ssm, B, d_conv-1, 2·ds)  if any SSM layer}
+             "conv_bc" (L_ssm, B, d_conv-1, 2·ds)  if any SSM layer,
+             "enc_k"/"enc_v" (L, B, Se, K, hd)   if encoder-decoder:
+             every decoder layer's cross-attention K/V over the
+             encoder's Se = encoder_seq_len outputs, written by
+             `prefill` and only read after}
             S = kv_buffer_len(cfg, max_len) (a ring of min(window,
             max_len) entries for SWA models; 1 when no layer attends).
             Each stack holds its own kind's layers in model order
@@ -88,9 +103,10 @@ from repro_torch.distributed.sharding import SSM_STACKS, is_merged, params_on
 from repro_torch.distributed.transfer import move
 from repro_torch.models.blocks import (
     ATTN_KINDS, block_decode, block_decode_paged, block_extend,
-    block_extend_paged, init_block_params, mixer_decode_paged, mlp_shards,
+    block_extend_paged, block_full, init_block_params, mixer_decode_paged,
+    mlp_shards,
 )
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, sinusoid_pos_embedding
 from repro_torch.models.mamba import ssm_dims
 
 
@@ -111,13 +127,30 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, Tuple[LayerKind, ...], int]:
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """The port covers decoder-only models of GQA or MLA attention, dense
-    or MoE FFNs, and SSM layers."""
+    """The model-level functions take every registered architecture:
+    decoders of GQA or MLA attention, dense or MoE FFNs and SSM layers,
+    the VLM and the encoder-decoder.  Validates the layer layout."""
     layer_layout(cfg)
+
+
+def require_servable(cfg: ModelConfig) -> None:
+    """The serving engines take decoder-only models without patch
+    embeddings, as the reference's serve them: their requests carry
+    token ids only, and nothing hands frame or patch embeddings to the
+    prefill, so an encoder-decoder model would run cross-attention over
+    zero encoder K/V and a VLM would serve text without its image.
+    Those models run through `prefill`, `prefill_chunk` and
+    `decode_step`."""
+    require_supported(cfg)
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
+        kind = ("an encoder-decoder model" if cfg.is_encoder_decoder
+                else "a model with patch embeddings")
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and vision prefill are not "
-            f"ported yet (ROADMAP Queue 1 item 13)")
+            f"{cfg.name}: the serving engines do not serve {kind}: their "
+            f"requests carry no frame or patch embeddings to the prefill "
+            f"(nor do the reference's), so cross-attention would run over "
+            f"zero encoder K/V and patch tokens would be missing; use "
+            f"prefill / prefill_chunk / decode_step")
 
 
 def _has_attn_cache(cfg: ModelConfig) -> bool:
@@ -172,8 +205,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V), 1.0 / math.sqrt(D))
-    params["layers"] = [init_block_params(gen, cfg, kind, dtype)
+    cross = cfg.is_encoder_decoder
+    params["layers"] = [init_block_params(gen, cfg, kind, dtype, cross=cross)
                         for kind in cfg.layer_kinds()]
+    if cross:
+        params["encoder"] = [
+            init_block_params(gen, cfg, LayerKind.DENSE, dtype)
+            for _ in range(cfg.num_encoder_layers)]
+        params["enc_ln_f"] = torch.ones(D, dtype=dtype, device=device)
     return params
 
 
@@ -198,7 +237,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda") -> Dict:
     """Dense decode cache of `batch` rows (a prefill request's cache is
     its batch-1 form): K/V rows for the attention layers, fp32 SSM states
-    and conv tails (in `dtype`) for the SSM layers."""
+    and conv tails (in `dtype`) for the SSM layers, and an
+    encoder-decoder's encoder K/V for every decoder layer (zero until
+    `prefill` writes them)."""
     require_supported(cfg)
     S = kv_buffer_len(cfg, max_len) if _has_attn_cache(cfg) else 1
     kinds = cfg.layer_kinds()
@@ -215,6 +256,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["v"] = torch.zeros(v_shape, dtype=dtype, device=device)
     if n_ssm:
         cache.update(_ssm_stacks(cfg, n_ssm, batch, dtype, device))
+    if cfg.is_encoder_decoder:
+        shape = (len(kinds), batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        for name in ENC_STACKS:
+            cache[name] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
 
 
@@ -234,7 +280,8 @@ def _ssm_stacks(cfg: ModelConfig, n_ssm: int, rows: int, dtype,
     }
 
 
-_ROW_STACKS = ("k", "v") + SSM_STACKS         # (L, B, ...) entries
+ENC_STACKS = ("enc_k", "enc_v")
+_ROW_STACKS = ("k", "v") + SSM_STACKS + ENC_STACKS   # (L, B, ...) entries
 
 
 def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
@@ -275,13 +322,13 @@ def cache_row(src: Dict, row: int) -> Dict:
 def cache_clear_row(cache: Dict, row: int) -> Dict:
     """Reset row `row` of a dense batch cache in place to what
     `init_cache` makes for every step that reads it: kv_pos -1, cursor 0,
-    SSM states and conv tails 0 (its K/V entries are read only where
-    kv_pos says they were written, so they are left).  The dense
-    counterpart of `paged_cache_clear_slot`, for a reused row of a
+    SSM states, conv tails and encoder K/V 0 (its K/V entries are read
+    only where kv_pos says they were written, so they are left).  The
+    dense counterpart of `paged_cache_clear_slot`, for a reused row of a
     prefill engine's pool."""
     cache["kv_pos"][row] = -1
     cache["cur"][row] = 0
-    for name in SSM_STACKS:
+    for name in SSM_STACKS + ENC_STACKS:
         if name in cache:
             cache[name][:, row] = 0
     return cache
@@ -296,8 +343,16 @@ def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
     """(nbt, block_size) table geometry for a paged cache equivalent to a
     dense max_len cache.  Validates the config supports paging: it needs
     an attention layer (a hybrid's SSM layers keep per-slot state beside
-    the pages)."""
+    the pages) and no encoder: the reference keeps each slot's encoder
+    K/V beside the pages, which the port has not ported, since the
+    engines, the paged cache's only users, refuse encoder-decoder
+    models (`require_servable`)."""
     require_supported(cfg)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: no paged cache for an encoder-decoder model "
+            f"(per-slot encoder K/V beside the pages is not ported); use "
+            f"the dense cache")
     if not _has_attn_cache(cfg):
         raise ValueError(f"{cfg.name}: no attention cache to page")
     if cfg.attention == AttentionKind.SWA and cfg.sliding_window:
@@ -425,11 +480,15 @@ def _dense_layers(cfg: ModelConfig, params, x, cache, block, where):
     """Run every layer of a dense-cache step: `block` is block_extend or
     block_decode, `where` the positions (B, Sc) or cursors (B,).  K/V are
     written in place; the new SSM and conv states are stacked into new
-    tensors.  Returns (hidden, the cache's new entries)."""
+    tensors; a decoder layer's cross-attention reads its encoder K/V.
+    Returns (hidden, the cache's new entries)."""
     states: List = []
-    for p, (kind, i) in zip(params["layers"], stack_index(cfg)):
-        x, entry = block(p, x, kind, cfg, _layer_entry(cache, kind, i),
-                         cache["kv_pos"], where)
+    for l, (p, (kind, i)) in enumerate(zip(params["layers"],
+                                           stack_index(cfg))):
+        entry = _layer_entry(cache, kind, i)
+        if "xattn" in p:
+            entry = (entry, (cache["enc_k"][l], cache["enc_v"][l]))
+        x, entry = block(p, x, kind, cfg, entry, cache["kv_pos"], where)
         if kind not in ATTN_KINDS:
             states.append(entry)
     return x, _stacked(states)
@@ -466,11 +525,152 @@ def _keep_masked(new: Dict, old: Dict, mask) -> Dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Full-sequence forward and prefill
+# ---------------------------------------------------------------------------
+
+def _run_encoder(cfg: ModelConfig, params, frames):
+    """The whisper encoder: frame embeddings (B, F, D) plus the sinusoidal
+    position embedding, then the dense encoder blocks, bidirectional and
+    without RoPE (kernel #2, not causal), then `enc_ln_f`."""
+    B, F, D = frames.shape
+    x = frames + sinusoid_pos_embedding(F, D, frames.device)[None].to(
+        frames.dtype)
+    pos = torch.arange(F, dtype=torch.int32, device=frames.device).expand(
+        B, F)
+    for p in params["encoder"]:
+        x, _entry, _aux = block_full(p, x, LayerKind.DENSE, cfg, pos,
+                                     causal=False, use_rope=False)
+    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+def forward_full(cfg: ModelConfig, params, tokens, positions=None, seg=None,
+                 embeds=None, want_cache: bool = False):
+    """The whole sequence through every layer: tokens (B, S) int, with a
+    VLM's patch embeddings (B, P, D) prepended or an encoder-decoder's
+    frame embeddings (B, F, D) encoded first (`embeds`).  `positions`
+    (B, St) default to 0 .. St - 1 over the St tokens run (patches
+    included); `seg` (B, S) packs several sequences in a row (-1 = pad),
+    extended over a patch prefix with the first text token's segment.
+    Returns (hidden (B, St, D) after `ln_f`, the layers' cache entries in
+    the dense cache's stacks over St tokens when `want_cache` (else
+    None), the MoE aux loss (fp32), the encoder's output (or None)).
+    The reference's `_constrain` (sequence sharding under a mesh) is a
+    no-op without a mesh and is left out."""
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"frame embeddings")
+        enc_out = _run_encoder(cfg, params, embeds.to(x.dtype))
+    elif cfg.num_patch_tokens and embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    St = x.shape[1]
+    if positions is None:
+        positions = torch.arange(St, dtype=torch.int32,
+                                 device=x.device).expand(B, St)
+    if seg is not None and St != S:
+        # the patch prefix belongs to the segment of the first text token
+        seg = torch.cat([seg[:, :1].expand(B, St - S), seg], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    entries = []
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        x, entry, a = block_full(p, x, kind, cfg, positions, seg,
+                                 enc_out=enc_out)
+        aux = aux + a
+        if want_cache:
+            entries.append(entry)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, (_entry_stacks(cfg, entries) if want_cache else None), aux, \
+        enc_out
+
+
+def _entry_stacks(cfg: ModelConfig, entries: List) -> Dict:
+    """`block_full`'s per-layer entries, in model order, as the dense
+    cache's stacks: "k"/"v" over the attention layers (B, St, ...), the
+    SSM layers' states and conv tails, and the encoder K/V of every
+    decoder layer."""
+    attn, ssm, enc = [], [], []
+    for (kind, _i), e in zip(stack_index(cfg), entries):
+        if cfg.is_encoder_decoder:
+            e, kv = e
+            enc.append(kv)
+        (attn if kind in ATTN_KINDS else ssm).append(e)
+    out = _stacked(ssm)
+    for j, name in enumerate(("k", "v")):
+        if attn:
+            out[name] = torch.stack([e[j] for e in attn])
+        if enc:
+            out[ENC_STACKS[j]] = torch.stack([kv[j] for kv in enc])
+    return out
+
+
+def prefill(cfg: ModelConfig, params, tokens, embeds=None, lengths=None,
+            max_len=None, seg=None, positions=None, cache_dtype=None):
+    """Run the whole prompt (B, S) in one forward and build the dense
+    decode cache from it.  `lengths` (B,) are the rows' true lengths
+    (default S; a VLM's patch prefix is added to them); `max_len` the
+    cache's (default `cfg.max_seq_len`: pass it, a long default makes a
+    large cache).  K/V of a row's valid tokens land at index = position
+    (a SWA ring keeps in slot i the newest valid position p with p % W
+    == i), kv_pos -1 elsewhere; SSM states and conv tails are the full
+    forward's (over every token of the row, padding included, as the
+    reference's); an encoder-decoder's cache holds every decoder layer's
+    encoder K/V; `cur` = lengths + the patch prefix.  `prefill_chunk`
+    and `decode_step` continue from it.  Returns (the logits of each
+    row's last valid token (B, V), cache)."""
+    B, S = tokens.shape
+    max_len = max_len or cfg.max_seq_len
+    cache_dtype = cache_dtype or params["embed"].dtype
+    x, full, _aux, _enc = forward_full(cfg, params, tokens,
+                                       positions=positions, seg=seg,
+                                       embeds=embeds, want_cache=True)
+    St = x.shape[1]
+    dev = x.device
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32)
+    full_lengths = lengths.to(device=dev, dtype=torch.int32) + (St - S)
+    last = (full_lengths - 1).clamp(0, St - 1).long()
+    logits = logits_from_hidden(cfg, params,
+                                x[torch.arange(B, device=dev), last])
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=dev)
+    if "k" in cache:
+        W = cache["kv_pos"].shape[1]
+        grid = torch.arange(St, dtype=torch.int32, device=dev).expand(B, St)
+        if W >= St:
+            cache["kv_pos"][:, :St] = torch.where(
+                grid < full_lengths[:, None], grid, -1)
+            for name in ("k", "v"):
+                cache[name][:, :, :St] = full[name].to(cache_dtype)
+        else:
+            # SWA ring: slot i holds, per row, the newest VALID position
+            # p with p % W == i (a row shorter than St sees no garbage)
+            end = (full_lengths - 1)[:, None]
+            tail = end - (end - torch.arange(W, device=dev)) % W   # (B, W)
+            cache["kv_pos"] = torch.where(tail >= 0, tail, -1).to(
+                torch.int32)
+            idx = tail.clamp(0, St - 1)
+            for name in ("k", "v"):
+                new = full[name]                          # (L, B, St, ...)
+                gi = idx.reshape((1, B, W) + (1,) * (new.dim() - 3)).expand(
+                    (new.shape[0], B, W) + tuple(new.shape[3:]))
+                cache[name] = torch.gather(new, 2, gi).to(cache_dtype)
+    for name in SSM_STACKS + ENC_STACKS:
+        if name in full:
+            cache[name] = full[name].to(cache[name].dtype)
+    cache["cur"] = full_lengths
+    return logits, cache
+
+
 def prefill_chunk(cfg: ModelConfig, params, tokens, cache):
     """Extend a dense cache by one chunk of prompt tokens (B, Sc): true
     chunked prefill with KV and SSM state continuation.  Returns
     (last-position logits (B, V), cache with `cur` + Sc and the new SSM
-    states); the K/V rows are written in place."""
+    states); the K/V rows are written in place.  An encoder-decoder's
+    encoder K/V come from a prior `prefill` (the chunks extend only the
+    decoder side, as in the reference)."""
     Sc = tokens.shape[1]
     pos0 = cache["cur"]
     positions = pos0[:, None] + torch.arange(Sc, dtype=torch.int32,

@@ -171,7 +171,7 @@ from repro_torch.models.model import (
     paged_clear_rows, paged_copy_block, paged_decode_masked,
     paged_decode_step, paged_gather_blocks, paged_install_row,
     paged_layout, paged_prefill_step, paged_set_table, prefill_chunk,
-    require_supported, shard_slot, with_shard,
+    require_servable, shard_slot, with_shard,
 )
 from repro_torch.models.moe_ep import count_exchanges
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
@@ -231,7 +231,7 @@ class EngineSpec:
     parallel: Any = None        # ParallelConfig (None = EP over the mesh)
 
     def __post_init__(self):
-        require_supported(self.cfg)
+        require_servable(self.cfg)
         if self.block_size:
             self.nbt, _ = paged_layout(self.cfg, self.max_len,
                                        self.block_size)

@@ -1,7 +1,7 @@
 """PyTorch port: the scheduler-layer modules the port keeps as verbatim
 copies of the JAX package's — `config/`, `configs/`, `core/` and
 `serving/{plane,engine,runtime,costmodel,kv_pool,page_share,metrics,
-cluster}.py` — still equal the reference's.
+cluster,workload}.py` — still equal the reference's.
 
 Each pair of files is compared as syntax trees (`ast.dump`) with every
 docstring dropped (the port's name its own module paths) and `repro`
@@ -17,7 +17,7 @@ import pytest
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PACKAGES = ("config", "configs", "core")
 SERVING = ("plane", "engine", "runtime", "costmodel", "kv_pool",
-           "page_share", "metrics", "cluster")
+           "page_share", "metrics", "cluster", "workload")
 
 
 def _copies():

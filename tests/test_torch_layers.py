@@ -78,6 +78,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "examples", "serve_e2e_torch.py")
+    yield os.path.join(REPO, "examples", "quickstart_torch.py")
 
 
 def test_port_sources_import_no_jax_or_repro():
@@ -254,8 +255,14 @@ def _check_init_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])
 def test_unported_archs_raise(arch):
+    """The model-level functions take the encoder-decoder and the VLM;
+    the serving engines, which carry no frame or patch embeddings to the
+    prefill, refuse them."""
+    from repro_torch.serving.real_engine import EngineSpec
+    tcfg = t_get_arch(arch, reduced=True)
+    params = t_init_params(tcfg, device="cpu")
     with pytest.raises(NotImplementedError):
-        t_init_params(t_get_arch(arch, reduced=True), device="cpu")
+        EngineSpec(tcfg, params, device="cpu")
 
 
 def test_cache_bridge_roundtrip():

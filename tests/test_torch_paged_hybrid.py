@@ -685,3 +685,28 @@ def test_chip_smoke_hybrid_phase_rehearsed():
     assert sh["ep_exchanges_per_decode_step"] == 2
     assert set(pd["launches"].values()) == set(sh["launches"].values()) \
         == {0}
+
+
+def test_hybrid_chunking_check_rehearsed(tmp_path):
+    """scripts/hybrid_chunking_check.py on reduced jamba on the CPU, in
+    fp32: over the 256-token chunking and two random ones of each of the
+    8 prompts, the port's eager `prefill_chunk` and chip_smoke's plain
+    forward over the same boundaries and expert sets agree within 1e-4
+    of the largest logit, and every row is written out."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "chunking.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    run = subprocess.run(
+        [sys.executable, os.path.join(repo, "scripts",
+                                      "hybrid_chunking_check.py"),
+         "--reduced", "--device", "cpu", "--splits", "2", "--dtypes",
+         "float32", "--out", str(out)], capture_output=True, text=True,
+        env=env, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    rows = json.loads(out.read_text())["dtypes"]["float32"]
+    assert len(rows) == 8 * 3
+    assert max(r["rel"] for r in rows) <= 1e-4
