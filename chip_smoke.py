@@ -173,14 +173,20 @@ Phases (any failure exits non-zero and prints no result):
      handoff joins pages and the slot's per-slot SSM state, decode runs
      #1; every request finishes, the pools drain, #1, #2 contiguous and
      #4 launch through replays and no other kernel, each first-token
-     logits row agrees with a plain forward over the served chunks and
-     the served expert sets, and the same requests at t = 0 under
-     `immediate`, the decode joins placed together, give the same
+     logits row equals the eager replay of the served chunks and the
+     served expert sets bit for bit, and the same requests at t = 0
+     under `immediate`, the decode joins placed together, give the same
      chunks, tokens and first-token logits with graphs and eagerly, bit
      for bit; (b) behind the sharded P/D deployment of phase 6g (four
      logical shards, EP over the 16 experts, four a shard), with step
-     graphs: every request finishes, the merged cache drains, and each
-     merged decode step makes 8 exchanges (2 in each MoE layer);
+     graphs: every request finishes, the merged cache drains, each
+     merged decode step makes 8 exchanges (2 in each MoE layer), and the
+     served logits equal the eager replay bit for bit; (c) with the
+     servers freed and the weights widened to fp32 in place, each served
+     prompt's eager replay (its served chunks and expert sets) in fp32
+     agrees with a plain fp32 forward over the same within 1e-4 (the
+     bf16 served-vs-plain distance, which depends on where SBS split a
+     prompt, is printed, not checked);
   6i. the full-sequence path through the port's model-level entry
      points (the serving engines refuse these models: their requests
      carry no frame or patch embeddings): full-width whisper-large-v3
@@ -196,6 +202,19 @@ Phases (any failure exits non-zero and prints no result):
      chunk agree with a plain forward over the same tokens (encoder and
      cross-attention included); the phase's wall time on a line of its
      own;
+  6j. the training path: full-width minicpm-2b (40 layers, d 2304, 36
+     heads of 64, 2.72 B parameters) in fp32, TF32 off, random weights
+     from seed 0, one synthetic batch of 2 x 512 tokens: one step's loss
+     and every gradient leaf through kernel #2's autograd Function
+     against the same step with the plain attention under autograd
+     (within 1e-3 of each leaf's largest), every parameter with a finite
+     gradient; 8 AdamW steps of the `Trainer` with WSD (warmup 2) on that
+     batch, loss and grad_norm finite and the last ce below the first,
+     #2 launched 40 times a step (once a layer in the forward); step
+     time, tokens/s, peak memory, a profiled step's idle share; one
+     remat=True step (#2's 40 recomputations counted apart); #2 timed
+     at the step's shape (fp32, causal) beside SDPA, its bound at the
+     fp32 peak;
   7. the serving benchmark twin (`examples/serve_e2e_torch.py`, loaded
      by path): its six A/Bs through its CLI entry point at the flags of
      `scripts/ci.sh --real-smoke` (paged vs padded on granite-moe; the
@@ -226,9 +245,10 @@ Phases (any failure exits non-zero and prints no result):
      replays, capture seconds, graph-pool bytes), every serve's figures
      each on a line of its own (reuse counters and the card's peak
      memory where they apply; the A/B serves' graph and eager figures
-     side by side), one JSON line with the kernels (device and wall time
-     per call, launches on their path's serve, bound; #3 and #2's
-     contiguous entry also at head dim 120; #2 not causal a row of its
+     side by side), the `train` JSON line (phase 6j), one JSON line with
+     the kernels (device and wall time per call, launches on their
+     path's serve, bound; #3 and #2's contiguous entry also at head dim
+     120; #2 not causal a row of its own, #2 in training a row of its
      own), the card's name and power limit, and the contract line last.
 
 Launch counts are set to 0 just before each serve (each twin A/B) and
@@ -267,6 +287,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak
+FP32_FLOPS = 67e12                 # H100 SXM fp32 peak (no tensor cores)
 # A kernel's output is held against its plain version on the same inputs
 # by max|out - ref| / max|ref| over each head vector of each token (see
 # `rel_err`).  In bf16 the output's own rounding moves an element by up
@@ -351,9 +372,9 @@ def time_ms(fn, n_inputs: int, iters: int = 20):
     return start.elapsed_time(stop) / iters, wall
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1552,13 +1573,8 @@ def replay_routes(cfg, params, prompt, chunks, max_len, device):
     whose `route` calls ran at its capture only; a replay computes what
     the eager step computes.  The kernel wrappers' launch counts are
     restored afterwards: these calls are not the serve's."""
-    import torch
     from repro_torch.models import moe
-    from repro_torch.models.model import init_cache, prefill_chunk
-    from repro_torch.serving.step_graphs import _wrappers
     out, inner = [], moe.route
-    counters = _wrappers()
-    launches = [w.launches for w in counters]
 
     def route(x2d, p, mc):
         r = inner(x2d, p, mc)
@@ -1566,6 +1582,35 @@ def replay_routes(cfg, params, prompt, chunks, max_len, device):
         return r
     moe.route = route
     try:
+        lg = eager_chunks_logits(cfg, params, prompt, chunks, max_len,
+                                 device)
+    finally:
+        moe.route = inner
+    return out, lg
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within it, the kernel wrappers' launches are not counted: their
+    counts are restored on the way out (calls made to check a serve are
+    not the serve's)."""
+    from repro_torch.serving.step_graphs import _wrappers
+    counters = _wrappers()
+    launches = [w.launches for w in counters]
+    try:
+        yield
+    finally:
+        for w, n in zip(counters, launches):
+            w.launches = n
+
+
+def eager_chunks_logits(cfg, params, prompt, chunks, max_len, device):
+    """The last chunk's last-position logits of an eager `prefill_chunk`
+    over `chunks` (lengths) of `prompt` into a fresh batch-1 dense cache
+    in the weights' dtype, uncounted."""
+    import torch
+    from repro_torch.models.model import init_cache, prefill_chunk
+    with uncounted():
         cache = init_cache(cfg, 1, max_len, dtype=params["embed"].dtype,
                            device=device)
         at = 0
@@ -1574,22 +1619,19 @@ def replay_routes(cfg, params, prompt, chunks, max_len, device):
                                device=device)
             lg, cache = prefill_chunk(cfg, params, ids, cache)
             at += n
-    finally:
-        moe.route = inner
-        for w, n in zip(counters, launches):
-            w.launches = n
-    return out, lg[0]
+    return lg[0]
 
 
 def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
                  tag, forward=dense_forward_logits, chunks=None,
                  info_forward=None, prefilled_before=0, prefix_cached=False,
-                 routes=False, memo=None):
+                 routes=False, memo=None, exact_replay=None):
     """Every request finished with its tokens, the decode caches drained,
     and each first-token logits agree with a plain forward (`forward`,
     over the chunk boundaries `chunks` the serve used; with `routes`, a
     dense P/D serve of an MoE model, over the served expert sets, see
-    `compare_first_logits`).  `info_forward`, if given, is another
+    `compare_first_logits`; with `exact_replay`, a hybrid's serve, the
+    chain described there).  `info_forward`, if given, is another
     reference whose error is printed and returned, not checked.  With
     `prefix_cached` the pools keep published pages until they are
     evicted (`drain_prefix_pools`) and a prompt found whole in the cache
@@ -1623,7 +1665,8 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
         raise AssertionError(f"{tag}: prefill token count mismatch")
     return compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                                 forward, chunks, info_forward,
-                                spec.max_len if routes else None, memo)
+                                spec.max_len if routes else None, memo,
+                                exact_replay)
 
 
 def prefilled_tokens(srv):
@@ -1655,16 +1698,18 @@ def graphs_report(srv, before):
 
 
 @contextlib.contextmanager
-def forced_routes(routes, n_chunks, n_moe, slices=None):
+def forced_routes(routes, n_chunks, n_moe, slices=None, chunk_major=False):
     """Within it, the calls of `repro_torch.models.moe.route` that a plain
     forward over `n_chunks` chunks makes (layer-major: each MoE layer's
-    chunks in order) return the expert ids the served path chose in the
-    same call (`routes`, chunk-major, as `replay_routes` returns
-    them), weighted by this call's own router as `route` weights its own
-    choice.  `slices[c]` is the number of `route` calls one MoE layer
-    makes for chunk c (its token slices on the EP path; default 1).
-    Yields {"flips": (token, layer) pairs whose served expert set
-    differs from this router's own, "pairs": pairs compared}."""
+    chunks in order; with `chunk_major`, each chunk's MoE layers in
+    order, as an eager chunked prefill makes them) return the expert ids
+    the served path chose in the same call (`routes`, chunk-major, as
+    `replay_routes` returns them), weighted by this call's own router as
+    `route` weights its own choice.  `slices[c]` is the number of `route`
+    calls one MoE layer makes for chunk c (its token slices on the EP
+    path; default 1).  Yields {"flips": (token, layer) pairs whose
+    served expert set differs from this router's own, "pairs": pairs
+    compared}."""
     import torch
     from repro_torch.models import moe
     slices = slices or [1] * n_chunks
@@ -1672,7 +1717,8 @@ def forced_routes(routes, n_chunks, n_moe, slices=None):
         raise AssertionError(f"{len(routes)} MoE calls recorded for "
                              f"{n_chunks} chunks of {n_moe} MoE layers")
     at = [sum(slices[:c]) * n_moe for c in range(n_chunks)]
-    order = iter([routes[at[c] + layer * slices[c] + j]
+    order = iter(routes if chunk_major else
+                 [routes[at[c] + layer * slices[c] + j]
                   for layer in range(n_moe) for c in range(n_chunks)
                   for j in range(slices[c])])
     count = {"flips": 0, "pairs": 0}
@@ -1698,7 +1744,8 @@ def forced_routes(routes, n_chunks, n_moe, slices=None):
 
 def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                          forward=dense_forward_logits, chunks=None,
-                         info_forward=None, routes_max_len=None, memo=None):
+                         info_forward=None, routes_max_len=None, memo=None,
+                         exact_replay=None):
     """Each request's first-token logits against a plain forward (see
     `check_served`); raises past LOGITS_REL_TOL.  With `routes_max_len`
     (the spec's max_len of a dense P/D serve of an MoE model), the plain
@@ -1706,10 +1753,17 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     (`replay_routes`, then `forced_routes`), so that a near-tie the two
     routers break apart moves no logit; the flips this hides are
     printed, and how far the served logits lie from the eager replay's.
-    `memo` (a dict) keeps each (prompt, chunk lengths)'s plain reference
-    (and replay) for later calls: the same prompt over the same chunks
-    has the same reference.  Returns (worst max|d|/max|ref|, argmax
-    agreements, the worst error against `info_forward` or None)."""
+    With `exact_replay` (a list; a hybrid's serve, whose bf16 distance
+    to the plain forward depends on where SBS split each prompt, PERF.md
+    §6) the check is a chain instead: the served logits must
+    equal that eager replay bit for bit, each (prompt, chunks, routes)
+    is appended to the list for `check_fp32_replay` (the replay in fp32
+    against the plain fp32 forward), and the bf16 distance to the plain
+    forward is printed, not checked.  `memo` (a dict) keeps each
+    (prompt, chunk lengths)'s plain reference (and replay) for later
+    calls: the same prompt over the same chunks has the same reference.
+    Returns (worst max|d|/max|ref|, argmax agreements, the worst error
+    against `info_forward` or None)."""
     import torch
     worst, worst_at = 0.0, None
     agree = 0
@@ -1734,11 +1788,19 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                 with forced_routes(routes, len(chunks[r.rid]), n_moe) as n:
                     ref = forward(cfg, params, prompt, device, chunks[r.rid])
                 memo[key] = (ref, eager, dict(n))
+                if exact_replay is not None:
+                    exact_replay.append((prompt, list(chunks[r.rid]),
+                                         routes))
         ref, eager, n = memo[key]
         if routes_max_len is not None:
             if got is not None:
                 replay_d = max(replay_d, float((got.float() - eager.float())
                                                .abs().max()))
+                if exact_replay is not None and not torch.equal(got, eager):
+                    raise AssertionError(
+                        f"{tag} request {r.rid}: served first-token logits "
+                        f"differ from the eager replay of the served chunks "
+                        f"(max|d|={replay_d!r})")
             flips = {k: flips[k] + n[k] for k in flips}
         if got is None or got.shape != (cfg.vocab_size,) \
                 or not torch.isfinite(got).all():
@@ -1754,8 +1816,11 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
             alt = info_forward(cfg, params, prompt, device).float()
             info = max(info, float((got.float() - alt).abs().max()
                                    / alt.abs().max()))
+    limit = ("not checked: the check is the bit-exact replay, then the "
+             "fp32 replay" if exact_replay is not None
+             else f"tol {LOGITS_REL_TOL}")
     print(f"{tag} first-token logits vs plain forward: worst "
-          f"max|d|/max|ref|={worst:.3e} ({worst_at}; tol {LOGITS_REL_TOL}),"
+          f"max|d|/max|ref|={worst:.3e} ({worst_at}; {limit}),"
           f" argmax agrees on {agree}/{len(reqs)}", flush=True)
     if routes_max_len is not None:
         print(f"{tag} the plain forward replayed the served expert sets: "
@@ -1766,7 +1831,10 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     if info is not None:
         print(f"{tag} (not checked) vs {info_forward.__name__}: worst "
               f"max|d|/max|ref|={info:.3e}", flush=True)
-    if not worst <= LOGITS_REL_TOL:
+    if exact_replay is not None:
+        print(f"{tag} served first-token logits equal the eager replay of "
+              f"the served chunks bit for bit: True", flush=True)
+    elif not worst <= LOGITS_REL_TOL:
         raise AssertionError(f"{tag}: first-token logits disagree: {worst}")
     return worst, agree, info
 
@@ -1936,7 +2004,7 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
              launched=("decode_attention", "flash_prefill"),
              step_graphs=True, scheduler="sbs-la", burst=False,
              profile=True, keep=None, block_size=0, routes=False,
-             hold=False):
+             hold=False, exact_replay=None):
     """Drive the P/D-separated deployment on the padded plane, or with
     `block_size` > 0 on the paged plane (requests 50 ms apart, or with
     `burst` all at t = 0, with `hold` the decode joins placed together,
@@ -1956,7 +2024,9 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
     `launched` must run and every other one of `counters` must not.
     `profile=False` skips the profiled second run; `keep`, a dict,
     receives the first-token logits by rid; `routes` replays the served
-    expert sets in the plain forward (an MoE model, `check_served`)."""
+    expert sets in the plain forward (an MoE model, `check_served`);
+    `exact_replay`, a list, makes the logits check a hybrid's chain
+    (`compare_first_logits`)."""
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
     scfg = pd_scfg(block_size)
@@ -1995,7 +2065,8 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
                                       first_logits, device, tag, forward,
                                       chunks, info_forward,
                                       prefilled_before=mark[4],
-                                      routes=routes)
+                                      routes=routes,
+                                      exact_replay=exact_replay)
     check_replayed(tag, spec, counts, device)
     for name, n in launches.items():
         if name in launched and device != "cpu" and n <= 0:
@@ -2045,6 +2116,8 @@ def serve_pd(cfg, params, device, counters, n_requests=N_REQUESTS,
         "ssd_chunk_per_prefill_pass":
             launches.get("ssd_chunk", 0) / max(passes, 1),
         "logits_rel_err": worst, "argmax_agree": agree,
+        "logits_checked_by": ("replay" if exact_replay is not None
+                              else "plain forward"),
         "logits_rel_err_unchecked_reference": info,
         "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
         "profile": prof,
@@ -2971,7 +3044,7 @@ def serve_twin(counters, device, reduced=False, elapsed=None):
 # ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve, swa, twin, sharded, hybrid, full, encdec):
+                 moe_serve, swa, twin, sharded, hybrid, full, encdec, train):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
@@ -2982,7 +3055,11 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
     at G = 7), and on each A/B of the serving benchmark twin
     (`launches_twin`); then #2's contiguous entry not causal, a row of
     its own, measured at whisper's encoder shape, its launches on phase
-    6i's whisper run."""
+    6i's whisper run; then #2's contiguous entry in the training forward
+    (fp32, causal), a row of its own, measured at phase 6j's shape, its
+    launches over phase 6j's Trainer steps (forward only: the backward
+    is torch ops) and, apart, the remat step's recomputations.  #2's
+    contiguous row also carries `launches_train` (a training step's)."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -3049,7 +3126,9 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
              "P/D serve", **hd120(fla, "flash_prefill"),
              **on_sharded("flash_prefill"),
-             **on_encdec("flash_prefill_causal", full["errs_g7"])),
+             **on_encdec("flash_prefill_causal", full["errs_g7"]),
+             launches_train=train["flash_prefill_per_step"],
+             launches_train_remat_recomputed=train["remat"]["recomputed"]),
         item("decode_attention", csrc + "decode_attention.cu",
              dec_k + ":166", pd, dense, "P/D serve",
              **hd120(dense, "decode_attention"),
@@ -3070,6 +3149,22 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              launches_encdec_serve={
                  arch: rep["launches_by_mode"]["flash_prefill_noncausal"]
                  for arch, rep in encdec.items()}),
+        dict(name="flash_prefill (training, fp32 causal)", route="cuda",
+             source=csrc + "flash_prefill.cu", replaces=fp_k,
+             launches=sum(train["launches"]),
+             **errs(train["kernel"]["errs"]), rel_tol=REL_TOL,
+             ms=train["kernel"]["ms"], wall_ms=train["kernel"]["wall_ms"],
+             plain_ms=train["kernel"]["plain_ms"],
+             bound_ms=train["kernel"]["bound_ms"],
+             bound_by=train["kernel"]["bound_by"],
+             library_ms=train["kernel"]["library_ms"],
+             library_wall_ms=train["kernel"]["library_wall_ms"],
+             backward_ms=train["kernel"]["backward_ms"],
+             path=f"phase 6j, {train['model']} training steps (forward; the "
+                  f"backward is torch ops)",
+             launches_per_step=train["flash_prefill_per_step"],
+             launches_remat_step=train["remat"]["flash_prefill"],
+             shape=train["kernel"]["shape"]),
         item("ssd_chunk", csrc + "ssd_chunk.cu",
              "src/repro/kernels/ssd_scan/kernel.py:54", ssm, ssd,
              "SSM serve (P/D, padded)",
@@ -3388,7 +3483,7 @@ def probe_exchange_ms(spec, device):
 def serve_sharded(cfg, params, device, counters, mixed,
                   n_requests=N_REQUESTS, lens=(128, 1024), outs=(16, 32),
                   step_graphs=True, scheduler="sbs-la", burst=None,
-                  tag=None, keep=None):
+                  tag=None, keep=None, exact_replay=None):
     """Phase 6g (b): `cfg` behind `RealSBSServer(mesh=...)` on four
     logical shards of the card (sbs-la; the unified plane with the burst
     dispatched whole, or P/D with requests 50 ms apart, or with `burst`
@@ -3408,7 +3503,9 @@ def serve_sharded(cfg, params, device, counters, mixed,
     `replay_sharded_routes`, with each chunk's MoE under the per-source
     capacity the EP path gives it).  The exchanges' device time comes
     from `probe_exchange_ms` (an eager step).  `keep`, a dict, receives
-    the first-token logits by rid.  Returns the serve report."""
+    the first-token logits by rid; `exact_replay`, a list, makes the P/D
+    logits check a hybrid's chain (`compare_first_logits`).  Returns the
+    serve report."""
     import torch
     from repro_torch.serving.real_engine import EngineSpec
     from repro_torch.serving.server import RealSBSServer
@@ -3508,7 +3605,8 @@ def serve_sharded(cfg, params, device, counters, mixed,
     worst, agree, _ = check_served(cfg, params, spec, srv, reqs, gens,
                                    first_logits, device, tag, forward,
                                    chunks, prefilled_before=mark[3],
-                                   routes=not mixed)
+                                   routes=not mixed,
+                                   exact_replay=exact_replay)
     if mixed:
         print(f"{tag} the plain forward replayed the served expert sets: "
               f"{flips['flips']} of {flips['pairs']} (token, layer) pairs "
@@ -3553,6 +3651,8 @@ def serve_sharded(cfg, params, device, counters, mixed,
         "launches_per_decode_step": {
             k: v / n for k, v in launches.items()},
         "logits_rel_err": worst, "argmax_agree": agree,
+        "logits_checked_by": ("replay" if exact_replay is not None
+                              else "plain forward"),
         "expert_sets_replayed": True,
         "route_flips_hidden": flips if mixed else None,
         "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
@@ -3625,8 +3725,11 @@ def report_sharded(tag, rep):
     print(f"{tag} mode={rep['mode']} graphs={rep['graphs']!r} merged "
           f"replays={rep['merged_replays']!r} server_build_s="
           f"{rep['server_build_s']!r}", flush=True)
+    limit = ("not checked: served = eager replay, then fp32"
+             if rep["logits_checked_by"] == "replay" else
+             f"limit {LOGITS_REL_TOL}")
     print(f"{tag} launches={rep['launches']!r} logits_rel_err="
-          f"{rep['logits_rel_err']!r} (limit {LOGITS_REL_TOL})", flush=True)
+          f"{rep['logits_rel_err']!r} ({limit})", flush=True)
 
 
 def serve_sharded_phase(counters, device, n_layers=None):
@@ -3683,17 +3786,25 @@ def serve_hybrid_phase(counters, device, cfg=None, params=None,
     handoff joined into pages and the slot's SSM rows; paged decode: #1),
     with step graphs: every request finishes, the pools drain, #1, #2
     contiguous and #4 launch through replays and nothing else, and each
-    first-token logits row agrees with a plain forward over the served
-    chunks and the served expert sets (`dense_forward_logits`, its SSM
-    layers through `ssd_chunked`); then its graphs-vs-eager bit A/B on an
+    first-token logits row equals the eager replay of the served chunks
+    and expert sets bit for bit; then its graphs-vs-eager bit A/B on an
     `immediate` burst with the decode joins placed together; (b) behind
     the sharded P/D plane on four logical shards of the card
     (`serve_sharded`: 1 decode × 4 DP merged, EP over the 16 experts,
     four a shard), with step graphs: every request finishes, the merged
-    cache drains, and every merged decode step makes 2 exchanges in each
-    of the 4 MoE layers.  `cfg`, `params` and the sizes let a CPU
-    rehearsal pass a reduced model.  Returns {"pd" (with "bits"),
-    "sharded"}."""
+    cache drains, every merged decode step makes 2 exchanges in each of
+    the 4 MoE layers, and the served logits equal the eager replay bit
+    for bit; (c) with the servers gone, the weights widened to fp32 in
+    place (`widen_params`, layer by layer: 53 GB, which could not sit
+    beside the bf16 copy and a server), each served prompt's eager
+    replay over its served chunks and expert sets in fp32 against the
+    plain fp32 forward over the same (`check_fp32_replay`, within
+    REL_TOL["float32"]).  The bf16 served-vs-plain distance is printed,
+    not checked: it depends on where SBS splits a prompt (0.84e-2 to
+    3.95e-2 over 13 chunkings of each prompt, 6.015e-2 once; PERF.md
+    §6).  `cfg`, `params` and the sizes let a CPU rehearsal pass a
+    reduced model; `params` are widened in place.  Returns {"pd" (with
+    "bits"), "sharded"}, each with "fp32_replay_rel_err"."""
     import dataclasses
     import torch
     from repro_torch.config.base import get_arch
@@ -3708,9 +3819,10 @@ def serve_hybrid_phase(counters, device, cfg=None, params=None,
         print(f"[init] {cfg.name} at {cfg.num_layers} of 32 layers, bf16 "
               f"weights in {time.monotonic() - t0:.1f} s", flush=True)
     size = dict(n_requests=n_requests, lens=lens, outs=outs)
+    cases = {"pd": [], "sharded": []}
     pd = serve_pd(cfg, params, device, counters, tag="[hybrid pd serve]",
                   launched=HYBRID_KERNELS, block_size=BLOCK, routes=True,
-                  **size)
+                  exact_replay=cases["pd"], **size)
     replays = (pd["graphs"] or {}).get("replays_in_run", 0)
     if device != "cpu" and replays <= 0:
         raise AssertionError("[hybrid pd serve]: no step replayed a graph")
@@ -3732,9 +3844,64 @@ def serve_hybrid_phase(counters, device, cfg=None, params=None,
     if device != "cpu":
         free_device_memory()
     sharded = serve_sharded(cfg, params, device, counters, False,
-                            tag="[hybrid sharded pd serve]", **size)
+                            tag="[hybrid sharded pd serve]",
+                            exact_replay=cases["sharded"], **size)
     report_sharded("[hybrid sharded pd serve]", sharded)
+    if device != "cpu":
+        free_device_memory()
+    widen_params(params)
+    if device != "cpu":
+        free_device_memory()
+    for key, tag, rep in (("pd", "[hybrid pd serve]", pd),
+                          ("sharded", "[hybrid sharded pd serve]", sharded)):
+        rep["served_equals_eager_replay"] = True
+        rep["fp32_replay_rel_err"] = check_fp32_replay(
+            cfg, params, cases[key], MAX_LEN, device, tag)
     return {"pd": pd, "sharded": sharded}
+
+
+def widen_params(params):
+    """Widen every floating-point weight of `params` to fp32 in place,
+    leaf by leaf, so that at most one leaf exists in both dtypes."""
+    import torch
+
+    def walk(node):
+        items = (node.items() if isinstance(node, dict)
+                 else enumerate(node))
+        for k, v in list(items):
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif v.is_floating_point() and v.dtype != torch.float32:
+                node[k] = v.float()
+    walk(params)
+
+
+def check_fp32_replay(cfg, params, cases, max_len, device, tag):
+    """Each served prompt's eager replay (`eager_chunks_logits` over its
+    served chunks, the served expert sets forced in chunk order) against
+    the plain forward over the same chunks and expert sets
+    (`dense_forward_logits`), both in the weights' dtype (fp32 after
+    `widen_params`); raises past REL_TOL["float32"].  `cases`: (prompt,
+    chunks, routes) as `compare_first_logits` records them.  Returns the
+    worst max|d|/max|ref|."""
+    n_moe = sum("moe" in p for p in params["layers"])
+    worst = 0.0
+    for prompt, chunks, routes in cases:
+        with forced_routes(routes, len(chunks), n_moe, chunk_major=True):
+            got = eager_chunks_logits(cfg, params, prompt, chunks, max_len,
+                                      device)
+        with forced_routes(routes, len(chunks), n_moe):
+            ref = dense_forward_logits(cfg, params, prompt, device, chunks)
+        worst = max(worst, float((got.float() - ref.float()).abs().max()
+                                 / ref.float().abs().max()))
+    print(f"{tag} fp32 eager replay of the served chunks and expert sets "
+          f"vs the plain fp32 forward over the same: worst max|d|/max|ref|="
+          f"{worst!r} over {len(cases)} prompts (tol "
+          f"{REL_TOL['float32']})", flush=True)
+    if not worst <= REL_TOL["float32"]:
+        raise AssertionError(f"{tag}: the fp32 replay disagrees with the "
+                             f"plain fp32 forward: {worst}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -3907,6 +4074,299 @@ def serve_encdec_phase(counters, device, reduced=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6j: the training path on full-width minicpm-2b
+# ---------------------------------------------------------------------------
+
+# minicpm-2b (arXiv:2404.06395), the WSD schedule's own model, at full
+# width and depth (40 layers, d 2304, 36 heads of 64, d_ff 5760, vocab
+# 122753, tied embeddings; 2.72 B parameters), in fp32 as the reference's
+# Trainer, without TF32; one batch of 2 × 512 tokens
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 8
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+# a gradient leaf through #2's Function against the same leaf through the
+# plain attention under autograd, max|d| / max|plain| (fp32, 40 layers)
+GRAD_REL_TOL = 1e-3
+# below this much free device memory at the no-remat peak, train with remat
+TRAIN_MIN_FREE_BYTES = 8e9
+
+
+@contextlib.contextmanager
+def plain_training_attention():
+    """Within it, the training forward's attention (`_flash_full` under
+    autograd) runs `flash_prefill_plain` and autograd goes through its
+    torch ops, instead of #2's Function."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.models import blocks
+    inner = blocks.flash_prefill_train
+    blocks.flash_prefill_train = flash_prefill_plain
+    try:
+        yield
+    finally:
+        blocks.flash_prefill_train = inner
+
+
+def loss_and_grads(cfg, params, batch):
+    """(loss, metrics, gradient of every leaf of `params` in
+    `tree_leaves` order, None where the loss does not reach it) of
+    `forward_train`, with the launches of #2 in the forward."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.model import forward_train
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    flash_prefill.launches = 0
+    loss, metrics = forward_train(cfg, params, batch)
+    launches = flash_prefill.launches
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), metrics, grads, launches
+
+
+def time_flash_train(device, B=TRAIN_BATCH, S=TRAIN_SEQ, H=36, hd=64):
+    """#2's contiguous entry at the training forward's shape (causal, fp32,
+    H = K, one segment): the kernel against its plain version, its device
+    and wall ms, the plain version's, SDPA's (causal, no mask), the
+    backward's (`flash_prefill_backward`, torch ops) and the bound
+    (flops over the fp32 peak, or bytes over HBM)."""
+    import torch
+    from repro_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_backward, flash_prefill_plain)
+    out = {"errs": []}
+    q, k, v, qp, kp, qs, ks = full_case(B, S, S, H, H, hd, device, 5,
+                                        torch.float32, encoder=True)
+    with uncounted():
+        got = flash_prefill(q, k, v, qp, kp, qs, ks, causal=True)
+    ref = flash_prefill_plain(q, k, v, qp, kp, qs, ks, causal=True)
+    compare(f"[flash prefill train] causal B={B} S={S} H=K={H} hd={hd}",
+            got, ref, out["errs"])
+    n = 4
+    kk, vv = copies(k, n), copies(v, n)
+    with uncounted():
+        out["ms"], out["wall_ms"] = time_ms(lambda i: flash_prefill(
+            q, kk[i], vv[i], qp, kp, qs, ks, causal=True), n, iters=30)
+    out["plain_ms"], _ = time_ms(lambda i: flash_prefill_plain(
+        q, kk[i], vv[i], qp, kp, qs, ks, causal=True), n, iters=5)
+    do = torch.randn_like(got)
+    out["backward_ms"], out["backward_wall_ms"] = time_ms(
+        lambda i: flash_prefill_backward(q, kk[i], vv[i], got, do, qp, kp,
+                                         qs, ks, causal=True), n, iters=5)
+    qt = q.transpose(1, 2).contiguous()
+    kt = [t.transpose(1, 2).contiguous() for t in kk]
+    vt = [t.transpose(1, 2).contiguous() for t in vv]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["library_ms"], out["library_wall_ms"] = time_ms(
+        lambda i: sdpa(qt, kt[i], vt[i], is_causal=True), n, iters=30)
+    esz = q.element_size()
+    nbytes, flops = attention_work(
+        q, 2 * k.numel() * esz, B * S * (S + 1) // 2, q.numel() * esz,
+        extra=4 * (2 * qp.numel() + 2 * kp.numel()))
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, FP32_FLOPS)
+    out["shape"] = (f"B={B} Sq=Skv={S} H=K={H} hd={hd} fp32, causal "
+                    f"(minicpm-2b's training forward; SDPA is_causal, no "
+                    f"mask; bound at the fp32 peak)")
+    report_timing("[flash prefill train]", out)
+    print(f"[flash prefill train] backward (torch ops) ms="
+          f"{out['backward_ms']!r} wall_ms={out['backward_wall_ms']!r}",
+          flush=True)
+    return out
+
+
+def train_phase(device, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=TRAIN_STEPS):
+    """Phase 6j: the training path (`forward_train`, autograd through #2's
+    Function, the AdamW/WSD `Trainer`) on full-width minicpm-2b in fp32
+    (random weights from seed 0, made on the card; TF32 off), one
+    synthetic batch of `batch` × `seq` tokens (`synthetic_batches`, seed
+    0): (a) one step's loss and every gradient leaf through #2 against
+    the same step with `flash_prefill_plain` under autograd, within
+    GRAD_REL_TOL of each leaf's largest, every parameter with a finite
+    gradient, #2 launched once a GQA layer a forward; (b) `steps`
+    `Trainer` steps with WSD (warmup TRAIN_WARMUP) on that batch: loss
+    and grad_norm finite, the last ce below the first, #2 launched once
+    a layer a step (the backward launches none); step time p50, tokens/s
+    and the peak memory; (c) one more step under the profiler (device
+    busy, idle share); (d) one step with remat=True (#2's recomputations
+    counted apart); (e) #2 timed at the step's shape (`time_flash_train`).
+    `cfg` and the sizes let a CPU rehearsal pass a reduced model.
+    Returns the phase's report."""
+    import itertools
+    import torch
+    from repro_torch.config.base import AttentionKind, TrainConfig, get_arch
+    from repro_torch.data import synthetic_batches
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.blocks import ATTN_KINDS
+    from repro_torch.models.model import init_params
+    from repro_torch.train import Trainer, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    on_card = device != "cpu"
+    if on_card and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the training phase runs "
+                             "fp32 as the reference's Trainer")
+    cfg = cfg or get_arch(TRAIN_ARCH)
+    n_attn = sum(k in ATTN_KINDS for k in cfg.layer_kinds()) \
+        if cfg.attention != AttentionKind.MLA else 0
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"[init] {cfg.name} fp32 weights ({n_params} parameters) in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    data = next(synthetic_batches(cfg.vocab_size, batch, seq, seed=0))
+    b = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    tag = "[train]"
+
+    # (a) gradients through #2's Function against the plain attention's
+    loss_k, _m, grads_k, launches_fwd = loss_and_grads(cfg, params, b)
+    missing = [i for i, g in enumerate(grads_k) if g is None]
+    bad = [i for i, g in enumerate(grads_k)
+           if g is not None and not torch.isfinite(g).all()]
+    if missing or bad:
+        raise AssertionError(f"{tag}: {len(missing)} parameters without a "
+                             f"gradient, {len(bad)} with a non-finite one")
+    with plain_training_attention():
+        loss_p, _m, grads_p, _n = loss_and_grads(cfg, params, b)
+    worst = 0.0
+    for gk, gp in zip(grads_k, grads_p):
+        worst = max(worst, float((gk - gp).abs().max()
+                                 / gp.abs().max().clamp_min(1e-30)))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_k, grads_p, _m
+    print(f"{tag} one step through #2's Function vs the plain attention "
+          f"under autograd: loss {loss_k!r} vs {loss_p!r} (rel "
+          f"{loss_rel!r}), worst gradient leaf max|d|/max|plain|="
+          f"{worst!r} over {len(tree_leaves(params))} leaves (tol "
+          f"{GRAD_REL_TOL}); every parameter has a finite gradient; "
+          f"flash_prefill launches in the forward: {launches_fwd} "
+          f"({n_attn} attention layers)", flush=True)
+    if not (worst <= GRAD_REL_TOL and loss_rel <= GRAD_REL_TOL):
+        raise AssertionError(f"{tag}: gradients through #2 disagree with "
+                             f"the plain attention's: {worst}, loss "
+                             f"{loss_rel}")
+    if on_card and launches_fwd != n_attn:
+        raise AssertionError(f"{tag}: #2 launched {launches_fwd} times in "
+                             f"a forward of {n_attn} attention layers")
+    if on_card:
+        free_device_memory()
+
+    # (b) Trainer steps on the one batch
+    tcfg = TrainConfig(global_batch=batch, seq_len=seq, lr=TRAIN_LR,
+                       schedule="wsd", warmup_steps=TRAIN_WARMUP,
+                       total_steps=steps)
+    tr = Trainer(cfg, tcfg, device=device, params=params)
+    del params
+    fixed = itertools.repeat(data)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    hist, step_s, launches = [], [], []
+    for _ in range(steps):
+        if on_card:
+            torch.cuda.synchronize()
+        flash_prefill.launches = 0
+        t0 = time.perf_counter()
+        tr.fit(fixed, 1, log_every=1, log_fn=lambda l: print(
+            f"{tag} {l}", flush=True))
+        if on_card:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append(flash_prefill.launches)
+        m = tr.last_metrics
+        hist.append({k: float(m[k]) for k in ("ce", "loss", "grad_norm",
+                                              "lr")})
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    total = (torch.cuda.get_device_properties(0).total_memory if on_card
+             else None)
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"{tag}: a non-finite loss or grad_norm: "
+                             f"{hist!r}")
+    if not hist[-1]["ce"] < hist[0]["ce"]:
+        raise AssertionError(f"{tag}: ce did not fall over {steps} steps: "
+                             f"{hist[0]['ce']} -> {hist[-1]['ce']}")
+    if on_card and set(launches) != {n_attn}:
+        raise AssertionError(f"{tag}: #2 launches per step {launches}, "
+                             f"not {n_attn}")
+    p50 = percentile(step_s, 0.5)
+    print(f"{tag} ce first {hist[0]['ce']!r} last {hist[-1]['ce']!r} over "
+          f"{steps} steps (WSD, warmup {TRAIN_WARMUP}, peak lr {TRAIN_LR})",
+          flush=True)
+    print(f"{tag} step_s={step_s!r}", flush=True)
+    print(f"{tag} step_p50_s={p50!r}", flush=True)
+    print(f"{tag} tokens_per_s={batch * seq / p50!r}", flush=True)
+    print(f"{tag} peak_memory_bytes={peak!r} of {total!r} (free at the "
+          f"peak {None if peak is None else total - peak!r}; remat needed "
+          f"below {TRAIN_MIN_FREE_BYTES:.0f})", flush=True)
+    print(f"{tag} flash_prefill launches per step: {launches!r}", flush=True)
+    if on_card and total - peak < TRAIN_MIN_FREE_BYTES:
+        raise AssertionError(f"{tag}: the no-remat peak leaves "
+                             f"{total - peak} bytes free; train with remat")
+
+    # (c) one step under the profiler
+    prof_rep = None
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            tr.fit(fixed, 1, log_every=0)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        prof_rep = device_profile(prof, wall)
+        print(f"{tag} profiled step: wall_s={wall!r} device_busy_s="
+              f"{prof_rep and prof_rep['device_busy_s']!r} idle_share="
+              f"{prof_rep and prof_rep['idle_share']!r} by_group_s="
+              f"{prof_rep and prof_rep['by_group_s']!r}", flush=True)
+
+    # (d) one step with remat: #2's forward launches, then as many
+    # recomputations in the backward
+    remat_fn = make_train_step(cfg, tcfg, remat=True)
+    bt = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    if on_card:
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    flash_prefill.launches = 0
+    t0 = time.perf_counter()
+    tr.params, tr.opt_state, m = remat_fn(tr.params, tr.opt_state, bt)
+    float(m["loss"])
+    remat_s = time.perf_counter() - t0
+    remat_launches = flash_prefill.launches
+    remat_peak = torch.cuda.max_memory_allocated() if on_card else None
+    print(f"{tag} remat=True step: {remat_s!r} s, flash_prefill launches "
+          f"{remat_launches} ({n_attn} forward + "
+          f"{remat_launches - n_attn} recomputed), peak_memory_bytes="
+          f"{remat_peak!r}", flush=True)
+    if on_card and remat_launches != 2 * n_attn:
+        raise AssertionError(f"{tag}: #2 launched {remat_launches} times in "
+                             f"a remat step, not {2 * n_attn}")
+    del tr, m
+    if on_card:
+        free_device_memory()
+    kernel = time_flash_train(device) if on_card else None
+    return {
+        "model": cfg.name, "dtype": "float32", "layers": cfg.num_layers,
+        "parameters": n_params, "batch": batch, "seq": seq,
+        "tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+        "grad_check": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                       "loss_rel": loss_rel, "worst_leaf_rel": worst,
+                       "tol": GRAD_REL_TOL},
+        "history": hist, "step_s": step_s, "step_p50_s": p50,
+        "tokens_per_s": batch * seq / p50, "peak_memory_bytes": peak,
+        "device_memory_bytes": total,
+        "flash_prefill_per_step": launches[0], "launches": launches,
+        "flash_prefill_forward": launches_fwd,
+        "remat": {"step_s": remat_s, "flash_prefill": remat_launches,
+                  "recomputed": remat_launches - launches[0],
+                  "peak_memory_bytes": remat_peak},
+        "profile": prof_rep, "kernel": kernel,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -4070,12 +4530,15 @@ def main() -> int:
         print(f"[encdec serve] phase 6i wall_s="
               f"{time.monotonic() - t0!r}", flush=True)
         elapsed("full-sequence serves (whisper, internvl2-1b)")
+        train = train_phase(device)
+        elapsed("training path (minicpm-2b, fp32)")
+        free_device_memory()
         twin = serve_twin(counters, device, elapsed=elapsed)
         split = prefill_split(device)
         elapsed("prefill pass split")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
                                moe_rep, swa, twin, sharded, hybrid, full,
-                               encdec)
+                               encdec, train)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -4092,6 +4555,7 @@ def main() -> int:
         print(json.dumps({"serve_twin": twin}), flush=True)
         print(json.dumps({"prefill_pass_split": split}), flush=True)
         print(json.dumps({"serve_encdec": encdec}), flush=True)
+        print(json.dumps({"train": train}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
     except Exception:

@@ -16,6 +16,11 @@ MLA `(latent, rope key)`, which the port keeps in "k" and "v"; a
 decoder layer of an encoder-decoder model has `(entry, (enc_k,
 enc_v))`, whose encoder K/V the port keeps in "enc_k"/"enc_v" over
 every layer.  The encoder's stacked layers ("encoder") become a list.
+DeepSeek-V3's multi-token-prediction head ("mtp") is one block, not a
+stack, in both packages.  `params_to_numpy` is `params_from_numpy`'s
+inverse (the port's params, an optimizer's moments of the same tree,
+back into the reference's stacks), so a checkpoint crosses packages in
+both directions.
 """
 from __future__ import annotations
 
@@ -59,17 +64,18 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
                       device="cuda") -> Dict:
     """The JAX `init_params` pytree (numpy leaves) as the port's params,
     an encoder-decoder's cross-attention ("ln_x", "xattn" in every
-    decoder layer) and encoder ("encoder", "enc_ln_f") included.  The
-    multi-token-prediction head ("mtp", DeepSeek-V3) is left out: only
-    the reference's training loss reads it (the training half of ROADMAP
-    Queue 1 item 14)."""
+    decoder layer) and encoder ("encoder", "enc_ln_f") included, and
+    DeepSeek-V3's multi-token-prediction head ("mtp", read by the
+    training loss).  The same tree of an optimizer's moments (fp32)
+    bridges alike with `dtype=torch.float32`."""
     require_supported(cfg)
 
     def take(node, i, name=""):
         if isinstance(node, dict):
             return {k: take(v, i, k) for k, v in node.items()}
         dt = torch.float32 if name in _FP32_LEAVES else dtype
-        return _tensor(np.asarray(node)[i], dt, device)
+        a = np.asarray(node)
+        return _tensor(a if i is None else a[i], dt, device)
 
     params = {"embed": _tensor(tree["embed"], dtype, device),
               "ln_f": _tensor(tree["ln_f"], dtype, device)}
@@ -81,7 +87,50 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, dtype=torch.float32,
         params["encoder"] = [take(tree["encoder"], i)
                              for i in range(cfg.num_encoder_layers)]
         params["enc_ln_f"] = _tensor(tree["enc_ln_f"], dtype, device)
+    if "mtp" in tree:
+        params["mtp"] = take(tree["mtp"], None)
     return params
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array: fp32 and int kept, bf16 and fp16
+    widened to fp32 (numpy has no bf16)."""
+    t = t.detach()
+    if t.is_floating_point() and t.dtype != torch.float32:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def params_to_numpy(cfg: ModelConfig, params: Dict) -> Dict:
+    """The port's params (or a tree of the same shape: an optimizer's
+    moments) as the reference's `init_params` pytree with numpy leaves:
+    the layers stacked by group of `layer_layout` ("prefix", then
+    "blocks"/"p{j}" over the pattern's repetitions), the encoder's
+    layers stacked, "mtp" as one block.  The inverse of
+    `params_from_numpy` (bf16 leaves come back widened to fp32)."""
+    require_supported(cfg)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return to_numpy(node)
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([l[k] for l in layers]) for k in layers[0]}
+        return np.stack([to_numpy(t) for t in layers])
+
+    out = {k: conv(params[k]) for k in ("embed", "ln_f", "lm_head",
+                                        "enc_ln_f", "mtp") if k in params}
+    groups: Dict = {}
+    for (key, _i), layer in zip(_layer_slots(cfg), params["layers"]):
+        groups.setdefault(key, []).append(layer)
+    if "prefix" in groups:
+        out["prefix"] = stack(groups.pop("prefix"))
+    out["blocks"] = {key: stack(layers) for key, layers in groups.items()}
+    if "encoder" in params:
+        out["encoder"] = stack(params["encoder"])
+    return out
 
 
 def _stacks(cfg: ModelConfig):

@@ -18,6 +18,11 @@ Each wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; `<wrapper>.launches` counts launches, and
 `flash_prefill.launches_noncausal` those of them made with
 causal=False (the encoder's self-attention and cross-attention).
+
+`flash_prefill_train` is the contiguous entry under autograd (the
+training forward): its forward is `flash_prefill` (the kernel on the
+card), its backward plain torch ops, as the reference's training
+attention (`flash_attention_xla`) has an XLA backward and no kernel.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from repro_torch.kernels.build import load_kernels
 from repro_torch.models.attention import (
-    build_mask, gather_paged, gather_paged_pos, gqa_reference,
+    NEG_INF, build_mask, gather_paged, gather_paged_pos, gqa_reference,
 )
 
 HEAD_DIMS = (64, 120, 128)  # head dims of the contiguous entry
@@ -162,6 +167,79 @@ def paged_prefill_attention(q, k_pool, v_pool, kv_pos_pool, block_tab,
         q.shape[-1] ** -0.5)
     paged_prefill_attention.launches += 1
     return out
+
+
+TRAIN_BLOCK = 512  # query rows one backward step holds scores for
+
+
+def flash_prefill_backward(q, k, v, o, do, q_pos, kv_pos, q_seg, kv_seg,
+                           causal: bool = True, window: int = 0):
+    """The gradient of `flash_prefill` with respect to q, k and v, in
+    fp32 torch ops over TRAIN_BLOCK query rows at a time (so no (B, H,
+    Sq, Skv) matrix is held): P recomputed from q, k and the mask, then
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = dS·K·scale,
+    dK = dSᵀ·Q·scale, dK and dV summed over the G query heads of each KV
+    head.  A fully masked query row has P = 0, so it gives no gradient,
+    as it gives a zero output.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    k32, v32 = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for lo in range(0, Sq, TRAIN_BLOCK):
+        hi = min(lo + TRAIN_BLOCK, Sq)
+        t = hi - lo
+        qg = q[:, lo:hi].float().reshape(B, t, K, G, hd)
+        dog = do[:, lo:hi].float().reshape(B, t, K, G, hd)
+        og = o[:, lo:hi].float().reshape(B, t, K, G, hd)
+        mask = build_mask(q_pos[:, lo:hi], kv_pos, q_seg[:, lo:hi], kv_seg,
+                          causal, window)[:, None, None]   # (B,1,1,t,Skv)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, k32) * scale
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+        dv += torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+        dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v32)
+        rows = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+        ds = p * (dp - rows)
+        dqs.append(torch.einsum("bkgqs,bskh->bqkgh", ds, k32) * scale)
+        dk += torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    dq = torch.cat(dqs, dim=1).reshape(B, Sq, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashPrefillFn(torch.autograd.Function):
+    """`flash_prefill` with its backward in torch ops
+    (`flash_prefill_backward`); the int maps get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal, window):
+        o = flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal,
+                          window)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, q_seg, kv_seg, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, kv_pos, q_seg, kv_seg, o = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_backward(q, k, v, o, do, q_pos, kv_pos,
+                                            q_seg, kv_seg, ctx.causal,
+                                            ctx.window)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_prefill_train(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
+                        causal: bool = True, window: int = 0):
+    """The contiguous entry under autograd: forward by `flash_prefill`
+    (the kernel for CUDA tensors, counted in `flash_prefill.launches`,
+    the plain version for CPU tensors; it raises where `flash_prefill`
+    raises), backward by `flash_prefill_backward`."""
+    return _FlashPrefillFn.apply(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
+                                 bool(causal), int(window))
 
 
 flash_prefill.launches = 0

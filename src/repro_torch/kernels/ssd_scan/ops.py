@@ -17,7 +17,8 @@ card the two agree bit for bit (see the source note for why that is
 required).  The wrapper launches it for CUDA tensors (one call launches
 two kernels: C·Bᵀ and Ā, then y and the state) and takes the plain
 version only for CPU tensors; `ssd_chunk.launches` counts the calls
-that launched.
+that launched.  `ssd_chunk_train` is `ssd_chunk` under autograd (the
+training forward): the kernel forward, the plain version's gradient.
 """
 from __future__ import annotations
 
@@ -115,6 +116,34 @@ def ssd_chunk(x, dt, A, Bm, Cm):
         x, dt, A, Bm, Cm, _row_stride(Bm, "Bm"), _row_stride(Cm, "Cm"))
     ssd_chunk.launches += 1
     return y, st
+
+
+class _SSDChunkFn(torch.autograd.Function):
+    """`ssd_chunk` whose backward recomputes `ssd_chunk_plain` under
+    autograd on detached inputs and returns its gradient: on the card
+    the kernel equals its plain version bit for bit, so the two forwards
+    are one function."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        y, st = ssd_chunk(x, dt, A, Bm, Cm)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, st = ssd_chunk_plain(*ins)
+            return torch.autograd.grad((y, st), ins, (dy, dst),
+                                       allow_unused=True)
+
+
+def ssd_chunk_train(x, dt, A, Bm, Cm):
+    """`ssd_chunk` under autograd: the kernel forward for CUDA tensors
+    (counted in `ssd_chunk.launches`), the plain version for CPU
+    tensors, and the plain version's gradient."""
+    return _SSDChunkFn.apply(x, dt, A, Bm, Cm)
 
 
 ssd_chunk.launches = 0

@@ -22,6 +22,8 @@ pages).  GQA attention runs through the port's kernels
 (prefill, chunk and decode alike) through kernel #2's contiguous entry,
 causal or not, at every length; the SSM prefill through the SSD kernel
 (`repro_torch.models.mamba`); each takes its plain version on the CPU.
+Under autograd (the training forward) both go through their autograd
+`Function`s, whose backward is torch ops.
 MLA is the absorbed form over the latent cache (the compressed KV `ckv`
 and the shared rope key `kr`, no head axis) in decode and extend, and
 the non-absorbed form in `mla_full`, as torch matmuls: the reference
@@ -47,7 +49,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention, paged_decode_attention,
 )
 from repro_torch.kernels.flash_prefill import (
-    flash_prefill, paged_prefill_attention,
+    flash_prefill, flash_prefill_train, paged_prefill_attention,
 )
 from repro_torch.models.attention import (
     NEG_INF, build_mask, gather_paged, gather_paged_pos, gqa_reference,
@@ -168,12 +170,20 @@ def _out_proj(p, o):
 
 def _flash_full(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal, window=0):
     """Kernel #2's contiguous entry over whole sequences: the int32
-    position and segment maps made contiguous, K/V in q's dtype."""
+    position and segment maps made contiguous, K/V in q's dtype.  Under
+    autograd (grad mode on and q, k or v requiring grad: the training
+    forward) it goes through `flash_prefill_train`, whose backward is
+    torch ops; otherwise through the plain wrapper, so the serving
+    paths and their step graphs call exactly what they called before."""
     i32 = [t.to(torch.int32).contiguous()
            for t in (q_pos, kv_pos, q_seg, kv_seg)]
-    o = flash_prefill(q.contiguous(), k.to(q.dtype).contiguous(),
-                      v.to(q.dtype).contiguous(), *i32, causal=causal,
-                      window=window)
+    attend = flash_prefill
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        attend = flash_prefill_train
+    o = attend(q.contiguous(), k.to(q.dtype).contiguous(),
+               v.to(q.dtype).contiguous(), *i32, causal=causal,
+               window=window)
     return o.to(q.dtype)
 
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import SSMConfig
-from repro_torch.kernels.ssd_scan import ssd_chunk
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_train
 from repro_torch.models.layers import init_linear, rms_norm
 
 
@@ -152,7 +152,9 @@ def ssd_chunked_kernel(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     from `ssd_chunk` (the CUDA kernel for CUDA tensors); the inter-chunk
     recurrence and its carry-in output term stay in torch.  n_groups = 1.
     Bm/Cm may be strided views (slices of the [B|C] projection): the
-    kernel reads them in place."""
+    kernel reads them in place.  Under autograd (the training forward)
+    the intra-chunk term goes through `ssd_chunk_train`, whose backward
+    is the plain version's."""
     Bsz, S, nh, hp = x.shape
     g, ds = Bm.shape[2], Bm.shape[3]
     if g != 1:
@@ -163,7 +165,11 @@ def ssd_chunked_kernel(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     dtc = dt.reshape(Bsz, nc, chunk, nh)
     Bc = Bm.reshape(Bsz, nc, chunk, ds)
     Cc = Cm.reshape(Bsz, nc, chunk, ds)
-    y_diag, states = ssd_chunk(xc, dtc, A, Bc, Cc)
+    chunk_fn = ssd_chunk
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xc, dtc, A, Bc, Cc)):
+        chunk_fn = ssd_chunk_train      # the training forward
+    y_diag, states = chunk_fn(xc, dtc, A, Bc, Cc)
     dA_cum = torch.cumsum(dtc * A, dim=2)                     # (B,nc,Q,nh)
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])              # (B,nc,nh)
     h = (initial_state if initial_state is not None

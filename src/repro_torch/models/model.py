@@ -5,11 +5,15 @@ patch embeddings prepended (the VLM, internvl2-1b) and an
 encoder-decoder (whisper-large-v3: a bidirectional encoder over frame
 embeddings, cross-attention in every decoder layer).
 
-Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`,
-`logits_from_hidden`; the full-sequence `_run_encoder`, `forward_full`
-and `prefill` (the whole prompt in one forward, then the dense decode
-cache built from it: a SWA ring placed as the reference's, SSM states
-and conv tails, the encoder K/V of every decoder layer); the dense
+Counterpart of `repro/models/model.py`: `layer_layout`, `init_params`
+(with DeepSeek-V3's multi-token-prediction head, "mtp"),
+`abstract_params` and `abstract_cache` (on the `meta` device),
+`logits_from_hidden`; the training `forward_train` (under `remat`,
+`_ckpt`), `_ce_loss` and `loss_fn`; the full-sequence `_run_encoder`,
+`forward_full` and `prefill` (the whole prompt in one forward, then
+the dense decode cache built from it: a SWA ring placed as the
+reference's, SSM states and conv tails, the encoder K/V of every
+decoder layer); the dense
 (padded) family `kv_buffer_len`, `init_cache`, `cache_join`,
 `cache_take`, `prefill_chunk`, `decode_step` (with the port's
 `cache_row` and `cache_clear_row`, for the rows of a prefill engine's
@@ -52,7 +56,10 @@ Layouts (torch):
                          (expert axis first) [, shared_gate, shared_up,
                          shared_down]}}, ...],
              "encoder": [dense layer dicts], "enc_ln_f" (D,)
-                                                 if encoder-decoder}
+                                                 if encoder-decoder,
+             "mtp": {"ln_h", "ln_e" (D,), "proj" (2D, D), "block": a
+                     layer dict of the pattern's first kind}
+                                                 if cfg.mtp_depth > 0}
     paged   {"cur" (slots,) int32, "kv_pos" (N, bs) int32,
     cache    "block_tab" (slots, nbt) int32,
              "k"/"v" (L_attn, N, bs, K, hd),
@@ -206,6 +213,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V), 1.0 / math.sqrt(D))
     cross = cfg.is_encoder_decoder
+    # one dict a layer, in model order: the reference's `init_stacked`
+    # (one stack a group of `layer_layout`, drawn by vmap) has no
+    # counterpart here, as the port keeps a list of layers, not stacks
     params["layers"] = [init_block_params(gen, cfg, kind, dtype, cross=cross)
                         for kind in cfg.layer_kinds()]
     if cross:
@@ -213,7 +223,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
             init_block_params(gen, cfg, LayerKind.DENSE, dtype)
             for _ in range(cfg.num_encoder_layers)]
         params["enc_ln_f"] = torch.ones(D, dtype=dtype, device=device)
+    if cfg.mtp_depth > 0:
+        # DeepSeek-V3's multi-token-prediction head (read by the loss)
+        params["mtp"] = {
+            "ln_h": torch.ones(D, dtype=dtype, device=device),
+            "ln_e": torch.ones(D, dtype=dtype, device=device),
+            "proj": normal((2 * D, D), 1.0 / math.sqrt(2 * D)),
+            "block": init_block_params(gen, cfg, cfg.layer_pattern[0],
+                                       dtype),
+        }
     return params
+
+
+def _on_meta(tree):
+    """`tree` with every tensor replaced by an empty one of its shape and
+    dtype on the `meta` device."""
+    if isinstance(tree, dict):
+        return {k: _on_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_meta(v) for v in tree)
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
+    """`init_params`' tree on the `meta` device (shapes and dtypes, no
+    storage), for a config of any size: drawn under a fake-tensor mode,
+    which allocates nothing, as the reference's `jax.eval_shape`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_params(cfg, dtype=dtype, device="cpu")
+    return _on_meta(fake)
 
 
 def logits_from_hidden(cfg: ModelConfig, params, x):
@@ -262,6 +301,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         for name in ENC_STACKS:
             cache[name] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> Dict:
+    """`init_cache`'s tree on the `meta` device (no storage)."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
 def _ssm_stacks(cfg: ModelConfig, n_ssm: int, rows: int, dtype,
@@ -529,42 +574,77 @@ def _keep_masked(new: Dict, old: Dict, mask) -> Dict:
 # Full-sequence forward and prefill
 # ---------------------------------------------------------------------------
 
-def _run_encoder(cfg: ModelConfig, params, frames):
+def _save_dots():
+    """A selective-checkpoint context that keeps the outputs of the matrix
+    products (`aten.mm`, `aten.bmm`) and recomputes the rest."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(
+        [torch.ops.aten.mm.default, torch.ops.aten.bmm.default])
+
+
+def _ckpt(fn, remat):
+    """remat: False/"none" (no remat), True/"block" (recompute the whole
+    block in the backward), "dots" (keep the matrix products' outputs and
+    recompute only the elementwise chains), as the reference's `_ckpt`.
+    Activation checkpointing by `torch.utils.checkpoint` (not
+    reentrant)."""
+    if not remat or remat == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    if remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_save_dots)
+    if remat not in (True, "block"):
+        raise ValueError(f"remat {remat!r}: False, 'none', True, 'block' "
+                         f"or 'dots'")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _run_encoder(cfg: ModelConfig, params, frames, remat=False):
     """The whisper encoder: frame embeddings (B, F, D) plus the sinusoidal
     position embedding, then the dense encoder blocks, bidirectional and
-    without RoPE (kernel #2, not causal), then `enc_ln_f`."""
+    without RoPE (kernel #2, not causal), each under `remat`, then
+    `enc_ln_f`."""
     B, F, D = frames.shape
     x = frames + sinusoid_pos_embedding(F, D, frames.device)[None].to(
         frames.dtype)
     pos = torch.arange(F, dtype=torch.int32, device=frames.device).expand(
         B, F)
+
+    def layer(p, x):
+        return block_full(p, x, LayerKind.DENSE, cfg, pos, causal=False,
+                          use_rope=False)[0]
     for p in params["encoder"]:
-        x, _entry, _aux = block_full(p, x, LayerKind.DENSE, cfg, pos,
-                                     causal=False, use_rope=False)
+        x = _ckpt(layer, remat)(p, x)
     return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
 
 
 def forward_full(cfg: ModelConfig, params, tokens, positions=None, seg=None,
-                 embeds=None, want_cache: bool = False):
+                 embeds=None, want_cache: bool = False, remat=False):
     """The whole sequence through every layer: tokens (B, S) int, with a
     VLM's patch embeddings (B, P, D) prepended or an encoder-decoder's
     frame embeddings (B, F, D) encoded first (`embeds`).  `positions`
     (B, St) default to 0 .. St - 1 over the St tokens run (patches
     included); `seg` (B, S) packs several sequences in a row (-1 = pad),
     extended over a patch prefix with the first text token's segment.
+    `remat` checkpoints each block and encoder layer (`_ckpt`; the
+    training forward's option, not with `want_cache`).
     Returns (hidden (B, St, D) after `ln_f`, the layers' cache entries in
     the dense cache's stacks over St tokens when `want_cache` (else
     None), the MoE aux loss (fp32), the encoder's output (or None)).
     The reference's `_constrain` (sequence sharding under a mesh) is a
     no-op without a mesh and is left out."""
     B, S = tokens.shape
+    if remat and want_cache:
+        raise ValueError("remat recomputes the blocks' outputs in the "
+                         "backward; it does not build a cache")
     x = params["embed"][tokens.long()]
     enc_out = None
     if cfg.is_encoder_decoder:
         if embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                              f"frame embeddings")
-        enc_out = _run_encoder(cfg, params, embeds.to(x.dtype))
+        enc_out = _run_encoder(cfg, params, embeds.to(x.dtype), remat)
     elif cfg.num_patch_tokens and embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     St = x.shape[1]
@@ -577,11 +657,18 @@ def forward_full(cfg: ModelConfig, params, tokens, positions=None, seg=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     entries = []
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
-        x, entry, a = block_full(p, x, kind, cfg, positions, seg,
-                                 enc_out=enc_out)
+        if remat:
+            def layer(p, x, enc_out, kind=kind):
+                y, _entry, a = block_full(p, x, kind, cfg, positions, seg,
+                                          enc_out=enc_out)
+                return y, a
+            x, a = _ckpt(layer, remat)(p, x, enc_out)
+        else:
+            x, entry, a = block_full(p, x, kind, cfg, positions, seg,
+                                     enc_out=enc_out)
+            if want_cache:
+                entries.append(entry)
         aux = aux + a
-        if want_cache:
-            entries.append(entry)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, (_entry_stacks(cfg, entries) if want_cache else None), aux, \
         enc_out
@@ -605,6 +692,76 @@ def _entry_stacks(cfg: ModelConfig, entries: List) -> Dict:
         if enc:
             out[ENC_STACKS[j]] = torch.stack([kv[j] for kv in enc])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def forward_train(cfg: ModelConfig, params, batch, remat=False):
+    """batch: dict of tensors: tokens (B, S), targets (B, S; -100 =
+    ignore), [embeds (B, P, D) patches or (B, F, D) frames], [seg],
+    [positions].  The full forward (`forward_full`, under `remat`), the
+    logits of the text positions (a VLM's patch prefix cut off), the
+    fp32 cross-entropy, the MoE aux loss weighted by
+    `router_aux_weight`, and DeepSeek-V3's multi-token-prediction loss
+    (weight 0.3) where `cfg.mtp_depth > 0`.  Returns (loss, metrics {ce,
+    aux, tokens, [mtp_ce,] loss})."""
+    tokens = batch["tokens"]
+    targets = batch["targets"]
+    x, _, aux, _ = forward_full(
+        cfg, params, tokens, positions=batch.get("positions"),
+        seg=batch.get("seg"), embeds=batch.get("embeds"), want_cache=False,
+        remat=remat)
+    if cfg.num_patch_tokens and batch.get("embeds") is not None:
+        x_text = x[:, x.shape[1] - tokens.shape[1]:]
+    else:
+        x_text = x
+    logits = logits_from_hidden(cfg, params, x_text)
+    loss, n_tok = _ce_loss(logits, targets)
+    metrics = {"ce": loss, "aux": aux, "tokens": n_tok}
+    total = loss + cfg.moe.router_aux_weight * aux
+
+    if cfg.mtp_depth > 0 and "mtp" in params:
+        mtp = params["mtp"]
+        h = rms_norm(x_text[:, :-1], mtp["ln_h"], cfg.norm_eps)
+        e = rms_norm(params["embed"][tokens[:, 1:].long()], mtp["ln_e"],
+                     cfg.norm_eps)
+        hm = torch.cat([h, e], dim=-1) @ mtp["proj"]
+        B, Sm, _ = hm.shape
+        pos = torch.arange(Sm, dtype=torch.int32,
+                           device=hm.device).expand(B, Sm)
+        hm, _, mtp_aux, _ = _single_block(cfg, mtp["block"], hm, pos)
+        mtp_logits = logits_from_hidden(
+            cfg, params, rms_norm(hm, params["ln_f"], cfg.norm_eps))
+        # position t predicts token t + 2: the targets shifted once more
+        mtp_loss, _ = _ce_loss(mtp_logits[:, :-1], targets[:, 2:])
+        metrics["mtp_ce"] = mtp_loss
+        total = total + 0.3 * mtp_loss + cfg.moe.router_aux_weight * mtp_aux
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _single_block(cfg: ModelConfig, p, x, pos):
+    """One block of the pattern's first kind (the MTP head's)."""
+    y, entry, aux = block_full(p, x, cfg.layer_pattern[0], cfg, pos)
+    return y, entry, aux, None
+
+
+def _ce_loss(logits, targets):
+    """Mean token cross-entropy in fp32 over the targets >= 0; returns
+    (loss, the number of tokens counted, at least 1)."""
+    mask = targets >= 0
+    tgt = torch.where(mask, targets, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
+    n = mask.sum().clamp_min(1)
+    return -(ll * mask).sum() / n, n
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat=False):
+    loss, _ = forward_train(cfg, params, batch, remat)
+    return loss
 
 
 def prefill(cfg: ModelConfig, params, tokens, embeds=None, lengths=None,

@@ -1,7 +1,7 @@
-"""PyTorch port: the scheduler-layer modules the port keeps as verbatim
-copies of the JAX package's — `config/`, `configs/`, `core/` and
+"""PyTorch port: the JAX-free modules the port keeps as verbatim copies
+of the JAX package's — `config/`, `configs/`, `core/`, `data/` and
 `serving/{plane,engine,runtime,costmodel,kv_pool,page_share,metrics,
-cluster,workload}.py` — still equal the reference's.
+cluster,workload,e2e}.py` — still equal the reference's.
 
 Each pair of files is compared as syntax trees (`ast.dump`) with every
 docstring dropped (the port's name its own module paths) and `repro`
@@ -15,9 +15,9 @@ import pathlib
 import pytest
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
-PACKAGES = ("config", "configs", "core")
+PACKAGES = ("config", "configs", "core", "data")
 SERVING = ("plane", "engine", "runtime", "costmodel", "kv_pool",
-           "page_share", "metrics", "cluster", "workload")
+           "page_share", "metrics", "cluster", "workload", "e2e")
 
 
 def _copies():

@@ -1784,3 +1784,139 @@ def test_merged_hybrid_graph_matches_eager_on_logical_shards(dev, dtype):
     assert runner.replays == 3 and runner.captured == 1
     entry = runner._entries[key]
     assert len(entry.segments) == 1 and len(entry.segments[0][0]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the training path: the autograd Functions of #2 and #4, the Trainer
+# ---------------------------------------------------------------------------
+
+# (B, S, H, K, hd, causal, packed, window): PERF.md §6's rows of #2's
+# contiguous entry (deepseek-7b's hd 128, h2o-danube's hd 120 with its
+# window, whisper's encoder not causal at hd 64, internvl2-1b's G = 7)
+# and the training forward's (minicpm-2b: 36 heads of 64)
+_FLASH_TRAIN_CASES = [
+    (2, 256, 32, 32, 128, True, True, 0),
+    (2, 256, 32, 8, 120, True, False, 96),
+    (2, 300, 20, 20, 64, False, False, 0),
+    (2, 200, 14, 2, 64, True, True, 0),
+    (2, 512, 36, 36, 64, True, False, 0),
+]
+
+
+def _flash_train_case(B, S, H, K, hd, packed, dev, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g) * 0.5
+    k = torch.randn(B, S, K, hd, generator=g) * 0.5
+    v = torch.randn(B, S, K, hd, generator=g) * 0.5
+    do = torch.randn(B, S, H, hd, generator=g)
+    pos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
+    seg = torch.zeros(B, S, dtype=torch.int32)
+    if packed:                     # two documents and a padded tail
+        seg[:, S // 3:] = 1
+        pos[:, S // 3:] -= S // 3
+        seg[1, S - 17:] = -1
+    return ([t.to(dev, dtype) for t in (q, k, v)], do.to(dev),
+            [t.to(dev) for t in (pos, seg)])
+
+
+def _grads_close(got, ref, tol):
+    """Each gradient within `tol` of its reference's largest magnitude."""
+    for a, b in zip(got, ref):
+        assert a is not None and torch.isfinite(a).all()
+        d = float((a.float() - b.float()).abs().max())
+        assert d <= tol * float(b.abs().max()), (d, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH_TRAIN_CASES,
+                         ids=lambda c: "B{}S{}H{}K{}hd{}c{}p{}w{}".format(*c))
+def test_flash_prefill_train_grads_on_cuda(dev, dtype, case):
+    """#2's autograd Function on the card (kernel forward, torch-ops
+    backward) against autograd through the plain version on the same
+    inputs widened to fp32: q, k and v gradients within 1e-4 (fp32) or
+    1e-2 (bf16) of each one's largest; one kernel launch a forward."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_train
+    B, S, H, K, hd, causal, packed, window = case
+    (q, k, v), do, (pos, seg) = _flash_train_case(B, S, H, K, hd, packed,
+                                                  dev, dtype)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    n = flash_prefill.launches
+    out = flash_prefill_train(*ins, pos, pos, seg, seg, causal, window)
+    assert flash_prefill.launches == n + 1
+    got = torch.autograd.grad(out, ins, do.to(dtype))
+    ref_in = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_prefill_plain(*ref_in, pos, pos, seg, seg, causal, window)
+    want = torch.autograd.grad(ref, ref_in, do)
+    _assert_close(out.detach(), ref.detach(), dtype)
+    _grads_close(got, want, REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_ssd_chunk_train_grads_on_cuda(dev, dtype, arch):
+    """#4's autograd Function on the card against autograd through its
+    plain version, at the full-width config's SSD shape (two 256-token
+    chunks, or jamba's 128 heads of 64 over d_state 16): every input's
+    gradient within 1e-4 (fp32) or 1e-2 (bf16) of its largest."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_train
+    from repro_torch.models.mamba import ssm_dims
+    cfg = get_arch(arch)
+    _di, nh, _ = ssm_dims(cfg.d_model, cfg.ssm)
+    hp, ds, Q = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk_size
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = (torch.randn(1, 2, Q, nh, hp, generator=g) * 0.3).to(dev, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, 2, Q, nh, generator=g) - 2).to(dev)
+    A = -torch.exp(torch.linspace(0, 1, nh)).to(dev)
+    bc = (torch.randn(1, 2, Q, 2 * ds, generator=g) * 0.3).to(dev, dtype)
+    Bm, Cm = bc[..., :ds], bc[..., ds:]
+    dy = torch.randn(1, 2, Q, nh, hp, generator=g).to(dev)
+    dst = torch.randn(1, 2, nh, hp, ds, generator=g).to(dev)
+    ins = [t.detach().requires_grad_(True) for t in (x, dt, A, bc)]
+    n = ssd_chunk.launches
+    y, st = ssd_chunk_train(ins[0], ins[1], ins[2], ins[3][..., :ds],
+                            ins[3][..., ds:])
+    assert ssd_chunk.launches == n + 1
+    got = torch.autograd.grad((y, st), ins, (dy, dst))
+    ref_in = [t.detach().float().requires_grad_(True) for t in (x, dt, A, bc)]
+    ry, rst = ssd_chunk_plain(ref_in[0], ref_in[1], ref_in[2],
+                              ref_in[3][..., :ds], ref_in[3][..., ds:])
+    want = torch.autograd.grad((ry, rst), ref_in, (dy, dst))
+    _grads_close(got, want, REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-1b-a400m",
+                                  "mamba2-370m", "jamba-v0.1-52b"])
+def test_reduced_trainer_on_cuda(dev, arch):
+    """A reduced dense, MoE, SSM and hybrid model trains on the card: one
+    `forward_train` gives every parameter a finite, non-None gradient
+    with #2 (attention layers) and #4 (SSM layers) launched, then three
+    `Trainer` steps keep the loss finite and lower it."""
+    from repro_torch.data import synthetic_batches
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.models.model import forward_train
+    from repro_torch.train import Trainer
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = get_arch(arch, reduced=True)
+    params = init_params(cfg, seed=0, device=dev)
+    data = next(synthetic_batches(cfg.vocab_size, 2, 64, seed=0))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    n_fp, n_ssd = flash_prefill.launches, ssd_chunk.launches
+    loss, _ = forward_train(cfg, params, batch)
+    kinds = {k.value for k in cfg.layer_kinds()}
+    assert (flash_prefill.launches > n_fp) == bool(kinds & {"dense", "moe"})
+    assert (ssd_chunk.launches > n_ssd) == bool(kinds & {"ssm", "ssm_moe"})
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    tcfg = TrainConfig(global_batch=2, seq_len=64, lr=1e-3, warmup_steps=1,
+                       total_steps=4)
+    tr = Trainer(cfg, tcfg, device=dev, params=params)
+    ces = []
+    for _ in range(3):
+        tr.fit(iter([data]), 1, log_every=0)
+        ces.append(float(tr.last_metrics["ce"]))
+        assert torch.isfinite(tr.last_metrics["grad_norm"])
+    assert ces[-1] < ces[0]

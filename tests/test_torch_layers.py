@@ -53,14 +53,20 @@ def _close(j, t, tol=TOL):
 # ---------------------------------------------------------------------------
 
 def test_import_guard_server_pulls_no_jax():
-    twin = os.path.join(REPO, "examples", "serve_e2e_torch.py")
+    examples = [os.path.join(REPO, "examples", f) for f in (
+        "serve_e2e_torch.py", "train_wsd_torch.py",
+        "simulate_production_torch.py")]
     code = ("import importlib.util, sys, repro_torch.serving.server\n"
             "import repro_torch.bridge, repro_torch.launch.mesh\n"
             "import repro_torch.distributed.sharding\n"
             "import repro_torch.distributed.annotate\n"
             "import repro_torch.models.moe_ep\n"
-            f"s = importlib.util.spec_from_file_location('twin', {twin!r})\n"
-            "s.loader.exec_module(importlib.util.module_from_spec(s))\n"
+            "import repro_torch.train, repro_torch.checkpoint\n"
+            "import repro_torch.data, repro_torch.launch.train\n"
+            "import repro_torch.serving.e2e\n"
+            f"for i, f in enumerate({examples!r}):\n"
+            "    s = importlib.util.spec_from_file_location(f'ex{i}', f)\n"
+            "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
             "       or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -79,6 +85,8 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "examples", "serve_e2e_torch.py")
     yield os.path.join(REPO, "examples", "quickstart_torch.py")
+    yield os.path.join(REPO, "examples", "train_wsd_torch.py")
+    yield os.path.join(REPO, "examples", "simulate_production_torch.py")
 
 
 def test_port_sources_import_no_jax_or_repro():

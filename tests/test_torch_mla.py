@@ -228,9 +228,16 @@ def test_mla_extend_paged_matches_jax(models, case):
 
 def test_params_bridge_is_exact_and_leaves_out_mtp(models):
     """Every port leaf equals its JAX leaf (the layer's row of its group
-    stack) bit for bit; deepseek-v3's MTP head is not carried over."""
+    stack) bit for bit; deepseek-v3's MTP head, which the training loss
+    reads, is carried over as one block (not a stack), bit for bit too.
+    (The name is kept from when the bridge left the head out.)"""
     cfg, tcfg, _jp, npp, tp = models["deepseek-v3-671b"]
-    assert "mtp" in npp and "mtp" not in tp
+    assert "mtp" in npp and "mtp" in tp
+    mtp = dict(jax.tree_util.tree_leaves_with_path(npp["mtp"]))
+    mine = jax.tree_util.tree_leaves_with_path(tp["mtp"])
+    assert len(mtp) == len(mine) and set(tp["mtp"]) == set(npp["mtp"])
+    for path, t in mine:
+        assert np.array_equal(mtp[path], t.numpy()), path
     groups = [("prefix", 0), ("p0", 0)]
     assert len(tp["layers"]) == len(groups) == cfg.num_layers
     for layer, (key, i) in zip(tp["layers"], groups):

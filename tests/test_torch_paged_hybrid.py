@@ -653,12 +653,7 @@ def test_hybrid_refusals_in_both_packages(model, plane):
 # chip_smoke.py's phase 6h, rehearsed at the reduced size
 # ---------------------------------------------------------------------------
 
-def test_chip_smoke_hybrid_phase_rehearsed():
-    """chip_smoke.py's hybrid phase (the paged P/D serve with its logits
-    check over the served chunks and expert sets, its graphs-vs-eager
-    bit A/B, the sharded P/D serve with 2 exchanges an MoE layer a
-    merged step) on reduced jamba; on the CPU the wrappers take their
-    plain versions, so no launch is counted."""
+def _chip_smoke():
     import os
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -672,8 +667,19 @@ def test_chip_smoke_hybrid_phase_rehearsed():
     from repro_torch.kernels.flash_prefill import (
         flash_prefill, paged_prefill_attention)
     from repro_torch.kernels.ssd_scan import ssd_chunk
-    counters = [paged_decode_attention, paged_prefill_attention,
-                flash_prefill, decode_attention, ssd_chunk]
+    return chip_smoke, [paged_decode_attention, paged_prefill_attention,
+                        flash_prefill, decode_attention, ssd_chunk]
+
+
+def test_chip_smoke_hybrid_phase_rehearsed():
+    """chip_smoke.py's hybrid phase (the paged P/D serve with its logits
+    chain: served = the eager replay of the served chunks and expert
+    sets, bit for bit, then that replay in fp32 against the plain fp32
+    forward; its graphs-vs-eager bit A/B, the sharded P/D serve with 2
+    exchanges an MoE layer a merged step) on reduced jamba in fp32; on
+    the CPU the wrappers take their plain versions, so no launch is
+    counted."""
+    chip_smoke, counters = _chip_smoke()
     model = _jamba()
     rep = chip_smoke.serve_hybrid_phase(
         counters, "cpu", cfg=model.tcfg, params=model.tparams, n_requests=4,
@@ -681,10 +687,50 @@ def test_chip_smoke_hybrid_phase_rehearsed():
     pd, sh = rep["pd"], rep["sharded"]
     assert pd["plane"] == "P/D, paged decode"
     assert pd["logits_rel_err"] <= 1e-4 and sh["logits_rel_err"] <= 1e-4
+    for r in (pd, sh):
+        assert r["served_equals_eager_replay"]
+        assert r["logits_checked_by"] == "replay"
+        assert r["fp32_replay_rel_err"] <= 1e-4
     assert pd["bits"]["same_tokens"] and pd["bits"]["same_first_logits"]
     assert sh["ep_exchanges_per_decode_step"] == 2
     assert set(pd["launches"].values()) == set(sh["launches"].values()) \
         == {0}
+
+
+def test_chip_smoke_hybrid_check_chain_in_bf16_rehearsed():
+    """The hybrid check's chain as phase 6h runs it, on a bf16 serve of
+    reduced jamba (the JAX weights cast to bf16, the fp32 leaves kept):
+    the P/D paged serve's first-token logits equal the eager replay of
+    its served chunks and expert sets bit for bit (`exact_replay`), and
+    after `widen_params` that replay in fp32 agrees with the plain fp32
+    forward over the same chunks and expert sets within 1e-4."""
+    from repro_torch.bridge import _FP32_LEAVES
+    chip_smoke, counters = _chip_smoke()
+    model = _jamba()
+
+    def bf16(node, name=""):
+        if isinstance(node, dict):
+            return {k: bf16(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [bf16(v) for v in node]
+        return node if name in _FP32_LEAVES else node.to(torch.bfloat16)
+    params = bf16(model.tparams)
+    assert params["embed"].dtype == torch.bfloat16
+    cases = []
+    rep = chip_smoke.serve_pd(
+        model.tcfg, params, "cpu", counters, tag="[hybrid pd serve]",
+        launched=chip_smoke.HYBRID_KERNELS, block_size=chip_smoke.BLOCK,
+        routes=True, exact_replay=cases, n_requests=4, lens=(128, 400),
+        outs=(4, 8), profile=False)
+    assert rep["logits_checked_by"] == "replay" and rep["dtype"] == "bfloat16"
+    assert len(cases) == 4 and all(len(c[1]) >= 1 for c in cases)
+    chip_smoke.widen_params(params)
+    assert params["embed"].dtype == torch.float32
+    assert params["layers"][0]["moe"]["router"].dtype == torch.float32
+    worst = chip_smoke.check_fp32_replay(model.tcfg, params, cases,
+                                         chip_smoke.MAX_LEN, "cpu",
+                                         "[hybrid pd serve]")
+    assert worst <= 1e-4
 
 
 def test_hybrid_chunking_check_rehearsed(tmp_path):
