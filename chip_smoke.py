@@ -201,7 +201,30 @@ Phases (any failure exits non-zero and prints no result):
      them, and each request's logits after the prefill and after the
      chunk agree with a plain forward over the same tokens (encoder and
      cross-attention included); the phase's wall time on a line of its
-     own;
+     own; then whisper's paged leg: the 4 requests' dense rows joined
+     into a paged cache of 16-token pages (each slot's encoder K/V
+     beside the pages), 32 eager `paged_decode_step`s beside the dense
+     steps on the same tokens, logits within 5e-2 of the largest at
+     every step, #1 (self-attention over the pages) and #2 not causal
+     (cross-attention over the slot's encoder K/V) launched once a layer
+     a step and nothing else, and `paged_cache_clear_slot` leaving an
+     empty table;
+  6k. tensor parallelism inside a DP on the sharded plane, on a (2, 2)
+     mesh of four logical shards of the card (2 DP units of 2 TP ranks):
+     (a) full-width granite-moe-1b-a400m (bf16, seed 0) behind
+     `RealSBSServer(mesh=make_engine_mesh(2, 2, devices=["cuda"] * 4))`,
+     P/D on the paged plane with step graphs on phase 6g's 8 requests:
+     phase 6g's checks, and every merged decode step's TP collectives
+     as predicted (an all-gather of the d_model-split embedding, an
+     all-reduce after each split attention, an all-gather of each MoE
+     layer's rows, a reduce of the logits); its graphs-vs-eager bit A/B
+     on an `immediate` burst at SHARDED_BITS_LAYERS layers; its merged
+     step p50 printed beside phase 6g's data-only one; (b) full-width
+     deepseek-7b at 8 of 30 layers: 8 prefilled requests joined into a
+     paged cache of 2 DP units and the same cache merged over the mesh;
+     the TP merged decode step's logits within 5e-2 of the unsharded
+     paged step's on the same rows, its collectives as predicted, both
+     steps' p50 as step graphs;
   6j. the training path: full-width minicpm-2b (40 layers, d 2304, 36
      heads of 64, 2.72 B parameters) in fp32, TF32 off, random weights
      from seed 0, one synthetic batch of 2 x 512 tokens: one step's loss
@@ -3044,7 +3067,8 @@ def serve_twin(counters, device, reduced=False, elapsed=None):
 # ---------------------------------------------------------------------------
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
-                 moe_serve, swa, twin, sharded, hybrid, full, encdec, train):
+                 moe_serve, swa, twin, sharded, hybrid, full, encdec, train,
+                 tp):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
@@ -3059,7 +3083,10 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
     (fp32, causal), a row of its own, measured at phase 6j's shape, its
     launches over phase 6j's Trainer steps (forward only: the backward
     is torch ops) and, apart, the remat step's recomputations.  #2's
-    contiguous row also carries `launches_train` (a training step's)."""
+    contiguous row also carries `launches_train` (a training step's).
+    #1 and #2's contiguous entry also carry their launches on phase 6k's
+    TP P/D serve (and #1 on its deepseek-7b step check), #1 and #2 not
+    causal theirs on phase 6i's paged whisper leg."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -3105,6 +3132,13 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
             out.update({f"launches_hybrid_{k}_serve":
                         hybrid[k]["launches"][name]
                         for k in ("pd", "sharded")})
+        if tp["pd"]["launches"][name]:
+            out["launches_tp_pd_serve"] = tp["pd"]["launches"][name]
+        if name == "paged_decode_attention":
+            out["launches_tp_step_check"] = tp["step"][
+                "paged_decode_attention_launches"]
+            out["launches_paged_encdec"] = encdec["whisper-large-v3"][
+                "paged"]["launches"]["paged_decode_attention"]
         return out
     return [
         item("paged_decode_attention", csrc + "paged_decode_attention.cu",
@@ -3148,7 +3182,9 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              shape=full["shape"],
              launches_encdec_serve={
                  arch: rep["launches_by_mode"]["flash_prefill_noncausal"]
-                 for arch, rep in encdec.items()}),
+                 for arch, rep in encdec.items()},
+             launches_paged_encdec=encdec["whisper-large-v3"]["paged"][
+                 "launches"]["flash_prefill_noncausal"]),
         dict(name="flash_prefill (training, fp32 causal)", route="cuda",
              source=csrc + "flash_prefill.cu", replaces=fp_k,
              launches=sum(train["launches"]),
@@ -3358,21 +3394,21 @@ def check_ep_layer(device):
     return out
 
 
-def sharded_scfg(mixed):
+def sharded_scfg(mixed, n_dp=N_SHARDS):
     """The sharded serves' deployments: the unified plane of phase 6e or
-    the P/D deployment of phase 6, with 4 decode DP units merged on the
-    mesh (16-token pages)."""
+    the P/D deployment of phase 6, with `n_dp` decode DP units merged on
+    the mesh (16-token pages)."""
     from repro_torch.config.base import ServingConfig
     if mixed:
         return ServingConfig(
             num_prefill_instances=1, prefill_dp_per_instance=1,
-            num_decode_instances=1, decode_dp_per_instance=N_SHARDS,
+            num_decode_instances=1, decode_dp_per_instance=n_dp,
             chunk_size=256, t_default=0.05, l_net=0.001,
             max_batch_per_dp=MAX_BATCH, block_size=BLOCK,
             mixed_batch=True, mixed_chunk=256)
     return ServingConfig(
         num_prefill_instances=2, prefill_dp_per_instance=1,
-        num_decode_instances=1, decode_dp_per_instance=N_SHARDS,
+        num_decode_instances=1, decode_dp_per_instance=n_dp,
         chunk_size=PD_CHUNK, t_default=0.05, l_net=0.001,
         max_batch_per_dp=MAX_BATCH, block_size=BLOCK, n_limit=64)
 
@@ -3483,9 +3519,12 @@ def probe_exchange_ms(spec, device):
 def serve_sharded(cfg, params, device, counters, mixed,
                   n_requests=N_REQUESTS, lens=(128, 1024), outs=(16, 32),
                   step_graphs=True, scheduler="sbs-la", burst=None,
-                  tag=None, keep=None, exact_replay=None):
+                  tag=None, keep=None, exact_replay=None, mesh=None):
     """Phase 6g (b): `cfg` behind `RealSBSServer(mesh=...)` on four
-    logical shards of the card (sbs-la; the unified plane with the burst
+    logical shards of the card (or on `mesh`: phase 6k's (2, 2) mesh,
+    two DP units of two tensor-parallel ranks each, whose every merged
+    decode step must also make the TP collectives `expected_tp_calls`
+    says) (sbs-la; the unified plane with the burst
     dispatched whole, or P/D with requests 50 ms apart, or with `burst`
     at t = 0 and the decode joins held until all are handed off), with
     step graphs (every merged decode step, dense or page-native chunk
@@ -3511,8 +3550,9 @@ def serve_sharded(cfg, params, device, counters, mixed,
     from repro_torch.serving.server import RealSBSServer
     burst = mixed if burst is None else burst
     tag = tag or f"[sharded {'unified' if mixed else 'pd'} serve]"
-    mesh = shard_mesh(device)
-    scfg = sharded_scfg(mixed)
+    mesh = mesh or shard_mesh(device)
+    n_model = mesh.shape.get("model", 1)
+    scfg = sharded_scfg(mixed, mesh.shape["data"])
     spec = EngineSpec(cfg, params, max_len=MAX_LEN, max_batch=MAX_BATCH,
                       max_new=outs[1], block_size=BLOCK,
                       decode_slots=scfg.resolved_decode_slots, mesh=mesh,
@@ -3554,9 +3594,16 @@ def serve_sharded(cfg, params, device, counters, mixed,
     graphs = graphs_report(srv, g0)
     samples = eng.step_samples[mark[2]:]
     ep = eng.ep_samples[mark[2]:]
+    tp = eng.tp_samples[mark[2]:]
     rows = len(eng._group.slots)
     n_moe = sum("moe" in p for p in params["layers"])
-    for (_d, active, r), (ex, _b, _s) in zip(samples, ep):
+    want_tp = (expected_tp_calls(cfg, n_model, spec.paged_slots)
+               if n_model > 1 and not mixed else None)
+    for (_d, active, r), (ex, _b, _s), (calls, _tb) in zip(samples, ep,
+                                                           tp):
+        if want_tp is not None and active and calls != want_tp:
+            raise AssertionError(f"{tag}: a merged decode step made the "
+                                 f"TP collectives {calls}, not {want_tp}")
         if r != rows:
             raise AssertionError(f"{tag}: a step covered {r} rows, the "
                                  f"merged cache has {rows}")
@@ -3569,6 +3616,7 @@ def serve_sharded(cfg, params, device, counters, mixed,
                                  f"EP exchanges, not 2 in each of its "
                                  f"{n_moe} MoE layers")
     decode = [(d, x) for (d, a, _r), x in zip(samples, ep) if a]
+    tp_decode = [x for (_d, a, _r), x in zip(samples, tp) if a]
     n_chunks = sum(len(v) for v in chunks.values()) if mixed else 0
     replays = (eng.graphs.replays - mark[4]) if eng.graphs is not None \
         else None
@@ -3646,6 +3694,14 @@ def serve_sharded(cfg, params, device, counters, mixed,
         "ep_bytes_per_decode_step": sum(x[1] for _d, x in decode) / n,
         "ep_ms_per_decode_step_eager_probe": ep_ms,
         "ep_exchanges_eager_probe": ep_probe_ex,
+        "model_ranks": n_model,
+        "tp_calls_per_decode_step": (
+            {k: sum(c.get(k, 0) for c, _b in tp_decode) / n
+             for k in sorted({k for c, _b in tp_decode for k in c})}
+            if n_model > 1 else None),
+        "tp_bytes_per_decode_step": (
+            sum(b for _c, b in tp_decode) / n if n_model > 1 else None),
+        "tp_calls_expected": want_tp,
         "mixed_steps": getattr(eng, "mixed_steps", None),
         "launches": launches,
         "launches_per_decode_step": {
@@ -3660,14 +3716,16 @@ def serve_sharded(cfg, params, device, counters, mixed,
 
 
 def serve_sharded_bits(cfg, params, device, counters, n_requests=N_REQUESTS,
-                       lens=(128, 1024), outs=(16, 32)):
+                       lens=(128, 1024), outs=(16, 32), mesh=None,
+                       tag="[sharded pd bits]"):
     """The graphs-vs-eager A/B of the sharded P/D serve: its requests all
     at t = 0 under `immediate` (each pass takes its queue in order, so
     the chunk boundaries do not depend on step times) with the decode
     joins placed together (`hold_handoffs_whole`: the merged rows share
     expert capacity), served with step graphs and eagerly.  Every
     request's chunks, tokens and first-token logits must be identical,
-    bit for bit.  Returns the A/B's report."""
+    bit for bit.  `mesh` as `serve_sharded`'s.  Returns the A/B's
+    report."""
     import torch
     reps, logits = {}, {}
     for graphs in (True, False):
@@ -3676,8 +3734,8 @@ def serve_sharded_bits(cfg, params, device, counters, n_requests=N_REQUESTS,
             cfg, params, device, counters, False, n_requests=n_requests,
             lens=lens, outs=outs, step_graphs=graphs,
             scheduler="immediate", burst=True,
-            tag=f"[sharded pd bits {'graphs' if graphs else 'eager'}]",
-            keep=logits[graphs])
+            tag=f"{tag[:-1]} {'graphs' if graphs else 'eager'}]",
+            keep=logits[graphs], mesh=mesh)
         if device != "cpu":
             free_device_memory()
     g, e = reps[True], reps[False]
@@ -3687,7 +3745,7 @@ def serve_sharded_bits(cfg, params, device, counters, n_requests=N_REQUESTS,
                for r in logits[True])
     same_logits = all(torch.equal(logits[True][r], logits[False][r])
                       for r in logits[True])
-    print(f"[sharded pd bits] graphs vs eager on the same chunks: chunks "
+    print(f"{tag} graphs vs eager on the same chunks: chunks "
           f"equal {same_chunks}, tokens equal {same_tokens}, first-token "
           f"logits bit-identical {same_logits} (max|d|={diff!r}); wall "
           f"graphs={g['wall_s']!r} eager={e['wall_s']!r}; decode step p50 "
@@ -3696,8 +3754,7 @@ def serve_sharded_bits(cfg, params, device, counters, n_requests=N_REQUESTS,
           f"graphs={g['ttft_p99_s']!r} eager={e['ttft_p99_s']!r}",
           flush=True)
     if not (same_chunks and same_tokens and same_logits):
-        raise AssertionError("[sharded pd bits]: the graph and eager "
-                             "serves differ")
+        raise AssertionError(f"{tag}: the graph and eager serves differ")
     keys = ("wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p99_s",
             "decode_step_p50_s", "dense_chunks", "graphs")
     return {"same_chunks": same_chunks, "same_tokens": same_tokens,
@@ -4047,7 +4104,8 @@ def serve_encdec_phase(counters, device, reduced=False):
     layers, 1500 stub frames a request) and internvl2-1b (24 layers, 256
     stub patches a request), random bf16 weights from seed 0, each
     through `serve_encdec`: 4 requests of ENCDEC_SERVES' prompts, one
-    chunk, ENCDEC_STEPS decode steps.  `reduced` rehearses it on the CPU
+    chunk, ENCDEC_STEPS decode steps; whisper also through its paged leg
+    (`paged_encdec`, report key "paged").  `reduced` rehearses it on the CPU
     at the reduced configs (fp32; prompts cut to their cache).  Returns
     {arch: report}."""
     import torch
@@ -4068,9 +4126,331 @@ def serve_encdec_phase(counters, device, reduced=False):
               flush=True)
         out[arch] = serve_encdec(cfg, params, device, counters, lens,
                                  max_len, f"[encdec serve] {cfg.name}")
+        if cfg.is_encoder_decoder:
+            out[arch]["paged"] = paged_encdec(cfg, params, device, counters,
+                                              lens, max_len, ENCDEC_STEPS)
         del params
         if device != "cpu":
             free_device_memory()
+    return out
+
+
+# the paged leg of phase 6i (whisper-large-v3): 16-token pages over the
+# dense run's 256-token rows
+ENCDEC_PAGED_BLOCK = 16
+
+
+def paged_encdec(cfg, params, device, counters, lens, max_len, steps):
+    """Phase 6i's paged leg (an encoder-decoder's paged cache): `prefill`
+    of len(lens) requests into a dense cache (the stub frames and prompts
+    of `serve_encdec`), each request's row joined into a paged cache of
+    ENCDEC_PAGED_BLOCK-token pages (`paged_cache_join`: its K/V into
+    pages, its encoder K/V beside them in its slot), then `steps` eager
+    `paged_decode_step`s beside the dense `decode_step`s, both fed the
+    dense step's greedy tokens.  Checks: the paged logits agree with the
+    dense ones within LOGITS_REL_TOL of the largest at every step; on the
+    card each paged step launches #1 once a layer (self-attention over
+    the pages) and #2 not causal once a layer (cross-attention over the
+    slot's encoder K/V) and nothing else; `paged_cache_clear_slot` of
+    every slot leaves an empty table.  Returns the leg's report."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.model import (
+        cache_take, decode_step, init_paged_cache, paged_cache_clear_slot,
+        paged_cache_join, paged_decode_step, prefill)
+    B, S = len(lens), max(lens)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    embeds = (torch.randn(B, cfg.encoder_seq_len, cfg.d_model, generator=g)
+              * 0.1).to(device=device, dtype=params["embed"].dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    lg, dense = prefill(cfg, params, tokens.to(device), embeds=embeds,
+                        lengths=lengths, max_len=max_len)
+    nbt = max_len // ENCDEC_PAGED_BLOCK
+    paged = init_paged_cache(cfg, B, 1 + B * nbt, max_len,
+                             ENCDEC_PAGED_BLOCK, dtype=params["embed"].dtype,
+                             device=device)
+    for b in range(B):
+        tab = torch.arange(1 + b * nbt, 1 + (b + 1) * nbt,
+                           dtype=torch.int32, device=device)
+        paged = paged_cache_join(cfg, paged, cache_take(dense, b), b, tab)
+    nxt = lg.argmax(-1)[:, None]
+    worst, agree, got = 0.0, 0, {w.__name__: 0 for w in counters}
+    noncausal = 0
+    times = []
+    for _ in range(steps):
+        lg_d, dense = decode_step(cfg, params, nxt, dense)
+        before = {w.__name__: w.launches for w in counters}
+        nc0 = flash_prefill.launches_noncausal
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lg_p, paged = paged_decode_step(cfg, params, nxt, paged)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        for w in counters:
+            got[w.__name__] += w.launches - before[w.__name__]
+        noncausal += flash_prefill.launches_noncausal - nc0
+        ref = lg_d.float()
+        worst = max(worst, float((lg_p.float() - ref).abs().max()
+                                 / ref.abs().max()))
+        agree += int((lg_p.argmax(-1) == lg_d.argmax(-1)).sum())
+        nxt = lg_d.argmax(-1)[:, None]
+    for b in range(B):
+        paged = paged_cache_clear_slot(paged, b)
+    cleared = bool((paged["block_tab"] == -1).all())
+    L = cfg.num_layers
+    expected = {"paged_decode_attention": L * steps,
+                "flash_prefill_noncausal": L * steps}
+    seen = {"paged_decode_attention": got.get("paged_decode_attention", 0),
+            "flash_prefill_noncausal": noncausal}
+    others = {k: n for k, n in got.items()
+              if k not in ("paged_decode_attention", "flash_prefill") and n}
+    tag = f"[encdec paged] {cfg.name}"
+    print(f"{tag} {B} requests joined into {ENCDEC_PAGED_BLOCK}-token pages "
+          f"(encoder K/V in their slots), {steps} paged decode steps beside "
+          f"the dense ones: logits max|d|/max|dense|={worst!r} (tol "
+          f"{LOGITS_REL_TOL}), argmax agrees on {agree}/{B * steps}; "
+          f"launches in the paged steps {seen!r} (the path's calls: "
+          f"{expected!r}), other kernels {others!r}; paged step p50 "
+          f"{percentile(times, 0.5) * 1e3!r} ms; table empty after the "
+          f"clears: {cleared}", flush=True)
+    if device != "cpu" and (seen != expected or others):
+        raise AssertionError(f"{tag}: launches {seen} {others}, the path "
+                             f"calls {expected}")
+    if not worst <= LOGITS_REL_TOL:
+        raise AssertionError(f"{tag}: paged logits disagree: {worst}")
+    if not cleared:
+        raise AssertionError(f"{tag}: the table is not empty after the "
+                             f"clears")
+    return {"requests": B, "prompt_lens": list(lens), "max_len": max_len,
+            "block_size": ENCDEC_PAGED_BLOCK, "steps": steps,
+            "logits_rel_err": worst, "argmax_agree": agree,
+            "tokens_equal": agree == B * steps, "table_cleared": cleared,
+            "launches": seen, "expected": expected,
+            "paged_step_p50_ms": percentile(times, 0.5) * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# phase 6k: tensor parallelism inside a DP on the sharded plane
+# ---------------------------------------------------------------------------
+
+TP_DATA, TP_MODEL = 2, 2           # the (data, model) mesh of phase 6k
+# deepseek-7b's depth in the TP step check: 8 of its 30 layers (4 KV
+# pools of 2 DP units × 4 rows × 1088 tokens a rank fit beside the
+# weights and their rank slices)
+TP_STEP_LAYERS = 8
+TP_STEP_ITERS = 10
+
+
+def tp_mesh(device):
+    """Phase 6k's mesh: two DP units of two tensor-parallel ranks each,
+    as four logical shards of one device."""
+    from repro_torch.launch.mesh import make_engine_mesh
+    return make_engine_mesh(TP_DATA, TP_MODEL,
+                            devices=[device] * (TP_DATA * TP_MODEL))
+
+
+def expected_tp_calls(cfg, M, rows):
+    """The TP collectives of one merged decode step of `cfg` over M model
+    ranks, with `rows` rows a DP: the embedding's (an all-reduce over a
+    vocabulary slice, an all-gather over a d_model slice), an all-reduce
+    after each layer's split attention and split dense FFN, an
+    all-gather of each MoE layer's rows (where they split over the
+    ranks; else rank 0's outputs are broadcast), then the logits' gather
+    (vocabulary slices) or reduce (d_model slices)."""
+    from repro_torch.config.base import LayerKind
+    from repro_torch.distributed.sharding import heads_split
+    V = cfg.vocab_size
+    calls = {}
+
+    def add(kind):
+        calls[kind] = calls.get(kind, 0) + 1
+    add("all_reduce" if V % M == 0 else "all_gather")
+    for kind in cfg.layer_kinds():
+        if heads_split(cfg, M):
+            add("all_reduce")
+        if kind == LayerKind.MOE and cfg.moe.num_experts:
+            add("all_gather" if rows % M == 0 else "broadcast")
+        elif cfg.d_ff % M == 0:
+            add("all_reduce")
+    add("gather" if V % M == 0 else "reduce")
+    return calls
+
+
+def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
+                  iters=TP_STEP_ITERS, mesh=None):
+    """Phase 6k (b): full-width deepseek-7b at TP_STEP_LAYERS of its 30
+    layers (MHA, dense FFN, vocabulary-parallel `lm_head`; bf16 from seed
+    0): N_REQUESTS prompts prefilled (`prefill`) and joined into a paged
+    cache of TP_DATA DP units (MAX_BATCH rows of MAX_LEN each; 16-token
+    pages), and the same cache merged over the (2, 2) mesh.  The TP
+    merged decode step's logits must agree with the unsharded paged
+    step's on the same rows within LOGITS_REL_TOL of the largest, and
+    its collectives must be `expected_tp_calls`; then both steps are
+    timed as step graphs (p50 over `iters` replays, each fed the
+    previous step's tokens, every device synchronised).  `cfg`/`params`
+    replace the model for a CPU rehearsal; `mesh` replaces `tp_mesh`
+    (`scripts/tp_four_cards.py`: cuda:0..3, the weights and the
+    unsharded cache on `device`, cuda:0).  Returns the check's
+    report."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import ParallelConfig, get_arch
+    from repro_torch.distributed.sharding import (
+        place_params, shard_paged_cache)
+    from repro_torch.distributed.transfer import count_collectives
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.models.model import (
+        cache_take, init_paged_cache, init_params, paged_cache_join,
+        paged_decode_step, prefill)
+    from repro_torch.serving.step_graphs import StepGraphs
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("deepseek-7b"),
+                                  num_layers=TP_STEP_LAYERS)
+        t0 = time.monotonic()
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                             device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        print(f"[init] {cfg.name} at {cfg.num_layers} layers, bf16 weights "
+              f"in {time.monotonic() - t0:.1f} s", flush=True)
+    tag = f"[tp step] {cfg.name} ({cfg.num_layers} layers)"
+    mesh = mesh or tp_mesh(device)
+    S = MAX_BATCH                      # rows a DP unit
+    nbt = MAX_LEN // BLOCK
+    Bd = S * nbt + 1                   # blocks a DP unit, block 0 null
+    reqs = make_requests(cfg, TP_DATA * S, seed=3, lens=lens)
+    dtype = params["embed"].dtype
+    glob = init_paged_cache(cfg, TP_DATA * S, TP_DATA * Bd, MAX_LEN, BLOCK,
+                            dtype=dtype, device=device)
+    first = torch.zeros((TP_DATA * S, 1), dtype=torch.int32, device=device)
+    for r in reqs:
+        d, s = divmod(r.rid, S)
+        toks = torch.tensor([list(r.tokens)], dtype=torch.int32,
+                            device=device)
+        lg, c = prefill(cfg, params, toks, max_len=MAX_LEN)
+        base = d * Bd + 1 + s * nbt
+        tab = torch.arange(base, base + nbt, dtype=torch.int32,
+                           device=device)
+        glob = paged_cache_join(cfg, glob, cache_take(c, 0), r.rid, tab)
+        first[r.rid, 0] = lg[0].argmax()
+        del c
+    merged = shard_paged_cache({k: v.clone() for k, v in glob.items()},
+                               mesh, cfg)
+    placed = place_params(cfg, params, mesh, ParallelConfig())
+    want = expected_tp_calls(cfg, TP_MODEL, S)
+    paged_decode_attention.launches = 0
+    with count_collectives() as st:
+        lg_tp, merged = paged_decode_step(cfg, placed, first, merged)
+    launches = paged_decode_attention.launches
+    lg_1, glob = paged_decode_step(cfg, params, first, glob)
+    ref = lg_1.float()
+    err = float((lg_tp.float() - ref).abs().max() / ref.abs().max())
+    agree = int((lg_tp.argmax(-1) == lg_1.argmax(-1)).sum())
+    print(f"{tag} (2, 2) TP merged decode step vs the unsharded paged step "
+          f"on the same {TP_DATA * S} rows: logits max|d|/max|ref|={err!r} "
+          f"(tol {LOGITS_REL_TOL}), argmax agrees on {agree}/"
+          f"{TP_DATA * S}; collectives {st.calls!r} (expected {want!r}), "
+          f"{st.bytes} bytes between ranks; paged_decode_attention "
+          f"launches {launches} (a shard a layer: "
+          f"{TP_DATA * TP_MODEL * cfg.num_layers})", flush=True)
+    if not err <= LOGITS_REL_TOL:
+        raise AssertionError(f"{tag}: TP logits disagree: {err}")
+    if st.calls != want:
+        raise AssertionError(f"{tag}: collectives {st.calls}, not {want}")
+    if device != "cpu" and launches != TP_DATA * TP_MODEL * cfg.num_layers:
+        raise AssertionError(f"{tag}: #1 launched {launches} times")
+    # both steps as graphs (on the CPU: the same buffers, no capture)
+    lock = __import__("threading").RLock()
+    times = {}
+
+    def sync():
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+    for name, p_, cache, devs in (
+            ("tp", placed, merged, mesh.distinct),
+            ("unsharded", params, glob, [torch.device(device)])):
+        runner = StepGraphs(p_, torch.device(device), lock, devices=devs)
+
+        def fn(c, token, p_=p_):
+            return paged_decode_step(cfg, p_, token, c)
+        tok = lg_1.argmax(-1)[:, None].to(torch.int32)
+        ts = []
+        for _ in range(iters + 1):
+            sync()
+            t0 = time.monotonic()
+            lg, cache = runner.run(("decode", name), fn, cache, token=tok)
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+            sync()
+            ts.append(time.monotonic() - t0)
+        times[name] = percentile(ts[1:], 0.5)       # the first captures
+        del runner, cache
+    print(f"{tag} decode step p50 as step graphs: TP (2, 2) merged on "
+          f"{[str(d) for d in mesh.distinct]} {times['tp'] * 1e3!r} ms, "
+          f"unsharded paged (one device, {TP_DATA * S} rows) "
+          f"{times['unsharded'] * 1e3!r} ms", flush=True)
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "mesh": [str(d) for d in mesh.devices], "rows": TP_DATA * S,
+            "logits_rel_err": err, "argmax_agree": agree,
+            "tp_calls": st.calls, "tp_calls_expected": want,
+            "tp_bytes": st.bytes, "paged_decode_attention_launches":
+                launches,
+            "tp_step_p50_s": times["tp"],
+            "unsharded_step_p50_s": times["unsharded"]}
+
+
+def serve_tp_phase(counters, device, n_layers=None, step_cfg=None,
+                   step_params=None, n_requests=N_REQUESTS,
+                   lens=(128, 1024), outs=(16, 32)):
+    """Phase 6k: tensor parallelism inside a DP on the sharded plane, on
+    the (2, 2) mesh `tp_mesh` (four logical shards of the card):
+    (a) full-width granite-moe-1b-a400m (24 layers, bf16 from seed 0;
+    16 heads over 8 KV heads split 2 ways, 32 experts over the 4 EP
+    ranks, the embedding over d_model: its vocabulary of 49155 is odd)
+    behind `RealSBSServer(mesh=...)`, P/D as phase 6g's sharded P/D serve
+    with 2 decode DP units, with step graphs, on phase 6g's 8 requests,
+    with `serve_sharded`'s checks and every merged decode step's TP
+    collectives as `expected_tp_calls` says; then its graphs-vs-eager bit
+    A/B on an `immediate` burst at SHARDED_BITS_LAYERS layers; (b) the
+    deepseek-7b step check (`tp_step_check`).  `n_layers`,
+    `step_cfg`/`step_params` and the traffic arguments cut it for a CPU
+    rehearsal.  Returns {"pd", "bits", "step"}."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    cfg = get_arch("granite-moe-1b-a400m")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, num_layers=n_layers)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    mesh = tp_mesh(device)
+    out = {}
+    out["pd"] = rep = serve_sharded(cfg, params, device, counters, False,
+                                    n_requests=n_requests, lens=lens,
+                                    outs=outs, mesh=mesh,
+                                    tag="[tp pd serve]")
+    report_sharded("[tp pd serve]", rep)
+    print(f"[tp pd serve] TP per merged decode step: collectives "
+          f"{rep['tp_calls_per_decode_step']!r} (expected "
+          f"{rep['tp_calls_expected']!r}), bytes "
+          f"{rep['tp_bytes_per_decode_step']!r}", flush=True)
+    if device != "cpu":
+        free_device_memory()
+    bits_layers = n_layers or SHARDED_BITS_LAYERS
+    out["bits"] = serve_sharded_bits(
+        dataclasses.replace(cfg, num_layers=bits_layers),
+        dict(params, layers=params["layers"][:bits_layers]), device,
+        counters, n_requests=n_requests, lens=lens, outs=outs, mesh=mesh,
+        tag="[tp pd bits]")
+    del params
+    if device != "cpu":
+        free_device_memory()
+    out["step"] = tp_step_check(device, step_cfg, step_params)
+    if device != "cpu":
+        free_device_memory()
     return out
 
 
@@ -4529,7 +4909,14 @@ def main() -> int:
         encdec = serve_encdec_phase(counters, device)
         print(f"[encdec serve] phase 6i wall_s="
               f"{time.monotonic() - t0!r}", flush=True)
-        elapsed("full-sequence serves (whisper, internvl2-1b)")
+        elapsed("full-sequence serves (whisper, internvl2-1b; whisper "
+                "paged)")
+        tp = serve_tp_phase(counters, device)
+        print(f"[tp] merged decode step p50: (2, 2) TP P/D serve "
+              f"{tp['pd']['decode_step_p50_s']!r} s beside phase 6g's "
+              f"data-only (4, 1) P/D serve "
+              f"{sharded['pd']['decode_step_p50_s']!r} s", flush=True)
+        elapsed("TP serves (granite-moe P/D, bits A/B; deepseek-7b step)")
         train = train_phase(device)
         elapsed("training path (minicpm-2b, fp32)")
         free_device_memory()
@@ -4538,7 +4925,7 @@ def main() -> int:
         elapsed("prefill pass split")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
                                moe_rep, swa, twin, sharded, hybrid, full,
-                               encdec, train)
+                               encdec, train, tp)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -4555,6 +4942,7 @@ def main() -> int:
         print(json.dumps({"serve_twin": twin}), flush=True)
         print(json.dumps({"prefill_pass_split": split}), flush=True)
         print(json.dumps({"serve_encdec": encdec}), flush=True)
+        print(json.dumps({"serve_tp": tp}), flush=True)
         print(json.dumps({"train": train}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)

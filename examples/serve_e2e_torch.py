@@ -703,6 +703,7 @@ def run_sharded_bench(cfg, params, args):
             for e in srv.decode_engines:
                 e.step_samples.clear()
                 e.ep_samples.clear()
+                e.tp_samples.clear()
             reqs = fresh()
             gens = srv.serve(reqs, timeout=args.timeout)
             if len(gens) < len(reqs):

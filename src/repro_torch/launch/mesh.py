@@ -100,14 +100,13 @@ def make_engine_mesh(data: int, model: int = 1,
                      devices: Optional[Sequence] = None) -> EngineMesh:
     """Mesh of the SHARDED real serving plane: one data-axis rank per
     decode DP unit (the merged paged cache's slots and pool blocks shard
-    over "data").  `devices=None` takes the first `data·model` CUDA
-    devices and raises RuntimeError when there are fewer (never fewer
-    shards, never the CPU); an explicit list may repeat a device.
-    Tensor parallelism inside a DP (`model > 1`) is not ported."""
-    if model != 1:
-        raise NotImplementedError(
-            f"an engine mesh with model={model}: tensor parallelism inside "
-            f"a DP unit is not ported (ROADMAP Queue 1 item 11-rest)")
+    over "data"), `model` ranks of tensor parallelism inside each DP
+    (row-major: device d·model + m is DP d's model rank m).
+    `devices=None` takes the first `data·model` CUDA devices and raises
+    RuntimeError when there are fewer (never fewer shards, never the
+    CPU); an explicit list may repeat a device."""
+    if data < 1 or model < 1:
+        raise ValueError(f"a ({data},{model}) data×model mesh")
     need = data * model
     if devices is None:
         devices = _cuda_devices(need, f"a ({data},{model}) data×model mesh")

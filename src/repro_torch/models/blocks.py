@@ -36,6 +36,13 @@ new state tensors and leave their inputs alone: an SSM step is not
 idempotent, so a step whose result is dropped (a drained one) must leave
 the state it read intact.  The cross-attention arms read the encoder's
 K/V from the cache and never write them.
+
+Under tensor parallelism a layer's weights are one rank's share
+(`repro_torch.distributed.sharding`): the attention sub-layers take
+their head counts from the weights, so a rank's heads give its partial
+output projection (`attn_split`), and `mlp_shards` joins a split dense
+FFN's partial sums (`ffn_split`) and an MoE's per-rank rows over each
+DP's ranks.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from typing import Dict
 import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
+from repro_torch.distributed.transfer import all_gather, all_reduce, broadcast
 from repro_torch.kernels.decode_attention import (
     decode_attention, paged_decode_attention,
 )
@@ -150,10 +158,11 @@ def _window(cfg: ModelConfig) -> int:
 
 def _qkv_full(p, x, cfg: ModelConfig, positions, use_rope: bool = True):
     """Projections, then RoPE unless `use_rope` is False (the whisper
-    encoder).  x (B, S, D); positions (B, S)."""
+    encoder).  x (B, S, D); positions (B, S).  The head counts are the
+    weights' own: a tensor-parallel rank's share of them."""
     B, S, D = x.shape
-    hd = cfg.resolved_head_dim
-    H, K = cfg.num_heads, cfg.num_kv_heads
+    _D, H, hd = p["w_q"].shape
+    K = p["w_k"].shape[1]
     q = (x @ p["w_q"].reshape(D, H * hd)).reshape(B, S, H, hd)
     k = (x @ p["w_k"].reshape(D, K * hd)).reshape(B, S, K, hd)
     v = (x @ p["w_v"].reshape(D, K * hd)).reshape(B, S, K, hd)
@@ -212,8 +221,8 @@ def cross_attn_full(p, x, enc_out, cfg: ModelConfig, enc_kv=None):
     and decode (Sq = 1) alike.  x (B, S, D).  Returns (out (B, S, D),
     (k, v))."""
     B, S, D = x.shape
-    hd = cfg.resolved_head_dim
-    H, K = cfg.num_heads, cfg.num_kv_heads
+    _D, H, hd = p["w_q"].shape
+    K = p["w_k"].shape[1]
     q = (x @ p["w_q"].reshape(D, H * hd)).reshape(B, S, H, hd)
     if enc_kv is None:
         Se = enc_out.shape[1]
@@ -518,7 +527,7 @@ def _mlp(p, x, cfg: ModelConfig):
     return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
-def _cross(p, x, cfg: ModelConfig, enc_kv):
+def cross_block(p, x, cfg: ModelConfig, enc_kv):
     """A decoder layer's cross-attention over the cached encoder K/V,
     with its residual; x itself in a layer without one."""
     if "xattn" not in p:
@@ -587,7 +596,7 @@ def block_decode(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
         y, entry = mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0],
                                      entry[1])
         x = x + y
-    return _mlp(p, _cross(p, x, cfg, enc_kv), cfg), entry
+    return _mlp(p, cross_block(p, x, cfg, enc_kv), cfg), entry
 
 
 def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
@@ -606,26 +615,26 @@ def block_extend(p, x, kind: LayerKind, cfg: ModelConfig, entry, kv_pos,
     else:
         y, entry = mamba_forward(h, p["mamba"], cfg.ssm, entry[0], entry[1])
         x = x + y
-    return _mlp(p, _cross(p, x, cfg, enc_kv), cfg), entry
+    return _mlp(p, cross_block(p, x, cfg, enc_kv), cfg), entry
 
 
 def mixer_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,
                        kv_pos_pool, block_tab, pos):
-    """The mixer half of `block_decode_paged`: an attention layer's
-    attention of its rows over their pages (`entry` = (k_pool, v_pool),
-    written in place and handed back), or an SSM layer's decode of its
-    rows from their per-slot state (`entry` = (ssm_state, (conv_x,
-    conv_bc)), one row a slot as in `block_decode`; the new state is
-    returned, the one read left intact).  Returns (x, the layer's
-    entry)."""
+    """The mixer of `block_decode_paged`, without its residual: an
+    attention layer's attention of its rows over their pages (`entry` =
+    (k_pool, v_pool), written in place and handed back; on a
+    tensor-parallel rank with split heads, its heads' share of the
+    output projection), or an SSM layer's decode of its rows from their
+    per-slot state (`entry` = (ssm_state, (conv_x, conv_bc)), one row a
+    slot as in `block_decode`; the new state is returned, the one read
+    left intact).  Returns (the mixer's output, the layer's entry)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
         attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
                   else attn_decode_paged)
-        return x + attend(p["attn"], h, cfg, entry[0], entry[1],
-                          kv_pos_pool, block_tab, pos), entry
-    y, entry = mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0], entry[1])
-    return x + y, entry
+        return attend(p["attn"], h, cfg, entry[0], entry[1], kv_pos_pool,
+                      block_tab, pos), entry
+    return mamba_decode_step(h, p["mamba"], cfg.ssm, entry[0], entry[1])
 
 
 def block_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,
@@ -633,23 +642,70 @@ def block_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,
     """Single-token decode block over a paged cache: attention through
     the block table (an MLA layer's pools are its latent and rope-key
     pools), or an SSM layer's per-slot state, which the reference keeps
-    beside the pages unpaged (see `mixer_decode_paged`).  Returns (the
-    new hidden states (B, 1, D), the layer's entry)."""
-    x, entry = mixer_decode_paged(p, x, kind, cfg, entry, kv_pos_pool,
+    beside the pages unpaged (see `mixer_decode_paged`); in a decoder
+    layer of an encoder-decoder model `entry` is (that entry, (enc_k,
+    enc_v)), the slot's encoder K/V beside the pages, only read by the
+    cross-attention.  Returns (the new hidden states (B, 1, D), the
+    layer's entry, without the encoder K/V)."""
+    entry, enc_kv = _split_enc(p, entry)
+    y, entry = mixer_decode_paged(p, x, kind, cfg, entry, kv_pos_pool,
                                   block_tab, pos)
-    return _mlp(p, x, cfg), entry
+    return _mlp(p, cross_block(p, x + y, cfg, enc_kv), cfg), entry
 
 
-def mlp_shards(ps, xs, cfg: ModelConfig):
+def attn_split(p, cfg: ModelConfig) -> bool:
+    """Whether layer `p` holds a tensor-parallel rank's share of the
+    attention heads (its output is a partial sum)."""
+    return "attn" in p and "w_q" in p["attn"] and \
+        p["attn"]["w_q"].shape[1] < cfg.num_heads
+
+
+def ffn_split(p, cfg: ModelConfig) -> bool:
+    """Whether layer `p` holds a tensor-parallel rank's share of a dense
+    FFN (its columns of w_gate/w_up, its rows of w_down)."""
+    return "mlp" in p and p["mlp"]["w_gate"].shape[1] < cfg.d_ff
+
+
+def mlp_shards(ps, xs, cfg: ModelConfig, groups=None):
     """The FFN half of one layer over the rows of every shard of the
-    sharded plane (`ps`, `xs`: each shard's replica of the layer's params
-    and its hidden states, on its device): an MoE FFN takes every
-    shard's tokens in one `moe_block` call (the EP all-to-all under a
-    mesh context), a dense FFN runs on each shard alone."""
+    sharded plane (`ps`, `xs`: each shard's params of the layer and its
+    hidden states, on its device; `groups`: the shards of each DP unit,
+    its tensor-parallel ranks, default one a DP).  An MoE FFN takes
+    every shard's tokens in one `moe_block` call (the EP all-to-all
+    under a mesh context); under TP each rank of a DP routes its share
+    of the DP's rows, as the reference's EP body splits the replicated
+    block, and the ranks gather the DP's outputs (where the rows do not
+    split over the ranks, rank 0's rows take the single-program path and
+    its outputs are sent to the others).  A dense FFN runs on each shard
+    alone, or under TP as each rank's partial sum, all-reduced."""
+    M = 1 if groups is None else len(groups[0])
     if "moe" not in ps[0]:
-        return [_mlp(p, x, cfg) for p, x in zip(ps, xs)]
+        if M == 1 or not ffn_split(ps[0], cfg):
+            return [_mlp(p, x, cfg) for p, x in zip(ps, xs)]
+        parts = []
+        for p, x in zip(ps, xs):
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            m = p["mlp"]
+            parts.append(swiglu(h, m["w_gate"], m["w_up"], m["w_down"]))
+        return [x + y for x, y in zip(xs, all_reduce(parts, groups))]
     hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
-    outs, _ = moe_block(hs, ps[0]["moe"], cfg.moe)
+    if M == 1:
+        outs, _ = moe_block(hs, ps[0]["moe"], cfg.moe)
+        return [x + o for x, o in zip(xs, outs)]
+    S = hs[0].shape[0]
+    if S % M == 0:
+        n = S // M
+        outs, _ = moe_block([h[(i % M) * n:(i % M + 1) * n]
+                             for i, h in enumerate(hs)], ps[0]["moe"],
+                            cfg.moe)
+        outs = all_gather(outs, groups, dim=0)
+    else:
+        lead, _ = moe_block([hs[g[0]] for g in groups], ps[0]["moe"],
+                            cfg.moe)
+        outs = list(hs)
+        for o, g in zip(lead, groups):
+            for i, t in zip(g, broadcast(o, [xs[i].device for i in g])):
+                outs[i] = t
     return [x + o for x, o in zip(xs, outs)]
 
 

@@ -20,8 +20,9 @@ decoder layer); the dense
 dense pool), which continue from `prefill`'s cache; and the paged
 family `paged_layout`, `init_paged_cache`,
 `paged_cache_join/take/clear_slot`, `paged_decode_step` (a hybrid's SSM
-layers keep their state per slot beside the pages, as the reference's
-`_paged_entry_struct`), `paged_prefill_step` (with
+layers keep their state per slot beside the pages, and an
+encoder-decoder's decoder layers their slot's encoder K/V, as the
+reference's `_paged_entry_struct`), `paged_prefill_step` (with
 `_require_pageable_prefill`), `mixed_step` (its decode half is
 `paged_decode_masked`), `paged_copy_block`, `paged_gather_blocks`,
 `paged_adopt_blocks`, `paged_clear_rows` (attention-only, as the
@@ -31,17 +32,25 @@ functions loop over them.
 
 The sharded plane's forms of the paged family (the reference gets them
 from GSPMD over a data-sharded cache) take the MERGED cache of
-`repro_torch.distributed.sharding` ({"shards": one paged cache per data
-rank, "slots": S, "blocks": B}, global slot and block ids; a DP unit's
-view adds "home": its shard) and dispatch at their top: the decode step
-runs each layer's mixer on each shard's device over its rows (attention
-over its pages, a hybrid's SSM layer from its slots' states), then the
-layer's FFN over every shard's tokens at once (an MoE's
-EP all-to-all under the spec's mesh context), so one step advances
-every DP's rows; a prefill chunk and the page surgery run on the shard
-that owns the slot or the DP.  A dense `prefill_chunk` needs no form of
-its own: it runs on the lead device, and its MoE reaches the split
-expert weights (`repro_torch.models.moe`).
+`repro_torch.distributed.sharding` ({"shards": one paged cache per
+(data, model) rank, "slots": S, "blocks": B, "model": M}, global slot
+and block ids; a DP unit's view adds "home": its data rank) and
+dispatch at their top: the decode step runs each layer's mixer on each
+shard's device over its rows (attention over its pages, a hybrid's SSM
+layer from its slots' states), then the layer's FFN over every shard's
+tokens at once (an MoE's EP all-to-all under the spec's mesh context),
+so one step advances every DP's rows; a prefill chunk and the page
+surgery run on the shards of the DP that owns the slot.  Under tensor
+parallelism (M > 1 model ranks a DP, `distributed.sharding`) each rank
+runs its share of a layer: its heads of the attention over its heads of
+the pools and its columns of a dense FFN, each a partial sum that
+`distributed.transfer.all_reduce` joins over the DP's ranks; its share
+of an MoE's rows through the EP layer, gathered after; the embedding
+and logits over its slice of the vocabulary or of d_model.  Every rank
+of a DP then holds the same hidden states, bit for bit.  A dense
+`prefill_chunk` needs no form of its own: it runs on the lead device
+with the whole weights, and its MoE reaches the split expert weights
+(`repro_torch.models.moe`).
 
 Layouts (torch):
     params  {"embed" (V, D), "ln_f" (D,), "lm_head" (D, V) unless tied,
@@ -64,7 +73,9 @@ Layouts (torch):
     cache    "block_tab" (slots, nbt) int32,
              "k"/"v" (L_attn, N, bs, K, hd),
              "ssm"/"conv_x"/"conv_bc" (L_ssm, slots, ...) as in the dense
-             cache, one row a slot               if any SSM layer}
+             cache, one row a slot               if any SSM layer,
+             "enc_k"/"enc_v" (L, slots, Se, K, hd) as in the dense
+             cache, one row a slot               if encoder-decoder}
     dense   {"cur" (B,) int32, "kv_pos" (B, S) int32,
     cache    "k"/"v" (L_attn, B, S, K, hd)       if any attention layer,
              "ssm" (L_ssm, B, nh, hp, ds) fp32,
@@ -106,15 +117,21 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
-from repro_torch.distributed.sharding import SSM_STACKS, is_merged, params_on
-from repro_torch.distributed.transfer import move
+from repro_torch.distributed.sharding import (
+    ENC_STACKS, SLOT_STACKS, SSM_STACKS, cache_model, dp_groups, head_share,
+    is_merged, kv_split, params_on, rank_params,
+)
+from repro_torch.distributed.transfer import (
+    all_gather, all_reduce, broadcast, gather_to, move, reduce_to,
+)
 from repro_torch.models.blocks import (
-    ATTN_KINDS, block_decode, block_decode_paged, block_extend,
-    block_extend_paged, block_full, init_block_params, mixer_decode_paged,
-    mlp_shards,
+    ATTN_KINDS, attn_extend_paged, attn_split, block_decode,
+    block_decode_paged, block_extend, block_extend_paged, block_full,
+    cross_block, init_block_params, mixer_decode_paged, mlp_shards,
 )
 from repro_torch.models.layers import rms_norm, sinusoid_pos_embedding
 from repro_torch.models.mamba import ssm_dims
+from repro_torch.models.moe import moe_block
 
 
 # ---------------------------------------------------------------------------
@@ -177,13 +194,14 @@ def stack_index(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
     return out
 
 
-def _kv_shapes(cfg: ModelConfig, lead: Tuple[int, ...]):
+def _kv_shapes(cfg: ModelConfig, lead: Tuple[int, ...], kv_heads=None):
     """Shapes of one attention layer stack's "k" and "v" entries after
-    the leading axes `lead`: per-head K/V, or MLA's latent and rope key."""
+    the leading axes `lead`: per-head K/V (`kv_heads` of them, default
+    all), or MLA's latent and rope key."""
     if cfg.attention == AttentionKind.MLA:
         m = cfg.mla
         return lead + (m.kv_lora_rank,), lead + (m.qk_rope_head_dim,)
-    kv = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = lead + (kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return kv, kv
 
 
@@ -325,8 +343,7 @@ def _ssm_stacks(cfg: ModelConfig, n_ssm: int, rows: int, dtype,
     }
 
 
-ENC_STACKS = ("enc_k", "enc_v")
-_ROW_STACKS = ("k", "v") + SSM_STACKS + ENC_STACKS   # (L, B, ...) entries
+_ROW_STACKS = ("k", "v") + SLOT_STACKS   # (L, B, ...) entries
 
 
 def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
@@ -388,16 +405,9 @@ def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
     """(nbt, block_size) table geometry for a paged cache equivalent to a
     dense max_len cache.  Validates the config supports paging: it needs
     an attention layer (a hybrid's SSM layers keep per-slot state beside
-    the pages) and no encoder: the reference keeps each slot's encoder
-    K/V beside the pages, which the port has not ported, since the
-    engines, the paged cache's only users, refuse encoder-decoder
-    models (`require_servable`)."""
+    the pages, an encoder-decoder's decoder layers their slot's encoder
+    K/V) and no SWA ring."""
     require_supported(cfg)
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: no paged cache for an encoder-decoder model "
-            f"(per-slot encoder K/V beside the pages is not ported); use "
-            f"the dense cache")
     if not _has_attn_cache(cfg):
         raise ValueError(f"{cfg.name}: no attention cache to page")
     if cfg.attention == AttentionKind.SWA and cfg.sliding_window:
@@ -413,15 +423,19 @@ def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
 
 def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
                      max_len: int, block_size: int, dtype=torch.float32,
-                     device="cuda") -> Dict:
+                     device="cuda", kv_heads=None) -> Dict:
     """Paged decode cache for one DP unit: `slots` batch rows sharing
     `num_blocks` physical blocks (block 0 reserved as the null block):
-    K/V pools over the attention layers, and for a hybrid's SSM layers
-    per-slot SSM states and conv tails laid out as `init_cache`'s."""
+    K/V pools over the attention layers (`kv_heads` KV heads, default
+    all: a tensor-parallel rank's pools hold its share), for a hybrid's
+    SSM layers per-slot SSM states and conv tails, and for an
+    encoder-decoder per-slot encoder K/V of every decoder layer (zero
+    until a join writes them), laid out as `init_cache`'s."""
     nbt, _ = paged_layout(cfg, max_len, block_size)
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ATTN_KINDS for k in kinds)
-    k_shape, v_shape = _kv_shapes(cfg, (n_attn, num_blocks, block_size))
+    k_shape, v_shape = _kv_shapes(cfg, (n_attn, num_blocks, block_size),
+                                  kv_heads)
     i32 = dict(dtype=torch.int32, device=device)
     cache = {
         "cur": torch.zeros(slots, **i32),
@@ -433,6 +447,11 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
     if len(kinds) > n_attn:
         cache.update(_ssm_stacks(cfg, len(kinds) - n_attn, slots, dtype,
                                  device))
+    if cfg.is_encoder_decoder:
+        shape = (len(kinds), slots, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        for name in ENC_STACKS:
+            cache[name] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
 
 
@@ -448,14 +467,19 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
     """Install the dense batch-1 cache `src` into slot `slot` of `dst`:
     its KV tokens are written (in place) into the physical blocks named
     by `tab_row` ((nbt,) int32, -1 padding routes to the null block), its
-    SSM states and conv tails (a hybrid) into the slot's rows (in place,
-    as `cache_join`: between steps), and the slot's table row and token
-    count are set."""
+    per-slot entries (a hybrid's SSM states and conv tails, an
+    encoder-decoder's encoder K/V) into the slot's rows (in place, as
+    `cache_join`: between steps), and the slot's table row and token
+    count are set.  On a merged cache every model rank of the slot's DP
+    takes its share of the KV heads."""
     if is_merged(dst):
-        k, c, s = shard_slot(dst, slot)
-        src = {n: t.to(c["cur"].device) for n, t in src.items()}
-        return with_shard(dst, k, paged_cache_join(
-            cfg, c, src, s, _local_blocks(dst, k, tab_row)))
+        d, s = _dp_slot(dst, slot)
+
+        def one(m, c):
+            dev = c["cur"].device
+            return paged_cache_join(cfg, c, _rank_share(cfg, dst, src, m, dev),
+                                    s, _local_blocks(dst, d, tab_row, dev))
+        return _on_dp(dst, d, one)
     nbt = dst["block_tab"].shape[1]
     bs = dst["kv_pos"].shape[1]
     if src["kv_pos"].shape[1] != nbt * bs:
@@ -469,7 +493,7 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
                                       + tuple(pool.shape[3:]))
         pool[:, ids] = new.to(pool.dtype)
     dst["kv_pos"][ids] = src["kv_pos"][0].reshape(nbt, bs)
-    for name in SSM_STACKS:
+    for name in SLOT_STACKS:
         if name in dst:
             dst[name][:, slot] = src[name][:, 0].to(dst[name].dtype)
     out = dict(dst)
@@ -481,11 +505,22 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
 def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
     """Extract slot `slot` of a paged cache as a dense batch-1 cache (the
     inverse of paged_cache_join: preemption and drain park it).  New
-    tensors: the pages' K/V gathered, a hybrid's per-slot states
-    cloned."""
+    tensors: the pages' K/V gathered, the per-slot entries cloned.  On a
+    merged cache the KV heads of the DP's model ranks are joined on its
+    rank 0's device where they split."""
     if is_merged(src):
-        _k, c, s = shard_slot(src, slot)
-        return paged_cache_take(cfg, c, s)
+        d, s = _dp_slot(src, slot)
+        M = cache_model(src)
+        if not (M > 1 and kv_split(cfg, M)):
+            return paged_cache_take(cfg, src["shards"][d * M], s)
+        outs = [paged_cache_take(cfg, src["shards"][d * M + m], s)
+                for m in range(M)]
+        out = outs[0]
+        dev = out["cur"].device
+        for name in ("k", "v"):
+            out[name] = torch.cat(move([o[name] for o in outs], [dev] * M),
+                                  -2)
+        return out
     tab_row = src["block_tab"][slot]
     nbt = tab_row.shape[0]
     bs = src["kv_pos"].shape[1]
@@ -498,7 +533,7 @@ def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
         g = pool[:, ids]                                   # (L, nbt, bs, ...)
         out[name] = g.reshape((pool.shape[0], 1, nbt * bs)
                               + tuple(pool.shape[3:]))
-    for name in SSM_STACKS:
+    for name in SLOT_STACKS:
         if name in src:
             out[name] = src[name][:, slot:slot + 1].clone()
     return out
@@ -506,12 +541,13 @@ def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
 
 def paged_cache_clear_slot(cache: Dict, slot) -> Dict:
     """Leave-on-finish: drop slot `slot`'s table row so its future
-    (garbage) writes route to the null block.  A hybrid's per-slot SSM
-    state is left as it is, as in the reference: the row steps on
-    garbage until the next join overwrites it."""
+    (garbage) writes route to the null block.  The per-slot entries (a
+    hybrid's SSM state, an encoder-decoder's encoder K/V) are left as
+    they are, as in the reference: the row steps on garbage until the
+    next join overwrites them."""
     if is_merged(cache):
-        k, c, s = shard_slot(cache, slot)
-        return with_shard(cache, k, paged_cache_clear_slot(c, s))
+        d, s = _dp_slot(cache, slot)
+        return _on_dp(cache, d, lambda m, c: paged_cache_clear_slot(c, s))
     out = dict(cache)
     out["block_tab"] = _with(cache, "block_tab", slot, -1)
     return out
@@ -860,16 +896,20 @@ def paged_decode_step(cfg: ModelConfig, params, token, cache):
     """One decode step over a paged cache.  token (slots, 1) int; returns
     (logits (slots, V), cache with `cur` + 1 and, for a hybrid, the new
     per-slot SSM states; every slot steps, as in `decode_step`).  The
-    pools are written in place."""
+    pools are written in place; an encoder-decoder's cross-attention
+    reads each slot's encoder K/V and never writes them."""
     if is_merged(cache):
         return _sharded_decode(cfg, params, token, cache)
     pos = cache["cur"]
     tab = cache["block_tab"]
     x = params["embed"][token.long()]                    # (slots, 1, D)
     states: List = []
-    for p, (kind, i) in zip(params["layers"], stack_index(cfg)):
-        x, entry = block_decode_paged(p, x, kind, cfg,
-                                      _layer_entry(cache, kind, i),
+    for l, (p, (kind, i)) in enumerate(zip(params["layers"],
+                                           stack_index(cfg))):
+        entry = _layer_entry(cache, kind, i)
+        if "xattn" in p:
+            entry = (entry, (cache["enc_k"][l], cache["enc_v"][l]))
+        x, entry = block_decode_paged(p, x, kind, cfg, entry,
                                       cache["kv_pos"], tab, pos)
         if kind not in ATTN_KINDS:
             states.append(entry)
@@ -903,11 +943,21 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, cache, slot):
     (1, V), cache); the pools are written in place."""
     _require_pageable_prefill(cfg)
     if is_merged(cache):
-        k, c, s = shard_slot(cache, slot)
+        M = cache_model(cache)
+        if isinstance(slot, torch.Tensor):
+            # a one-DP view of a merged cache (an engine's chunk graph)
+            if len(cache["shards"]) != M:
+                raise TypeError("the merged cache takes host slot ids")
+            d, s = 0, slot
+        else:
+            d, s = _dp_slot(cache, slot)
+        if M > 1:
+            return _tp_prefill(cfg, params, tokens, cache, d, s)
+        c = cache["shards"][d]
         dev = c["cur"].device
         logits, new = paged_prefill_step(cfg, params_on(params, dev),
                                          move([tokens], [dev])[0], c, s)
-        return move([logits], [tokens.device])[0], with_shard(cache, k, new)
+        return move([logits], [tokens.device])[0], with_shard(cache, d, new)
     Sc = tokens.shape[1]
     if isinstance(slot, torch.Tensor):
         slot = slot.reshape(1).long()
@@ -992,10 +1042,10 @@ def paged_copy_block(cfg: ModelConfig, cache: Dict, src, dst) -> Dict:
     position map, in place (the copy half of copy-on-write).  Per-slot
     SSM entries are not pages: they are left alone."""
     if is_merged(cache):
-        k = cache["home"]
-        base = k * cache["blocks"]
-        return with_shard(cache, k, paged_copy_block(
-            cfg, cache["shards"][k], src - base, dst - base))
+        d = cache["home"]
+        base = d * cache["blocks"]
+        return _on_dp(cache, d, lambda m, c: paged_copy_block(
+            cfg, c, src - base, dst - base))
     cache["kv_pos"][dst] = cache["kv_pos"][src]
     for name in ("k", "v"):
         cache[name][:, dst] = cache[name][:, src]
@@ -1025,13 +1075,15 @@ def paged_adopt_blocks(cfg: ModelConfig, dst: Dict, payload: Dict, slot,
     resident) are not touched.  Masked-out traffic routes to the null
     block."""
     if is_merged(dst):
-        k, c, s = shard_slot(dst, slot)
-        dev = c["cur"].device
-        payload = {n: t.to(dev, non_blocking=True)
-                   for n, t in payload.items()}
-        return with_shard(dst, k, paged_adopt_blocks(
-            cfg, c, payload, s, _local_blocks(dst, k, tab_row),
-            copy_mask.to(dev), clear_mask.to(dev), cur))
+        d, s = _dp_slot(dst, slot)
+
+        def one(m, c):
+            dev = c["cur"].device
+            return paged_adopt_blocks(
+                cfg, c, _rank_share(cfg, dst, payload, m, dev), s,
+                _local_blocks(dst, d, tab_row, dev), copy_mask.to(dev),
+                clear_mask.to(dev), cur)
+        return _on_dp(dst, d, one)
     phys = tab_row.clamp_min(0)
     ids_clear = torch.where(clear_mask, phys, 0).long()
     ids_copy = torch.where(copy_mask, phys, 0).long()
@@ -1051,9 +1103,9 @@ def paged_clear_rows(cache: Dict, ids) -> Dict:
     blocks must be cleared before a slot attends through them: stale
     positions from a previous tenant would alias as valid history."""
     if is_merged(cache):
-        k = cache["home"]
-        return with_shard(cache, k, paged_clear_rows(
-            cache["shards"][k], _local_blocks(cache, k, ids)))
+        d = cache["home"]
+        return _on_dp(cache, d, lambda m, c: paged_clear_rows(
+            c, _local_blocks(cache, d, ids, c["cur"].device)))
     cache["kv_pos"][ids.clamp_min(0).long()] = -1
     return dict(cache)
 
@@ -1063,9 +1115,9 @@ def paged_set_table(cache: Dict, slot: int, col: int, block: int) -> Dict:
     physical block `block` (a new `block_tab` tensor: a cache dict handed
     out earlier keeps its own)."""
     if is_merged(cache):
-        k, c, s = shard_slot(cache, slot)
-        return with_shard(cache, k, paged_set_table(
-            c, s, col, block - k * cache["blocks"]))
+        d, s = _dp_slot(cache, slot)
+        return _on_dp(cache, d, lambda m, c: paged_set_table(
+            c, s, col, block - d * cache["blocks"]))
     out = dict(cache)
     out["block_tab"] = cache["block_tab"].clone()
     out["block_tab"][slot, col] = block
@@ -1078,9 +1130,9 @@ def paged_install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
     `block_tab`/`cur` tensors: a cache dict handed out earlier keeps its
     own)."""
     if is_merged(cache):
-        k, c, s = shard_slot(cache, slot)
-        return with_shard(cache, k, paged_install_row(
-            c, s, _local_blocks(cache, k, tab), cur))
+        d, s = _dp_slot(cache, slot)
+        return _on_dp(cache, d, lambda m, c: paged_install_row(
+            c, s, _local_blocks(cache, d, tab, c["cur"].device), cur))
     out = dict(cache)
     out["block_tab"] = cache["block_tab"].clone()
     out["block_tab"][slot] = tab
@@ -1093,20 +1145,28 @@ def paged_install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
 # Sharded plane: the merged paged cache
 # ---------------------------------------------------------------------------
 
-def shard_slot(cache: Dict, slot) -> Tuple[int, Dict, int]:
-    """(shard index, shard cache, local slot) of global slot `slot` of a
-    merged cache."""
+def _dp_slot(cache: Dict, slot) -> Tuple[int, int]:
+    """(DP unit, local slot) of global slot `slot` of a merged cache."""
     if isinstance(slot, torch.Tensor):
         raise TypeError("the merged cache takes host slot ids")
-    k = slot // cache["slots"]
-    return k, cache["shards"][k], slot - k * cache["slots"]
+    d = slot // cache["slots"]
+    return d, slot - d * cache["slots"]
 
 
-def _local_blocks(cache: Dict, k: int, ids: torch.Tensor) -> torch.Tensor:
-    """Global block ids of shard k (-1 padding kept) as its local ids, on
-    its device."""
-    ids = ids.to(cache["shards"][k]["cur"].device, non_blocking=True)
-    return torch.where(ids >= 0, ids - k * cache["blocks"], ids)
+def shard_slot(cache: Dict, slot) -> Tuple[int, Dict, int]:
+    """(shard index, shard cache, local slot) of global slot `slot` of a
+    merged cache: the shard of the slot's DP unit at model rank 0."""
+    d, s = _dp_slot(cache, slot)
+    k = d * cache_model(cache)
+    return k, cache["shards"][k], s
+
+
+def _local_blocks(cache: Dict, d: int, ids: torch.Tensor, device
+                  ) -> torch.Tensor:
+    """Global block ids of DP d (-1 padding kept) as its local ids, on
+    `device`."""
+    ids = ids.to(device, non_blocking=True)
+    return torch.where(ids >= 0, ids - d * cache["blocks"], ids)
 
 
 def with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
@@ -1117,50 +1177,148 @@ def with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
     return dict(cache, shards=shards)
 
 
+def _rank_share(cfg: ModelConfig, cache: Dict, tree: Dict, m: int, device
+                ) -> Dict:
+    """`tree` (a dense batch-1 cache or a block payload, whole KV heads)
+    as model rank m of merged `cache` takes it, on `device`: its share
+    of the K/V heads where they split (`kv_split`)."""
+    M = cache_model(cache)
+    split = M > 1 and kv_split(cfg, M)
+    return {n: (head_share(t, m, M) if split and n in ("k", "v")
+                else t).to(device, non_blocking=True)
+            for n, t in tree.items()}
+
+
+def _on_dp(cache: Dict, d: int, fn) -> Dict:
+    """`cache` (a merged cache or a DP's view of it) with each shard of
+    DP d, model rank m, replaced by fn(m, shard)."""
+    M = cache_model(cache)
+    shards = list(cache["shards"])
+    for m in range(M):
+        shards[d * M + m] = fn(m, shards[d * M + m])
+    return dict(cache, shards=shards)
+
+
+def dp_view(cache: Dict, d: int) -> Dict:
+    """The shards of DP d of a merged cache as a one-DP merged cache (an
+    engine's chunk on that DP runs on it; `paged_prefill_step` takes a
+    device slot on it)."""
+    M = cache_model(cache)
+    return dict(cache, shards=list(cache["shards"][d * M:(d + 1) * M]))
+
+
+def with_dp(cache: Dict, d: int, view: Dict) -> Dict:
+    """`cache` with DP d's shards taken from `view` (`dp_view`'s form)."""
+    M = cache_model(cache)
+    shards = list(cache["shards"])
+    shards[d * M:(d + 1) * M] = view["shards"]
+    return dict(cache, shards=shards)
+
+
+def _embed_shards(cfg: ModelConfig, ps: List[Dict], toks: List,
+                  groups: List[List[int]]) -> List[torch.Tensor]:
+    """Each shard's embeddings of its tokens `toks` (on its device), with
+    `ps` each shard's params: a whole table looked up; a tensor-parallel
+    rank's slice of the vocabulary looked up where the ids fall in it
+    (0 elsewhere) and all-reduced over the DP's ranks; its slice of
+    d_model all-gathered."""
+    w = ps[0]["embed"]
+    if w.shape == (cfg.vocab_size, cfg.d_model):
+        return [p["embed"][t.long()] for p, t in zip(ps, toks)]
+    M = len(groups[0])
+    if w.shape[0] < cfg.vocab_size:
+        n = w.shape[0]
+        parts = []
+        for i, (p, t) in enumerate(zip(ps, toks)):
+            loc = t.long() - (i % M) * n
+            ok = ((loc >= 0) & (loc < n))[..., None]
+            e = p["embed"][loc.clamp(0, n - 1)]
+            parts.append(torch.where(ok, e, torch.zeros((), dtype=e.dtype,
+                                                        device=e.device)))
+        return all_reduce(parts, groups)
+    return all_gather([p["embed"][t.long()] for p, t in zip(ps, toks)],
+                      groups, dim=-1)
+
+
+def _logits_shards(cfg: ModelConfig, ps: List[Dict], hs: List,
+                   groups: List[List[int]], device) -> torch.Tensor:
+    """The logits of every DP's rows, in DP order, on `device`, from each
+    shard's final hidden states `hs` (rows, D): one DP's from its model
+    rank 0 where the head is whole, its ranks' vocabulary slices
+    gathered, or their d_model slices' partial products reduced."""
+    M = len(groups[0])
+    w = ps[0]["embed"] if cfg.tie_embeddings else ps[0]["lm_head"]
+    v_ax = 0 if cfg.tie_embeddings else 1
+    if M == 1 or w.shape[v_ax] == cfg.vocab_size and \
+            w.shape[1 - v_ax] == cfg.d_model:
+        lead = [logits_from_hidden(cfg, ps[g[0]], hs[g[0]]) for g in groups]
+        return torch.cat(move(lead, [device] * len(lead)))
+    if w.shape[v_ax] < cfg.vocab_size:
+        parts = [logits_from_hidden(cfg, p, h) for p, h in zip(ps, hs)]
+        return torch.cat(gather_to(parts, groups, -1, device))
+    n = w.shape[1 - v_ax]
+    parts = [logits_from_hidden(cfg, p, h[..., (i % M) * n:(i % M + 1) * n])
+             for i, (p, h) in enumerate(zip(ps, hs))]
+    return torch.cat(reduce_to(parts, groups, device))
+
+
 def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
                     decode_mask=None):
     """One decode step over every shard of a merged cache: per layer, each
     shard's mixer over its rows on its device (attention over its pages,
-    or a hybrid's SSM decode from its slots' states), then the FFN over
-    all shards' rows (`mlp_shards`).  `token` (n·S, 1) and the optional
-    `decode_mask` (n·S,) in global slot order, or each a list of the n
-    shards' rows on their devices (the engines' form: a step graph's
-    static inputs per shard); masked-out rows decode against a -1 table
-    and keep `cur` and their SSM states (as `paged_decode_masked`).
-    Returns (logits (n·S, V) on shard 0's device, the merged cache)."""
+    or a hybrid's SSM decode from its slots' states; under TP its heads'
+    partial output, all-reduced over the DP's model ranks), an
+    encoder-decoder's cross-attention over each slot's encoder K/V, then
+    the FFN over all shards' rows (`mlp_shards`).  `token` (n·S, 1) and
+    the optional `decode_mask` (n·S,) in global slot order, or each a
+    list of every shard's rows (its DP's) on its device (the engines'
+    form: a step graph's static inputs per shard); masked-out rows
+    decode against a -1 table and keep `cur` and their SSM states (as
+    `paged_decode_masked`).  Returns (logits (n·S, V) on shard 0's
+    device, the merged cache)."""
     S = cache["slots"]
+    M = cache_model(cache)
+    groups = dp_groups(cache)
     devs = [c["cur"].device for c in cache["shards"]]
 
     def per_shard(t):
         if t is None or isinstance(t, (list, tuple)):
             return t
-        return move([t[k * S:(k + 1) * S] for k in range(len(devs))], devs)
+        return move([t[(i // M) * S:(i // M + 1) * S]
+                     for i in range(len(devs))], devs)
     toks, masks = per_shard(token), per_shard(decode_mask)
-    ps, xs, rows = [], [], []
-    for k, c in enumerate(cache["shards"]):
-        p = params_on(params, devs[k])
+    ps, rows = [], []
+    for i, c in enumerate(cache["shards"]):
+        ps.append(rank_params(params, devs[i], i % M, M))
         tab, mask = c["block_tab"], None
         if masks is not None:
-            mask = masks[k]
+            mask = masks[i]
             tab = torch.where(mask[:, None], tab, -1)
-        ps.append(p)
-        xs.append(p["embed"][toks[k].long()])                 # (S, 1, D)
         rows.append((c, tab, mask))
+    xs = _embed_shards(cfg, ps, toks, groups)            # (S, 1, D) each
     states: List[List] = [[] for _ in devs]
     for l, (kind, i) in enumerate(stack_index(cfg)):
         lp = [p["layers"][l] for p in ps]
         outs = [mixer_decode_paged(p, x, kind, cfg, _layer_entry(c, kind, i),
                                    c["kv_pos"], tab, c["cur"])
                 for p, x, (c, tab, _m) in zip(lp, xs, rows)]
-        xs = [x for x, _e in outs]
+        ys = [y for y, _e in outs]
+        if M > 1 and attn_split(lp[0], cfg):
+            ys = all_reduce(ys, groups)
+        xs = [x + y for x, y in zip(xs, ys)]
         if kind not in ATTN_KINDS:
-            for st, (_x, e) in zip(states, outs):
+            for st, (_y, e) in zip(states, outs):
                 st.append(e)
-        xs = mlp_shards(lp, xs, cfg)
-    logits, shards = [], []
-    for p, x, (c, _tab, mask), st in zip(ps, xs, rows, states):
-        x = rms_norm(x, p["ln_f"], cfg.norm_eps)
-        logits.append(logits_from_hidden(cfg, p, x[:, 0]))
+        if "xattn" in lp[0]:
+            xs = [cross_block(p, x, cfg, (c["enc_k"][l], c["enc_v"][l]))
+                  for p, x, (c, _t, _m) in zip(lp, xs, rows)]
+        xs = mlp_shards(lp, xs, cfg, groups)
+    hs = [rms_norm(x, p["ln_f"], cfg.norm_eps)[:, 0] for p, x in zip(ps, xs)]
+    # the logits' move to shard 0 is the step's last cut on distinct
+    # cards (`distributed.transfer`)
+    logits = _logits_shards(cfg, ps, hs, groups, devs[0])
+    shards = []
+    for c, (_c, _tab, mask), st in zip(cache["shards"], rows, states):
         out = dict(c, **_stacked(st))
         if mask is None:
             out["cur"] = c["cur"] + 1
@@ -1168,7 +1326,59 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
             out = _keep_masked(out, c, mask)
             out["cur"] = torch.where(mask, c["cur"] + 1, c["cur"])
         shards.append(out)
-    # the logits' move to shard 0 is the step's last cut on distinct
-    # cards (`distributed.transfer`)
-    logits = torch.cat(move(logits, [devs[0]] * len(devs)))
+    return logits, dict(cache, shards=shards)
+
+
+def _tp_prefill(cfg: ModelConfig, params, tokens, cache: Dict, d: int,
+                slot):
+    """`paged_prefill_step` on the M > 1 model ranks of DP d of a merged
+    cache: each rank writes its heads' K/V into its pools and attends
+    with them (#2's paged entry), the partial outputs all-reduced; a
+    dense FFN's partials all-reduced; an MoE FFN run once from rank 0's
+    rows (the EP layer's tensor form) and sent to the other ranks.
+    `slot` is local to the DP: an int, or a one-element tensor (a
+    `dp_view`'s chunk graph).  Returns (last-position logits (1, V) on
+    the tokens' device, cache)."""
+    M = cache_model(cache)
+    cs = cache["shards"][d * M:(d + 1) * M]
+    devs = [c["cur"].device for c in cs]
+    group = [list(range(M))]
+    ps = [rank_params(params, dev, m, M) for m, dev in enumerate(devs)]
+    toks = move([tokens] * M, devs)
+    slots = (move([slot.reshape(1).long()] * M, devs)
+             if isinstance(slot, torch.Tensor) else [slot] * M)
+    Sc = tokens.shape[1]
+    tabs, poss, pos0s = [], [], []
+    for c, s, dev in zip(cs, slots, devs):
+        tabs.append(c["block_tab"][s] if isinstance(s, torch.Tensor)
+                    else c["block_tab"][s][None])              # (1, nbt)
+        pos0s.append(c["cur"][s])
+        poss.append((pos0s[-1] + torch.arange(
+            Sc, dtype=torch.int32, device=dev)).reshape(1, Sc))
+    xs = _embed_shards(cfg, ps, toks, group)                    # (1, Sc, D)
+    for l in range(cfg.num_layers):
+        lp = [p["layers"][l] for p in ps]
+        ys = [attn_extend_paged(p["attn"], rms_norm(x, p["ln1"],
+                                                    cfg.norm_eps),
+                                cfg, c["k"][l], c["v"][l], c["kv_pos"],
+                                tab, pos)
+              for p, x, c, tab, pos in zip(lp, xs, cs, tabs, poss)]
+        if attn_split(lp[0], cfg):
+            ys = all_reduce(ys, group)
+        xs = [x + y for x, y in zip(xs, ys)]
+        if "moe" in lp[0]:
+            h = rms_norm(xs[0], lp[0]["ln2"], cfg.norm_eps)
+            o, _ = moe_block(h, lp[0]["moe"], cfg.moe)
+            xs = [x + t for x, t in zip(xs, broadcast(o, devs))]
+        else:
+            xs = mlp_shards(lp, xs, cfg, group)
+    hs = [rms_norm(x, p["ln_f"], cfg.norm_eps)[:, -1] for p, x in zip(ps, xs)]
+    logits = _logits_shards(cfg, ps, hs, group, tokens.device)
+    new = []
+    for c, s, pos0 in zip(cs, slots, pos0s):
+        out = dict(c)
+        out["cur"] = _with(c, "cur", s, pos0 + Sc)
+        new.append(out)
+    shards = list(cache["shards"])
+    shards[d * M:(d + 1) * M] = new
     return logits, dict(cache, shards=shards)

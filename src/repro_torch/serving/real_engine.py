@@ -73,7 +73,13 @@ expert axes, the rest replicated), its paged steps run under the mesh
 context (`distributed.annotate.activate(..., ep_shard_map=True)`), so
 MoE layers take the explicit all-to-all of `models.moe_ep`, and a
 decode instance merges its DP units' rows into ONE cache held as one
-shard per data rank (`merged_paged_cache`; `_ShardedGroup`).  Each step
+shard per (data, model) rank (`merged_paged_cache`; `_ShardedGroup`).
+A mesh with a "model" axis of M > 1 ranks runs tensor parallelism
+inside each DP: each rank holds its share of the heads, dense FFN
+columns and vocabulary (`ShardedParams.ranks`) and of the pools' KV
+heads, and the partial outputs meet in all-reduces over the DP's ranks
+(`distributed.transfer`), counted per step in `tp_samples`; the page
+surgery acts on every rank of the DP.  Each step
 is then one cross-DP step over every DP's rows, with the EP exchange in
 each MoE layer (a hybrid's SSM_MOE layers too; its SSM layers decode
 each shard's rows from their per-slot state): the paper's DP sync
@@ -90,7 +96,8 @@ its `step_samples`.  With step graphs (the default) every sharded step
 replays CUDA graphs as the reference runs its mesh programs: the
 merged decode step (key ("decode", "merged"), captured when the engine
 is built), each page-native chunk on its shard's cache (("prefill",
-shard, chunk length)) and a sharded P/D prefill engine's dense chunk;
+shard, chunk length); under TP on the DP's ranks, `dp_view`) and a
+sharded P/D prefill engine's dense chunk;
 on shards that share a card each step is one graph, on separate cards
 one graph a card between the moves that cross cards
 (`repro_torch.serving.step_graphs`).
@@ -160,9 +167,10 @@ from repro_torch.config.base import (
 from repro_torch.core.types import DispatchCommand, Request, RequestPhase
 from repro_torch.distributed import annotate
 from repro_torch.distributed.sharding import (
-    axis_size, data_axes_of, expert_axes_of, is_merged, params_on,
-    place_params, shard_paged_cache,
+    axis_size, data_axes_of, expert_axes_of, is_merged, kv_split,
+    model_size, params_on, place_params, shard_paged_cache,
 )
+from repro_torch.distributed.transfer import count_collectives
 from repro_torch.models.model import (
     _require_pageable_prefill, cache_clear_row, cache_join, cache_row,
     cache_take, decode_step, init_cache, init_paged_cache, mixed_step,
@@ -171,7 +179,7 @@ from repro_torch.models.model import (
     paged_clear_rows, paged_copy_block, paged_decode_masked,
     paged_decode_step, paged_gather_blocks, paged_install_row,
     paged_layout, paged_prefill_step, paged_set_table, prefill_chunk,
-    require_servable, shard_slot, with_shard,
+    dp_view, require_servable, shard_slot, with_dp, with_shard,
 )
 from repro_torch.models.moe_ep import count_exchanges
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
@@ -209,10 +217,10 @@ class EngineSpec:
     prefill engines (`dense_graphs`).  False runs every step eagerly
     (the A/B and the tests).
 
-    A `mesh` (an `EngineMesh` of "data" ranks, one per decode DP unit)
-    makes the spec SHARDED (`_init_sharded`): paged only, its device
-    the mesh's lead, its step graphs captured across the mesh's
-    devices.
+    A `mesh` (an `EngineMesh` of "data" ranks, one per decode DP unit,
+    each with "model" ranks of tensor parallelism) makes the spec
+    SHARDED (`_init_sharded`): paged only, its device the mesh's lead,
+    its step graphs captured across the mesh's devices.
     `parallel` (a `ParallelConfig`) names the expert axes; the default
     is EP over the whole mesh when the expert count divides it."""
     cfg: ModelConfig
@@ -261,16 +269,16 @@ class EngineSpec:
         """Place the params on the mesh and record the axis map the
         steps' mesh context carries: tokens over the data axes, experts
         over the expert axes (EP over the whole mesh when E divides it,
-        as the reference's `launch/dryrun` default)."""
+        as the reference's `launch/dryrun` default), and on a mesh with
+        model ranks the model axis (tensor parallelism inside each DP;
+        MLA and SSM layers refused by `place_params`)."""
         if not self.block_size:
             raise ValueError(
                 "sharded engines are paged-only (set block_size > 0)")
         mesh = self.mesh
-        if mesh.size != mesh.shape.get("data", 0):
-            raise NotImplementedError(
-                f"a sharded spec on {mesh}: only data-axis meshes are "
-                f"ported (tensor parallelism is ROADMAP Queue 1 item "
-                f"11-rest)")
+        if mesh.size != mesh.shape.get("data", 0) * model_size(mesh):
+            raise ValueError(f"a sharded spec on {mesh}: the mesh has "
+                             f"axes other than data and model")
         if self.parallel is None:
             par = ParallelConfig()
             mc = self.cfg.moe
@@ -285,6 +293,8 @@ class EngineSpec:
         self.n_dp = mesh.shape["data"]
         self.axis_map = {"tokens": data_axes_of(mesh, par),
                          "experts": expert_axes_of(mesh, par)}
+        if model_size(mesh) > 1:
+            self.axis_map["model"] = par.model_axis
         self.params = place_params(self.cfg, self.params, mesh, par)
 
     @property
@@ -306,22 +316,28 @@ class EngineSpec:
 
     def merged_paged_cache(self) -> Dict:
         """ONE instance-wide decode cache holding every DP unit's rows
-        (sharded plane), as one shard per data rank on its device: slot s
+        (sharded plane), as one shard per (data, model) rank on its
+        device, each with its share of the KV heads under TP: slot s
         belongs to DP s // paged_slots, physical block b to DP
         b // paged_pool_blocks, matching the per-DP `BlockPool(base=...)`
         allocators."""
+        M = model_size(self.mesh)
+        heads = (self.cfg.num_kv_heads // M if kv_split(self.cfg, M)
+                 else None)
         return {"shards": [init_paged_cache(
                     self.cfg, self.paged_slots, self.paged_pool_blocks,
                     self.max_len, self.block_size, dtype=self.dtype,
-                    device=dev) for dev in self.mesh.devices],
-                "slots": self.paged_slots, "blocks": self.paged_pool_blocks}
+                    device=dev, kv_heads=heads)
+                    for dev in self.mesh.devices],
+                "slots": self.paged_slots, "blocks": self.paged_pool_blocks,
+                "model": M}
 
     def shard_cache(self, cache: Dict) -> Dict:
         """A paged cache of n_dp·paged_slots rows over n_dp·pool blocks in
         global ids as the merged form (no-op for unsharded specs)."""
         if self.mesh is None:
             return cache
-        return shard_paged_cache(cache, self.mesh)
+        return shard_paged_cache(cache, self.mesh, self.cfg)
 
     def step_graphs_for(self) -> Optional[StepGraphs]:
         """A new engine's compiled steps (None on the eager path)."""
@@ -389,10 +405,24 @@ class EngineSpec:
         unified engine's DP; a prefill engine has one cache): the graph
         of its length, or the eager step.  On a merged cache the chunk
         runs on the shard that holds `slot` (key ("prefill", shard,
-        length)) and its logits come back to the spec's device; a length
+        length); under TP on its DP's model ranks, a `dp_view`, key
+        ("prefill", DP, length)) and its logits come back to the spec's
+        device; a length
         that does not divide over the mesh's devices takes the
         single-program MoE (`models.moe._ep_route`, the reference's
         rule), so no chunk is padded."""
+        if is_merged(cache) and model_size(self.mesh) > 1:
+            # tensor parallelism: the chunk runs on the DP's model ranks
+            d = slot // self.paged_slots
+            view = dp_view(cache, d)
+            local = slot - d * self.paged_slots
+            if graphs is None:
+                logits, new = self.prefill_fn(view, tokens, local)
+            else:
+                logits, new = graphs.run(("prefill", d, tokens.shape[1]),
+                                         self.prefill_fn, view,
+                                         tokens=tokens, slot=local)
+            return logits, with_dp(cache, d, new)
         if is_merged(cache):
             k, shard, local = shard_slot(cache, slot)
             dev = shard["cur"].device
@@ -1225,8 +1255,11 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self.step_samples: List[Tuple[float, int, int]] = []
         # sharded: (EP exchanges, bytes between EP ranks, their device
         # seconds on the card, else None) of each step, beside its
-        # step_samples entry
+        # step_samples entry; and the TP collectives of each step ({kind:
+        # calls}, bytes between model ranks)
         self.ep_samples: List[Tuple[int, int, Optional[float]]] = []
+        self.tp_samples: List[Tuple[Dict[str, int], int]] = []
+        self._tp_stats = None
         self._step_active = 0
         self._step_rows = 0
         self.graphs = spec.step_graphs_for()
@@ -1464,12 +1497,13 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         return torch.tensor(rows, dtype=torch.int32, device=self.spec.device)
 
     def _per_shard(self, rows: List, dtype) -> List[torch.Tensor]:
-        """Values of the merged slot axis as one tensor a shard (its
+        """Values of the merged slot axis as one tensor a shard (its DP's
         paged_slots rows) on the shard's device."""
         S = self.spec.paged_slots
-        return [torch.tensor(rows[k * S:(k + 1) * S], dtype=dtype,
+        M = model_size(self.spec.mesh)
+        return [torch.tensor(rows[i // M * S:(i // M + 1) * S], dtype=dtype,
                              device=dev)
-                for k, dev in enumerate(self.spec.mesh.devices)]
+                for i, dev in enumerate(self.spec.mesh.devices)]
 
     def start_step(self, dp_states, now: Optional[float] = None
                    ) -> StartResult:
@@ -1536,14 +1570,20 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
         self._sample(time.monotonic() - t0, ep)
         post("step_end", (self, epoch, self.step_samples[-1][0]))
 
+    @contextlib.contextmanager
     def _counted(self):
-        """Counts the EP exchanges of a sharded step, and on the card
-        times those of an eager step (a replayed graph records no event;
-        a no-op context off the sharded plane)."""
+        """Counts the EP exchanges and the TP collectives of a sharded
+        step, and on the card times the exchanges of an eager step (a
+        replayed graph records no event); yields the exchange counts
+        (None off the sharded plane)."""
         if self._group is None:
-            return contextlib.nullcontext()
-        return count_exchanges(timed=self.spec.device.type == "cuda"
-                               and self.graphs is None)
+            yield None
+            return
+        with count_exchanges(timed=self.spec.device.type == "cuda"
+                             and self.graphs is None) as ep, \
+                count_collectives() as tp:
+            self._tp_stats = tp
+            yield ep
 
     def _sample(self, dur: float, ep) -> None:
         self.step_samples.append((dur, self._step_active, self._step_rows))
@@ -1551,6 +1591,8 @@ class RealDecodeEngine(SimDecodeInstance, _WorkerOwner):
             self.ep_samples.append((ep.exchanges, ep.bytes,
                                     ep.seconds() if self._error is None
                                     else None))
+            tp = self._tp_stats
+            self.tp_samples.append((dict(tp.calls), tp.bytes))
 
     def finish_step(self, now: float, dp_states) -> List[Request]:
         self._raise_worker_error()

@@ -64,7 +64,9 @@ none, so each graph records the calls made while it was captured, adds
 them at every replay, and takes back those of the warm-up and the
 capture.  The EP exchanges and bytes a capture made are added to the
 caller's `count_exchanges` block at every replay in the same way
-(`models.moe_ep.add_exchanges`).
+(`models.moe_ep.add_exchanges`), and so are the tensor-parallel
+collectives to its `count_collectives` block
+(`distributed.transfer.add_collectives`).
 
 Capture runs in `thread_local` error mode (across cards `relaxed`,
 see `_Cuts`) on a side stream a device, under the
@@ -91,7 +93,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.distributed.sharding import param_leaves
-from repro_torch.distributed.transfer import cutting
+from repro_torch.distributed.transfer import (
+    add_collectives, count_collectives, cutting,
+)
 
 # cache entries a step replaces (copied into static buffers) and entries
 # it writes in place (the same storage at every replay)
@@ -241,6 +245,7 @@ class _Entry:
         self.out: Optional[Tuple] = None
         self.launches: List[int] = []
         self.exchanges: Tuple[int, int] = (0, 0)
+        self.collectives: Tuple[Dict[str, int], int] = ({}, 0)
 
     def load(self, cache: Dict, args: Dict, tag) -> None:
         """Check the caller's inputs against the capture and copy them
@@ -444,6 +449,7 @@ class StepGraphs:
                 self.replays += 1
                 add_counts(self._wrappers, entry.launches)
                 add_exchanges(*entry.exchanges)
+                add_collectives(*entry.collectives)
                 logits, out = entry.out
             return entry.unload(cache, logits, out)
 
@@ -479,11 +485,12 @@ class StepGraphs:
         # place are written again, with the same values, by that
         # replay; its exchanges and those of the capture are counted
         # apart from the caller's (a replay adds the capture's)
-        with self._on_streams(), count_exchanges():
+        with self._on_streams(), count_exchanges(), count_collectives():
             fn(entry.cache, **entry.args)
         warm = _counts(self._wrappers)
         cuts = _Cuts(self.devices, self._pools, self._marks)
-        with self._on_streams(), count_exchanges() as ex:
+        with self._on_streams(), count_exchanges() as ex, \
+                count_collectives() as tp:
             cuts.begin()
             try:
                 with cutting(cuts.cut):
@@ -497,6 +504,7 @@ class StepGraphs:
         entry.launches = settle_counts(self._wrappers, before, warm,
                                        _counts(self._wrappers))
         entry.exchanges = (ex.exchanges, ex.bytes)
+        entry.collectives = (dict(tp.calls), tp.bytes)
         entry.segments = cuts.segments
         entry.out = out
         self.captured += 1

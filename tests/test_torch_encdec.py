@@ -297,8 +297,8 @@ def test_cache_join_take_row_carry_encoder_kv():
 @pytest.mark.parametrize("arch", list_archs())
 def test_model_level_functions_take_every_arch(arch):
     """`require_supported` refuses no registered architecture: the port's
-    init, dense cache and bridge take each; the paged cache still refuses
-    an encoder-decoder model."""
+    init, dense cache and bridge take each; the paged cache takes an
+    encoder-decoder model, with per-slot encoder K/V beside the pages."""
     cfg = t_get_arch(arch, reduced=True)
     TM.require_supported(cfg)
     params = TM.init_params(cfg, seed=0, device="cpu")
@@ -306,8 +306,12 @@ def test_model_level_functions_take_every_arch(arch):
     assert ("enc_k" in cache) == cfg.is_encoder_decoder
     assert ("encoder" in params) == cfg.is_encoder_decoder
     if cfg.is_encoder_decoder:
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
-            TM.paged_layout(cfg, 32, 8)
+        assert TM.paged_layout(cfg, 32, 8) == (4, 8)
+        paged = TM.init_paged_cache(cfg, 3, 5, 32, 8, device="cpu")
+        assert paged["enc_k"].shape == (cfg.num_layers, 3,
+                                        cfg.encoder_seq_len,
+                                        cfg.num_kv_heads,
+                                        cfg.resolved_head_dim)
 
 
 @pytest.mark.parametrize("arch", ENCDEC)

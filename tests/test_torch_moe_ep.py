@@ -266,7 +266,8 @@ def test_engine_mesh_layout_and_errors(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
         make_engine_mesh(4)
-    with pytest.raises(NotImplementedError, match="11-rest"):
-        make_engine_mesh(2, 2, devices=["cpu"] * 4)
+    tp = make_engine_mesh(2, 2, devices=["cpu"] * 4)
+    assert tp.shape == {"data": 2, "model": 2}
+    assert tp.coords(3) == {"data": 1, "model": 1}
     with pytest.raises(ValueError):
         make_engine_mesh(4, devices=["cpu"] * 3)

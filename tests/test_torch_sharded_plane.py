@@ -324,12 +324,16 @@ def test_page_surgery_on_a_dp_view_equals_unsharded():
 
 def test_sharded_deployments_refuse():
     _cfg, _jp, tcfg, tp = _pair("granite-moe-1b-a400m")
-    # a mesh spec builds with step graphs (its default); tensor
-    # parallelism inside a DP is still refused
+    # a mesh spec builds with step graphs (its default); a mesh with
+    # tensor parallelism inside each DP builds a spec of its data size
     assert EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2, block_size=8,
                       mesh=_mesh()).step_graphs
-    with pytest.raises(NotImplementedError):
-        make_engine_mesh(4, model=2, devices=["cpu"] * 8)
+    tp_mesh = make_engine_mesh(4, model=2, devices=["cpu"] * 8)
+    assert tp_mesh.shape == {"data": 4, "model": 2}
+    tp_spec = EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2,
+                         block_size=8, mesh=tp_mesh, step_graphs=False)
+    assert tp_spec.n_dp == 4 and tp_spec.axis_map["model"] == "model"
+    assert tp_spec.merged_paged_cache()["model"] == 2
     with pytest.raises(ValueError, match="paged-only"):
         EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2, block_size=0,
                    mesh=_mesh(), step_graphs=False)

@@ -1,0 +1,604 @@
+"""PyTorch port: tensor parallelism (TP) inside a DP unit on the sharded
+serving plane (`make_engine_mesh(2, 2)`: two DP units of two model ranks
+each), on logical CPU shards, in fp32:
+
+  * placement: every leaf of reduced granite-moe-1b-a400m (GQA, MoE,
+    tied embeddings) and reduced deepseek-7b (MHA, dense FFN, untied
+    `lm_head`) splits where the reference's `param_pspecs` puts "model",
+    and the merged paged cache where its `paged_cache_pspecs` puts it
+    (KV heads on "model", slots and blocks on "data"), both read from
+    one JAX subprocess on a forced-host (2, 2) mesh;
+  * the TP merged decode step (plain and masked) and the TP prefill
+    chunk equal the unsharded steps (logits and written K/V within 1e-5
+    of their largest), every model rank of a DP holds the same hidden
+    states bit for bit after each layer, and the collectives a step
+    makes are the ones its layers call for; a heads-not-dividing
+    variant runs its attention replicated;
+  * the page surgery through a DP's view of a TP merged cache equals
+    the same surgery on the unsharded cache;
+  * the step runner over the TP merged step equals the direct step bit
+    for bit and counts the collectives of each replay;
+  * `RealSBSServer(mesh=make_engine_mesh(2, 2, devices=["cpu"] * 4))`
+    token-exact against the JAX single-device server: reduced granite
+    P/D and unified, reduced deepseek-7b P/D with `prefix_cache=True`,
+    and the heads-not-dividing variant P/D;
+  * MLA and SSM layers under model > 1 raise NotImplementedError naming
+    the ROADMAP item;
+  * chip_smoke.py's phase 6k (TP serve and the deepseek-7b TP step
+    check) rehearsed at the reduced size.
+
+JAX weights are bridged over (`params_from_numpy`).
+"""
+import dataclasses
+import json
+import os
+import random
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_arch
+from repro.config.base import ServingConfig as JServingConfig
+from repro.models import model as JM
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.config.base import ParallelConfig, ServingConfig
+from repro_torch.config.base import get_arch as t_get_arch
+from repro_torch.core.types import Request
+from repro_torch.distributed import transfer as TT
+from repro_torch.distributed.sharding import (
+    kv_split, place_params, shard_paged_cache, tp_axis, unshard_paged_cache,
+)
+from repro_torch.launch.mesh import make_engine_mesh
+from repro_torch.models import model as TM
+from repro_torch.serving.kv_pool import pad_block_table
+from repro_torch.serving.real_engine import EngineSpec
+from repro_torch.serving.server import RealSBSServer
+from repro_torch.serving.step_graphs import StepGraphs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAX_LEN = 64
+BLOCK = 8
+N_DP, M = 2, 2
+TOL = 1e-5
+ARCHS = ["granite-moe-1b-a400m", "deepseek-7b", "deepseek-7b-heads3"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+_PAIRS = {}
+
+
+def _pair(arch):
+    """(JAX cfg, JAX params, port cfg, port params).  "deepseek-7b-heads3"
+    is reduced deepseek-7b with 3 heads of 64: its heads do not divide
+    the 2 model ranks, so its attention runs replicated."""
+    if arch not in _PAIRS:
+        base = arch.replace("-heads3", "")
+        cfg = get_arch(base, reduced=True)
+        tcfg = t_get_arch(base, reduced=True)
+        if arch.endswith("-heads3"):
+            kw = dict(num_heads=3, num_kv_heads=3, head_dim=64)
+            cfg = dataclasses.replace(cfg, **kw)
+            tcfg = dataclasses.replace(tcfg, **kw)
+        jp = jax.jit(JM.init_params, static_argnums=0)(
+            cfg, jax.random.PRNGKey(0))
+        tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
+                               device="cpu")
+        _PAIRS[arch] = (cfg, jp, tcfg, tp)
+    return _PAIRS[arch]
+
+
+def _mesh():
+    return make_engine_mesh(N_DP, M, devices=["cpu"] * (N_DP * M))
+
+
+def _par(tcfg):
+    E = tcfg.moe.num_experts if tcfg.moe is not None else 0
+    if E and E % (N_DP * M) == 0:
+        return ParallelConfig(expert_axes=("data", "model"))
+    return ParallelConfig()
+
+
+# ---------------------------------------------------------------------------
+# placement against the reference's pspecs
+# ---------------------------------------------------------------------------
+
+_JAX = r"""
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+from repro.config import get_arch
+from repro.config.base import ParallelConfig
+from repro.distributed.sharding import param_pspecs, paged_cache_pspecs
+from repro.launch.mesh import make_test_mesh
+from repro.models import model as JM
+
+mesh = make_test_mesh(2, 2)
+out = {}
+
+def spec_list(spec, ndim):
+    axes = list(spec) + [None] * (ndim - len(spec))
+    return [a if a is None or isinstance(a, str) else list(a) for a in axes]
+
+def keys(path):
+    return [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
+
+for arch in ("granite-moe-1b-a400m", "deepseek-7b"):
+    cfg = get_arch(arch, reduced=True)
+    E = cfg.moe.num_experts if cfg.moe is not None else 0
+    par = (ParallelConfig(expert_axes=("data", "model")) if E and E % 4 == 0
+           else ParallelConfig())
+    params = jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0)))
+    specs = param_pspecs(cfg, mesh, par, params)
+    pl = {}
+    for (path, spec), (_p, leaf) in zip(
+            jax.tree_util.tree_flatten_with_path(specs,
+                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0],
+            jax.tree_util.tree_flatten_with_path(params)[0]):
+        pl["/".join(keys(path))] = spec_list(spec, len(leaf.shape))
+    cache = jax.eval_shape(lambda: JM.init_paged_cache(cfg, 4, 8, 64, 8))
+    cspecs = paged_cache_pspecs(cfg, mesh, par, cache)
+    cl = {}
+    for (path, spec), (_p, leaf) in zip(
+            jax.tree_util.tree_flatten_with_path(cspecs,
+                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0],
+            jax.tree_util.tree_flatten_with_path(cache)[0]):
+        cl["/".join(keys(path))] = spec_list(spec, len(leaf.shape))
+    out[arch] = {"params": pl, "cache": cl}
+json.dump(out, open(sys.argv[1], "w"))
+print("JAX-PSPECS-OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_pspecs(tmp_path_factory):
+    dst = str(tmp_path_factory.mktemp("tp") / "pspecs.json")
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
+           "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", _JAX, dst],
+                         capture_output=True, text=True, timeout=600,
+                         env=env, cwd=REPO)
+    assert res.returncode == 0 and "JAX-PSPECS-OK" in res.stdout, \
+        res.stderr[-3000:]
+    with open(dst) as f:
+        return json.load(f)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+
+
+@pytest.mark.parametrize("arch", ARCHS[:2])
+def test_placement_matches_reference_pspecs(jax_pspecs, arch):
+    _cfg, _jp, tcfg, tp = _pair(arch)
+    ref = jax_pspecs[arch]["params"]
+    placed = place_params(tcfg, tp, _mesh(), _par(tcfg))
+    checked = 0
+    for path, t in _leaves(tp):
+        if path[0] == "layers":
+            # the reference stacks the layers of each pattern slot: its
+            # spec has a leading layer axis that is never split
+            key = "/".join(("blocks", "p0") + path[2:])
+            want = ref[key][1:]
+        else:
+            key = "/".join(path)
+            want = ref[key]
+        if path[-1] in ("w_gate", "w_up", "w_down") and t.dim() == 3:
+            # experts: split over the expert axes, nothing on "model"
+            assert want[0] == ["data", "model"], key
+            shards = placed["layers"][int(path[1])]["moe"][path[-1]]
+            assert shards.G == 4 and shards.E_per == t.shape[0] // 4
+            checked += 1
+            continue
+        model_dims = [i for i, a in enumerate(want) if a == "model"]
+        ax = tp_axis(tcfg, path, t.shape, M)
+        assert model_dims == ([] if ax is None else [ax]), (key, want, ax)
+        # and the ranks hold exactly that piece
+        for m in range(M):
+            node = placed.ranks[(torch.device("cpu"), m)]
+            for k in path:
+                node = node[int(k)] if isinstance(node, list) else node[k]
+            if "moe" in path:
+                continue
+            piece = t if ax is None else t.chunk(M, ax)[m]
+            assert torch.equal(node, piece), (key, m)
+        checked += 1
+    assert checked == len(list(_leaves(tp)))
+    # the merged paged cache: slots and blocks on "data", KV heads on
+    # "model" where the reference puts them there
+    cref = jax_pspecs[arch]["cache"]
+    pool = cref["blocks/p0/0"]
+    assert pool[1] == "data" and cref["cur"] == ["data"]
+    assert (pool[3] == "model") == kv_split(tcfg, M)
+    glob = TM.init_paged_cache(tcfg, 4, 8, MAX_LEN, BLOCK, device="cpu")
+    merged = shard_paged_cache(glob, _mesh(), tcfg)
+    K = tcfg.num_kv_heads
+    for c in merged["shards"]:
+        assert c["k"].shape[-2] == K // M and c["cur"].shape[0] == 2
+        assert c["kv_pos"].shape[0] == 4
+
+
+# ---------------------------------------------------------------------------
+# model-level steps
+# ---------------------------------------------------------------------------
+
+def _global_cache(tcfg, n_slots, n_blocks, seed):
+    """A merged-geometry paged cache in global ids with random K/V, every
+    DP's rows holding a random prefix through its own blocks."""
+    g = torch.Generator().manual_seed(seed)
+    c = TM.init_paged_cache(tcfg, n_slots, n_blocks, MAX_LEN, BLOCK,
+                            device="cpu")
+    c["k"].normal_(generator=g)
+    c["v"].normal_(generator=g)
+    S, B = n_slots // N_DP, n_blocks // N_DP
+    nbt = c["block_tab"].shape[1]
+    cur = torch.zeros(n_slots, dtype=torch.int32)
+    for s in range(n_slots):
+        k = s // S
+        if s % S == S - 1:
+            continue                            # an idle row
+        L = int(torch.randint(1, 3 * BLOCK, (), generator=g))
+        free = [k * B + 1 + i for i in range(B - 1)]
+        blocks = [free[(s % S) * 3 + j] for j in range(-(-L // BLOCK))]
+        c["block_tab"][s] = torch.tensor(pad_block_table(blocks, nbt))
+        for t in range(L):
+            c["kv_pos"][blocks[t // BLOCK], t % BLOCK] = t
+        cur[s] = L
+    c["cur"] = cur
+    return c
+
+
+def _spec(arch, **kw):
+    _cfg, _jp, tcfg, tp = _pair(arch)
+    return EngineSpec(tcfg, tp, max_len=MAX_LEN, max_batch=2,
+                      block_size=BLOCK, mesh=_mesh(), step_graphs=False,
+                      **kw)
+
+
+def _expected_calls(tcfg, tp, S):
+    """The TP collectives of one merged decode step: the embedding's
+    (vocabulary slices all-reduced, d_model slices all-gathered), one
+    all-reduce after each split attention and each split dense FFN, an
+    all-gather of each MoE layer's rows (S rows a DP split over the
+    ranks), the logits' gather (vocabulary slices)."""
+    assert tcfg.vocab_size % M == 0 and S % M == 0
+    heads = tcfg.num_heads % M == 0 and tcfg.num_kv_heads % M == 0
+    reduces = 1 + sum(heads + ("mlp" in p) for p in tp["layers"])
+    gathers = sum("moe" in p for p in tp["layers"])
+    calls = {"all_reduce": reduces, "all_gather": gathers, "gather": 1}
+    return {k: n for k, n in calls.items() if n}
+
+
+def _hidden_recorder(monkeypatch):
+    """Record the hidden states `mlp_shards` returns after every layer."""
+    seen = []
+    inner = TM.mlp_shards
+
+    def rec(ps, xs, cfg, groups=None):
+        out = inner(ps, xs, cfg, groups)
+        seen.append((groups, [x.clone() for x in out]))
+        return out
+    monkeypatch.setattr(TM, "mlp_shards", rec)
+    return seen
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_merged_step_equals_unsharded(arch, masked, monkeypatch):
+    _cfg, _jp, tcfg, tp = _pair(arch)
+    spec = _spec(arch)
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    glob = _global_cache(tcfg, N_DP * S, N_DP * B, seed=3)
+    merged = spec.shard_cache({k: v.clone() for k, v in glob.items()})
+    assert merged["model"] == M and len(merged["shards"]) == N_DP * M
+    tok = torch.randint(0, tcfg.vocab_size, (N_DP * S, 1),
+                        generator=torch.Generator().manual_seed(4))
+    mask = torch.arange(N_DP * S) % 3 != 0 if masked else None
+    seen = _hidden_recorder(monkeypatch)
+    with TT.count_collectives() as st:
+        if masked:
+            lg_s, out_s = spec.masked_decode_fn(merged, tok, mask)
+        else:
+            lg_s, out_s = spec.decode_fn(merged, tok)
+    assert st.calls == _expected_calls(tcfg, tp, S)
+    assert st.bytes > 0
+    # every model rank of a DP holds the same hidden states, bit for bit
+    assert len(seen) == tcfg.num_layers
+    for groups, xs in seen:
+        for g in groups:
+            for i in g[1:]:
+                assert torch.equal(xs[i], xs[g[0]])
+    if masked:
+        lg_1, out_1 = TM.paged_decode_masked(tcfg, tp, tok, glob, mask)
+    else:
+        lg_1, out_1 = TM.paged_decode_step(tcfg, tp, tok, glob)
+    assert lg_s.shape == lg_1.shape
+    assert float((lg_s - lg_1).abs().max()) <= TOL * float(
+        lg_1.abs().max())
+    back = unshard_paged_cache(out_s, "cpu", tcfg)
+    for name in ("cur", "block_tab"):
+        assert torch.equal(back[name], out_1[name]), name
+    live = torch.arange(N_DP * B) % B != 0
+    assert torch.equal(back["kv_pos"][live], out_1["kv_pos"][live])
+    for name in ("k", "v"):
+        d = (back[name][:, live] - out_1[name][:, live]).abs().max()
+        assert float(d) <= TOL * float(out_1[name].abs().max()), name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_prefill_chunk_equals_unsharded(arch):
+    _cfg, _jp, tcfg, tp = _pair(arch)
+    spec = _spec(arch)
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    glob = _global_cache(tcfg, N_DP * S, N_DP * B, seed=6)
+    fresh = {k: v.clone() for k, v in glob.items()}
+    merged = spec.shard_cache({k: v.clone() for k, v in glob.items()})
+    slot = S + 1                                 # DP 1
+    toks = torch.randint(0, tcfg.vocab_size, (1, 5),
+                         generator=torch.Generator().manual_seed(2))
+    with TT.count_collectives() as st:
+        lg_s, out_s = spec.paged_prefill(None, toks, merged, slot)
+    assert st.calls.get("all_reduce", 0) >= tcfg.num_layers
+    lg_1, out_1 = TM.paged_prefill_step(tcfg, tp, toks, glob, slot)
+    assert float((lg_s - lg_1).abs().max()) <= TOL * float(
+        lg_1.abs().max())
+    back = unshard_paged_cache(out_s, "cpu", tcfg)
+    assert torch.equal(back["cur"], out_1["cur"])
+    # past the slot's blocks the chunk writes into the null block: its
+    # DP's (global k·B) here, block 0 there
+    live = torch.arange(N_DP * B) % B != 0
+    assert torch.equal(back["kv_pos"][live], out_1["kv_pos"][live])
+    for name in ("k", "v"):
+        d = (back[name][:, live] - out_1[name][:, live]).abs().max()
+        assert float(d) <= TOL * float(out_1[name].abs().max()), name
+    # the graph runner over the DP's view: the same step, bit for bit
+    runner = StepGraphs(spec.params, spec.device, spec.step_lock,
+                        devices=spec.mesh.distinct)
+    merged2 = spec.shard_cache(fresh)
+    lg_g, out_g = spec.paged_prefill(runner, toks, merged2, slot)
+    assert torch.equal(lg_g, lg_s)
+    for a, b in zip(out_g["shards"], out_s["shards"]):
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+
+
+def test_tp_step_runner_equals_direct_step_and_counts_collectives():
+    spec = _spec("granite-moe-1b-a400m")
+    _cfg, _jp, tcfg, tp = _pair("granite-moe-1b-a400m")
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    glob = _global_cache(tcfg, N_DP * S, N_DP * B, seed=8)
+    cache = spec.shard_cache({k: v.clone() for k, v in glob.items()})
+    ref = spec.shard_cache({k: v.clone() for k, v in glob.items()})
+    runner = StepGraphs(spec.params, spec.device, spec.step_lock,
+                        devices=spec.mesh.distinct)
+    g = torch.Generator().manual_seed(9)
+    for _ in range(3):
+        rows = torch.randint(0, tcfg.vocab_size, (N_DP * S, 1), generator=g)
+        toks = [rows[i // M * S:(i // M + 1) * S] for i in range(N_DP * M)]
+        with TT.count_collectives() as st:
+            lg, cache = runner.run(("decode", "merged"), spec.decode_fn,
+                                   cache, token=toks)
+        lg_d, ref = spec.decode_fn(ref, toks)
+        assert torch.equal(lg, lg_d)
+        for a, b in zip(cache["shards"], ref["shards"]):
+            for name in a:
+                assert torch.equal(a[name], b[name]), name
+        assert st.calls == _expected_calls(tcfg, tp, S)
+
+
+def test_page_surgery_on_a_tp_dp_view_equals_unsharded():
+    """Joins, takes, clears, adoption, block copies, row installs and
+    table edits through DP k's view of a TP merged cache act on both of
+    its model ranks and leave the same cache as on the unsharded one."""
+    _cfg, _jp, tcfg, tp = _pair("deepseek-7b")
+    spec = _spec("deepseek-7b")
+    S, B = spec.paged_slots, spec.paged_pool_blocks
+    glob = _global_cache(tcfg, N_DP * S, N_DP * B, seed=5)
+    merged = spec.shard_cache({k: v.clone() for k, v in glob.items()})
+    k = 1
+    view = dict(merged, home=k)
+    slot, other = k * S + S - 1, k * S
+    nbt = MAX_LEN // BLOCK
+    blocks = torch.tensor(pad_block_table([k * B + B - 3, k * B + B - 2],
+                                          nbt), dtype=torch.int32)
+    src = TM.paged_cache_take(tcfg, glob, other)
+    ops = [
+        lambda c: TM.paged_cache_join(tcfg, c, src, slot, blocks),
+        lambda c: TM.paged_copy_block(tcfg, c, k * B + B - 3, k * B + B - 1),
+        lambda c: TM.paged_set_table(c, slot, 1, k * B + B - 1),
+        lambda c: TM.paged_clear_rows(c, blocks[:1]),
+        lambda c: TM.paged_install_row(c, slot, blocks, 5),
+        lambda c: TM.paged_adopt_blocks(
+            tcfg, c, TM.paged_gather_blocks(tcfg, glob, glob["block_tab"][
+                other]), slot, blocks, torch.arange(nbt) < 1,
+            torch.arange(nbt) == 1, 7),
+        lambda c: TM.paged_cache_clear_slot(c, other),
+    ]
+    live = torch.arange(N_DP * B) % B != 0
+    for i, op in enumerate(ops):
+        view, glob = op(view), op(glob)
+        back = unshard_paged_cache(view, "cpu", tcfg)
+        for name in ("cur", "block_tab"):
+            assert torch.equal(back[name], glob[name]), (i, name)
+        assert torch.equal(back["kv_pos"][live], glob["kv_pos"][live]), i
+        for name in ("k", "v"):
+            assert torch.equal(back[name][:, live], glob[name][:, live]), \
+                (i, name)
+        # the model ranks of each DP agree on everything they replicate
+        for d in range(N_DP):
+            a, b = view["shards"][d * M], view["shards"][d * M + 1]
+            for name in ("cur", "block_tab", "kv_pos"):
+                assert torch.equal(a[name], b[name]), (i, name)
+    got = TM.paged_cache_take(tcfg, view, slot)
+    want = TM.paged_cache_take(tcfg, glob, slot)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+# ---------------------------------------------------------------------------
+# servers
+# ---------------------------------------------------------------------------
+
+def _scfg(mixed=False):
+    extra = {"mixed_batch": True, "mixed_chunk": 32} if mixed else {}
+    return ServingConfig(num_prefill_instances=1, prefill_dp_per_instance=1,
+                         num_decode_instances=1,
+                         decode_dp_per_instance=N_DP, chunk_size=32,
+                         t_default=0.05, l_net=0.001, max_batch_per_dp=2,
+                         block_size=BLOCK, **extra)
+
+
+def _reqs(vocab, R=Request, prefix=0):
+    rng = random.Random(7)
+    head = [rng.randrange(vocab) for _ in range(prefix)]
+    return [R(rid=i, input_len=prefix + 16, output_len=5,
+              arrival_time=0.02 * i,
+              tokens=head + [rng.randrange(vocab) for _ in range(16)])
+            for i in range(6)]
+
+
+def _serve(srv, reqs):
+    return {g.rid: g.tokens for g in srv.serve(reqs, timeout=120)}
+
+
+SERVES = [("granite-moe-1b-a400m", False, False),
+          ("granite-moe-1b-a400m", True, False),
+          ("deepseek-7b", False, True),
+          ("deepseek-7b-heads3", False, False)]
+
+
+@pytest.mark.parametrize("arch,mixed,prefix", SERVES,
+                         ids=["granite-pd", "granite-unified",
+                              "deepseek-pd-prefix", "heads3-pd"])
+def test_tp_server_token_exact_vs_jax(arch, mixed, prefix):
+    from repro.core.types import Request as JRequest
+    from repro.serving.server import RealSBSServer as JServer
+    cfg, jp, tcfg, tp = _pair(arch)
+    scfg = _scfg(mixed)
+    n_pre = 12 if prefix else 0
+    srv = RealSBSServer(tcfg, tp, scfg, scheduler="sbs", max_len=MAX_LEN,
+                        max_new=5, prefix_cache=prefix,
+                        mesh=_mesh())
+    assert srv.spec.sharded and srv.spec.n_dp == N_DP
+    got = _serve(srv, _reqs(tcfg.vocab_size, prefix=n_pre))
+    srv_j = JServer(cfg, jp, JServingConfig(**dataclasses.asdict(scfg)),
+                    scheduler="sbs", max_len=MAX_LEN, max_new=5,
+                    prefix_cache=prefix)
+    want = _serve(srv_j, _reqs(cfg.vocab_size, JRequest, prefix=n_pre))
+    assert set(got) == set(range(6))
+    assert got == want
+    eng = srv.decode_engines[0]
+    assert len(eng.tp_samples) == len(eng.step_samples)
+    split = kv_split(tcfg, M)
+    for (_d, active, _r), (calls, _b) in zip(eng.step_samples,
+                                             eng.tp_samples):
+        if active:
+            assert calls.get("all_reduce", 0) >= (
+                1 + tcfg.num_layers * split)
+    for st in eng._dp.values():
+        st.pool.check()
+        if st.binder is not None:
+            st.binder.ensure_free(st.pool.num_blocks - 1)   # evict all
+        assert st.pool.used_count == 0 and not st.occupied()
+    if prefix:
+        stats = srv.prefix_stats()
+        assert stats["decode_blocks_shared"] > 0
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-370m",
+                                  "jamba-v0.1-52b"])
+def test_tp_refuses_mla_and_ssm_layers(arch):
+    tcfg = t_get_arch(arch, reduced=True)
+    params = TM.init_params(tcfg, seed=0, device="cpu")
+    what = "MLA" if tcfg.attention.name == "MLA" else "SSM"
+    with pytest.raises(NotImplementedError, match=f"{what}.*11-rest"):
+        place_params(tcfg, params, _mesh(), ParallelConfig())
+    if arch != "mamba2-370m":           # (no attention: never paged)
+        with pytest.raises(NotImplementedError, match=f"{what}.*11-rest"):
+            EngineSpec(tcfg, params, max_len=MAX_LEN, max_batch=2,
+                       block_size=BLOCK, mesh=_mesh(), step_graphs=False)
+    # the same models on a data-only mesh are not refused
+    place_params(tcfg, params, make_engine_mesh(4, devices=["cpu"] * 4),
+                 ParallelConfig())
+
+
+def test_collectives_sum_in_one_order_on_every_rank():
+    g = torch.Generator().manual_seed(1)
+    parts = [torch.randn(3, 5, generator=g) * 10 ** i for i in range(4)]
+    groups = [[0, 1], [2, 3]]
+    with TT.count_collectives() as st:
+        red = TT.all_reduce(parts, groups)
+        gat = TT.all_gather(parts, groups, dim=0)
+    for grp in groups:
+        want = (parts[grp[0]].float() + parts[grp[1]]).to(parts[0].dtype)
+        for i in grp:
+            assert torch.equal(red[i], want)
+            assert torch.equal(gat[i], torch.cat([parts[j] for j in grp]))
+    assert st.calls == {"all_reduce": 1, "all_gather": 1}
+    assert st.bytes == 2 * 4 * 3 * 5 * 4
+    TT.add_collectives({"gather": 2}, 8)
+    with TT.count_collectives() as st:
+        TT.add_collectives({"gather": 2}, 8)
+    assert st.calls == {"gather": 2} and st.bytes == 8
+
+
+def test_chip_smoke_tp_phase_rehearsed():
+    """Phase 6k at a reduced size on the CPU: granite-moe-1b-a400m at
+    full width and 2 of 24 layers behind the (2, 2) TP server (P/D, step
+    graphs: every merged decode step's collectives as predicted, logits
+    against the plain forward over the served expert sets) and its bit
+    A/B, then the step check on reduced deepseek-7b (TP logits against
+    the unsharded step's).  On the CPU the wrappers take their plain
+    versions, so no launch is counted."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_prefill import (
+        flash_prefill, paged_prefill_attention)
+    counters = [paged_decode_attention, paged_prefill_attention,
+                flash_prefill, decode_attention]
+    _cfg, _jp, tcfg, tp = _pair("deepseek-7b")
+    rep = chip_smoke.serve_tp_phase(counters, "cpu", n_layers=2,
+                                    step_cfg=tcfg, step_params=tp,
+                                    n_requests=4, lens=(64, 200),
+                                    outs=(3, 5))
+    pd = rep["pd"]
+    assert pd["model_ranks"] == M
+    assert pd["logits_rel_err"] <= chip_smoke.LOGITS_REL_TOL
+    assert pd["tp_calls_expected"] == {"all_gather": 3, "all_reduce": 2,
+                                       "reduce": 1}
+    assert pd["tp_calls_per_decode_step"] == {
+        k: float(v) for k, v in pd["tp_calls_expected"].items()}
+    assert pd["ep_exchanges_per_decode_step"] == 2 * 2
+    assert set(pd["launches"].values()) == {0}
+    assert rep["bits"]["same_tokens"] and rep["bits"]["same_first_logits"]
+    step = rep["step"]
+    assert step["logits_rel_err"] <= 1e-4
+    assert step["tp_calls"] == step["tp_calls_expected"] == {
+        "all_reduce": 1 + 2 * tcfg.num_layers, "gather": 1}
