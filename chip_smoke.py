@@ -294,6 +294,7 @@ computes its function.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -331,11 +332,17 @@ PD_CHUNK = 256                     # prefill chunk of the P/D serve
 # dtype of the MoE serve and of its logits check: the check holds in
 # bf16 despite the routing flips bf16 causes (counts in PERF.md)
 MOE_CHECK_DTYPE = "bfloat16"
-# depth of two earlier serves, cut (width, traffic and checks as before)
-# so that the sharded phase fits the smoke's time limit (PERF.md §6):
-# h2o-danube-3-4b has 24 layers, minicpm3-4b 62
+# depth of earlier serves, cut (width, traffic and checks as before) so
+# that the later phases (phase 6k's MLA and SSM legs, phase 6l) fit the
+# smoke's time limit beside phase 7's prefill-pass split (160-250 s):
+# h2o-danube-3-4b has 24 layers, minicpm3-4b 62, granite-moe-1b-a400m 24
+# (phase 6d's unified MoE serve), deepseek-7b 30 (phases 6, 6b, 6c: the
+# mixed, P/D and shared-prefix serves), mamba2-370m 48 (phase 6a)
 SWA_LAYERS = 8
 MLA_LAYERS = 16
+MOE_LAYERS = 12
+SERVE_LAYERS = 15
+SSM_LAYERS = 24
 # depth of the sharded P/D serve's graphs-vs-eager bit A/B (both legs;
 # granite-moe-1b-a400m has 24 layers): its eager leg is host-bound, and
 # the measured sharded serves stay at full depth
@@ -3068,7 +3075,7 @@ def serve_twin(counters, device, reduced=False, elapsed=None):
 
 def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
                  moe_serve, swa, twin, sharded, hybrid, full, encdec, train,
-                 tp):
+                 tp, launch=None):
     """The kernels line: every kernel of the port with its measurements
     and its launches on its own path's serve (#1 and #2's paged entry
     also on the shared-prefix P/D serve and the MoE serve; #3 and #2's
@@ -3086,7 +3093,10 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
     contiguous row also carries `launches_train` (a training step's).
     #1 and #2's contiguous entry also carry their launches on phase 6k's
     TP P/D serve (and #1 on its deepseek-7b step check), #1 and #2 not
-    causal theirs on phase 6i's paged whisper leg."""
+    causal theirs on phase 6i's paged whisper leg; #1, #2's contiguous
+    entry and #4 theirs on phase 6k's jamba leg (#1 also in its step
+    check; the minicpm3-4b leg launches none), #3 and #2's contiguous
+    entry theirs on phase 6l's launch/serve.py run."""
     def errs(es):
         return dict(max_abs_err=max(a for a, _r in es),
                     max_rel_err=max(r for _a, r in es))
@@ -3134,9 +3144,19 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
                         for k in ("pd", "sharded")})
         if tp["pd"]["launches"][name]:
             out["launches_tp_pd_serve"] = tp["pd"]["launches"][name]
+        for leg in ("mla", "hybrid"):
+            if leg in tp:
+                out[f"launches_tp_{leg}_pd_serve"] = tp[leg]["launches"][
+                    name]
+        if launch is not None:
+            out["launches_launch_serve"] = launch["serve"]["launches"][name]
         if name == "paged_decode_attention":
             out["launches_tp_step_check"] = tp["step"][
                 "paged_decode_attention_launches"]
+            for leg in ("mla", "hybrid"):
+                if leg in tp:
+                    out[f"launches_tp_{leg}_step_check"] = tp[leg]["step"][
+                        "paged_decode_attention_launches"]
             out["launches_paged_encdec"] = encdec["whisper-large-v3"][
                 "paged"]["launches"]["paged_decode_attention"]
         return out
@@ -3166,7 +3186,9 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
         item("decode_attention", csrc + "decode_attention.cu",
              dec_k + ":166", pd, dense, "P/D serve",
              **hd120(dense, "decode_attention"),
-             **on_encdec("decode_attention", full["errs_dense_g7"])),
+             **on_encdec("decode_attention", full["errs_dense_g7"]),
+             **({"launches_launch_serve": launch["serve"]["launches"][
+                 "decode_attention"]} if launch is not None else {})),
         dict(name="flash_prefill (causal=False)", route="cuda",
              source=csrc + "flash_prefill.cu", replaces=fp_k,
              launches=encdec["whisper-large-v3"]["launches_by_mode"][
@@ -3206,6 +3228,9 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              "SSM serve (P/D, padded)",
              launches_per_prefill_pass=ssm["ssd_chunk_per_prefill_pass"],
              **on_sharded("ssd_chunk"),
+             **({f"tp_rank_share_{k}": tp["hybrid"]["ssd_rank_shape"][k]
+                 for k in ("max_rel_err", "bit_identical")}
+                if "hybrid" in tp else {}),
              library_note="none: no single PyTorch call computes the SSD "
                           "intra-chunk term"),
     ]
@@ -3214,8 +3239,8 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
 def serve_moe(counters, device, n_layers=None):
     """Phase 6d: full-width granite-moe-1b-a400m on the unified plane
     (`serve`) in MOE_CHECK_DTYPE, then its routing flips and capacity
-    drops (`route_flips`).  `n_layers` cuts depth for a CPU rehearsal.
-    Returns the serve report."""
+    drops (`route_flips`).  `n_layers` cuts depth (MOE_LAYERS on the
+    card; fewer for a CPU rehearsal).  Returns the serve report."""
     import dataclasses
     import torch
     from repro_torch.config.base import get_arch
@@ -3607,7 +3632,7 @@ def serve_sharded(cfg, params, device, counters, mixed,
         if r != rows:
             raise AssertionError(f"{tag}: a step covered {r} rows, the "
                                  f"merged cache has {rows}")
-        if active and ex <= 0:
+        if active and n_moe and ex <= 0:
             raise AssertionError(f"{tag}: a merged decode step made no EP "
                                  f"exchange")
         # a P/D step decodes only: dispatch and combine in each MoE layer
@@ -3631,6 +3656,8 @@ def serve_sharded(cfg, params, device, counters, mixed,
                              f"steps of the measured run ran eagerly")
     launched = ({"paged_decode_attention", "paged_prefill_attention"}
                 if mixed else {"paged_decode_attention", "flash_prefill"})
+    if cfg.attention.name == "MLA":
+        launched = set()                    # MLA runs torch ops
     if any("mamba" in p for p in params["layers"]):
         launched.add("ssd_chunk")           # a hybrid's SSM prefill
     for name, n in launches.items():
@@ -4256,12 +4283,14 @@ def expected_tp_calls(cfg, M, rows):
     """The TP collectives of one merged decode step of `cfg` over M model
     ranks, with `rows` rows a DP: the embedding's (an all-reduce over a
     vocabulary slice, an all-gather over a d_model slice), an all-reduce
-    after each layer's split attention and split dense FFN, an
-    all-gather of each MoE layer's rows (where they split over the
-    ranks; else rank 0's outputs are broadcast), then the logits' gather
-    (vocabulary slices) or reduce (d_model slices)."""
+    after each layer's split attention (GQA or MLA) and split dense FFN,
+    two after each split SSM mixer (its gated norm's sums of squares,
+    then its out_proj), an all-gather of each MoE layer's rows (where
+    they split over the ranks; else rank 0's outputs are broadcast),
+    then the logits' gather (vocabulary slices) or reduce (d_model
+    slices)."""
     from repro_torch.config.base import LayerKind
-    from repro_torch.distributed.sharding import heads_split
+    from repro_torch.distributed.sharding import attn_heads_split, ssm_split
     V = cfg.vocab_size
     calls = {}
 
@@ -4269,18 +4298,24 @@ def expected_tp_calls(cfg, M, rows):
         calls[kind] = calls.get(kind, 0) + 1
     add("all_reduce" if V % M == 0 else "all_gather")
     for kind in cfg.layer_kinds():
-        if heads_split(cfg, M):
+        if kind in (LayerKind.SSM, LayerKind.SSM_MOE):
+            if ssm_split(cfg, M):
+                add("all_reduce")
+                add("all_reduce")
+        elif attn_heads_split(cfg, M):
             add("all_reduce")
-        if kind == LayerKind.MOE and cfg.moe.num_experts:
+        if kind in (LayerKind.MOE, LayerKind.SSM_MOE) and \
+                cfg.moe.num_experts:
             add("all_gather" if rows % M == 0 else "broadcast")
-        elif cfg.d_ff % M == 0:
+        elif cfg.d_ff and cfg.d_ff % M == 0:
             add("all_reduce")
     add("gather" if V % M == 0 else "reduce")
     return calls
 
 
 def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
-                  iters=TP_STEP_ITERS, mesh=None):
+                  iters=TP_STEP_ITERS, mesh=None, tag=None,
+                  logits_tol=LOGITS_REL_TOL):
     """Phase 6k (b): full-width deepseek-7b at TP_STEP_LAYERS of its 30
     layers (MHA, dense FFN, vocabulary-parallel `lm_head`; bf16 from seed
     0): N_REQUESTS prompts prefilled (`prefill`) and joined into a paged
@@ -4293,8 +4328,12 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
     previous step's tokens, every device synchronised).  `cfg`/`params`
     replace the model for a CPU rehearsal; `mesh` replaces `tp_mesh`
     (`scripts/tp_four_cards.py`: cuda:0..3, the weights and the
-    unsharded cache on `device`, cuda:0).  Returns the check's
-    report."""
+    unsharded cache on `device`, cuda:0).  `tag` names another model's
+    check (phase 6k's minicpm3-4b and jamba legs: #1 launches once a
+    shard in each GQA attention layer, none in MLA or SSM layers);
+    `logits_tol` None prints the logits' distance without checking it
+    (the jamba leg's bf16 run; its fp32 run is the check).  Returns the
+    check's report."""
     import dataclasses
     import torch
     from repro_torch.config.base import ParallelConfig, get_arch
@@ -4316,7 +4355,25 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
             torch.cuda.synchronize()
         print(f"[init] {cfg.name} at {cfg.num_layers} layers, bf16 weights "
               f"in {time.monotonic() - t0:.1f} s", flush=True)
-    tag = f"[tp step] {cfg.name} ({cfg.num_layers} layers)"
+    from repro_torch.config.base import LayerKind
+    tag = tag or f"[tp step] {cfg.name} ({cfg.num_layers} layers)"
+    if cfg.moe is not None and cfg.moe.num_experts:
+        # the TP step routes each rank's rows through the EP layer (per-
+        # source capacity), the unsharded step all rows at once: at the
+        # published capacity they drop different (token, expert) pairs by
+        # the reference's semantics, so the check runs the MoE at a
+        # capacity that drops none (E / top_k: every token fits every
+        # expert) and holds the TP arithmetic alone
+        mc = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            mc, capacity_factor=max(mc.capacity_factor,
+                                    mc.num_experts / mc.top_k)))
+        print(f"{tag}: MoE capacity factor {mc.capacity_factor} -> "
+              f"{cfg.moe.capacity_factor} for the step check (no drops)",
+              flush=True)
+    n_gqa = (0 if cfg.attention.name == "MLA" else
+             sum(k in (LayerKind.DENSE, LayerKind.MOE)
+                 for k in cfg.layer_kinds()))
     mesh = mesh or tp_mesh(device)
     S = MAX_BATCH                      # rows a DP unit
     nbt = MAX_LEN // BLOCK
@@ -4351,16 +4408,17 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
     agree = int((lg_tp.argmax(-1) == lg_1.argmax(-1)).sum())
     print(f"{tag} (2, 2) TP merged decode step vs the unsharded paged step "
           f"on the same {TP_DATA * S} rows: logits max|d|/max|ref|={err!r} "
-          f"(tol {LOGITS_REL_TOL}), argmax agrees on {agree}/"
+          f"({'tol ' + repr(logits_tol) if logits_tol else 'not checked'}"
+          f"; {str(dtype).replace('torch.', '')}), argmax agrees on {agree}/"
           f"{TP_DATA * S}; collectives {st.calls!r} (expected {want!r}), "
           f"{st.bytes} bytes between ranks; paged_decode_attention "
-          f"launches {launches} (a shard a layer: "
-          f"{TP_DATA * TP_MODEL * cfg.num_layers})", flush=True)
-    if not err <= LOGITS_REL_TOL:
+          f"launches {launches} (a shard a GQA layer: "
+          f"{TP_DATA * TP_MODEL * n_gqa})", flush=True)
+    if logits_tol is not None and not err <= logits_tol:
         raise AssertionError(f"{tag}: TP logits disagree: {err}")
     if st.calls != want:
         raise AssertionError(f"{tag}: collectives {st.calls}, not {want}")
-    if device != "cpu" and launches != TP_DATA * TP_MODEL * cfg.num_layers:
+    if device != "cpu" and launches != TP_DATA * TP_MODEL * n_gqa:
         raise AssertionError(f"{tag}: #1 launched {launches} times")
     # both steps as graphs (on the CPU: the same buffers, no capture)
     lock = __import__("threading").RLock()
@@ -4452,6 +4510,208 @@ def serve_tp_phase(counters, device, n_layers=None, step_cfg=None,
     if device != "cpu":
         free_device_memory()
     return out
+
+
+# phase 6k, MLA and SSM layers: minicpm3-4b at MLA_LAYERS of its 62
+# layers (40 heads, 20 a rank; its latent pools whole on every rank) and
+# jamba-v0.1-52b at HYBRID_LAYERS of 32 (one period: the attention
+# layer's 32 heads over 8 KV heads, 16 and 4 a rank; 7 SSM layers of
+# 128 heads of 64, 64 a rank; 4 MoE layers of 16 experts over the 4 EP
+# ranks): 26.5 GB of bf16 weights plus the ranks' copies of what does
+# not split on dim 0 (about 3 GB: each rank's [z|x], w_dt and x-conv
+# columns and its heads of the attention, its dense FFN columns) and
+# four shards of pools and slot states
+
+
+def check_ssd_rank_shape(device, cfg, M):
+    """#4 at a tensor-parallel rank's share of `cfg`'s SSM heads (nh/M
+    heads of hp, one chunk of Q tokens, bf16 inputs, fp32 outputs)
+    against its plain version within REL_TOL["float32"], as phase 4
+    holds #4 off its served shape: the kernel's contract (n_groups 1, hp
+    32 or 64, Q up to 256) holds for the rank's piece.  Bit-identity is
+    printed, not required: the plain version's products take another
+    summation order at another head count, and the served path runs #4
+    over all the heads in the lead's dense chunk (the prefill is not
+    split).  Returns the check's report."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    from repro_torch.models.mamba import ssm_dims
+    sc = cfg.ssm
+    _di, nh, _ = ssm_dims(cfg.d_model, sc)
+    args = ssd_case(1, 1, sc.chunk_size, nh // M, sc.head_dim, sc.d_state,
+                    device, 11, torch.bfloat16)
+    with uncounted():
+        y, st = ssd_chunk(*args)
+    yp, sp = ssd_chunk_plain(*args)
+    errs = []
+    tag = (f"[tp hybrid] ssd_chunk at a rank's share ({nh // M} of {nh} "
+           f"heads of {sc.head_dim}, Q {sc.chunk_size}, d_state "
+           f"{sc.d_state}, bf16 in)")
+    compare(tag + " y", y, yp, errs)
+    compare(tag + " state", st, sp, errs)
+    same = bool(torch.equal(y, yp) and torch.equal(st, sp))
+    print(f"{tag}: bit-identical to the plain version: {same} (not "
+          f"required off the served shape)", flush=True)
+    return {"heads": nh // M, "of": nh, "bit_identical": same,
+            "max_abs_err": max(a for a, _r in errs),
+            "max_rel_err": max(r for _a, r in errs)}
+
+
+def serve_tp_mla_ssm(counters, device, mla_cfg=None, mla_params=None,
+                     hybrid_cfg=None, hybrid_params=None,
+                     n_requests=N_REQUESTS, lens=(128, 1024),
+                     outs=(16, 32)):
+    """Phase 6k's MLA and SSM legs on the (2, 2) mesh `tp_mesh`: (a)
+    full-width minicpm3-4b at MLA_LAYERS layers behind the TP P/D server
+    with step graphs (`serve_sharded`: every merged decode step's TP
+    collectives as `expected_tp_calls` says, logits against the
+    non-absorbed plain forward; no kernel launches on MLA), its
+    graphs-vs-eager bit A/B, and its TP merged step against the
+    unsharded step (`tp_step_check`); (b) full-width jamba-v0.1-52b at
+    HYBRID_LAYERS layers behind the TP P/D server (#1 a rank in the
+    attention layer, #2 contiguous and #4 in the lead's dense chunks;
+    the served logits equal the eager replay of the served chunks and
+    expert sets bit for bit), #4 at a rank's share of the SSM heads
+    against its plain version (`check_ssd_rank_shape`), and its TP
+    merged step against the unsharded step in bf16 (printed) and, the
+    weights widened in place, in fp32 (within REL_TOL["float32"]).  The
+    config and weight arguments cut it for a CPU rehearsal.  Returns {"mla":
+    ..., "hybrid": ...}."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.models.model import init_params
+    mesh = tp_mesh(device)
+    size = dict(n_requests=n_requests, lens=lens, outs=outs)
+    out = {}
+    for leg, arch, layers in (("mla", "minicpm3-4b", MLA_LAYERS),
+                              ("hybrid", "jamba-v0.1-52b", HYBRID_LAYERS)):
+        cfg, params = ((mla_cfg, mla_params) if leg == "mla"
+                       else (hybrid_cfg, hybrid_params))
+        if cfg is None:
+            cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+            t0 = time.monotonic()
+            params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                 device=device)
+            torch.cuda.synchronize()
+            print(f"[init] {cfg.name} at {cfg.num_layers} layers, bf16 "
+                  f"weights in {time.monotonic() - t0:.1f} s", flush=True)
+        tag = f"[tp {leg} pd serve]"
+        rep = serve_sharded(cfg, params, device, counters, False,
+                            mesh=mesh, tag=tag,
+                            exact_replay=[] if leg == "hybrid" else None,
+                            **size)
+        report_sharded(tag, rep)
+        print(f"{tag} TP per merged decode step: collectives "
+              f"{rep['tp_calls_per_decode_step']!r} (expected "
+              f"{rep['tp_calls_expected']!r}), bytes "
+              f"{rep['tp_bytes_per_decode_step']!r}; launches "
+              f"{rep['launches']!r}", flush=True)
+        if device != "cpu":
+            free_device_memory()
+        if leg == "mla":
+            rep["bits"] = serve_sharded_bits(cfg, params, device, counters,
+                                             mesh=mesh,
+                                             tag="[tp mla pd bits]", **size)
+        else:
+            rep["ssd_rank_shape"] = check_ssd_rank_shape(device, cfg,
+                                                         TP_MODEL)
+        if device != "cpu":
+            free_device_memory()
+        step_tag = f"[tp {leg} step] {cfg.name} ({cfg.num_layers} layers)"
+        if leg == "mla":
+            rep["step"] = tp_step_check(device, cfg, params, lens=lens,
+                                        tag=step_tag)
+        else:
+            # bf16: 7 SSM layers and 4 MoE routers over random weights
+            # move the TP step's logits from the unsharded step's past
+            # 5e-2 (0.136 at 8 layers on the card; 2.2e-2 at the reduced
+            # width), as phase 6h's served-vs-plain distance: printed,
+            # then the check in fp32 (`widen_params`, as phase 6h)
+            rep["step_bf16"] = tp_step_check(device, cfg, params, lens=lens,
+                                             tag=step_tag, logits_tol=None)
+            if device != "cpu":
+                free_device_memory()
+            widen_params(params)
+            if device != "cpu":
+                free_device_memory()
+            rep["step"] = tp_step_check(device, cfg, params, lens=lens,
+                                        tag=step_tag + " fp32",
+                                        logits_tol=REL_TOL["float32"])
+        out[leg] = rep
+        del params
+        if device != "cpu":
+            free_device_memory()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6l: the launchers (launch/serve.py --mode real, the microbench twin)
+# ---------------------------------------------------------------------------
+
+def launch_phase(counters, device, requests=8):
+    """Phase 6l: `python -m repro_torch.launch.serve --mode real --arch
+    deepseek-7b --device <device>` as a user runs it (its `main`, in this
+    process; the launcher's default arch, reduced deepseek-v3-671b, is
+    MLA and runs no kernel): reduced deepseek-7b from seed 0 behind
+    `RealSBSServer` in the reference launcher's defaults (the P/D plane on
+    the padded cache: #3 and #2's contiguous entry), `requests` prompts of
+    16-95 tokens 50 ms apart, 8 new tokens each; every request must finish
+    with 8 tokens and the kernels of its plane must launch and no other.
+    Then the microbench twin (`scripts/microbench_torch.py`, its `main` on
+    `device`): every row.  Returns {"serve": ..., "microbench": rows}."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+    from repro_torch.launch import serve as launcher
+    for w in counters:
+        w.launches = 0
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        launcher.main(["--mode", "real", "--arch", "deepseek-7b",
+                       "--device", device, "--requests", str(requests)])
+    wall = time.monotonic() - t0
+    launches = {w.__name__: w.launches for w in counters}
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[launch serve] {line}", flush=True)
+    gens = [re.match(r"rid=(\d+) ttft=\s*([\d.]+)ms tokens=\[(.*)\]", l)
+            for l in lines]
+    gens = [g for g in gens if g]
+    tokens = {int(g[1]): [int(t) for t in g[3].split(",")] for g in gens}
+    ttft_ms = {int(g[1]): float(g[2]) for g in gens}
+    print(f"[launch serve] launch/serve.py --mode real --device {device}: "
+          f"wall_s={wall!r} (server build included), launches "
+          f"{launches!r}", flush=True)
+    if sorted(tokens) != list(range(requests)) or any(
+            len(t) != 8 for t in tokens.values()):
+        raise AssertionError(f"[launch serve] served {sorted(tokens)} of "
+                             f"{requests} requests")
+    launched = {"decode_attention", "flash_prefill"}
+    for name, n in launches.items():
+        if name in launched and device != "cpu" and n <= 0:
+            raise AssertionError(f"[launch serve] {name} never launched")
+        if name not in launched and n != 0:
+            raise AssertionError(f"[launch serve] {name} launched {n} "
+                                 f"times")
+    spec = importlib.util.spec_from_file_location(
+        "microbench_torch", os.path.join(ROOT, "scripts",
+                                         "microbench_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with uncounted():
+        rows = mod.main(lambda line: print(f"[microbench] {line}",
+                                           flush=True), device)
+    for r in rows:
+        print(f"[microbench] {r}", flush=True)
+    if len(rows) != 11:
+        raise AssertionError(f"[microbench] {len(rows)} rows, not 11")
+    return {"serve": {"arch": "deepseek-7b[reduced]", "device": device,
+                      "wall_s": wall, "tokens": tokens, "ttft_ms": ttft_ms,
+                      "launches": launches},
+            "microbench": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -4793,7 +5053,8 @@ def main() -> int:
             report_timing(tag, r)
             if "hd120" in r:
                 report_timing(f"{tag} hd=120", r["hd120"])
-        cfg = get_arch("deepseek-7b")
+        cfg = dataclasses.replace(get_arch("deepseek-7b"),
+                                  num_layers=SERVE_LAYERS)
         t0 = time.monotonic()
         params = init_params(cfg, seed=0, dtype=torch.bfloat16,
                              device=device)
@@ -4831,7 +5092,8 @@ def main() -> int:
         elapsed("P/D serve eager and graphs-vs-eager A/B")
         del params
         free_device_memory()
-        scfg_ = get_arch("mamba2-370m")
+        scfg_ = dataclasses.replace(get_arch("mamba2-370m"),
+                                    num_layers=SSM_LAYERS)
         t0 = time.monotonic()
         sparams = init_params(scfg_, seed=0, dtype=torch.bfloat16,
                               device=device)
@@ -4846,7 +5108,7 @@ def main() -> int:
         print(f"[ssm serve] logits_rel_err={ssm['logits_rel_err']!r} "
               f"(limit {LOGITS_REL_TOL}; recorded: a 1e-7 relative "
               f"perturbation of kernel #4's output gives "
-              f"{SSM_LOGITS_AT_1E7})", flush=True)
+              f"{SSM_LOGITS_AT_1E7} at all 48 layers)", flush=True)
         report_serve("[ssm serve]", ssm)
         print(f"[ssm serve] decode_steps={ssm['decode_steps']} "
               f"prefill_passes={ssm['prefill_passes']} ssd_chunk "
@@ -4893,7 +5155,7 @@ def main() -> int:
               f"prefill_passes={px['prefill_passes']})", flush=True)
         del params
         free_device_memory()
-        moe_rep = serve_moe(counters, device)
+        moe_rep = serve_moe(counters, device, n_layers=MOE_LAYERS)
         elapsed("MoE serve (graphs and eager)")
         free_device_memory()
         mla = serve_mla(counters, device, n_layers=MLA_LAYERS)
@@ -4917,6 +5179,20 @@ def main() -> int:
               f"data-only (4, 1) P/D serve "
               f"{sharded['pd']['decode_step_p50_s']!r} s", flush=True)
         elapsed("TP serves (granite-moe P/D, bits A/B; deepseek-7b step)")
+        tp.update(serve_tp_mla_ssm(counters, device))
+        for leg in ("mla", "hybrid"):
+            st = tp[leg].get("step_bf16", tp[leg]["step"])
+            print(f"[tp {leg}] merged decode step p50 "
+                  f"{tp[leg]['decode_step_p50_s']!r} s; bf16 TP step "
+                  f"{st['tp_step_p50_s']!r} s vs unsharded "
+                  f"{st['unsharded_step_p50_s']!r} s; logits vs the "
+                  f"unsharded step {tp[leg]['step']['logits_rel_err']!r} "
+                  f"(checked, "
+                  f"{'fp32' if 'step_bf16' in tp[leg] else 'bf16'})",
+                  flush=True)
+        elapsed("TP serves of MLA and SSM layers (minicpm3-4b, jamba)")
+        launch = launch_phase(counters, device)
+        elapsed("launchers (serve --mode real, microbench twin)")
         train = train_phase(device)
         elapsed("training path (minicpm-2b, fp32)")
         free_device_memory()
@@ -4925,7 +5201,7 @@ def main() -> int:
         elapsed("prefill pass split")
         kernels = kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, px,
                                moe_rep, swa, twin, sharded, hybrid, full,
-                               encdec, train, tp)
+                               encdec, train, tp, launch)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -4943,6 +5219,7 @@ def main() -> int:
         print(json.dumps({"prefill_pass_split": split}), flush=True)
         print(json.dumps({"serve_encdec": encdec}), flush=True)
         print(json.dumps({"serve_tp": tp}), flush=True)
+        print(json.dumps({"launch": launch}), flush=True)
         print(json.dumps({"train": train}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)

@@ -43,10 +43,29 @@ the heads do not divide M, the attention weights and pools are whole
 on every rank and the attention runs replicated (the reference shards
 its projections by row and its attention by sequence, "attn_seq"); a
 decoder layer's cross-attention and its per-slot encoder K/V are
-replicated too.  MLA and SSM layers under TP are refused (ROADMAP
-Queue 1 item 11-rest).  The TPU-production rules (FSDP over data, the
-pod axis, sequence-parallel long-context decode) are not ported (item
-15).
+replicated too.  An MLA layer's `w_uq`/`w_uk`/`w_uv` split by head
+and its `w_o` by row when its H heads divide M; its down-projections,
+rope key and norms are replicated, and its latent and rope pools have no
+head axis, so every rank of a DP holds them whole and writes the same
+rows.  An SSM layer splits by heads (`ssm_split`, `tp_axis`): rank m
+holds heads m·nh/M .. (m+1)·nh/M - 1, their columns of z and of x, of
+w_dt and the x conv, their A_log, D_skip, dt_bias and gated-norm
+weights, their rows of out_proj, and their per-slot SSM state and x
+conv tail ("ssm", "conv_x"; `cache_tp_axis`); the B/C projection, its
+conv and "conv_bc" stay whole (one group).  Its gated norm reduces over
+the whole d_inner, so the ranks all-reduce their sums of squares before
+they normalise (`models.blocks.ssm_decode_shards`).
+
+The TPU-production rules follow at the end: `ShardingRules`,
+`param_pspecs`, `cache_pspecs`, `paged_cache_pspecs`, `batch_pspecs`
+and `opt_pspecs`, the reference's functions over an `EngineMesh` (the
+dry-run's logical 16 x 16 or 2 x 16 x 16 mesh of `meta` devices,
+`launch.mesh.make_production_mesh`).  They read only `.shape`, so they
+take `meta` tensors, and return the reference's trees with a tuple a
+leaf (`PSpec`: one entry a dim, None, an axis name or a tuple of
+names; its `str` is the reference's `PartitionSpec`'s).  The dry-run
+(`launch.dryrun`) is their only user; the serving plane places by
+`tp_axis`.
 """
 from __future__ import annotations
 
@@ -86,44 +105,69 @@ def heads_split(cfg: ModelConfig, M: int) -> bool:
             and cfg.num_kv_heads % M == 0)
 
 
-def require_tp(cfg: ModelConfig, M: int) -> None:
-    """Refuse what tensor parallelism does not take yet: MLA and SSM
-    layers under M > 1 model ranks."""
-    if M <= 1:
-        return
-    what = []
+def attn_heads_split(cfg: ModelConfig, M: int) -> bool:
+    """Whether an attention layer's heads split over M > 1 model ranks:
+    a GQA layer's where `heads_split` says, an MLA layer's where its H
+    query heads divide M (its latent has no head axis)."""
     if cfg.attention == AttentionKind.MLA:
-        what.append("MLA layers (w_uq/w_uk/w_uv)")
-    if any(k in (LayerKind.SSM, LayerKind.SSM_MOE)
-           for k in cfg.layer_kinds()):
-        what.append("SSM layers (w_zx, w_dt, out_proj, conv_*)")
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over model={M} ranks for "
-            f"{' and '.join(what)} is not ported (ROADMAP Queue 1 item "
-            f"11-rest: TP for MLA and SSM layers)")
+        return M > 1 and cfg.num_heads % M == 0
+    return heads_split(cfg, M)
+
+
+def ssm_split(cfg: ModelConfig, M: int) -> bool:
+    """Whether an SSM layer's heads split over M > 1 model ranks: its
+    nh = d_inner / head_dim heads divide M (one group, as kernel #4
+    takes it: B and C are shared by every head)."""
+    sc = cfg.ssm
+    if M <= 1 or sc is None or sc.n_groups != 1 or not any(
+            k in (LayerKind.SSM, LayerKind.SSM_MOE)
+            for k in cfg.layer_kinds()):
+        return False
+    return (cfg.d_model * sc.expand // sc.head_dim) % M == 0
+
+
+# the leaves of a Mamba2 mixer that a model rank holds by heads: its
+# columns of the [z|x] projection (`_rank_tree` cuts z and x each), of
+# w_dt and the x conv, its entries of the per-head (and per-channel)
+# vectors and its rows of out_proj
+_SSM_BY_HEAD = {"w_zx": 1, "w_dt": 1, "conv_wx": 1, "conv_bx": 0,
+                "A_log": 0, "D_skip": 0, "dt_bias": 0, "norm": 0,
+                "out_proj": 0}
 
 
 def tp_axis(cfg: ModelConfig, path: Sequence[str], shape, M: int
             ) -> Optional[int]:
     """The axis of the served weight at `path` (its keys from the params'
-    root) that M > 1 model ranks split, or None (replicated): the
-    reference's `_leaf_spec` for the leaves the port serves (see the
-    module note for where it differs)."""
+    root) that M > 1 model ranks split, or None (replicated).  This is
+    the serving plane's rule.  It follows the reference's `_leaf_spec`
+    (`param_pspecs`, below, is the port's copy of it) with these
+    deliberate differences: a GQA layer's heads split only when both
+    head counts divide M (`_leaf_spec` splits w_q whenever H does, and
+    shards the rest by row and sequence, "attn_seq"); cross-attention
+    (`xattn`) and the MoE's shared experts stay replicated; an SSM
+    layer's per-head vectors (A_log, D_skip, dt_bias), its gated norm's
+    weight and conv_bx split with its heads (GSPMD replicates the
+    vectors and reshards around them; a rank here holds only what its
+    heads read), and its [z|x] projection splits z and x each by heads
+    (a contiguous half of the columns would give rank 0 only z)."""
     name = path[-1]
     if M <= 1 or "xattn" in path or "moe" in path:
         return None
 
     def fits(i):
         return shape[i] % M == 0
+    if "mamba" in path:
+        return _SSM_BY_HEAD.get(name) if ssm_split(cfg, M) else None
     if name == "embed":                          # (V, D)
         return 0 if fits(0) else (1 if fits(1) else None)
     if name == "lm_head":                        # (D, V)
         return 1 if fits(1) else (0 if fits(0) else None)
     if name in ("w_q", "w_k", "w_v"):            # (D, H|K, hd)
         return 1 if heads_split(cfg, M) else None
+    if name in ("w_uq", "w_uk", "w_uv"):         # (qin|r, H, dn|dv)
+        return 1 if attn_heads_split(cfg, M) else None
     if name == "w_o":                            # (H, hd, D)
-        return 0 if heads_split(cfg, M) else None
+        return 0 if attn_heads_split(cfg, M) else None
     if name in ("w_gate", "w_up") and len(shape) == 2:   # dense (D, ff)
         return 1 if fits(1) else None
     if name == "w_down" and len(shape) == 2:     # dense (ff, D)
@@ -241,6 +285,11 @@ def _rank_tree(cfg: ModelConfig, tree: Dict, m: int, M: int) -> Dict:
             ax = tp_axis(cfg, path, node.shape, M)
             if ax is None:
                 return node
+            if path[-1] == "w_zx":               # [z | x]: each by heads
+                di = node.shape[1] // 2
+                n = di // M
+                return torch.cat([node[:, m * n:(m + 1) * n],
+                                  node[:, di + m * n:di + (m + 1) * n]], 1)
             n = node.shape[ax] // M
             return node.narrow(ax, m * n, n).contiguous()
         if isinstance(node, dict):
@@ -258,9 +307,8 @@ def place_params(cfg, params: Dict, mesh, par: ParallelConfig
     expert weights split over `par`'s expert axes, everything else
     replicated on every distinct device; with a model axis of M > 1
     ranks, each (device, model rank)'s tree split by `tp_axis` in
-    `ranks` (MLA and SSM layers refused, `require_tp`)."""
+    `ranks`."""
     M = model_size(mesh)
-    require_tp(cfg, M)
     ep_axes = expert_axes_of(mesh, par)
     experts = [{name: ExpertShards(p["moe"][name], mesh, ep_axes)
                 for name in _EXPERT_WEIGHTS} if "moe" in p else None
@@ -332,16 +380,37 @@ def dp_groups(cache: Dict) -> List[List[int]]:
             for d in range(len(cache["shards"]) // M)]
 
 
-def head_share(t: torch.Tensor, m: int, M: int) -> torch.Tensor:
-    """Model rank m's share of the KV heads (axis -2) of a K/V tensor."""
-    n = t.shape[-2] // M
-    return t[..., m * n:(m + 1) * n, :]
-
-
 def kv_split(cfg: ModelConfig, M: int) -> bool:
     """Whether a merged cache over M model ranks splits the pools' KV
-    heads: a GQA model whose heads split (`heads_split`)."""
+    heads: a GQA model whose heads split (`heads_split`).  An MLA
+    model's latent and rope pools have no head axis: every model rank
+    of a DP holds them whole and writes the same rows."""
     return cfg.attention != AttentionKind.MLA and heads_split(cfg, M)
+
+
+def cache_tp_axis(cfg: ModelConfig, name: str, M: int) -> Optional[int]:
+    """The axis of merged-cache entry `name` that M model ranks split, or
+    None (whole on every rank): the pools' KV heads where `kv_split`
+    says, a hybrid's SSM state by heads ("ssm" (L, slots, nh, hp, ds))
+    and x conv tail by channels ("conv_x" (L, slots, d_conv-1, d_inner))
+    where `ssm_split` says; "conv_bc" (B and C, one group), the
+    encoder K/V, cursors, tables and positions whole."""
+    if M <= 1:
+        return None
+    if name in ("k", "v"):
+        return -2 if kv_split(cfg, M) else None
+    if name in ("ssm", "conv_x") and ssm_split(cfg, M):
+        return 2 if name == "ssm" else -1
+    return None
+
+
+def rank_share(t: torch.Tensor, axis: Optional[int], m: int, M: int
+               ) -> torch.Tensor:
+    """Model rank m's share of `t` along `axis` (`t` itself for None)."""
+    if axis is None:
+        return t
+    n = t.shape[axis] // M
+    return t.narrow(axis, m * n, n)
 
 
 def shard_paged_cache(cache: Dict, mesh, cfg: Optional[ModelConfig] = None
@@ -357,7 +426,6 @@ def shard_paged_cache(cache: Dict, mesh, cfg: Optional[ModelConfig] = None
     n = len(devs) // M
     if M > 1 and cfg is None:
         raise ValueError("a merged cache over model ranks needs the config")
-    split = M > 1 and kv_split(cfg, M)
     slots, nblocks = cache["cur"].shape[0], cache["kv_pos"].shape[0]
     if slots % n or nblocks % n:
         raise ValueError(f"{slots} slots and {nblocks} blocks do not split "
@@ -373,13 +441,11 @@ def shard_paged_cache(cache: Dict, mesh, cfg: Optional[ModelConfig] = None
             "block_tab": _local_table(cache["block_tab"][s], k * B,
                                       B).to(dev),
         }
-        for name in ("k", "v"):
-            t = cache[name][:, b]
-            shard[name] = (head_share(t, m, M) if split else t).to(
+        for name, rows in (("k", b), ("v", b)) + tuple(
+                (n_, s) for n_ in SLOT_STACKS if n_ in cache):
+            ax = cache_tp_axis(cfg, name, M)
+            shard[name] = rank_share(cache[name][:, rows], ax, m, M).to(
                 dev, copy=True).contiguous()
-        for name in SLOT_STACKS:
-            if name in cache:
-                shard[name] = cache[name][:, s].to(dev, copy=True)
         shards.append(shard)
     return {"shards": shards, "slots": S, "blocks": B, "model": M}
 
@@ -393,7 +459,6 @@ def unshard_paged_cache(merged: Dict, device,
     B, M = merged["blocks"], cache_model(merged)
     if M > 1 and cfg is None:
         raise ValueError("a merged cache over model ranks needs the config")
-    split = M > 1 and kv_split(cfg, M)
     groups = dp_groups(merged)
     shards = [merged["shards"][g[0]] for g in groups]
     tabs = [torch.where(c["block_tab"] >= 0, c["block_tab"] + k * B, -1)
@@ -403,13 +468,285 @@ def unshard_paged_cache(merged: Dict, device,
         "kv_pos": torch.cat([c["kv_pos"].to(device) for c in shards]),
         "block_tab": torch.cat([t.to(device) for t in tabs]).to(torch.int32),
     }
-    for name in ("k", "v"):
+    for name in ("k", "v") + SLOT_STACKS:
+        if name not in shards[0]:
+            continue
+        ax = cache_tp_axis(cfg, name, M)
         parts = [torch.cat([merged["shards"][i][name].to(device)
-                            for i in g], -2) if split
+                            for i in g], ax) if ax is not None
                  else shards[k][name].to(device)
                  for k, g in enumerate(groups)]
         out[name] = torch.cat(parts, 1)
-    for name in SLOT_STACKS:
-        if name in shards[0]:
-            out[name] = torch.cat([c[name].to(device) for c in shards], 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The TPU-production rules (the dry-run's): specs over a logical mesh
+# ---------------------------------------------------------------------------
+
+class PSpec(tuple):
+    """The port's `PartitionSpec`: one entry a dim, None (whole), an axis
+    name or a tuple of axis names (a one-name tuple is kept as the bare
+    name, as JAX keeps it).  Its `str` is the reference's."""
+
+    def __new__(cls, *axes):
+        def norm(a):
+            if isinstance(a, (tuple, list)):
+                a = tuple(a)
+                return None if not a else (a[0] if len(a) == 1 else a)
+            return a
+        return super().__new__(cls, tuple(norm(a) for a in axes))
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(tuple(self))
+
+    __str__ = __repr__
+
+
+def _axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def _fits(dim: int, mesh, axes) -> bool:
+    n = _axis_size(mesh, axes)
+    return n > 0 and dim % n == 0
+
+
+class ShardingRules:
+    """Resolves each leaf's spec for one (cfg, mesh, parallel): the
+    reference's `ShardingRules`.  "model" is tensor parallelism (heads,
+    FFN hidden, experts), "data" (with "pod" first where the mesh has
+    it) the batch, FSDP for params and optimizer state when enabled, and
+    the sequence of long-context decode; the experts go over
+    `par.expert_axes`.  Every rule is divisibility-guarded: a dim is
+    split only where it divides, else the next candidate or none."""
+
+    def __init__(self, cfg: ModelConfig, mesh, par: ParallelConfig):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.par = par
+        self.model = (par.model_axis if par.model_axis in mesh.axis_names
+                      else None)
+        self.data: Tuple[str, ...] = data_axes_of(mesh, par)
+        self.fsdp: Optional[Tuple[str, ...]] = (
+            tuple(a for a in par.fsdp_axes if a in mesh.axis_names)
+            if par.fsdp_params else None)
+        self.experts = (tuple(a for a in par.expert_axes
+                              if a in mesh.axis_names) or (self.model,))
+
+    def _fsdp_dim(self, shape, taken) -> Optional[int]:
+        """The largest dim still free that the FSDP axes divide; none when
+        another dim already uses an FSDP axis."""
+        if not self.fsdp:
+            return None
+        used = set()
+        for t in taken:
+            if t is not None:
+                used.update((t,) if isinstance(t, str) else tuple(t))
+        if used & set(self.fsdp):
+            return None
+        best = None
+        for i, d in enumerate(shape):
+            if taken[i] is None and _fits(d, self.mesh, self.fsdp):
+                if best is None or d > shape[best]:
+                    best = i
+        return best
+
+    def matrix(self, shape, model_dim: Optional[int]) -> PSpec:
+        """A weight: "model" on `model_dim` where it divides, FSDP on the
+        largest other dim."""
+        spec: list = [None] * len(shape)
+        if model_dim is not None and self.model and \
+                _fits(shape[model_dim], self.mesh, self.model):
+            spec[model_dim] = self.model
+        i = self._fsdp_dim(shape, spec)
+        if i is not None:
+            spec[i] = self.fsdp
+        return PSpec(*spec)
+
+    def expert_matrix(self, shape) -> PSpec:
+        """(E, ...): E over the expert axes (or "model"), FSDP on the
+        largest other dim."""
+        spec: list = [None] * len(shape)
+        ex = self.experts
+        if ex and _fits(shape[0], self.mesh, ex):
+            spec[0] = ex if len(ex) > 1 else ex[0]
+        elif self.model and _fits(shape[0], self.mesh, self.model):
+            spec[0] = self.model
+        i = self._fsdp_dim(shape, spec)
+        if i is not None:
+            spec[i] = self.fsdp
+        return PSpec(*spec)
+
+    def replicated(self, shape) -> PSpec:
+        return PSpec(*([None] * len(shape)))
+
+
+def _leaf_spec(r: ShardingRules, path: Tuple[str, ...], shape) -> PSpec:
+    """The reference's `_leaf_spec` on one weight of the port's tree.  The
+    port keeps layers in lists (no stacked layer axis), so a leaf's spec
+    is the reference's without its leading None."""
+    name = path[-1]
+    core = tuple(shape)
+    if name == "embed":                          # (V, D)
+        return r.matrix(core, 0 if _fits(core[0], r.mesh, r.model) else 1)
+    if name == "lm_head":                        # (D, V)
+        return r.matrix(core, 1 if _fits(core[1], r.mesh, r.model) else 0)
+    if name in ("w_q", "w_k", "w_v"):            # (D, H|K, hd)
+        return r.matrix(core, 1 if _fits(core[1], r.mesh, r.model) else 0)
+    if name == "w_o":                            # (H, hd, D)
+        return r.matrix(core, 0 if _fits(core[0], r.mesh, r.model) else 2)
+    if name in ("w_uq", "w_uk", "w_uv"):         # (r|qin, H, dn)
+        return r.matrix(core, 1 if _fits(core[1], r.mesh, r.model)
+                        else None)
+    if name in ("w_dq", "w_dkv", "w_kr", "proj", "router", "w_bc"):
+        return r.matrix(core, None)
+    if name in ("w_gate", "w_up"):               # dense (D, ff), MoE (E, D, f)
+        return (r.expert_matrix(core) if len(core) == 3
+                else r.matrix(core, 1))
+    if name == "w_down":                         # (ff, D), MoE (E, f, D)
+        return (r.expert_matrix(core) if len(core) == 3
+                else r.matrix(core, 0))
+    if name == "shared_gate" or name == "shared_up":     # (D, f·n)
+        return r.matrix(core, 1)
+    if name == "shared_down":                    # (f·n, D)
+        return r.matrix(core, 0)
+    if name in ("w_zx", "w_dt"):                 # (D, 2di) / (D, nh)
+        return r.matrix(core, 1 if _fits(core[1], r.mesh, r.model)
+                        else None)
+    if name == "out_proj":                       # (di, D)
+        return r.matrix(core, 0 if _fits(core[0], r.mesh, r.model)
+                        else None)
+    if name in ("conv_wx", "conv_bx"):           # (dconv, di), (di,)
+        if not core:
+            return r.replicated(core)
+        return PSpec(*([None] * (len(core) - 1)),
+                     r.model if _fits(core[-1], r.mesh, r.model) else None)
+    # norms, biases, A_log, D_skip, dt_bias, router_bias, conv_wbc/bbc
+    return r.replicated(core)
+
+
+def _map_with_path(fn, tree, path=()):
+    """`fn(path, leaf)` over a tree of dicts, lists and tuples, keeping
+    its structure; a path is the keys from the root (list indices as
+    "#i", as the reference's `_key_str` names them)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (f"#{i}",))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_pspecs(cfg: ModelConfig, mesh, par: ParallelConfig, params):
+    """Each weight's spec in the TPU-production layout: the reference's
+    `param_pspecs` over the port's params tree (any tensors; only
+    `.shape` is read).  The serving plane does not use it: it places by
+    `tp_axis`, which differs where that function's note says."""
+    rules = ShardingRules(cfg, mesh, par)
+    return _map_with_path(lambda p, x: _leaf_spec(rules, p, x.shape),
+                          params)
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, par: ParallelConfig, cache,
+                 batch_size: int):
+    """The reference's `cache_pspecs` over the port's dense decode cache:
+    the batch on the data axes where it divides, else (long_500k, B = 1)
+    the sequence on data; KV heads on "model" where they divide, else
+    the sequence (an MLA latent's 4-dim entries: the sequence on model
+    when it divides and is at least 256).  Stacks keep their leading
+    layer axis whole."""
+    rules = ShardingRules(cfg, mesh, par)
+    data, model = rules.data, rules.model
+    b_on_data = _fits(batch_size, mesh, data)
+
+    def leaf(path, x):
+        shape = x.shape
+        if path[0] == "cur":
+            return PSpec(data) if b_on_data else PSpec(None)
+        if path[0] == "kv_pos":
+            if b_on_data:
+                return PSpec(data, None)
+            return (PSpec(None, data) if _fits(shape[1], mesh, data)
+                    else PSpec(None, None))
+        spec: list = [None] * len(shape)
+        if b_on_data and len(shape) >= 2:
+            spec[1] = data
+        if len(shape) == 5:                      # (L, B, S, K, hd)
+            if model and _fits(shape[3], mesh, model):
+                spec[3] = model
+            elif model and _fits(shape[2], mesh, model):
+                spec[2] = model
+            if (not b_on_data and _fits(shape[2], mesh, data)
+                    and spec[2] is None):
+                spec[2] = data
+        elif len(shape) == 4:                    # (L, B, S, r), conv tails
+            if not b_on_data and _fits(shape[2], mesh, data):
+                spec[2] = data
+            elif model and _fits(shape[2], mesh, model) and shape[2] >= 256:
+                spec[2] = model
+        return PSpec(*spec)
+
+    return _map_with_path(leaf, cache)
+
+
+def paged_cache_pspecs(cfg: ModelConfig, mesh, par: ParallelConfig, cache):
+    """The reference's `paged_cache_pspecs` over the port's paged cache:
+    slots and physical blocks on the data axes where they divide, an
+    attention pool's KV heads on "model" where they divide; per-slot
+    entries (SSM state, encoder K/V) with their slots."""
+    rules = ShardingRules(cfg, mesh, par)
+    data, model = rules.data, rules.model
+    slots = cache["cur"].shape[0]
+    nblocks = cache["kv_pos"].shape[0]
+    s_ax = data if _fits(slots, mesh, data) else None
+    b_ax = data if _fits(nblocks, mesh, data) else None
+
+    def leaf(path, x):
+        shape = x.shape
+        if path[0] == "cur":
+            return PSpec(s_ax)
+        if path[0] == "kv_pos":
+            return PSpec(b_ax, None)
+        if path[0] == "block_tab":
+            return PSpec(s_ax, None)
+        spec: list = [None] * len(shape)
+        if len(shape) >= 2:
+            if shape[1] == nblocks:
+                spec[1] = b_ax
+            elif shape[1] == slots:
+                spec[1] = s_ax
+        if (len(shape) == 5 and shape[1] == nblocks and model
+                and _fits(shape[3], mesh, model)):
+            spec[3] = model
+        return PSpec(*spec)
+
+    return _map_with_path(leaf, cache)
+
+
+def batch_pspecs(mesh, par: ParallelConfig, batch_size: int, tree):
+    """The batch on the data axes where it divides, else the sequence
+    (dim 1, long context)."""
+    data = data_axes_of(mesh, par)
+    b_on_data = _fits(batch_size, mesh, data)
+
+    def leaf(path, x):
+        spec: list = [None] * len(x.shape)
+        if b_on_data:
+            spec[0] = data
+        elif len(x.shape) >= 2 and _fits(x.shape[1], mesh, data):
+            spec[1] = data
+        return PSpec(*spec)
+
+    return _map_with_path(leaf, tree)
+
+
+def opt_pspecs(param_specs):
+    """The optimizer's moments mirror the params' specs; its step is
+    whole."""
+    return {"mu": param_specs, "nu": param_specs, "step": PSpec()}

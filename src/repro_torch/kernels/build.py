@@ -19,6 +19,10 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("bindings.cpp", "paged_decode_attention.cu", "decode_attention.cu",
             "flash_prefill.cu", "ssd_chunk.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# devices whose tensors take each wrapper's plain version: the CPU (the
+# tests) and `meta` (the dry-run's shapes, `launch.specs`); every other
+# device launches the kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-lineinfo")
 
 _lock = threading.Lock()

@@ -19,8 +19,8 @@ nbt, SMs)` ranges of table entries, the dense kernel its cache into
 shared by both, combines the splits' partials, so one wrapper call
 launches two kernels (one when there is a single split).  Each wrapper
 launches its kernel for CUDA tensors and takes the plain version only
-for CPU tensors; `<wrapper>.launches` counts the wrapper's calls that
-launched.
+for CPU (and `meta`) tensors; `<wrapper>.launches` counts the wrapper's
+calls that launched.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import load_kernels
+from repro_torch.kernels.build import PLAIN_DEVICES, load_kernels
 from repro_torch.models.attention import (
     decode_attention as _dense_reference, decode_attention_paged,
 )
@@ -142,7 +142,7 @@ def paged_decode_attention(q, k_pool, v_pool, kv_pos_pool, block_tab, pos,
     the kernel or raise.  The kernel takes head dims 64 and 128
     (`PAGED_HEAD_DIMS`): sliding-window models, h2o-danube's hd 120
     among them, never page."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_decode_attention_plain(q, k_pool, v_pool, kv_pos_pool,
                                             block_tab, pos, window)
     if q.device.type != "cuda":
@@ -196,7 +196,7 @@ def decode_attention(q, k_cache, v_cache, kv_pos, pos, window: int = 0):
     plain version whenever index i holds -1 or a position p with
     p % S == i (every engine path; see
     `repro_torch/csrc/decode_attention.cu`)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention_plain(q, k_cache, v_cache, kv_pos, pos,
                                       window)
     if q.device.type != "cuda":

@@ -15,9 +15,9 @@ device memory.  bf16 inputs run both products on the tensor cores
 body, so the fp32 path keeps its 1e-4 agreement — see the source note.
 
 Each wrapper launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; `<wrapper>.launches` counts launches, and
-`flash_prefill.launches_noncausal` those of them made with
-causal=False (the encoder's self-attention and cross-attention).
+version only for CPU (and `meta`) tensors; `<wrapper>.launches` counts
+launches, and `flash_prefill.launches_noncausal` those of them made
+with causal=False (the encoder's self-attention and cross-attention).
 
 `flash_prefill_train` is the contiguous entry under autograd (the
 training forward): its forward is `flash_prefill` (the kernel on the
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import load_kernels
+from repro_torch.kernels.build import PLAIN_DEVICES, load_kernels
 from repro_torch.models.attention import (
     NEG_INF, build_mask, gather_paged, gather_paged_pos, gqa_reference,
 )
@@ -136,7 +136,7 @@ def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,
     """Contiguous packed-varlen entry (shapes as the plain version).
     Head dims 64, 120 and 128 (`HEAD_DIMS`; 120 runs the 128-wide bf16
     body with the padding zeroed)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_prefill_plain(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
                                    causal, window)
     if q.device.type != "cuda":
@@ -156,7 +156,7 @@ def paged_prefill_attention(q, k_pool, v_pool, kv_pos_pool, block_tab,
     """Paged-KV chunk entry (shapes as the plain version).  Head dims 64
     and 128 (`PAGED_HEAD_DIMS`); the kernel walks logical blocks
     0 .. max(positions) // bs only."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_prefill_attention_plain(q, k_pool, v_pool, kv_pos_pool,
                                              block_tab, positions, window)
     if q.device.type != "cuda":

@@ -16,15 +16,15 @@ The kernel sums every element in the plain version's order, so on the
 card the two agree bit for bit (see the source note for why that is
 required).  The wrapper launches it for CUDA tensors (one call launches
 two kernels: C·Bᵀ and Ā, then y and the state) and takes the plain
-version only for CPU tensors; `ssd_chunk.launches` counts the calls
-that launched.  `ssd_chunk_train` is `ssd_chunk` under autograd (the
+version only for CPU (and `meta`) tensors; `ssd_chunk.launches` counts
+the calls that launched.  `ssd_chunk_train` is `ssd_chunk` under autograd (the
 training forward): the kernel forward, the plain version's gradient.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import load_kernels
+from repro_torch.kernels.build import PLAIN_DEVICES, load_kernels
 
 HEAD_DIMS = (32, 64)             # hp the kernel is instantiated for
 STATE_DIMS = (16, 32, 64, 128)   # ds the kernel is instantiated for
@@ -107,7 +107,7 @@ def ssd_chunk(x, dt, A, Bm, Cm):
     """The SSD intra-chunk term (shapes as the plain version).  Bm and Cm
     may be strided views whose tokens lie at one stride.  CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_chunk_plain(x, dt, A, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")

@@ -1,10 +1,11 @@
 """The engine mesh of the sharded serving plane.
 
-Counterpart of `repro/launch/mesh.py` (`make_engine_mesh`,
-`make_test_mesh`).  The reference builds a `jax.sharding.Mesh` and runs
-one jitted program over it from one process; the port is single-
-controller in the same way: an `EngineMesh` is a row-major list of torch
-devices with named axes, and one process drives every device of it
+Counterpart of `repro/launch/mesh.py` (`make_production_mesh`,
+`make_engine_mesh`, `make_test_mesh`).  The reference builds a
+`jax.sharding.Mesh` and runs one jitted program over it from one
+process; the port is single-controller in the same way: an
+`EngineMesh` is a row-major list of torch devices with named axes,
+and one process drives every device of it
 (engines are worker threads, the EP all-to-all is copies between the
 shards' devices, `repro_torch.models.moe_ep`).  A device may repeat, so
 four logical shards can sit on one card (`["cuda:0"] * 4`) or on the CPU
@@ -94,6 +95,17 @@ def _cuda_devices(need: int, what: str) -> List[torch.device]:
             f"`devices` (e.g. [\"cuda:0\"] * {need} for logical shards on "
             f"one card, or [\"cpu\"] * {need})")
     return [torch.device("cuda", i) for i in range(need)]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> EngineMesh:
+    """The dry-run's logical mesh: 16 × 16 ("data", "model"; 256 cards,
+    32 hosts of 8) or 2 × 16 × 16 ("pod", "data", "model"; 512 cards, 64
+    hosts of 8), over `meta` devices.  Counterpart of the reference's
+    `make_production_mesh`; it needs no device: the dry-run only reads
+    each rank's shapes off it (`distributed.sharding`'s specs)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return EngineMesh(["meta"] * math.prod(shape), shape, axes)
 
 
 def make_engine_mesh(data: int, model: int = 1,

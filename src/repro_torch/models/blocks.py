@@ -65,7 +65,8 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import apply_rope, init_linear, rms_norm, swiglu
 from repro_torch.models.mamba import (
-    init_mamba_params, mamba_decode_step, mamba_forward,
+    init_mamba_params, mamba_decode_gated, mamba_decode_step, mamba_forward,
+    ssm_dims,
 )
 from repro_torch.models.moe import init_moe_params, moe_block
 
@@ -655,9 +656,42 @@ def block_decode_paged(p, x, kind: LayerKind, cfg: ModelConfig, entry,
 
 def attn_split(p, cfg: ModelConfig) -> bool:
     """Whether layer `p` holds a tensor-parallel rank's share of the
-    attention heads (its output is a partial sum)."""
-    return "attn" in p and "w_q" in p["attn"] and \
-        p["attn"]["w_q"].shape[1] < cfg.num_heads
+    attention heads, GQA (`w_q`) or MLA (`w_uq`): its output is a
+    partial sum."""
+    a = p.get("attn")
+    if a is None:
+        return False
+    return (a["w_q"] if "w_q" in a else a["w_uq"]).shape[1] < cfg.num_heads
+
+
+def ssm_split(p, cfg: ModelConfig) -> bool:
+    """Whether layer `p` holds a tensor-parallel rank's share of an SSM
+    mixer's heads (`w_dt`'s columns)."""
+    return "mamba" in p and p["mamba"]["w_dt"].shape[1] < ssm_dims(
+        cfg.d_model, cfg.ssm)[1]
+
+
+def ssm_decode_shards(ps, xs, cfg: ModelConfig, entries, groups):
+    """An SSM layer's decode mixer, without its residual, on the model
+    ranks of each DP unit (`ps`, `xs`, `entries`: each shard's params of
+    the layer, hidden states and (ssm_state, (conv_x, conv_bc)) of its
+    heads; `groups`: the shards of each DP).  Each rank runs its heads
+    up to the gated norm (`mamba_decode_gated`); the norm reduces over
+    the whole d_inner, so the ranks' fp32 sums of squares are
+    all-reduced (`(rows, 1, 1)` each, summed in rank order: every rank
+    the same bits) before each normalises its share; then its rows of
+    out_proj give a partial sum, all-reduced.  Returns (the mixer's
+    output on every shard, each shard's new state)."""
+    di = ssm_dims(cfg.d_model, cfg.ssm)[0]
+    pre = [mamba_decode_gated(rms_norm(x, p["ln1"], cfg.norm_eps),
+                              p["mamba"], cfg.ssm, e[0], e[1])
+           for p, x, e in zip(ps, xs, entries)]
+    sums = all_reduce([y.float().square().sum(-1, keepdim=True)
+                       for y, _s in pre], groups)
+    ys = [rms_norm(y, p["mamba"]["norm"], var=ss / di) @
+          p["mamba"]["out_proj"]
+          for (y, _s), p, ss in zip(pre, ps, sums)]
+    return all_reduce(ys, groups), [st for _y, st in pre]
 
 
 def ffn_split(p, cfg: ModelConfig) -> bool:

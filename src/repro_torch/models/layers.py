@@ -14,10 +14,13 @@ import torch
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, var=None) -> torch.Tensor:
+    """RMS norm over the last axis in fp32; `var`, the mean square of the
+    whole row, where `x` is a tensor-parallel rank's share of it."""
     dt = x.dtype
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if var is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dt)
 

@@ -69,7 +69,10 @@ def init_mamba_params(gen: torch.Generator, d_model: int, sc: SSMConfig,
     }
 
 
-def _project(x, params, di):
+def _project(x, params):
+    """z, x, [B|C] and dt of `x`; d_inner from the weights (a
+    tensor-parallel rank's [z|x] columns are its heads' z and x)."""
+    di = params["w_zx"].shape[1] // 2
     zx = x @ params["w_zx"]
     return zx[..., :di], zx[..., di:], x @ params["w_bc"], x @ params["w_dt"]
 
@@ -189,10 +192,10 @@ def mamba_forward(x, params, sc: SSMConfig, initial_state=None,
     conv_state (conv_x, conv_bc) tails or None.  Returns (out (B, S, D),
     (ssm_state, (conv_x, conv_bc))) for chunked continuation.  `scan` is
     the SSD scan (`ssd_chunked` for the plain oracle)."""
-    d_model = x.shape[-1]
-    di, nh, _ = ssm_dims(d_model, sc)
     gds = sc.n_groups * sc.d_state
-    z, xr, bc, dt = _project(x, params, di)
+    z, xr, bc, dt = _project(x, params)
+    di = xr.shape[-1]
+    nh = di // sc.head_dim
     cs_x, cs_bc = conv_state if conv_state is not None else (None, None)
     xr, ncs_x = _causal_conv(xr, params["conv_wx"], params["conv_bx"], cs_x)
     bc, ncs_bc = _causal_conv(bc, params["conv_wbc"], params["conv_bbc"],
@@ -216,12 +219,22 @@ def mamba_decode_step(x, params, sc: SSMConfig, ssm_state, conv_state):
     conv_state (conv_x, conv_bc).  O(1) in context length.  Returns
     (out (B, 1, D), (new ssm_state, new conv_state)); the inputs are not
     modified."""
-    d_model = x.shape[-1]
-    di, nh, _ = ssm_dims(d_model, sc)
+    y, state = mamba_decode_gated(x, params, sc, ssm_state, conv_state)
+    return rms_norm(y, params["norm"]) @ params["out_proj"], state
+
+
+def mamba_decode_gated(x, params, sc: SSMConfig, ssm_state, conv_state):
+    """`mamba_decode_step` up to its gated norm: (the gated output
+    (B, 1, di) before the norm, (new ssm_state, new conv_state)).  The
+    head counts come from the weights, so a tensor-parallel rank runs it
+    over its heads (its share of di); its norm then needs the whole
+    row's sum of squares (`models.blocks.ssm_decode_shards`)."""
     gds = sc.n_groups * sc.d_state
     g, ds, hp = sc.n_groups, sc.d_state, sc.head_dim
+    z, xr, bc, dt = _project(x, params)
+    di = xr.shape[-1]
+    nh = di // hp
     hpg = nh // g
-    z, xr, bc, dt = _project(x, params, di)
     cs_x, cs_bc = conv_state
     xr, ncs_x = _causal_conv(xr, params["conv_wx"], params["conv_bx"], cs_x)
     bc, ncs_bc = _causal_conv(bc, params["conv_wbc"], params["conv_bbc"],
@@ -240,9 +253,7 @@ def mamba_decode_step(x, params, sc: SSMConfig, ssm_state, conv_state):
     y = y + xt * params["D_skip"][:, None]
     y = y.reshape(-1, 1, di)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(y, params["norm"])
-    return y @ params["out_proj"], (hg.reshape(-1, nh, hp, ds),
-                                    (ncs_x, ncs_bc))
+    return y, (hg.reshape(-1, nh, hp, ds), (ncs_x, ncs_bc))
 
 
 def ssd_reference(x, dt, A, Bm, Cm, initial_state=None):

@@ -43,8 +43,11 @@ so one step advances every DP's rows; a prefill chunk and the page
 surgery run on the shards of the DP that owns the slot.  Under tensor
 parallelism (M > 1 model ranks a DP, `distributed.sharding`) each rank
 runs its share of a layer: its heads of the attention over its heads of
-the pools and its columns of a dense FFN, each a partial sum that
-`distributed.transfer.all_reduce` joins over the DP's ranks; its share
+the pools (MLA: over the whole latent pools), its heads of an SSM
+mixer over its heads of the slots' states, and its columns of a dense
+FFN, each a partial sum that `distributed.transfer.all_reduce` joins
+over the DP's ranks (an SSM layer's gated norm all-reduces its sums of
+squares first); its share
 of an MoE's rows through the EP layer, gathered after; the embedding
 and logits over its slice of the vocabulary or of d_model.  Every rank
 of a DP then holds the same hidden states, bit for bit.  A dense
@@ -118,8 +121,8 @@ import torch
 
 from repro_torch.config.base import AttentionKind, LayerKind, ModelConfig
 from repro_torch.distributed.sharding import (
-    ENC_STACKS, SLOT_STACKS, SSM_STACKS, cache_model, dp_groups, head_share,
-    is_merged, kv_split, params_on, rank_params,
+    ENC_STACKS, SLOT_STACKS, SSM_STACKS, cache_model, cache_tp_axis,
+    dp_groups, is_merged, params_on, rank_params, rank_share,
 )
 from repro_torch.distributed.transfer import (
     all_gather, all_reduce, broadcast, gather_to, move, reduce_to,
@@ -127,7 +130,8 @@ from repro_torch.distributed.transfer import (
 from repro_torch.models.blocks import (
     ATTN_KINDS, attn_extend_paged, attn_split, block_decode,
     block_decode_paged, block_extend, block_extend_paged, block_full,
-    cross_block, init_block_params, mixer_decode_paged, mlp_shards,
+    cross_block, init_block_params, mixer_decode_paged, mla_extend_paged,
+    mlp_shards, ssm_decode_shards, ssm_split,
 )
 from repro_torch.models.layers import rms_norm, sinusoid_pos_embedding
 from repro_torch.models.mamba import ssm_dims
@@ -194,15 +198,26 @@ def stack_index(cfg: ModelConfig) -> List[Tuple[LayerKind, int]]:
     return out
 
 
-def _kv_shapes(cfg: ModelConfig, lead: Tuple[int, ...], kv_heads=None):
+def _kv_shapes(cfg: ModelConfig, lead: Tuple[int, ...]):
     """Shapes of one attention layer stack's "k" and "v" entries after
-    the leading axes `lead`: per-head K/V (`kv_heads` of them, default
-    all), or MLA's latent and rope key."""
+    the leading axes `lead`: per-head K/V, or MLA's latent and rope
+    key."""
     if cfg.attention == AttentionKind.MLA:
         m = cfg.mla
         return lead + (m.kv_lora_rank,), lead + (m.qk_rope_head_dim,)
-    kv = lead + (kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = lead + (cfg.num_kv_heads, cfg.resolved_head_dim)
     return kv, kv
+
+
+def _tp_zeros(cfg: ModelConfig, name: str, shape, tp: int, **kw):
+    """Zeros for cache entry `name` of `shape`, cut to one of `tp`
+    tensor-parallel ranks' share where the ranks split it
+    (`cache_tp_axis`)."""
+    ax = cache_tp_axis(cfg, name, tp)
+    if ax is not None:
+        shape = list(shape)
+        shape[ax] //= tp
+    return torch.zeros(tuple(shape), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -328,16 +343,19 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _ssm_stacks(cfg: ModelConfig, n_ssm: int, rows: int, dtype,
-                device) -> Dict:
+                device, tp: int = 1) -> Dict:
     """Zero SSM states (fp32) and conv tails (`dtype`) of `n_ssm` layers
-    for `rows` rows (dense rows, or a paged cache's slots)."""
+    for `rows` rows (dense rows, or a paged cache's slots); a
+    tensor-parallel rank's heads of them with `tp` > 1."""
     sc = cfg.ssm
     di, nh, _ = ssm_dims(cfg.d_model, sc)
     tail = (n_ssm, rows, sc.d_conv - 1)
     return {
-        "ssm": torch.zeros((n_ssm, rows, nh, sc.head_dim, sc.d_state),
-                           dtype=torch.float32, device=device),
-        "conv_x": torch.zeros(tail + (di,), dtype=dtype, device=device),
+        "ssm": _tp_zeros(cfg, "ssm", (n_ssm, rows, nh, sc.head_dim,
+                                      sc.d_state), tp,
+                         dtype=torch.float32, device=device),
+        "conv_x": _tp_zeros(cfg, "conv_x", tail + (di,), tp, dtype=dtype,
+                            device=device),
         "conv_bc": torch.zeros(tail + (2 * sc.n_groups * sc.d_state,),
                                dtype=dtype, device=device),
     }
@@ -423,30 +441,30 @@ def paged_layout(cfg: ModelConfig, max_len: int, block_size: int
 
 def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
                      max_len: int, block_size: int, dtype=torch.float32,
-                     device="cuda", kv_heads=None) -> Dict:
+                     device="cuda", tp: int = 1) -> Dict:
     """Paged decode cache for one DP unit: `slots` batch rows sharing
     `num_blocks` physical blocks (block 0 reserved as the null block):
-    K/V pools over the attention layers (`kv_heads` KV heads, default
-    all: a tensor-parallel rank's pools hold its share), for a hybrid's
-    SSM layers per-slot SSM states and conv tails, and for an
-    encoder-decoder per-slot encoder K/V of every decoder layer (zero
-    until a join writes them), laid out as `init_cache`'s."""
+    K/V pools over the attention layers, for a hybrid's SSM layers
+    per-slot SSM states and conv tails, and for an encoder-decoder
+    per-slot encoder K/V of every decoder layer (zero until a join
+    writes them), laid out as `init_cache`'s.  With `tp` > 1 it is one
+    tensor-parallel rank's shard: its share of what the ranks split
+    (`distributed.sharding.cache_tp_axis`: KV heads, SSM heads)."""
     nbt, _ = paged_layout(cfg, max_len, block_size)
     kinds = cfg.layer_kinds()
     n_attn = sum(k in ATTN_KINDS for k in kinds)
-    k_shape, v_shape = _kv_shapes(cfg, (n_attn, num_blocks, block_size),
-                                  kv_heads)
+    k_shape, v_shape = _kv_shapes(cfg, (n_attn, num_blocks, block_size))
     i32 = dict(dtype=torch.int32, device=device)
     cache = {
         "cur": torch.zeros(slots, **i32),
         "kv_pos": torch.full((num_blocks, block_size), -1, **i32),
         "block_tab": torch.full((slots, nbt), -1, **i32),
-        "k": torch.zeros(k_shape, dtype=dtype, device=device),
-        "v": torch.zeros(v_shape, dtype=dtype, device=device),
+        "k": _tp_zeros(cfg, "k", k_shape, tp, dtype=dtype, device=device),
+        "v": _tp_zeros(cfg, "v", v_shape, tp, dtype=dtype, device=device),
     }
     if len(kinds) > n_attn:
         cache.update(_ssm_stacks(cfg, len(kinds) - n_attn, slots, dtype,
-                                 device))
+                                 device, tp))
     if cfg.is_encoder_decoder:
         shape = (len(kinds), slots, cfg.encoder_seq_len, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
@@ -471,7 +489,7 @@ def paged_cache_join(cfg: ModelConfig, dst: Dict, src: Dict, slot,
     encoder-decoder's encoder K/V) into the slot's rows (in place, as
     `cache_join`: between steps), and the slot's table row and token
     count are set.  On a merged cache every model rank of the slot's DP
-    takes its share of the KV heads."""
+    takes its share of what the ranks split (KV heads, SSM heads)."""
     if is_merged(dst):
         d, s = _dp_slot(dst, slot)
 
@@ -506,20 +524,21 @@ def paged_cache_take(cfg: ModelConfig, src: Dict, slot: int) -> Dict:
     """Extract slot `slot` of a paged cache as a dense batch-1 cache (the
     inverse of paged_cache_join: preemption and drain park it).  New
     tensors: the pages' K/V gathered, the per-slot entries cloned.  On a
-    merged cache the KV heads of the DP's model ranks are joined on its
-    rank 0's device where they split."""
+    merged cache what the DP's model ranks split (KV heads, SSM heads) is
+    joined on its rank 0's device."""
     if is_merged(src):
         d, s = _dp_slot(src, slot)
         M = cache_model(src)
-        if not (M > 1 and kv_split(cfg, M)):
-            return paged_cache_take(cfg, src["shards"][d * M], s)
-        outs = [paged_cache_take(cfg, src["shards"][d * M + m], s)
-                for m in range(M)]
-        out = outs[0]
+        out = paged_cache_take(cfg, src["shards"][d * M], s)
         dev = out["cur"].device
-        for name in ("k", "v"):
-            out[name] = torch.cat(move([o[name] for o in outs], [dev] * M),
-                                  -2)
+        for name in list(out):
+            ax = cache_tp_axis(cfg, name, M)
+            if ax is None:
+                continue
+            rest = [paged_cache_take(cfg, src["shards"][d * M + m], s)[name]
+                    for m in range(1, M)]
+            out[name] = torch.cat([out[name]] + move(rest, [dev] * (M - 1)),
+                                  ax)
         return out
     tab_row = src["block_tab"][slot]
     nbt = tab_row.shape[0]
@@ -1179,13 +1198,12 @@ def with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
 
 def _rank_share(cfg: ModelConfig, cache: Dict, tree: Dict, m: int, device
                 ) -> Dict:
-    """`tree` (a dense batch-1 cache or a block payload, whole KV heads)
-    as model rank m of merged `cache` takes it, on `device`: its share
-    of the K/V heads where they split (`kv_split`)."""
+    """`tree` (a dense batch-1 cache or a block payload, whole) as model
+    rank m of merged `cache` takes it, on `device`: its share of what the
+    ranks split (`cache_tp_axis`: KV heads, SSM heads)."""
     M = cache_model(cache)
-    split = M > 1 and kv_split(cfg, M)
-    return {n: (head_share(t, m, M) if split and n in ("k", "v")
-                else t).to(device, non_blocking=True)
+    return {n: rank_share(t, cache_tp_axis(cfg, n, M), m, M).to(
+                device, non_blocking=True)
             for n, t in tree.items()}
 
 
@@ -1267,7 +1285,8 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
     """One decode step over every shard of a merged cache: per layer, each
     shard's mixer over its rows on its device (attention over its pages,
     or a hybrid's SSM decode from its slots' states; under TP its heads'
-    partial output, all-reduced over the DP's model ranks), an
+    partial output, all-reduced over the DP's model ranks, an SSM
+    layer's gated-norm squares all-reduced first), an
     encoder-decoder's cross-attention over each slot's encoder K/V, then
     the FFN over all shards' rows (`mlp_shards`).  `token` (n·S, 1) and
     the optional `decode_mask` (n·S,) in global slot order, or each a
@@ -1299,15 +1318,21 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
     states: List[List] = [[] for _ in devs]
     for l, (kind, i) in enumerate(stack_index(cfg)):
         lp = [p["layers"][l] for p in ps]
-        outs = [mixer_decode_paged(p, x, kind, cfg, _layer_entry(c, kind, i),
-                                   c["kv_pos"], tab, c["cur"])
-                for p, x, (c, tab, _m) in zip(lp, xs, rows)]
-        ys = [y for y, _e in outs]
-        if M > 1 and attn_split(lp[0], cfg):
-            ys = all_reduce(ys, groups)
+        if M > 1 and ssm_split(lp[0], cfg):
+            ys, ents = ssm_decode_shards(
+                lp, xs, cfg, [_layer_entry(c, kind, i) for c, _t, _m in rows],
+                groups)
+        else:
+            outs = [mixer_decode_paged(p, x, kind, cfg,
+                                       _layer_entry(c, kind, i),
+                                       c["kv_pos"], tab, c["cur"])
+                    for p, x, (c, tab, _m) in zip(lp, xs, rows)]
+            ys, ents = [y for y, _e in outs], [e for _y, e in outs]
+            if M > 1 and attn_split(lp[0], cfg):
+                ys = all_reduce(ys, groups)
         xs = [x + y for x, y in zip(xs, ys)]
         if kind not in ATTN_KINDS:
-            for st, (_y, e) in zip(states, outs):
+            for st, e in zip(states, ents):
                 st.append(e)
         if "xattn" in lp[0]:
             xs = [cross_block(p, x, cfg, (c["enc_k"][l], c["enc_v"][l]))
@@ -1332,8 +1357,10 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
 def _tp_prefill(cfg: ModelConfig, params, tokens, cache: Dict, d: int,
                 slot):
     """`paged_prefill_step` on the M > 1 model ranks of DP d of a merged
-    cache: each rank writes its heads' K/V into its pools and attends
-    with them (#2's paged entry), the partial outputs all-reduced; a
+    cache: each rank writes its heads' K/V into its pools (an MLA
+    layer: every rank the same latent rows into its whole latent pools)
+    and attends with its heads (#2's paged entry; MLA torch ops), the
+    partial outputs all-reduced; a
     dense FFN's partials all-reduced; an MoE FFN run once from rank 0's
     rows (the EP layer's tensor form) and sent to the other ranks.
     `slot` is local to the DP: an int, or a one-element tensor (a
@@ -1356,12 +1383,12 @@ def _tp_prefill(cfg: ModelConfig, params, tokens, cache: Dict, d: int,
         poss.append((pos0s[-1] + torch.arange(
             Sc, dtype=torch.int32, device=dev)).reshape(1, Sc))
     xs = _embed_shards(cfg, ps, toks, group)                    # (1, Sc, D)
+    attend = (mla_extend_paged if cfg.attention == AttentionKind.MLA
+              else attn_extend_paged)
     for l in range(cfg.num_layers):
         lp = [p["layers"][l] for p in ps]
-        ys = [attn_extend_paged(p["attn"], rms_norm(x, p["ln1"],
-                                                    cfg.norm_eps),
-                                cfg, c["k"][l], c["v"][l], c["kv_pos"],
-                                tab, pos)
+        ys = [attend(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                     c["k"][l], c["v"][l], c["kv_pos"], tab, pos)
               for p, x, c, tab, pos in zip(lp, xs, cs, tabs, poss)]
         if attn_split(lp[0], cfg):
             ys = all_reduce(ys, group)

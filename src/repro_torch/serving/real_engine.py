@@ -167,7 +167,7 @@ from repro_torch.config.base import (
 from repro_torch.core.types import DispatchCommand, Request, RequestPhase
 from repro_torch.distributed import annotate
 from repro_torch.distributed.sharding import (
-    axis_size, data_axes_of, expert_axes_of, is_merged, kv_split,
+    axis_size, data_axes_of, expert_axes_of, is_merged,
     model_size, params_on, place_params, shard_paged_cache,
 )
 from repro_torch.distributed.transfer import count_collectives
@@ -270,8 +270,8 @@ class EngineSpec:
         steps' mesh context carries: tokens over the data axes, experts
         over the expert axes (EP over the whole mesh when E divides it,
         as the reference's `launch/dryrun` default), and on a mesh with
-        model ranks the model axis (tensor parallelism inside each DP;
-        MLA and SSM layers refused by `place_params`)."""
+        model ranks the model axis (tensor parallelism inside each
+        DP)."""
         if not self.block_size:
             raise ValueError(
                 "sharded engines are paged-only (set block_size > 0)")
@@ -317,17 +317,15 @@ class EngineSpec:
     def merged_paged_cache(self) -> Dict:
         """ONE instance-wide decode cache holding every DP unit's rows
         (sharded plane), as one shard per (data, model) rank on its
-        device, each with its share of the KV heads under TP: slot s
-        belongs to DP s // paged_slots, physical block b to DP
+        device, each with its share of the KV and SSM heads under TP:
+        slot s belongs to DP s // paged_slots, physical block b to DP
         b // paged_pool_blocks, matching the per-DP `BlockPool(base=...)`
         allocators."""
         M = model_size(self.mesh)
-        heads = (self.cfg.num_kv_heads // M if kv_split(self.cfg, M)
-                 else None)
         return {"shards": [init_paged_cache(
                     self.cfg, self.paged_slots, self.paged_pool_blocks,
                     self.max_len, self.block_size, dtype=self.dtype,
-                    device=dev, kv_heads=heads)
+                    device=dev, tp=M)
                     for dev in self.mesh.devices],
                 "slots": self.paged_slots, "blocks": self.paged_pool_blocks,
                 "model": M}

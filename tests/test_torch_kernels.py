@@ -529,9 +529,19 @@ def test_dense_check_args_rejects_layouts():
         dec_ops.check_dense_args(q, kt, kt, kv_pos, pos)
 
 
-def test_wrappers_refuse_devices_without_a_kernel():
-    """Only CPU tensors take the plain version; any other non-CUDA
-    device raises instead of silently computing somewhere else."""
+def test_wrappers_refuse_devices_without_a_kernel(monkeypatch):
+    """Only CPU tensors and `meta` tensors (the dry-run's shapes) take
+    the plain version; any other non-CUDA device raises instead of
+    silently computing somewhere else.  `meta` stands for such a device
+    once it is taken out of `PLAIN_DEVICES`."""
+    for wrapper, make in ((paged_decode_attention, _decode_args),
+                          (decode_attention, _dense_args)):
+        args = [a.to("meta") for a in make()]
+        before = wrapper.launches
+        out = wrapper(*args)                     # the plain version
+        assert out.device.type == "meta" and out.shape == args[0].shape
+        assert wrapper.launches == before
+    monkeypatch.setattr(dec_ops, "PLAIN_DEVICES", ("cpu",))
     args = [a.to("meta") for a in _decode_args()]
     before = paged_decode_attention.launches
     with pytest.raises(ValueError):

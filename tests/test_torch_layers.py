@@ -55,7 +55,8 @@ def _close(j, t, tol=TOL):
 def test_import_guard_server_pulls_no_jax():
     examples = [os.path.join(REPO, "examples", f) for f in (
         "serve_e2e_torch.py", "train_wsd_torch.py",
-        "simulate_production_torch.py")]
+        "simulate_production_torch.py")] + [
+        os.path.join(REPO, "scripts", "microbench_torch.py")]
     code = ("import importlib.util, sys, repro_torch.serving.server\n"
             "import repro_torch.bridge, repro_torch.launch.mesh\n"
             "import repro_torch.distributed.sharding\n"
@@ -63,7 +64,9 @@ def test_import_guard_server_pulls_no_jax():
             "import repro_torch.models.moe_ep\n"
             "import repro_torch.train, repro_torch.checkpoint\n"
             "import repro_torch.data, repro_torch.launch.train\n"
-            "import repro_torch.serving.e2e\n"
+            "import repro_torch.serving.e2e, repro_torch.launch.serve\n"
+            "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.step_analysis\n"
             f"for i, f in enumerate({examples!r}):\n"
             "    s = importlib.util.spec_from_file_location(f'ex{i}', f)\n"
             "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
@@ -87,6 +90,7 @@ def _port_sources():
     yield os.path.join(REPO, "examples", "quickstart_torch.py")
     yield os.path.join(REPO, "examples", "train_wsd_torch.py")
     yield os.path.join(REPO, "examples", "simulate_production_torch.py")
+    yield os.path.join(REPO, "scripts", "microbench_torch.py")
 
 
 def test_port_sources_import_no_jax_or_repro():

@@ -254,9 +254,16 @@ def test_ssd_chunk_checks_refuse_what_the_kernel_does_not_take(bad):
         ssd_ops.check_args(x, dt, A, Bm, Cm)
 
 
-def test_ssd_chunk_refuses_devices_without_a_kernel():
+def test_ssd_chunk_refuses_devices_without_a_kernel(monkeypatch):
+    """CPU and `meta` tensors (the dry-run's shapes) take the plain
+    version; any other non-CUDA device raises.  `meta` stands for such a
+    device once it is taken out of `PLAIN_DEVICES`."""
     args = [a.to("meta") for a in _kernel_args()]
     before = ssd_chunk.launches
+    y, st = ssd_chunk(*args)                     # the plain version
+    assert y.device.type == "meta" and st.device.type == "meta"
+    assert ssd_chunk.launches == before
+    monkeypatch.setattr(ssd_ops, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError):
         ssd_chunk(*args)
     assert ssd_chunk.launches == before

@@ -1,57 +1,70 @@
 """PyTorch port: tensor parallelism (TP) inside a DP unit on the sharded
 serving plane (`make_engine_mesh(2, 2)`: two DP units of two model ranks
-each), on logical CPU shards, in fp32:
+each), on logical CPU shards, in fp32, on reduced granite-moe-1b-a400m
+(GQA, MoE, tied embeddings), deepseek-7b (MHA, dense FFN, untied
+`lm_head`), minicpm3-4b (MLA), deepseek-v3-671b (MLA and MoE),
+jamba-v0.1-52b (attention, MoE and SSM layers) and the MoE-free hybrid
+(its pattern cut to (SSM, DENSE)):
 
-  * placement: every leaf of reduced granite-moe-1b-a400m (GQA, MoE,
-    tied embeddings) and reduced deepseek-7b (MHA, dense FFN, untied
-    `lm_head`) splits where the reference's `param_pspecs` puts "model",
-    and the merged paged cache where its `paged_cache_pspecs` puts it
-    (KV heads on "model", slots and blocks on "data"), both read from
-    one JAX subprocess on a forced-host (2, 2) mesh;
+  * placement: every leaf splits where the port's `param_pspecs` (the
+    reference's, `tests/test_torch_launch.py`) puts "model", but where
+    `tp_axis`'s note says the serving plane differs (the MoE's shared
+    experts whole; an SSM layer's per-head vectors and gated-norm
+    weight with its heads, and its [z|x] projection z and x each by
+    heads), and the ranks hold exactly those pieces; the merged paged
+    cache splits KV heads where `paged_cache_pspecs` puts them on
+    "model", and a hybrid's SSM state and x conv tail by heads;
   * the TP merged decode step (plain and masked) and the TP prefill
-    chunk equal the unsharded steps (logits and written K/V within 1e-5
-    of their largest), every model rank of a DP holds the same hidden
-    states bit for bit after each layer, and the collectives a step
-    makes are the ones its layers call for; a heads-not-dividing
-    variant runs its attention replicated;
+    chunk equal the unsharded steps (logits, written K/V and the new SSM
+    states within 1e-5 of their largest), every model rank of a DP
+    holds the same hidden states bit for bit after each layer (an SSM
+    layer's too: its gated norm all-reduces its sums of squares), and
+    the collectives a step makes are the ones its layers call for; a
+    heads-not-dividing variant runs its attention replicated;
   * the page surgery through a DP's view of a TP merged cache equals
-    the same surgery on the unsharded cache;
+    the same surgery on the unsharded cache (the SSM state of a slot
+    split and joined over the ranks);
   * the step runner over the TP merged step equals the direct step bit
     for bit and counts the collectives of each replay;
   * `RealSBSServer(mesh=make_engine_mesh(2, 2, devices=["cpu"] * 4))`
     token-exact against the JAX single-device server: reduced granite
     P/D and unified, reduced deepseek-7b P/D with `prefix_cache=True`,
-    and the heads-not-dividing variant P/D;
-  * MLA and SSM layers under model > 1 raise NotImplementedError naming
-    the ROADMAP item;
-  * chip_smoke.py's phase 6k (TP serve and the deepseek-7b TP step
-    check) rehearsed at the reduced size.
+    the heads-not-dividing variant P/D, minicpm3-4b and deepseek-v3 P/D
+    and unified; the hybrids P/D against the JAX step oracle over the
+    serve's own prefill chunks (an SSM's tokens depend on them);
+  * MLA and SSM layers place, build a spec and run on a (2, 2) mesh;
+    pure mamba2 is never paged, so it stays off the sharded plane;
+  * chip_smoke.py's phase 6k (TP serves and the deepseek-7b TP step
+    check, the minicpm3-4b and jamba legs) rehearsed at the reduced
+    size.
 
 JAX weights are bridged over (`params_from_numpy`).
 """
 import dataclasses
-import json
 import os
 import random
-import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.config import get_arch
+from repro.config.base import LayerKind as JLK
 from repro.config.base import ServingConfig as JServingConfig
 from repro.models import model as JM
 
 from repro_torch.bridge import params_from_numpy
+from repro_torch.config.base import LayerKind as TLK
 from repro_torch.config.base import ParallelConfig, ServingConfig
 from repro_torch.config.base import get_arch as t_get_arch
 from repro_torch.core.types import Request
 from repro_torch.distributed import transfer as TT
 from repro_torch.distributed.sharding import (
-    kv_split, place_params, shard_paged_cache, tp_axis, unshard_paged_cache,
+    SSM_STACKS, attn_heads_split, kv_split, paged_cache_pspecs, param_pspecs,
+    place_params, shard_paged_cache, ssm_split, tp_axis, unshard_paged_cache,
 )
 from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.models import model as TM
@@ -65,7 +78,9 @@ MAX_LEN = 64
 BLOCK = 8
 N_DP, M = 2, 2
 TOL = 1e-5
-ARCHS = ["granite-moe-1b-a400m", "deepseek-7b", "deepseek-7b-heads3"]
+ARCHS = ["granite-moe-1b-a400m", "deepseek-7b", "deepseek-7b-heads3",
+         "minicpm3-4b", "deepseek-v3-671b", "jamba-v0.1-52b", "jamba-hybrid"]
+HYBRIDS = ("jamba-v0.1-52b", "jamba-hybrid")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -82,15 +97,21 @@ _PAIRS = {}
 def _pair(arch):
     """(JAX cfg, JAX params, port cfg, port params).  "deepseek-7b-heads3"
     is reduced deepseek-7b with 3 heads of 64: its heads do not divide
-    the 2 model ranks, so its attention runs replicated."""
+    the 2 model ranks, so its attention runs replicated; "jamba-hybrid"
+    is reduced jamba with the layer pattern (SSM, DENSE)."""
     if arch not in _PAIRS:
         base = arch.replace("-heads3", "")
+        base = "jamba-v0.1-52b" if arch == "jamba-hybrid" else base
         cfg = get_arch(base, reduced=True)
         tcfg = t_get_arch(base, reduced=True)
         if arch.endswith("-heads3"):
             kw = dict(num_heads=3, num_kv_heads=3, head_dim=64)
             cfg = dataclasses.replace(cfg, **kw)
             tcfg = dataclasses.replace(tcfg, **kw)
+        if arch == "jamba-hybrid":
+            cfg = dataclasses.replace(cfg, layer_pattern=(JLK.SSM, JLK.DENSE))
+            tcfg = dataclasses.replace(tcfg,
+                                       layer_pattern=(TLK.SSM, TLK.DENSE))
         jp = jax.jit(JM.init_params, static_argnums=0)(
             cfg, jax.random.PRNGKey(0))
         tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
@@ -111,69 +132,8 @@ def _par(tcfg):
 
 
 # ---------------------------------------------------------------------------
-# placement against the reference's pspecs
+# placement against the production rules (`param_pspecs`)
 # ---------------------------------------------------------------------------
-
-_JAX = r"""
-import os, sys, json
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-import jax
-from repro.config import get_arch
-from repro.config.base import ParallelConfig
-from repro.distributed.sharding import param_pspecs, paged_cache_pspecs
-from repro.launch.mesh import make_test_mesh
-from repro.models import model as JM
-
-mesh = make_test_mesh(2, 2)
-out = {}
-
-def spec_list(spec, ndim):
-    axes = list(spec) + [None] * (ndim - len(spec))
-    return [a if a is None or isinstance(a, str) else list(a) for a in axes]
-
-def keys(path):
-    return [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
-
-for arch in ("granite-moe-1b-a400m", "deepseek-7b"):
-    cfg = get_arch(arch, reduced=True)
-    E = cfg.moe.num_experts if cfg.moe is not None else 0
-    par = (ParallelConfig(expert_axes=("data", "model")) if E and E % 4 == 0
-           else ParallelConfig())
-    params = jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0)))
-    specs = param_pspecs(cfg, mesh, par, params)
-    pl = {}
-    for (path, spec), (_p, leaf) in zip(
-            jax.tree_util.tree_flatten_with_path(specs,
-                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0],
-            jax.tree_util.tree_flatten_with_path(params)[0]):
-        pl["/".join(keys(path))] = spec_list(spec, len(leaf.shape))
-    cache = jax.eval_shape(lambda: JM.init_paged_cache(cfg, 4, 8, 64, 8))
-    cspecs = paged_cache_pspecs(cfg, mesh, par, cache)
-    cl = {}
-    for (path, spec), (_p, leaf) in zip(
-            jax.tree_util.tree_flatten_with_path(cspecs,
-                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0],
-            jax.tree_util.tree_flatten_with_path(cache)[0]):
-        cl["/".join(keys(path))] = spec_list(spec, len(leaf.shape))
-    out[arch] = {"params": pl, "cache": cl}
-json.dump(out, open(sys.argv[1], "w"))
-print("JAX-PSPECS-OK")
-"""
-
-
-@pytest.fixture(scope="module")
-def jax_pspecs(tmp_path_factory):
-    dst = str(tmp_path_factory.mktemp("tp") / "pspecs.json")
-    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
-           "JAX_PLATFORMS": "cpu"}
-    res = subprocess.run([sys.executable, "-c", _JAX, dst],
-                         capture_output=True, text=True, timeout=600,
-                         env=env, cwd=REPO)
-    assert res.returncode == 0 and "JAX-PSPECS-OK" in res.stdout, \
-        res.stderr[-3000:]
-    with open(dst) as f:
-        return json.load(f)
-
 
 def _leaves(tree, path=()):
     if isinstance(tree, torch.Tensor):
@@ -186,54 +146,94 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (str(i),))
 
 
-@pytest.mark.parametrize("arch", ARCHS[:2])
-def test_placement_matches_reference_pspecs(jax_pspecs, arch):
+# (leaf, where `param_pspecs` puts "model", where the serving plane
+# splits it instead: `tp_axis`'s documented differences)
+_SERVING_SPLITS = {"A_log": 0, "D_skip": 0, "dt_bias": 0, "norm": 0}
+
+
+def _serving_axis(path, want):
+    """Where the serving plane splits the leaf at `path`, given
+    `param_pspecs`' model dims `want` (see `tp_axis`)."""
+    if "mamba" in path and path[-1] in _SERVING_SPLITS:
+        assert want == [], path                 # GSPMD: replicated
+        return _SERVING_SPLITS[path[-1]]
+    if path[-1].startswith("shared_"):
+        return None                             # shared experts: whole
+    return want[0] if want else None
+
+
+def _node(tree, path):
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_placement_matches_reference_pspecs(arch):
     _cfg, _jp, tcfg, tp = _pair(arch)
-    ref = jax_pspecs[arch]["params"]
-    placed = place_params(tcfg, tp, _mesh(), _par(tcfg))
+    mesh, par = _mesh(), _par(tcfg)
+    specs = param_pspecs(tcfg, mesh, par, tp)
+    placed = place_params(tcfg, tp, mesh, par)
     checked = 0
     for path, t in _leaves(tp):
-        if path[0] == "layers":
-            # the reference stacks the layers of each pattern slot: its
-            # spec has a leading layer axis that is never split
-            key = "/".join(("blocks", "p0") + path[2:])
-            want = ref[key][1:]
-        else:
-            key = "/".join(path)
-            want = ref[key]
+        spec = _node(specs, path)
         if path[-1] in ("w_gate", "w_up", "w_down") and t.dim() == 3:
             # experts: split over the expert axes, nothing on "model"
-            assert want[0] == ["data", "model"], key
-            shards = placed["layers"][int(path[1])]["moe"][path[-1]]
-            assert shards.G == 4 and shards.E_per == t.shape[0] // 4
+            assert spec[0] in (("data", "model"), "model"), (path, spec)
+            if path[0] == "layers":
+                shards = placed["layers"][int(path[1])]["moe"][path[-1]]
+                assert shards.G == (4 if spec[0] == ("data", "model")
+                                    else 2)
             checked += 1
             continue
-        model_dims = [i for i, a in enumerate(want) if a == "model"]
+        want = [i for i, a in enumerate(spec) if a == "model"]
         ax = tp_axis(tcfg, path, t.shape, M)
-        assert model_dims == ([] if ax is None else [ax]), (key, want, ax)
-        # and the ranks hold exactly that piece
-        for m in range(M):
-            node = placed.ranks[(torch.device("cpu"), m)]
-            for k in path:
-                node = node[int(k)] if isinstance(node, list) else node[k]
+        if arch == "deepseek-7b-heads3" and path[-1] in ("w_q", "w_k",
+                                                          "w_v", "w_o"):
+            # 3 heads over 2 ranks: the reference shards these by row
+            # ("attn_seq"); the port runs the attention replicated
+            assert ax is None and want, (path, want)
+        else:
+            assert ax == _serving_axis(path, want), (path, spec, ax)
+        # and the ranks hold exactly that piece (the serving plane does
+        # not run DeepSeek-V3's multi-token-prediction head: not placed)
+        for m in range(M if path[0] != "mtp" else 0):
+            node = _node(placed.ranks[(torch.device("cpu"), m)], path)
             if "moe" in path:
                 continue
-            piece = t if ax is None else t.chunk(M, ax)[m]
-            assert torch.equal(node, piece), (key, m)
+            if path[-1] == "w_zx" and ax is not None:
+                di = t.shape[1] // 2
+                z, x = t[:, :di].chunk(M, 1)[m], t[:, di:].chunk(M, 1)[m]
+                piece = torch.cat([z, x], 1)
+            else:
+                piece = t if ax is None else t.chunk(M, ax)[m]
+            assert torch.equal(node, piece), (path, m)
         checked += 1
     assert checked == len(list(_leaves(tp)))
     # the merged paged cache: slots and blocks on "data", KV heads on
-    # "model" where the reference puts them there
-    cref = jax_pspecs[arch]["cache"]
-    pool = cref["blocks/p0/0"]
-    assert pool[1] == "data" and cref["cur"] == ["data"]
-    assert (pool[3] == "model") == kv_split(tcfg, M)
+    # "model" where the production rules put them there, a hybrid's SSM
+    # state and x conv tail by heads
     glob = TM.init_paged_cache(tcfg, 4, 8, MAX_LEN, BLOCK, device="cpu")
-    merged = shard_paged_cache(glob, _mesh(), tcfg)
-    K = tcfg.num_kv_heads
+    cspecs = paged_cache_pspecs(tcfg, mesh, par, glob)
+    assert cspecs["k"][1] == "data" and cspecs["cur"] == ("data",)
+    assert (len(glob["k"].shape) == 5
+            and cspecs["k"][3] == "model") == kv_split(tcfg, M)
+    merged = shard_paged_cache(glob, mesh, tcfg)
+    split = ssm_split(tcfg, M)
     for c in merged["shards"]:
-        assert c["k"].shape[-2] == K // M and c["cur"].shape[0] == 2
-        assert c["kv_pos"].shape[0] == 4
+        K = glob["k"].shape[-2]
+        assert c["k"].shape[-2] == (K // M if kv_split(tcfg, M) else K)
+        assert c["cur"].shape[0] == 2 and c["kv_pos"].shape[0] == 4
+        for name in SSM_STACKS:
+            if name not in glob:
+                continue
+            want = list(glob[name].shape)
+            want[1] = 2                          # the DP's 2 slots
+            if split and name == "ssm":
+                want[2] //= M                    # heads
+            if split and name == "conv_x":
+                want[-1] //= M                   # x channels
+            assert list(c[name].shape) == want, name
 
 
 # ---------------------------------------------------------------------------
@@ -241,13 +241,15 @@ def test_placement_matches_reference_pspecs(jax_pspecs, arch):
 # ---------------------------------------------------------------------------
 
 def _global_cache(tcfg, n_slots, n_blocks, seed):
-    """A merged-geometry paged cache in global ids with random K/V, every
-    DP's rows holding a random prefix through its own blocks."""
+    """A merged-geometry paged cache in global ids with random K/V (and a
+    hybrid's random SSM states and conv tails), every DP's rows holding a
+    random prefix through its own blocks."""
     g = torch.Generator().manual_seed(seed)
     c = TM.init_paged_cache(tcfg, n_slots, n_blocks, MAX_LEN, BLOCK,
                             device="cpu")
-    c["k"].normal_(generator=g)
-    c["v"].normal_(generator=g)
+    for name in ("k", "v") + SSM_STACKS:
+        if name in c:
+            c[name].normal_(generator=g)
     S, B = n_slots // N_DP, n_blocks // N_DP
     nbt = c["block_tab"].shape[1]
     cur = torch.zeros(n_slots, dtype=torch.int32)
@@ -276,12 +278,15 @@ def _spec(arch, **kw):
 def _expected_calls(tcfg, tp, S):
     """The TP collectives of one merged decode step: the embedding's
     (vocabulary slices all-reduced, d_model slices all-gathered), one
-    all-reduce after each split attention and each split dense FFN, an
-    all-gather of each MoE layer's rows (S rows a DP split over the
-    ranks), the logits' gather (vocabulary slices)."""
+    all-reduce after each split attention (GQA or MLA) and each split
+    dense FFN, two after each split SSM mixer (its gated norm's sums of
+    squares, its out_proj), an all-gather of each MoE layer's rows (S
+    rows a DP split over the ranks), the logits' gather (vocabulary
+    slices)."""
     assert tcfg.vocab_size % M == 0 and S % M == 0
-    heads = tcfg.num_heads % M == 0 and tcfg.num_kv_heads % M == 0
-    reduces = 1 + sum(heads + ("mlp" in p) for p in tp["layers"])
+    heads, ssm = attn_heads_split(tcfg, M), ssm_split(tcfg, M)
+    reduces = 1 + sum((2 * ssm if "mamba" in p else heads) + ("mlp" in p)
+                      for p in tp["layers"])
     gathers = sum("moe" in p for p in tp["layers"])
     calls = {"all_reduce": reduces, "all_gather": gathers, "gather": 1}
     return {k: n for k, n in calls.items() if n}
@@ -341,9 +346,15 @@ def test_tp_merged_step_equals_unsharded(arch, masked, monkeypatch):
     for name in ("k", "v"):
         d = (back[name][:, live] - out_1[name][:, live]).abs().max()
         assert float(d) <= TOL * float(out_1[name].abs().max()), name
+    for name in SSM_STACKS:                # a hybrid's new states
+        if name in out_1:
+            d = (back[name] - out_1[name]).abs().max()
+            assert float(d) <= TOL * float(out_1[name].abs().max()), name
+            if masked:                     # masked rows keep theirs
+                assert torch.equal(back[name][:, ~mask], glob[name][:, ~mask])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in HYBRIDS])
 def test_tp_prefill_chunk_equals_unsharded(arch):
     _cfg, _jp, tcfg, tp = _pair(arch)
     spec = _spec(arch)
@@ -404,12 +415,16 @@ def test_tp_step_runner_equals_direct_step_and_counts_collectives():
         assert st.calls == _expected_calls(tcfg, tp, S)
 
 
-def test_page_surgery_on_a_tp_dp_view_equals_unsharded():
+@pytest.mark.parametrize("arch", ["deepseek-7b", "minicpm3-4b",
+                                  "jamba-v0.1-52b"])
+def test_page_surgery_on_a_tp_dp_view_equals_unsharded(arch):
     """Joins, takes, clears, adoption, block copies, row installs and
     table edits through DP k's view of a TP merged cache act on both of
-    its model ranks and leave the same cache as on the unsharded one."""
-    _cfg, _jp, tcfg, tp = _pair("deepseek-7b")
-    spec = _spec("deepseek-7b")
+    its model ranks and leave the same cache as on the unsharded one
+    (KV heads split, an MLA latent whole on both ranks, a hybrid slot's
+    SSM state split by heads)."""
+    _cfg, _jp, tcfg, tp = _pair(arch)
+    spec = _spec(arch)
     S, B = spec.paged_slots, spec.paged_pool_blocks
     glob = _global_cache(tcfg, N_DP * S, N_DP * B, seed=5)
     merged = spec.shard_cache({k: v.clone() for k, v in glob.items()})
@@ -442,10 +457,16 @@ def test_page_surgery_on_a_tp_dp_view_equals_unsharded():
         for name in ("k", "v"):
             assert torch.equal(back[name][:, live], glob[name][:, live]), \
                 (i, name)
+        for name in SSM_STACKS:
+            if name in glob:
+                assert torch.equal(back[name], glob[name]), (i, name)
         # the model ranks of each DP agree on everything they replicate
+        whole = ("cur", "block_tab", "kv_pos") + (
+            () if kv_split(tcfg, M) else ("k", "v")) + tuple(
+            n for n in ("conv_bc",) if n in glob)
         for d in range(N_DP):
             a, b = view["shards"][d * M], view["shards"][d * M + 1]
-            for name in ("cur", "block_tab", "kv_pos"):
+            for name in whole:
                 assert torch.equal(a[name], b[name]), (i, name)
     got = TM.paged_cache_take(tcfg, view, slot)
     want = TM.paged_cache_take(tcfg, glob, slot)
@@ -482,12 +503,18 @@ def _serve(srv, reqs):
 SERVES = [("granite-moe-1b-a400m", False, False),
           ("granite-moe-1b-a400m", True, False),
           ("deepseek-7b", False, True),
-          ("deepseek-7b-heads3", False, False)]
+          ("deepseek-7b-heads3", False, False),
+          ("minicpm3-4b", False, False),
+          ("minicpm3-4b", True, False),
+          ("deepseek-v3-671b", False, False),
+          ("deepseek-v3-671b", True, False)]
 
 
 @pytest.mark.parametrize("arch,mixed,prefix", SERVES,
                          ids=["granite-pd", "granite-unified",
-                              "deepseek-pd-prefix", "heads3-pd"])
+                              "deepseek-pd-prefix", "heads3-pd",
+                              "minicpm3-pd", "minicpm3-unified",
+                              "deepseek-v3-pd", "deepseek-v3-unified"])
 def test_tp_server_token_exact_vs_jax(arch, mixed, prefix):
     from repro.core.types import Request as JRequest
     from repro.serving.server import RealSBSServer as JServer
@@ -507,7 +534,7 @@ def test_tp_server_token_exact_vs_jax(arch, mixed, prefix):
     assert got == want
     eng = srv.decode_engines[0]
     assert len(eng.tp_samples) == len(eng.step_samples)
-    split = kv_split(tcfg, M)
+    split = attn_heads_split(tcfg, M)
     for (_d, active, _r), (calls, _b) in zip(eng.step_samples,
                                              eng.tp_samples):
         if active:
@@ -523,25 +550,119 @@ def test_tp_server_token_exact_vs_jax(arch, mixed, prefix):
         assert stats["decode_blocks_shared"] > 0
 
 
+def _oracle_tokens(cfg, jp, ids, n, chunks):
+    """n tokens of the JAX serial path (dense `prefill_chunk` over the
+    serve's `chunks`, then `decode_step`): a hybrid's tokens depend on
+    where its prefill chunks start."""
+    chunk = jax.jit(lambda p, t, c: JM.prefill_chunk(cfg, p, t, c))
+    step = jax.jit(lambda p, t, c: JM.decode_step(cfg, p, t, c))
+    cache, at = JM.init_cache(cfg, 1, MAX_LEN), 0
+    for c in chunks:
+        lg, cache = chunk(jp, jnp.asarray([ids[at:at + c]], jnp.int32),
+                          cache)
+        at += c
+    toks = [int(jnp.argmax(lg[0]))]
+    for _ in range(n - 1):
+        lg, cache = step(jp, jnp.asarray([[toks[-1]]], jnp.int32), cache)
+        toks.append(int(jnp.argmax(lg[0])))
+    return toks
+
+
+@pytest.mark.parametrize("graphs", [True, False], ids=["graphs", "eager"])
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_tp_hybrid_server_matches_jax_oracle(arch, graphs):
+    """Reduced jamba and the MoE-free hybrid on the sharded P/D plane of a
+    (2, 2) mesh: each SSM layer's heads split over the two ranks of each
+    DP (its per-slot state and x conv tail too), token-exact against
+    the JAX step oracle over the serve's own chunks, with and without
+    the step runner; every decode step makes the predicted collectives
+    and the merged cache drains."""
+    cfg, jp, tcfg, tp = _pair(arch)
+    scfg = _scfg()
+    mesh = _mesh()
+    spec = EngineSpec(tcfg, tp, max_len=MAX_LEN,
+                      max_batch=scfg.max_batch_per_dp, max_new=5,
+                      block_size=BLOCK,
+                      decode_slots=scfg.resolved_decode_slots, mesh=mesh,
+                      step_graphs=graphs)
+    srv = RealSBSServer(tcfg, tp, scfg, scheduler="sbs", max_len=MAX_LEN,
+                        max_new=5, spec=spec, mesh=mesh)
+    shard = srv.decode_engines[0]._group.cache["shards"][0]
+    assert shard["ssm"].shape[2] == TM.ssm_dims(tcfg.d_model,
+                                                tcfg.ssm)[1] // M
+    chunks = {}
+    for eng in srv.engines:
+        inner = eng._run_chunk
+        eng._run_chunk = (lambda req, tok, _f=inner: (
+            chunks.setdefault(req.rid, []).append(tok), _f(req, tok))[1])
+    reqs = _reqs(tcfg.vocab_size)
+    gens = srv.serve(reqs, timeout=120)
+    assert sorted(g.rid for g in gens) == [r.rid for r in reqs]
+    for g, r in zip(gens, reqs):
+        assert g.tokens == _oracle_tokens(cfg, jp, list(r.tokens),
+                                          r.output_len, chunks[r.rid]), r.rid
+    eng = srv.decode_engines[0]
+    want = _expected_calls(tcfg, tp, spec.paged_slots)
+    for (_d, active, _r), (calls, _b) in zip(eng.step_samples,
+                                             eng.tp_samples):
+        if active:
+            assert calls == want
+    for st in eng._dp.values():
+        st.pool.check()
+        assert st.pool.used_count == 0 and not st.occupied()
+
+
 # ---------------------------------------------------------------------------
-# refusals
+# MLA and SSM layers under TP
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "mamba2-370m",
                                   "jamba-v0.1-52b"])
-def test_tp_refuses_mla_and_ssm_layers(arch):
+def test_tp_places_mla_and_ssm_layers(arch):
+    """MLA and SSM layers place on a (2, 2) mesh: an MLA layer's w_uq,
+    w_uk, w_uv by head and w_o by row, its down-projections whole; an
+    SSM layer's heads (z and x of w_zx each by heads, w_dt, the x conv,
+    the per-head vectors, the norm weight, out_proj's rows), B/C whole.
+    A spec on that mesh builds where the model pages (pure mamba2 is
+    never paged in either package, so it stays off the sharded plane)."""
     tcfg = t_get_arch(arch, reduced=True)
     params = TM.init_params(tcfg, seed=0, device="cpu")
-    what = "MLA" if tcfg.attention.name == "MLA" else "SSM"
-    with pytest.raises(NotImplementedError, match=f"{what}.*11-rest"):
-        place_params(tcfg, params, _mesh(), ParallelConfig())
-    if arch != "mamba2-370m":           # (no attention: never paged)
-        with pytest.raises(NotImplementedError, match=f"{what}.*11-rest"):
-            EngineSpec(tcfg, params, max_len=MAX_LEN, max_batch=2,
-                       block_size=BLOCK, mesh=_mesh(), step_graphs=False)
-    # the same models on a data-only mesh are not refused
-    place_params(tcfg, params, make_engine_mesh(4, devices=["cpu"] * 4),
-                 ParallelConfig())
+    placed = place_params(tcfg, params, _mesh(), ParallelConfig())
+    for m in range(M):
+        for p, r in zip(params["layers"],
+                        placed.ranks[(torch.device("cpu"), m)]["layers"]):
+            if "attn" in p and "w_uq" in p["attn"]:
+                a, ra = p["attn"], r["attn"]
+                H = tcfg.num_heads
+                for name in ("w_uq", "w_uk", "w_uv"):
+                    assert torch.equal(ra[name], a[name].chunk(M, 1)[m])
+                    assert ra[name].shape[1] == H // M
+                assert torch.equal(ra["w_o"], a["w_o"].chunk(M, 0)[m])
+                for name in ("w_dq", "w_dkv", "w_kr", "kv_norm"):
+                    assert ra[name] is a[name] or torch.equal(ra[name],
+                                                              a[name])
+            if "mamba" in p:
+                mp, rm = p["mamba"], r["mamba"]
+                di, nh, _ = TM.ssm_dims(tcfg.d_model, tcfg.ssm)
+                n = di // M
+                assert torch.equal(rm["w_zx"][:, :n],
+                                   mp["w_zx"][:, m * n:(m + 1) * n])
+                assert torch.equal(rm["w_zx"][:, n:],
+                                   mp["w_zx"][:, di + m * n:di + (m + 1) * n])
+                for name, ax in (("w_dt", 1), ("conv_wx", 1), ("A_log", 0),
+                                 ("norm", 0), ("out_proj", 0)):
+                    assert torch.equal(rm[name], mp[name].chunk(M, ax)[m])
+                assert rm["w_dt"].shape[1] == nh // M
+                for name in ("w_bc", "conv_wbc", "conv_bbc"):
+                    assert torch.equal(rm[name], mp[name])
+    if arch == "mamba2-370m":
+        with pytest.raises(ValueError, match="no attention cache to page"):
+            TM.paged_layout(tcfg, MAX_LEN, BLOCK)
+        return
+    spec = EngineSpec(tcfg, params, max_len=MAX_LEN, max_batch=2,
+                      block_size=BLOCK, mesh=_mesh(), step_graphs=False)
+    cache = spec.merged_paged_cache()
+    assert cache["model"] == M and len(cache["shards"]) == N_DP * M
 
 
 def test_collectives_sum_in_one_order_on_every_rank():
@@ -602,3 +723,49 @@ def test_chip_smoke_tp_phase_rehearsed():
     assert step["logits_rel_err"] <= 1e-4
     assert step["tp_calls"] == step["tp_calls_expected"] == {
         "all_reduce": 1 + 2 * tcfg.num_layers, "gather": 1}
+
+
+def test_chip_smoke_tp_mla_ssm_legs_rehearsed():
+    """Phase 6k's MLA and SSM legs at the reduced size on the CPU:
+    minicpm3-4b behind the (2, 2) TP server (P/D, every merged decode
+    step's collectives as predicted, logits against the non-absorbed
+    plain forward) with its bit A/B, jamba behind it (served logits
+    equal the eager replay bit for bit) with #4 at a rank's share of
+    the SSM heads, and both step checks (TP logits against the
+    unsharded step's).  On the CPU the wrappers take their plain
+    versions, so no launch is counted."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_prefill import (
+        flash_prefill, paged_prefill_attention)
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    counters = [paged_decode_attention, paged_prefill_attention,
+                flash_prefill, decode_attention, ssd_chunk]
+    _c1, _j1, mcfg, mp = _pair("minicpm3-4b")
+    _c2, _j2, hcfg, hp = _pair("jamba-v0.1-52b")
+    rep = chip_smoke.serve_tp_mla_ssm(
+        counters, "cpu", mla_cfg=mcfg, mla_params=mp, hybrid_cfg=hcfg,
+        hybrid_params=hp, n_requests=4, lens=(64, 200), outs=(3, 5))
+    for leg, cfg, tp in (("mla", mcfg, mp), ("hybrid", hcfg, hp)):
+        r = rep[leg]
+        assert r["model_ranks"] == M
+        want = _expected_calls(cfg, tp, r["merged_rows"] // N_DP)
+        assert r["tp_calls_expected"] == want
+        assert r["tp_calls_per_decode_step"] == {
+            k: float(v) for k, v in want.items()}
+        assert set(r["launches"].values()) == {0}
+        assert r["step"]["logits_rel_err"] <= 1e-4
+        assert r["step"]["tp_calls"] == r["step"]["tp_calls_expected"]
+    assert rep["mla"]["logits_rel_err"] <= chip_smoke.LOGITS_REL_TOL
+    assert rep["mla"]["bits"]["same_tokens"]
+    assert rep["mla"]["bits"]["same_first_logits"]
+    assert rep["hybrid"]["logits_checked_by"] == "replay"
+    assert rep["hybrid"]["ssd_rank_shape"]["max_rel_err"] <= 1e-4
+    assert rep["hybrid"]["step_bf16"]["tp_calls"] == rep["hybrid"]["step"][
+        "tp_calls"]
+    assert rep["hybrid"]["ep_exchanges_per_decode_step"] == 2
