@@ -217,14 +217,28 @@ Phases (any failure exits non-zero and prints no result):
      phase 6g's checks, and every merged decode step's TP collectives
      as predicted (an all-gather of the d_model-split embedding, an
      all-reduce after each split attention, an all-gather of each MoE
-     layer's rows, a reduce of the logits); its graphs-vs-eager bit A/B
-     on an `immediate` burst at SHARDED_BITS_LAYERS layers; its merged
-     step p50 printed beside phase 6g's data-only one; (b) full-width
-     deepseek-7b at 8 of 30 layers: 8 prefilled requests joined into a
-     paged cache of 2 DP units and the same cache merged over the mesh;
-     the TP merged decode step's logits within 5e-2 of the unsharded
-     paged step's on the same rows, its collectives as predicted, both
-     steps' p50 as step graphs;
+     layer's rows, a reduce of the logits); its dense prefill chunks on
+     DP 0's two ranks (each chunk's collectives as predicted: 1
+     all-gather, 24 all-reduces, 24 broadcasts of the MoE, 1 reduce;
+     #2's contiguous entry 48 times a chunk, each rank its heads); the
+     `[tp weights]` check (each device's weight bytes by storage equal
+     to what `tp_axis` gives, no whole copy of a split leaf); its
+     graphs-vs-eager bit A/B on an `immediate` burst at
+     SHARDED_BITS_LAYERS layers; its merged step p50 printed beside
+     phase 6g's data-only one; (b) full-width deepseek-7b at 8 of 30
+     layers: 8 prefilled requests joined into a paged cache of 2 DP
+     units and the same cache merged over the mesh; the TP merged
+     decode step's logits within 5e-2 of the unsharded paged step's on
+     the same rows, its collectives as predicted, `[tp weights]`, both
+     steps' p50 as step graphs; then the minicpm3-4b and jamba legs
+     (jamba's dense chunks: #4 14 times a chunk at 64 of 128 heads, #2
+     twice); then (c) full-width internvl2-1b on a (1, 4) mesh (its 14
+     heads over 2 KV heads in the row-parallel form) and (d) full-width
+     whisper-large-v3 on the (2, 2) mesh (cross-attention by heads over
+     4 requests' encoder K/V split the same way), each a TP merged
+     step against the unsharded paged step (logits within 5e-2;
+     whisper, where bf16 misses, in fp32 within 1e-4), collectives as
+     predicted, `[tp weights]`;
   6j. the training path: full-width minicpm-2b (40 layers, d 2304, 36
      heads of 64, 2.72 B parameters) in fp32, TF32 off, random weights
      from seed 0, one synthetic batch of 2 x 512 tokens: one step's loss
@@ -1541,11 +1555,14 @@ def record_prefill_logits(srv):
     count the dense chunks and those that replayed a graph, and each
     prefill engine's `_run_chunk` to take the logits of the chunk that
     sets a request's first token, noting each request's chunk lengths.
-    Returns ({rid: logits}, {rid: [chunk lengths]}, {"chunks": n,
-    "replayed": n}, undo), undo removing every wrapper."""
+    Each chunk's TP collectives are kept too (a replay adds its
+    capture's).  Returns ({rid: logits}, {rid: [chunk lengths]},
+    {"chunks": n, "replayed": n, "tp_calls": [each chunk's {kind:
+    calls}]}, undo), undo removing every wrapper."""
     import threading
+    from repro_torch.distributed.transfer import count_collectives
     seen, chunks = {}, {}
-    counts = {"chunks": 0, "replayed": 0}
+    counts = {"chunks": 0, "replayed": 0, "tp_calls": []}
     count_lock = threading.Lock()
     last = threading.local()
     spec = srv.spec
@@ -1553,9 +1570,11 @@ def record_prefill_logits(srv):
 
     def dense_prefill(graphs, tokens, cache, row, at, work=None):
         before = None if graphs is None else graphs.replays
-        logits = inner_step(graphs, tokens, cache, row, at, work)
+        with count_collectives() as st:
+            logits = inner_step(graphs, tokens, cache, row, at, work)
         with count_lock:
             counts["chunks"] += 1
+            counts["tp_calls"].append(dict(st.calls))
             if before is not None and graphs.replays == before + 1:
                 counts["replayed"] += 1
         last.logits = logits[0]
@@ -1595,14 +1614,16 @@ def check_replayed(tag, spec, counts, device):
                              f"graphs on")
 
 
-def replay_routes(cfg, params, prompt, chunks, max_len, device):
+def replay_routes(cfg, params, prompt, chunks, max_len, device, spec=None):
     """The expert ids the served dense prefill of `prompt` chose, chunk-
     major (each chunk's MoE calls in layer order), and its last chunk's
     logits: an eager `prefill_chunk` over the served chunk boundaries
-    into a fresh batch-1 cache.  A served chunk replays a CUDA graph,
-    whose `route` calls ran at its capture only; a replay computes what
-    the eager step computes.  The kernel wrappers' launch counts are
-    restored afterwards: these calls are not the serve's."""
+    into a fresh batch-1 cache (on a TP `spec`, the served form: its
+    placed params over a row split over DP 0's ranks).  A served chunk
+    replays a CUDA graph, whose `route` calls ran at its capture only; a
+    replay computes what the eager step computes.  The kernel wrappers'
+    launch counts are restored afterwards: these calls are not the
+    serve's."""
     from repro_torch.models import moe
     out, inner = [], moe.route
 
@@ -1613,7 +1634,7 @@ def replay_routes(cfg, params, prompt, chunks, max_len, device):
     moe.route = route
     try:
         lg = eager_chunks_logits(cfg, params, prompt, chunks, max_len,
-                                 device)
+                                 device, spec)
     finally:
         moe.route = inner
     return out, lg
@@ -1634,15 +1655,21 @@ def uncounted():
             w.launches = n
 
 
-def eager_chunks_logits(cfg, params, prompt, chunks, max_len, device):
+def eager_chunks_logits(cfg, params, prompt, chunks, max_len, device,
+                        spec=None):
     """The last chunk's last-position logits of an eager `prefill_chunk`
     over `chunks` (lengths) of `prompt` into a fresh batch-1 dense cache
-    in the weights' dtype, uncounted."""
+    in the weights' dtype (a TP `spec`: the spec's placed params over
+    its split row, `spec.request_cache`, as a TP prefill engine runs
+    it), uncounted."""
     import torch
     from repro_torch.models.model import init_cache, prefill_chunk
     with uncounted():
-        cache = init_cache(cfg, 1, max_len, dtype=params["embed"].dtype,
-                           device=device)
+        if spec is not None and spec.tp > 1:
+            params, cache = spec.params, spec.request_cache(1)
+        else:
+            cache = init_cache(cfg, 1, max_len,
+                               dtype=params["embed"].dtype, device=device)
         at = 0
         for n in chunks:
             ids = torch.tensor([list(prompt[at:at + n])], dtype=torch.int32,
@@ -1696,7 +1723,7 @@ def check_served(cfg, params, spec, srv, reqs, gens, first_logits, device,
     return compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                                 forward, chunks, info_forward,
                                 spec.max_len if routes else None, memo,
-                                exact_replay)
+                                exact_replay, spec)
 
 
 def prefilled_tokens(srv):
@@ -1775,7 +1802,7 @@ def forced_routes(routes, n_chunks, n_moe, slices=None, chunk_major=False):
 def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
                          forward=dense_forward_logits, chunks=None,
                          info_forward=None, routes_max_len=None, memo=None,
-                         exact_replay=None):
+                         exact_replay=None, spec=None):
     """Each request's first-token logits against a plain forward (see
     `check_served`); raises past LOGITS_REL_TOL.  With `routes_max_len`
     (the spec's max_len of a dense P/D serve of an MoE model), the plain
@@ -1792,6 +1819,7 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
     forward is printed, not checked.  `memo` (a dict) keeps each
     (prompt, chunk lengths)'s plain reference (and replay) for later
     calls: the same prompt over the same chunks has the same reference.
+    `spec`, a TP spec, makes the eager replay the served TP chunk.
     Returns (worst max|d|/max|ref|, argmax agreements, the worst error
     against `info_forward` or None)."""
     import torch
@@ -1814,7 +1842,7 @@ def compare_first_logits(cfg, params, reqs, first_logits, device, tag,
             else:
                 routes, eager = replay_routes(cfg, params, prompt,
                                               chunks[r.rid], routes_max_len,
-                                              device)
+                                              device, spec)
                 with forced_routes(routes, len(chunks[r.rid]), n_moe) as n:
                     ref = forward(cfg, params, prompt, device, chunks[r.rid])
                 memo[key] = (ref, eager, dict(n))
@@ -3148,6 +3176,12 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
             if leg in tp:
                 out[f"launches_tp_{leg}_pd_serve"] = tp[leg]["launches"][
                     name]
+        # a dense chunk on DP 0's ranks: each rank its heads
+        for key, leg in (("pd", tp.get("pd")), ("hybrid", tp.get("hybrid"))):
+            per = ((leg or {}).get("dense_chunk") or {}).get(
+                "launches_per_chunk", {})
+            if name in per:
+                out[f"launches_tp_{key}_per_dense_chunk"] = per[name]
         if launch is not None:
             out["launches_launch_serve"] = launch["serve"]["launches"][name]
         if name == "paged_decode_attention":
@@ -3156,6 +3190,10 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
             for leg in ("mla", "hybrid"):
                 if leg in tp:
                     out[f"launches_tp_{leg}_step_check"] = tp[leg]["step"][
+                        "paged_decode_attention_launches"]
+            for leg in ("internvl", "whisper"):
+                if leg in tp:
+                    out[f"launches_tp_{leg}_step_check"] = tp[leg][
                         "paged_decode_attention_launches"]
             out["launches_paged_encdec"] = encdec["whisper-large-v3"][
                 "paged"]["launches"]["paged_decode_attention"]
@@ -3647,6 +3685,13 @@ def serve_sharded(cfg, params, device, counters, mixed,
         else None
     if counts is not None:
         check_replayed(tag, spec, counts, device)
+    dense_chunk = weights = None
+    if n_model > 1:
+        weights = check_tp_weights(tag, cfg, params, spec.params, mesh,
+                                   spec.parallel)
+    if n_model > 1 and counts is not None:
+        dense_chunk = check_tp_chunks(tag, cfg, params, counts, launches,
+                                      n_model, device)
     print(f"{tag} merged engine: {replays} replays for {len(decode)} "
           f"decode steps and {n_chunks} chunks; graphs {graphs!r}",
           flush=True)
@@ -3729,6 +3774,8 @@ def serve_sharded(cfg, params, device, counters, mixed,
         "tp_bytes_per_decode_step": (
             sum(b for _c, b in tp_decode) / n if n_model > 1 else None),
         "tp_calls_expected": want_tp,
+        "dense_chunk": dense_chunk,
+        "weights": weights,
         "mixed_steps": getattr(eng, "mixed_steps", None),
         "launches": launches,
         "launches_per_decode_step": {
@@ -3740,6 +3787,45 @@ def serve_sharded(cfg, params, device, counters, mixed,
         "route_flips_hidden": flips if mixed else None,
         "prefill_chunks": {r.rid: chunks.get(r.rid) for r in reqs},
     }
+
+
+def check_tp_chunks(tag, cfg, params, counts, launches, M, device):
+    """A TP P/D serve's dense chunks ran on DP 0's M model ranks: every
+    chunk made the collectives `expected_tp_chunk_calls` says, and on
+    the card #2's contiguous entry launched M times a GQA attention
+    layer a chunk and #4 M times an SSM layer a chunk (each rank its
+    heads).  Returns the chunks' report."""
+    from repro_torch.config.base import LayerKind
+    want = expected_tp_chunk_calls(cfg, M)
+    calls = counts["tp_calls"]
+    kinds = cfg.layer_kinds()
+    n_attn = (0 if cfg.attention.name == "MLA" else
+              sum(k in (LayerKind.DENSE, LayerKind.MOE) for k in kinds))
+    n_ssm = sum(k in (LayerKind.SSM, LayerKind.SSM_MOE) for k in kinds)
+    n = max(counts["chunks"], 1)
+    per = {"flash_prefill": launches.get("flash_prefill", 0) / n}
+    if n_ssm:
+        per["ssd_chunk"] = launches.get("ssd_chunk", 0) / n
+    pred = {k: {"flash_prefill": M * n_attn, "ssd_chunk": M * n_ssm}[k]
+            for k in per}
+    distinct = [dict(t) for t in sorted({tuple(sorted(c.items()))
+                                         for c in calls})]
+    print(f"{tag} dense chunks on DP 0's {M} model ranks: "
+          f"{counts['chunks']} chunks, collectives a chunk {distinct!r} "
+          f"(expected {want!r}); launches a chunk {per!r} (predicted "
+          f"{pred!r})", flush=True)
+    if any(c != want for c in calls):
+        raise AssertionError(f"{tag}: a dense chunk made the collectives "
+                             f"{next(c for c in calls if c != want)}, not "
+                             f"{want}")
+    if device != "cpu":
+        for k, v in per.items():
+            if v != pred[k]:
+                raise AssertionError(f"{tag}: {k} launched {v} times a "
+                                     f"dense chunk, not {pred[k]}")
+    return {"chunks": counts["chunks"], "tp_calls": distinct,
+            "tp_calls_expected": want, "launches_per_chunk": per,
+            "launches_predicted": pred}
 
 
 def serve_sharded_bits(cfg, params, device, counters, n_requests=N_REQUESTS,
@@ -4264,9 +4350,11 @@ def paged_encdec(cfg, params, device, counters, lens, max_len, steps):
 # ---------------------------------------------------------------------------
 
 TP_DATA, TP_MODEL = 2, 2           # the (data, model) mesh of phase 6k
-# deepseek-7b's depth in the TP step check: 8 of its 30 layers (4 KV
-# pools of 2 DP units × 4 rows × 1088 tokens a rank fit beside the
-# weights and their rank slices)
+# deepseek-7b's depth in the TP step check: 8 of its 30 layers.  The
+# check holds the unsharded step's whole weights and cache beside the
+# ranks' pieces and the merged shards (the ranks hold no whole replica:
+# the pieces are a second copy of the weights only while the caller
+# keeps its tree), and its depth is cut for the smoke's time limit
 TP_STEP_LAYERS = 8
 TP_STEP_ITERS = 10
 
@@ -4279,48 +4367,101 @@ def tp_mesh(device):
                             devices=[device] * (TP_DATA * TP_MODEL))
 
 
-def expected_tp_calls(cfg, M, rows):
+def expected_tp_calls(cfg, M, rows=None):
     """The TP collectives of one merged decode step of `cfg` over M model
-    ranks, with `rows` rows a DP: the embedding's (an all-reduce over a
-    vocabulary slice, an all-gather over a d_model slice), an all-reduce
-    after each layer's split attention (GQA or MLA) and split dense FFN,
-    two after each split SSM mixer (its gated norm's sums of squares,
-    then its out_proj), an all-gather of each MoE layer's rows (where
-    they split over the ranks; else rank 0's outputs are broadcast),
-    then the logits' gather (vocabulary slices) or reduce (d_model
-    slices)."""
+    ranks, with `rows` rows a DP (None: a dense prefill chunk on one
+    DP's ranks, `expected_tp_chunk_calls`): the embedding's (an
+    all-reduce over a vocabulary slice, an all-gather over a d_model
+    slice), an all-reduce after each layer's split attention (GQA or
+    MLA), split cross-attention and split dense FFN, the row-parallel
+    attention's all-reduce of its q|k|v and all-gather of its output's
+    d_model slices, two after each split SSM mixer (its gated norm's
+    sums of squares, then its out_proj), an all-gather of each MoE
+    layer's rows (where they split over the ranks; else, and in a
+    chunk, rank 0's outputs are broadcast) and an all-reduce of its
+    split shared experts, then the logits' gather (vocabulary slices)
+    or reduce (d_model slices)."""
     from repro_torch.config.base import LayerKind
-    from repro_torch.distributed.sharding import attn_heads_split, ssm_split
+    from repro_torch.distributed.sharding import (
+        attn_heads_split, row_parallel, ssm_split)
     V = cfg.vocab_size
     calls = {}
 
     def add(kind):
         calls[kind] = calls.get(kind, 0) + 1
+    rows_split = cfg.attention.name != "MLA" and row_parallel(cfg, M)
+    mc = cfg.moe
+    shared = (mc is not None and mc.num_shared
+              and (mc.num_shared * mc.d_shared) % M == 0)
     add("all_reduce" if V % M == 0 else "all_gather")
     for kind in cfg.layer_kinds():
         if kind in (LayerKind.SSM, LayerKind.SSM_MOE):
             if ssm_split(cfg, M):
                 add("all_reduce")
                 add("all_reduce")
+        elif rows_split:
+            add("all_reduce")
+            add("all_gather")
         elif attn_heads_split(cfg, M):
             add("all_reduce")
+        if cfg.is_encoder_decoder:
+            add("all_reduce")               # split cross-attention
+            if row_parallel(cfg, M):
+                add("all_gather")
         if kind in (LayerKind.MOE, LayerKind.SSM_MOE) and \
                 cfg.moe.num_experts:
-            add("all_gather" if rows % M == 0 else "broadcast")
+            add("all_gather" if rows is not None and rows % M == 0
+                else "broadcast")
+            if shared:
+                add("all_reduce")
         elif cfg.d_ff and cfg.d_ff % M == 0:
             add("all_reduce")
     add("gather" if V % M == 0 else "reduce")
     return calls
 
 
+def expected_tp_chunk_calls(cfg, M):
+    """The TP collectives of one dense prefill chunk of `cfg` on a DP's M
+    model ranks (`models.model._tp_prefill_chunk`): as a decode step's,
+    but each MoE layer runs once from rank 0's rows and is broadcast."""
+    return expected_tp_calls(cfg, M, None)
+
+
+def check_tp_weights(tag, cfg, params, placed, mesh, par):
+    """The `[tp weights]` check of a TP leg: each device's weight bytes,
+    counted by distinct storage, beside the count `tp_axis` gives
+    (`distributed.sharding.tp_weight_report`), and the leaves `tp_axis`
+    splits that a rank holds whole.  Raises when the bytes differ or a
+    device holds a whole copy of a split leaf.  Returns the report."""
+    from repro_torch.distributed.sharding import (
+        param_leaves, tp_weight_report)
+    rep = tp_weight_report(cfg, params, placed, mesh, par)
+    held = {str(d): b for d, b in rep["held"].items()}
+    want = {str(d): b for d, b in rep["expected"].items()}
+    served = {k: params[k] for k in ("embed", "ln_f", "lm_head", "layers")
+              if k in params}
+    whole = sum(t.numel() * t.element_size() for t in param_leaves(served))
+    print(f"[tp weights] {tag}: per-device weight bytes by storage "
+          f"{held!r}, from tp_axis {want!r} (the unsplit tree: {whole} "
+          f"bytes); whole copies of split leaves: {len(rep['whole'])}",
+          flush=True)
+    if held != want or rep["whole"]:
+        raise AssertionError(f"[tp weights] {tag}: held {held}, expected "
+                             f"{want}, whole copies {rep['whole'][:4]}")
+    return {"held": held, "expected": want, "whole": rep["whole"],
+            "unsplit_tree_bytes": whole}
+
+
 def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
                   iters=TP_STEP_ITERS, mesh=None, tag=None,
-                  logits_tol=LOGITS_REL_TOL):
+                  logits_tol=LOGITS_REL_TOL, rows_per_dp=MAX_BATCH,
+                  max_len=MAX_LEN):
     """Phase 6k (b): full-width deepseek-7b at TP_STEP_LAYERS of its 30
     layers (MHA, dense FFN, vocabulary-parallel `lm_head`; bf16 from seed
-    0): N_REQUESTS prompts prefilled (`prefill`) and joined into a paged
-    cache of TP_DATA DP units (MAX_BATCH rows of MAX_LEN each; 16-token
-    pages), and the same cache merged over the (2, 2) mesh.  The TP
+    0): a prompt for each row prefilled (`prefill`) and joined into a
+    paged cache of the mesh's DP units (`rows_per_dp` rows of `max_len`
+    each; 16-token pages), and the same cache merged over the mesh
+    (`tp_mesh`: (2, 2)).  The TP
     merged decode step's logits must agree with the unsharded paged
     step's on the same rows within LOGITS_REL_TOL of the largest, and
     its collectives must be `expected_tp_calls`; then both steps are
@@ -4328,7 +4469,12 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
     previous step's tokens, every device synchronised).  `cfg`/`params`
     replace the model for a CPU rehearsal; `mesh` replaces `tp_mesh`
     (`scripts/tp_four_cards.py`: cuda:0..3, the weights and the
-    unsharded cache on `device`, cuda:0).  `tag` names another model's
+    unsharded cache on `device`, cuda:0; phase 6k's internvl2-1b check:
+    a (1, 4) mesh), its (data, model) shape the check's.  An
+    encoder-decoder's prompts are prefilled after stub frame embeddings
+    of 0.1 · N(0, 1) (seed 7 + the row), so each slot carries its
+    encoder K/V.  The placed weights pass `check_tp_weights`.  `tag`
+    names another model's
     check (phase 6k's minicpm3-4b and jamba legs: #1 launches once a
     shard in each GQA attention layer, none in MLA or SSM layers);
     `logits_tol` None prints the logits' distance without checking it
@@ -4375,19 +4521,26 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
              sum(k in (LayerKind.DENSE, LayerKind.MOE)
                  for k in cfg.layer_kinds()))
     mesh = mesh or tp_mesh(device)
-    S = MAX_BATCH                      # rows a DP unit
-    nbt = MAX_LEN // BLOCK
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    S = rows_per_dp
+    nbt = max_len // BLOCK
     Bd = S * nbt + 1                   # blocks a DP unit, block 0 null
-    reqs = make_requests(cfg, TP_DATA * S, seed=3, lens=lens)
+    reqs = make_requests(cfg, n_data * S, seed=3, lens=lens)
     dtype = params["embed"].dtype
-    glob = init_paged_cache(cfg, TP_DATA * S, TP_DATA * Bd, MAX_LEN, BLOCK,
+    glob = init_paged_cache(cfg, n_data * S, n_data * Bd, max_len, BLOCK,
                             dtype=dtype, device=device)
-    first = torch.zeros((TP_DATA * S, 1), dtype=torch.int32, device=device)
+    first = torch.zeros((n_data * S, 1), dtype=torch.int32, device=device)
     for r in reqs:
         d, s = divmod(r.rid, S)
         toks = torch.tensor([list(r.tokens)], dtype=torch.int32,
                             device=device)
-        lg, c = prefill(cfg, params, toks, max_len=MAX_LEN)
+        embeds = None
+        if cfg.is_encoder_decoder:
+            g = torch.Generator(device="cpu").manual_seed(7 + r.rid)
+            embeds = (torch.randn(1, cfg.encoder_seq_len, cfg.d_model,
+                                  generator=g) * 0.1).to(device=device,
+                                                         dtype=dtype)
+        lg, c = prefill(cfg, params, toks, embeds=embeds, max_len=max_len)
         base = d * Bd + 1 + s * nbt
         tab = torch.arange(base, base + nbt, dtype=torch.int32,
                            device=device)
@@ -4397,7 +4550,16 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
     merged = shard_paged_cache({k: v.clone() for k, v in glob.items()},
                                mesh, cfg)
     placed = place_params(cfg, params, mesh, ParallelConfig())
-    want = expected_tp_calls(cfg, TP_MODEL, S)
+    weights = check_tp_weights(tag, cfg, params, placed, mesh,
+                               ParallelConfig())
+    # what each card holds now: the placed pieces and the merged shards
+    # (the first card also the whole weights and the unsharded cache)
+    memory = {str(d): torch.cuda.memory_allocated(d)
+              for d in mesh.distinct if d.type == "cuda"}
+    if memory:
+        print(f"[tp memory] {tag}: torch.cuda.memory_allocated per card "
+              f"after placement {memory!r}", flush=True)
+    want = expected_tp_calls(cfg, n_model, S)
     paged_decode_attention.launches = 0
     with count_collectives() as st:
         lg_tp, merged = paged_decode_step(cfg, placed, first, merged)
@@ -4406,19 +4568,20 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
     ref = lg_1.float()
     err = float((lg_tp.float() - ref).abs().max() / ref.abs().max())
     agree = int((lg_tp.argmax(-1) == lg_1.argmax(-1)).sum())
-    print(f"{tag} (2, 2) TP merged decode step vs the unsharded paged step "
-          f"on the same {TP_DATA * S} rows: logits max|d|/max|ref|={err!r} "
+    print(f"{tag} ({n_data}, {n_model}) TP merged decode step vs the "
+          f"unsharded paged step "
+          f"on the same {n_data * S} rows: logits max|d|/max|ref|={err!r} "
           f"({'tol ' + repr(logits_tol) if logits_tol else 'not checked'}"
           f"; {str(dtype).replace('torch.', '')}), argmax agrees on {agree}/"
-          f"{TP_DATA * S}; collectives {st.calls!r} (expected {want!r}), "
+          f"{n_data * S}; collectives {st.calls!r} (expected {want!r}), "
           f"{st.bytes} bytes between ranks; paged_decode_attention "
           f"launches {launches} (a shard a GQA layer: "
-          f"{TP_DATA * TP_MODEL * n_gqa})", flush=True)
+          f"{n_data * n_model * n_gqa})", flush=True)
     if logits_tol is not None and not err <= logits_tol:
         raise AssertionError(f"{tag}: TP logits disagree: {err}")
     if st.calls != want:
         raise AssertionError(f"{tag}: collectives {st.calls}, not {want}")
-    if device != "cpu" and launches != TP_DATA * TP_MODEL * n_gqa:
+    if device != "cpu" and launches != n_data * n_model * n_gqa:
         raise AssertionError(f"{tag}: #1 launched {launches} times")
     # both steps as graphs (on the CPU: the same buffers, no capture)
     lock = __import__("threading").RLock()
@@ -4446,17 +4609,19 @@ def tp_step_check(device, cfg=None, params=None, lens=(128, 1024),
             ts.append(time.monotonic() - t0)
         times[name] = percentile(ts[1:], 0.5)       # the first captures
         del runner, cache
-    print(f"{tag} decode step p50 as step graphs: TP (2, 2) merged on "
+    print(f"{tag} decode step p50 as step graphs: TP ({n_data}, "
+          f"{n_model}) merged on "
           f"{[str(d) for d in mesh.distinct]} {times['tp'] * 1e3!r} ms, "
-          f"unsharded paged (one device, {TP_DATA * S} rows) "
+          f"unsharded paged (one device, {n_data * S} rows) "
           f"{times['unsharded'] * 1e3!r} ms", flush=True)
     return {"model": cfg.name, "layers": cfg.num_layers,
-            "mesh": [str(d) for d in mesh.devices], "rows": TP_DATA * S,
+            "mesh": [str(d) for d in mesh.devices], "rows": n_data * S,
             "logits_rel_err": err, "argmax_agree": agree,
             "tp_calls": st.calls, "tp_calls_expected": want,
             "tp_bytes": st.bytes, "paged_decode_attention_launches":
                 launches,
-            "tp_step_p50_s": times["tp"],
+            "tp_step_p50_s": times["tp"], "weights": weights,
+            "memory_allocated_after_placement": memory,
             "unsharded_step_p50_s": times["unsharded"]}
 
 
@@ -4470,8 +4635,10 @@ def serve_tp_phase(counters, device, n_layers=None, step_cfg=None,
     ranks, the embedding over d_model: its vocabulary of 49155 is odd)
     behind `RealSBSServer(mesh=...)`, P/D as phase 6g's sharded P/D serve
     with 2 decode DP units, with step graphs, on phase 6g's 8 requests,
-    with `serve_sharded`'s checks and every merged decode step's TP
-    collectives as `expected_tp_calls` says; then its graphs-vs-eager bit
+    with `serve_sharded`'s checks, every merged decode step's TP
+    collectives as `expected_tp_calls` says, its dense chunks on DP 0's
+    ranks as `check_tp_chunks` says and `check_tp_weights`; then its
+    graphs-vs-eager bit
     A/B on an `immediate` burst at SHARDED_BITS_LAYERS layers; (b) the
     deepseek-7b step check (`tp_step_check`).  `n_layers`,
     `step_cfg`/`step_params` and the traffic arguments cut it for a CPU
@@ -4517,10 +4684,11 @@ def serve_tp_phase(counters, device, n_layers=None, step_cfg=None,
 # jamba-v0.1-52b at HYBRID_LAYERS of 32 (one period: the attention
 # layer's 32 heads over 8 KV heads, 16 and 4 a rank; 7 SSM layers of
 # 128 heads of 64, 64 a rank; 4 MoE layers of 16 experts over the 4 EP
-# ranks): 26.5 GB of bf16 weights plus the ranks' copies of what does
-# not split on dim 0 (about 3 GB: each rank's [z|x], w_dt and x-conv
-# columns and its heads of the attention, its dense FFN columns) and
-# four shards of pools and slot states
+# ranks): 26.5 GB of bf16 weights held by the caller, the ranks' pieces
+# of every leaf `tp_axis` splits (about 3.9 GB: the SSM layers, the
+# attention, the dense FFNs, the embedding and head; the experts and
+# every unsplit leaf are the caller's tensors) and four shards of pools
+# and slot states
 
 
 def check_ssd_rank_shape(device, cfg, M):
@@ -4530,9 +4698,9 @@ def check_ssd_rank_shape(device, cfg, M):
     holds #4 off its served shape: the kernel's contract (n_groups 1, hp
     32 or 64, Q up to 256) holds for the rank's piece.  Bit-identity is
     printed, not required: the plain version's products take another
-    summation order at another head count, and the served path runs #4
-    over all the heads in the lead's dense chunk (the prefill is not
-    split).  Returns the check's report."""
+    summation order at another head count; the served dense chunks run
+    #4 at this share on each rank (`check_tp_chunks`).  Returns the
+    check's report."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
     from repro_torch.models.mamba import ssm_dims
@@ -4569,8 +4737,9 @@ def serve_tp_mla_ssm(counters, device, mla_cfg=None, mla_params=None,
     graphs-vs-eager bit A/B, and its TP merged step against the
     unsharded step (`tp_step_check`); (b) full-width jamba-v0.1-52b at
     HYBRID_LAYERS layers behind the TP P/D server (#1 a rank in the
-    attention layer, #2 contiguous and #4 in the lead's dense chunks;
-    the served logits equal the eager replay of the served chunks and
+    attention layer; #2 contiguous and #4 each rank its heads in the
+    dense chunks on DP 0's ranks, 2 and 14 a chunk; the served logits
+    equal the eager replay of the served chunks, on the ranks, and
     expert sets bit for bit), #4 at a rank's share of the SSM heads
     against its plain version (`check_ssd_rank_shape`), and its TP
     merged step against the unsharded step in bf16 (printed) and, the
@@ -4639,6 +4808,74 @@ def serve_tp_mla_ssm(counters, device, mla_cfg=None, mla_params=None,
                                         tag=step_tag + " fp32",
                                         logits_tol=REL_TOL["float32"])
         out[leg] = rep
+        del params
+        if device != "cpu":
+            free_device_memory()
+    return out
+
+
+# phase 6k, the row-parallel form and the split cross-attention: full-width
+# internvl2-1b (24 layers; 14 heads over 2 KV heads do not split 4 ways:
+# the row-parallel form) on a (1, 4) mesh and full-width whisper-large-v3
+# (32 decoder layers; cross-attention by heads over each slot's encoder
+# K/V split the same way) on the (2, 2) mesh, each through `tp_step_check`
+# (whisper's 4 requests: 2 rows a DP, 256-token rows)
+TP_WHISPER_MAX_LEN = 256
+
+
+def tp_share_checks(device, internvl=None, whisper=None, lens=(16, 200)):
+    """Phase 6k's step checks of the splits TP holds only its shares of:
+    internvl2-1b's text rows on a (1, 4) logical mesh of the card (the
+    row-parallel attention: 48 all-reduces, 25 all-gathers, 1 reduce a
+    step predicted) and whisper-large-v3 on the (2, 2) mesh (the split
+    cross-attention over 4 requests' encoder K/V: 97 all-reduces, 1
+    gather), random bf16 weights from seed 0, each TP merged step's
+    logits against the unsharded paged step's within LOGITS_REL_TOL
+    (whisper: where bf16 misses, printed, then checked in fp32 within
+    REL_TOL["float32"], as the jamba leg), collectives as predicted,
+    `[tp weights]` passing.  `internvl`/`whisper` ((cfg, params))
+    replace the models for a CPU rehearsal.  Returns {"internvl": ...,
+    "whisper": ...}."""
+    import torch
+    from repro_torch.config.base import get_arch
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models.model import init_params
+    out = {}
+    for leg, arch, shape, given in (("internvl", "internvl2-1b", (1, 4),
+                                     internvl),
+                                    ("whisper", "whisper-large-v3", (2, 2),
+                                     whisper)):
+        if given is None:
+            cfg = get_arch(arch)
+            t0 = time.monotonic()
+            params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                 device=device)
+            torch.cuda.synchronize()
+            print(f"[init] {cfg.name}, bf16 weights in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+        else:
+            cfg, params = given
+        mesh = make_engine_mesh(*shape, devices=[device] * 4)
+        tag = f"[tp {leg} step] {cfg.name} ({cfg.num_layers} layers)"
+        kw = dict(lens=lens, mesh=mesh, tag=tag)
+        if leg == "internvl":
+            out[leg] = tp_step_check(device, cfg, params, **kw)
+        else:
+            kw.update(rows_per_dp=2, max_len=TP_WHISPER_MAX_LEN)
+            rep = tp_step_check(device, cfg, params, logits_tol=None, **kw)
+            ok = rep["logits_rel_err"] <= LOGITS_REL_TOL
+            print(f"{tag}: bf16 logits {rep['logits_rel_err']!r} against "
+                  f"the limit {LOGITS_REL_TOL}: "
+                  f"{'within' if ok else 'missed; checked in fp32'}",
+                  flush=True)
+            if not ok:
+                if device != "cpu":
+                    free_device_memory()
+                widen_params(params)
+                rep = dict(tp_step_check(
+                    device, cfg, params, logits_tol=REL_TOL["float32"],
+                    **dict(kw, tag=tag + " fp32")), bf16=rep)
+            out[leg] = rep
         del params
         if device != "cpu":
             free_device_memory()
@@ -5191,6 +5428,8 @@ def main() -> int:
                   f"{'fp32' if 'step_bf16' in tp[leg] else 'bf16'})",
                   flush=True)
         elapsed("TP serves of MLA and SSM layers (minicpm3-4b, jamba)")
+        tp.update(tp_share_checks(device))
+        elapsed("TP step checks (internvl2-1b (1, 4), whisper (2, 2))")
         launch = launch_phase(counters, device)
         elapsed("launchers (serve --mode real, microbench twin)")
         train = train_phase(device)

@@ -22,8 +22,12 @@ cuda:1, DP 1's on cuda:2 and cuda:3).  On each:
     5e-2 of a plain forward over the served expert sets;
   * full-width deepseek-7b at 8 of 30 layers: the TP merged decode step
     against the unsharded paged step on the same 8 prefilled rows
-    (`tp_step_check`: logits within 5e-2, collectives as predicted),
-    both steps' p50 as step graphs.
+    (`tp_step_check`: logits within 5e-2, collectives as predicted, the
+    `[tp weights]` check: each card holds its ranks' pieces of what
+    `tp_axis` splits and no whole replica), both steps' p50 as step
+    graphs, and `torch.cuda.memory_allocated` of each card after the
+    placement (cuda:0 also holds the whole weights and the unsharded
+    cache the check compares with).
 
 Any failed check exits with code 1.  Printed: each layout's merged
 decode step p50/p99, TTFT and ITL, TP collectives and bytes per step,
@@ -139,6 +143,11 @@ def main(argv=None) -> int:
         traceback.print_exc()
         return 1
     one, four = out["one card"], out["four cards"]
+    print(f"[tp four cards] memory_allocated per card after the "
+          f"deepseek-7b placement: four cards "
+          f"{four['step']['memory_allocated_after_placement']!r}; weight "
+          f"storage per card {four['step']['weights']['held']!r}",
+          flush=True)
     print(f"[tp four cards] merged decode step p50: one card "
           f"{one['pd']['decode_step_p50_s']!r} s, four cards "
           f"{four['pd']['decode_step_p50_s']!r} s; deepseek-7b TP step "

@@ -7,6 +7,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace repro_torch {
 
 constexpr float kNegInf = -1e30f;   // the reference's masked-score value
@@ -94,6 +98,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Dynamic shared memory past 48 KB is an attribute of the kernel on the
+// device current when it is set, so a kernel launched on several cards
+// (a tensor-parallel rank on each) needs it set on each: a launch on a
+// card without it fails with cudaErrorInvalidValue.  Sets it once a
+// (kernel, device), at the first launch there, and returns that call's
+// result.  Host code; the bindings' CUDAGuard makes the inputs' device
+// current.
+inline cudaError_t allow_dynamic_smem(const void* kern, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, cudaError_t> done;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(kern, dev);
+  const auto it = done.find(key);
+  if (it != done.end()) return it->second;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  done.emplace(key, err);
+  return err;
 }
 
 }  // namespace repro_torch

@@ -344,9 +344,8 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HD>();
   auto kern = flash_kernel<HD, PAGED>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t attr = allow_dynamic_smem(
+      reinterpret_cast<const void*>(kern), static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kFlashThreads, smem, stream>>>(
@@ -866,9 +865,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const size_t smem = L::kFixed + ((n_kv + 31) / 32 + 15) / 16 * 16;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kern = flash_kernel_mma<HD, PAGED>;
-  // allow the largest size once; each launch asks only for what it needs
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  // allow the largest size once a device; each launch asks only for what
+  // it needs
+  const cudaError_t attr =
+      allow_dynamic_smem(reinterpret_cast<const void*>(kern), kMaxSmem);
   if (attr != cudaSuccess) return attr;
   // the G heads of a kv head share the CTA's rows when G divides them
   const int G = H / K;

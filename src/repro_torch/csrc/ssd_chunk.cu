@@ -457,9 +457,8 @@ cudaError_t launch_typed(const void* x, const float* dt, const float* A,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto kern = ssd_chunk_kernel_out<T, HP, DS>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L::kBytes));
+  const cudaError_t attr = allow_dynamic_smem(
+      reinterpret_cast<const void*>(kern), static_cast<int>(L::kBytes));
   if (attr != cudaSuccess) return attr;
   kern<<<dim3((nt + 1) / 2 + L::kStateCtas, nh, BC), kSsdThreads, L::kBytes,
          stream>>>(static_cast<const T*>(x), dt, static_cast<const T*>(Bm),

@@ -12,10 +12,11 @@ pieces; the port places the pieces itself:
     mesh device, the slice of that device's EP rank (a view where the
     device already holds the weight, so nothing is copied when the
     devices repeat);
-  * everything else (router, shared experts, attention, norms,
-    embeddings) is replicated, one copy per distinct device
-    (`ShardedParams.replicas`; each MoE dict also maps every device to
-    its replica of that layer's MoE dict under "replicas");
+  * on a mesh without model ranks everything else (router, shared
+    experts, attention, norms, embeddings) is replicated, one copy per
+    distinct device (`ShardedParams.replicas`; each MoE dict also maps
+    every device to its replica of that layer's MoE dict under
+    "replicas"); with model ranks, see tensor parallelism below;
   * the merged paged cache is a dict {"shards": [one paged cache per
     data rank], "slots": S, "blocks": B}: global slot s lives in shard
     s // S as local slot s % S, global block b in shard b // B as local
@@ -29,23 +30,26 @@ pieces; the port places the pieces itself:
 
 Tensor parallelism (TP) inside a DP unit, on a mesh with a "model" axis
 of M > 1 ranks (`ShardedParams.ranks`: one params tree a (device, model
-rank), views or slices of that device's replica), follows the
-reference's `_leaf_spec`: a GQA layer's `w_q`/`w_k`/`w_v` split by head
-and `w_o` by its H rows when both head counts divide M (`heads_split`);
-a dense FFN's `w_gate`/`w_up` by column and `w_down` by row; `embed`
-(and an untied `lm_head`) over the vocabulary when V divides M, else
-over d_model; norms, routers and the MoE's shared experts replicated,
-the experts over the expert axes as above.  The merged cache then holds
-one shard a (data, model) rank, row-major (shard d·M + m): the DP's
-slots and blocks, with K/M KV heads of each pool when the heads split
-(`paged_cache_pspecs` puts KV heads on "model"), and "model": M.  Where
-the heads do not divide M, the attention weights and pools are whole
-on every rank and the attention runs replicated (the reference shards
-its projections by row and its attention by sequence, "attn_seq"); a
-decoder layer's cross-attention and its per-slot encoder K/V are
-replicated too.  An MLA layer's `w_uq`/`w_uk`/`w_uv` split by head
-and its `w_o` by row when its H heads divide M; its down-projections,
-rope key and norms are replicated, and its latent and rope pools have no
+rank), with no whole replica beside them), follows the reference's
+`_leaf_spec` (`tp_axis`): a GQA layer's `w_q`/`w_k`/`w_v` split by head
+and `w_o` by its H rows when both head counts divide M (`heads_split`),
+else the row-parallel form (`w_q`/`w_k`/`w_v` by d_model rows, `w_o` by
+its d_model columns); a decoder layer's cross-attention (`xattn`) the
+same way; a dense FFN's `w_gate`/`w_up` by column and `w_down` by row,
+and the MoE's shared experts alike; `embed` (and an untied `lm_head`)
+over the vocabulary when V divides M, else over d_model; norms and
+routers replicated, the experts over the expert axes as above.  The
+merged cache then holds one shard a (data, model) rank, row-major (shard
+d·M + m): the DP's slots and blocks, with K/M KV heads of each pool when
+the heads split (`paged_cache_pspecs` puts KV heads on "model") and its
+heads of each slot's encoder K/V, and "model": M.  Under the
+row-parallel form the pools are whole on every rank of a DP, as
+`paged_cache_pspecs` leaves them: each rank projects its d_model slice,
+the partial q|k|v are all-reduced, the attention runs whole on every
+rank and writes the same K/V, and the output's d_model slices are
+all-gathered.  An MLA layer's `w_uq`/`w_uk`/`w_uv` split by head and
+its `w_o` by row when its H heads divide M; its down-projections, rope
+key and norms are replicated, and its latent and rope pools have no
 head axis, so every rank of a DP holds them whole and writes the same
 rows.  An SSM layer splits by heads (`ssm_split`, `tp_axis`): rank m
 holds heads m·nh/M .. (m+1)·nh/M - 1, their columns of z and of x, of
@@ -54,7 +58,9 @@ weights, their rows of out_proj, and their per-slot SSM state and x
 conv tail ("ssm", "conv_x"; `cache_tp_axis`); the B/C projection, its
 conv and "conv_bc" stay whole (one group).  Its gated norm reduces over
 the whole d_inner, so the ranks all-reduce their sums of squares before
-they normalise (`models.blocks.ssm_decode_shards`).
+they normalise (`models.blocks.ssm_shards`).  A dense prefill row split
+over a DP's ranks is the same form ({"shards": one dense cache a rank,
+"model": M}, `models.model.split_dense_cache`).
 
 The TPU-production rules follow at the end: `ShardingRules`,
 `param_pspecs`, `cache_pspecs`, `paged_cache_pspecs`, `batch_pspecs`
@@ -135,39 +141,68 @@ _SSM_BY_HEAD = {"w_zx": 1, "w_dt": 1, "conv_wx": 1, "conv_bx": 0,
                 "out_proj": 0}
 
 
+def row_parallel(cfg: ModelConfig, M: int) -> bool:
+    """Whether a GQA attention (self or cross) takes the row-parallel form
+    over M > 1 model ranks: its head counts do not both divide M.  Its
+    projections then split by d_model rows and its output projection by
+    d_model columns, as the reference's `_leaf_spec` splits them where
+    the heads do not divide ("row-parallel fallback")."""
+    return M > 1 and not heads_split(cfg, M)
+
+
 def tp_axis(cfg: ModelConfig, path: Sequence[str], shape, M: int
             ) -> Optional[int]:
     """The axis of the served weight at `path` (its keys from the params'
     root) that M > 1 model ranks split, or None (replicated).  This is
     the serving plane's rule.  It follows the reference's `_leaf_spec`
-    (`param_pspecs`, below, is the port's copy of it) with these
-    deliberate differences: a GQA layer's heads split only when both
-    head counts divide M (`_leaf_spec` splits w_q whenever H does, and
-    shards the rest by row and sequence, "attn_seq"); cross-attention
-    (`xattn`) and the MoE's shared experts stay replicated; an SSM
-    layer's per-head vectors (A_log, D_skip, dt_bias), its gated norm's
-    weight and conv_bx split with its heads (GSPMD replicates the
-    vectors and reshards around them; a rank here holds only what its
-    heads read), and its [z|x] projection splits z and x each by heads
-    (a contiguous half of the columns would give rank 0 only z)."""
+    (`param_pspecs`, below, is the port's copy of it), cross-attention
+    (`xattn`) and the MoE's shared experts included, with these
+    deliberate differences: an SSM layer's per-head vectors (A_log,
+    D_skip, dt_bias), its gated norm's weight and conv_bx split with its
+    heads (GSPMD replicates the vectors and reshards around them; a rank
+    here holds only what its heads read), and its [z|x] projection
+    splits z and x each by heads (a contiguous half of the columns would
+    give rank 0 only z); where a GQA layer's query heads divide M and
+    its KV heads do not, `w_q` splits by d_model rows and `w_o` by
+    d_model columns with the rest of the layer (`_leaf_spec` splits
+    those two by heads and lets GSPMD reshard between them; the
+    row-parallel form keeps kernels #1 and #2 at their G = H/K over
+    whole pools, and each rank holds as many bytes); an MLA layer's
+    `w_o` stays whole where its heads do not divide M (`_leaf_spec`:
+    by d_model).  The encoder K/V of a slot split by heads where
+    `xattn` does (`cache_tp_axis`), which `paged_cache_pspecs` leaves
+    whole."""
     name = path[-1]
-    if M <= 1 or "xattn" in path or "moe" in path:
+    if M <= 1:
         return None
 
     def fits(i):
         return shape[i] % M == 0
+    if "moe" in path:
+        if name in ("shared_gate", "shared_up"):     # (D, f·n)
+            return 1 if fits(1) else None
+        if name == "shared_down":                    # (f·n, D)
+            return 0 if fits(0) else None
+        return None                                  # experts: EP; router
     if "mamba" in path:
         return _SSM_BY_HEAD.get(name) if ssm_split(cfg, M) else None
     if name == "embed":                          # (V, D)
         return 0 if fits(0) else (1 if fits(1) else None)
     if name == "lm_head":                        # (D, V)
         return 1 if fits(1) else (0 if fits(0) else None)
+    gqa = "xattn" in path or cfg.attention != AttentionKind.MLA
     if name in ("w_q", "w_k", "w_v"):            # (D, H|K, hd)
-        return 1 if heads_split(cfg, M) else None
+        if heads_split(cfg, M):
+            return 1
+        return 0 if fits(0) else None            # row-parallel
     if name in ("w_uq", "w_uk", "w_uv"):         # (qin|r, H, dn|dv)
         return 1 if attn_heads_split(cfg, M) else None
     if name == "w_o":                            # (H, hd, D)
-        return 0 if attn_heads_split(cfg, M) else None
+        if not gqa:
+            return 0 if attn_heads_split(cfg, M) else None
+        if heads_split(cfg, M):
+            return 0
+        return 2 if fits(2) else None            # row-parallel
     if name in ("w_gate", "w_up") and len(shape) == 2:   # dense (D, ff)
         return 1 if fits(1) else None
     if name == "w_down" and len(shape) == 2:     # dense (ff, D)
@@ -214,10 +249,12 @@ class ExpertShards:
 
 
 class ShardedParams(dict):
-    """The params of a sharded spec: the lead device's replica (a params
-    tree whose MoE expert weights are `ExpertShards`), with every
-    distinct device's replica in `replicas` and, under TP, each (device,
-    model rank)'s tree in `ranks`."""
+    """The params of a sharded spec.  Without model ranks: the lead
+    device's replica (a params tree whose MoE expert weights are
+    `ExpertShards`), with every distinct device's replica in `replicas`.
+    Under TP (M > 1 model ranks): each (device, model rank)'s tree in
+    `ranks` and no replica (`replicas` empty); the dict itself is the
+    lead device's model rank 0 tree."""
     replicas: Dict[torch.device, Dict]
     ranks: Dict[Tuple[torch.device, int], Dict]
 
@@ -225,9 +262,10 @@ class ShardedParams(dict):
 def param_leaves(params) -> List[torch.Tensor]:
     """Every weight tensor of `params` once, in a fixed order: the tensors
     of a plain params tree (dicts and lists); of `ShardedParams`, every
-    distinct device's replica and every `ExpertShards` slice (the
-    "replicas" maps of the MoE dicts point back into the replicas and
-    are not walked).  A step graph holds these addresses."""
+    distinct device's replica, every model rank's tree and every
+    `ExpertShards` slice (the "replicas" maps of the MoE dicts point
+    back into those trees and are not walked).  A step graph holds these
+    addresses."""
     out: List[torch.Tensor] = []
     seen = set()
 
@@ -256,7 +294,11 @@ def param_leaves(params) -> List[torch.Tensor]:
 
 def params_on(params, device) -> Dict:
     """The replica of `params` on `device` (`params` itself when it is
-    not sharded)."""
+    not sharded).  Params placed over model ranks hold no replica: a
+    rank's tree is `rank_params`'."""
+    if getattr(params, "ranks", None):
+        raise ValueError("params placed over model ranks hold no whole "
+                         "replica; take a rank's tree (rank_params)")
     replicas = getattr(params, "replicas", None)
     if replicas is None:
         return params
@@ -276,43 +318,81 @@ def rank_params(params, device, m: int, M: int) -> Dict:
     return ranks[(torch.device(device), m)]
 
 
-def _rank_tree(cfg: ModelConfig, tree: Dict, m: int, M: int) -> Dict:
-    """Model rank m's tree from a device's replica: each leaf `tp_axis`
-    splits cut to its m-th piece (a view on dim 0, a copy otherwise);
-    the MoE dicts (experts already split by EP rank) shared."""
+def _piece(t: torch.Tensor, name: str, ax: int, m: int, M: int
+           ) -> torch.Tensor:
+    """Model rank m's piece of weight `t` split on `ax` (a view; [z|x]:
+    z's and x's each by heads, joined)."""
+    if name == "w_zx":
+        di = t.shape[1] // 2
+        n = di // M
+        return torch.cat([t[:, m * n:(m + 1) * n],
+                          t[:, di + m * n:di + (m + 1) * n]], 1)
+    n = t.shape[ax] // M
+    return t.narrow(ax, m * n, n)
+
+
+def _rank_tree(cfg: ModelConfig, params: Dict, m: int, M: int, dev,
+               whole: Dict[int, torch.Tensor], experts: List) -> Dict:
+    """Model rank m's tree on `dev`, from the caller's tree: each leaf
+    `tp_axis` splits as rank m's piece in storage of its own (never a
+    view of the caller's tensor, so dropping that tree frees it); the
+    others placed once on `dev` (`whole`, by the caller's tensor) and
+    shared by the device's ranks; each MoE layer's expert weights its
+    `ExpertShards`."""
     def walk(node, path):
         if isinstance(node, torch.Tensor):
             ax = tp_axis(cfg, path, node.shape, M)
             if ax is None:
-                return node
-            if path[-1] == "w_zx":               # [z | x]: each by heads
-                di = node.shape[1] // 2
-                n = di // M
-                return torch.cat([node[:, m * n:(m + 1) * n],
-                                  node[:, di + m * n:di + (m + 1) * n]], 1)
-            n = node.shape[ax] // M
-            return node.narrow(ax, m * n, n).contiguous()
+                if id(node) not in whole:
+                    whole[id(node)] = node.to(dev)
+                return whole[id(node)]
+            piece = _piece(node, path[-1], ax, m, M)
+            return torch.empty(piece.shape, dtype=piece.dtype,
+                               device=dev).copy_(piece)
         if isinstance(node, dict):
-            if path and path[-1] == "moe":
-                return node
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
-    return {k: walk(tree[k], (k,))
-            for k in ("embed", "ln_f", "lm_head", "layers") if k in tree}
+
+    tree = {k: walk(params[k], (k,))
+            for k in ("embed", "ln_f", "lm_head") if k in params}
+    tree["layers"] = []
+    for l, (p, shards) in enumerate(zip(params["layers"], experts)):
+        path = ("layers", str(l))
+        layer = {}
+        for k, v in p.items():
+            if k == "moe":
+                layer[k] = {kk: (shards[kk] if kk in shards
+                                 else walk(vv, path + (k, kk)))
+                            for kk, vv in v.items()}
+            else:
+                layer[k] = walk(v, path + (k,))
+        tree["layers"].append(layer)
+    return tree
 
 
 def place_params(cfg, params: Dict, mesh, par: ParallelConfig
                  ) -> ShardedParams:
     """`params` (a tree on the mesh's lead device) placed on `mesh`: the
-    expert weights split over `par`'s expert axes, everything else
-    replicated on every distinct device; with a model axis of M > 1
-    ranks, each (device, model rank)'s tree split by `tp_axis` in
-    `ranks`."""
+    expert weights split over `par`'s expert axes; without model ranks
+    everything else replicated on every distinct device; with a model
+    axis of M > 1 ranks, each (device, model rank)'s tree in `ranks`
+    (`_rank_tree`: its pieces of what `tp_axis` splits, the rest once a
+    device) and no whole replica.  A GQA model whose attention splits
+    neither by heads nor by d_model rows raises: TP runs no layer on
+    whole weights in its place."""
     M = model_size(mesh)
     ep_axes = expert_axes_of(mesh, par)
     experts = [{name: ExpertShards(p["moe"][name], mesh, ep_axes)
                 for name in _EXPERT_WEIGHTS} if "moe" in p else None
                for p in params["layers"]]
+    if M > 1:
+        if (any("attn" in p and "w_q" in p["attn"] for p in params["layers"])
+                and row_parallel(cfg, M) and cfg.d_model % M):
+            raise ValueError(f"{cfg.name}: {cfg.num_heads} heads over "
+                             f"{cfg.num_kv_heads} KV heads and d_model "
+                             f"{cfg.d_model} do not split over {M} model "
+                             f"ranks")
+        return _place_ranks(cfg, params, mesh, M, experts)
 
     def on(tree, dev, shards=None):
         if isinstance(tree, torch.Tensor):
@@ -331,22 +411,122 @@ def place_params(cfg, params: Dict, mesh, par: ParallelConfig
     lead = ShardedParams(on(params, mesh.lead))
     lead.replicas = {d: (lead if d == mesh.lead else on(params, d))
                      for d in mesh.distinct}
-    # each replica's MoE dicts reach every device's (the EP body routes
-    # each device's tokens with that device's router)
+    _link_moe(experts, [(d, r["layers"]) for d, r in lead.replicas.items()])
+    lead.ranks = {}
+    return lead
+
+
+def _link_moe(experts: List, layers_on: List[Tuple[torch.device, List]]
+              ) -> None:
+    """Give every MoE dict of the trees in `layers_on` ((device, the
+    tree's layer list) pairs) a "replicas" map from each device to the
+    MoE dict of its first tree there: the EP body routes each device's
+    tokens with that device's router."""
     for l, shards in enumerate(experts):
         if shards is None:
             continue
-        on_dev = {d: r["layers"][l]["moe"] for d, r in lead.replicas.items()}
-        for m in on_dev.values():
-            m["replicas"] = on_dev
-    lead.ranks = {}
-    if M > 1:
-        for i, dev in enumerate(mesh.devices):
-            m = mesh.coords(i)["model"]
-            if (dev, m) not in lead.ranks:
-                lead.ranks[(dev, m)] = _rank_tree(cfg, lead.replicas[dev],
-                                                  m, M)
+        on_dev = {}
+        for dev, layers in layers_on:
+            on_dev.setdefault(dev, layers[l]["moe"])
+        for _dev, layers in layers_on:
+            layers[l]["moe"]["replicas"] = on_dev
+
+
+def _place_ranks(cfg, params: Dict, mesh, M: int, experts: List
+                 ) -> ShardedParams:
+    """`place_params` over M > 1 model ranks: one tree a (device, model
+    rank) of the mesh, in mesh order."""
+    ranks: Dict[Tuple[torch.device, int], Dict] = {}
+    whole: Dict[torch.device, Dict[int, torch.Tensor]] = {}
+    for i, dev in enumerate(mesh.devices):
+        m = mesh.coords(i)["model"]
+        if (dev, m) not in ranks:
+            ranks[(dev, m)] = _rank_tree(cfg, params, m, M, dev,
+                                         whole.setdefault(dev, {}),
+                                         experts)
+    _link_moe(experts, [(dev, t["layers"]) for (dev, _m), t in
+                        ranks.items()])
+    lead = ShardedParams(ranks[(mesh.lead, mesh.coords(0)["model"])])
+    lead.replicas = {}
+    lead.ranks = ranks
     return lead
+
+
+def weight_storage(params) -> Dict[torch.device, int]:
+    """The bytes of weight storage each device holds for `params`: every
+    distinct storage that `param_leaves` reaches, once, on its device.
+    A view counts its whole source storage, which it keeps alive."""
+    seen = set()
+    out: Dict[torch.device, int] = {}
+    for t in param_leaves(params):
+        st = t.untyped_storage()
+        key = (t.device, st.data_ptr())
+        if key not in seen:
+            seen.add(key)
+            out[t.device] = out.get(t.device, 0) + st.nbytes()
+    return out
+
+
+def _at(tree, path):
+    """The node of `tree` at `path` (keys; list indices as strings)."""
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def tp_weight_report(cfg: ModelConfig, params: Dict, placed, mesh,
+                     par: ParallelConfig) -> Dict:
+    """What each device holds of `placed` (`place_params(cfg, params,
+    mesh, par)`, M > 1 model ranks) against the count `tp_axis` gives:
+    a leaf it splits, one piece a model rank of the device; any other
+    leaf, once a device; the expert weights as EP placed them (each
+    distinct storage of the device's `ExpertShards` slices: a slice of
+    the caller's stack on its own device is a view of it).  The placed
+    trees are counted by storage (`weight_storage`).  `whole` lists the
+    (device, rank, path) of every leaf `tp_axis` splits that a rank
+    holds whole or as a view of a larger storage.  Returns {"held":
+    {device: bytes}, "expected": {device: bytes}, "whole": [...]}."""
+    M = model_size(mesh)
+    on_dev: Dict[torch.device, set] = {}
+    for i, dev in enumerate(mesh.devices):
+        on_dev.setdefault(dev, set()).add(mesh.coords(i)["model"])
+    expected = {dev: 0 for dev in on_dev}
+    lead_tree = next(iter(placed.ranks.values()))
+    whole = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+            return
+        nbytes = node.numel() * node.element_size()
+        if "moe" in path and path[-1] in _EXPERT_WEIGHTS:
+            shards = _at(lead_tree, path)
+            for dev in on_dev:
+                expected[dev] += sum(
+                    {t.untyped_storage().data_ptr():
+                     t.untyped_storage().nbytes()
+                     for t in shards.shards if t.device == dev}.values())
+            return
+        ax = tp_axis(cfg, path, node.shape, M)
+        for dev, ranks in on_dev.items():
+            expected[dev] += (nbytes if ax is None
+                              else nbytes // M * len(ranks))
+        if ax is None:
+            return
+        for (dev, m), tree in placed.ranks.items():
+            t = _at(tree, path)
+            if (t.shape == node.shape or t.untyped_storage().nbytes()
+                    != t.numel() * t.element_size()):
+                whole.append((str(dev), m, "/".join(path)))
+    walk({k: params[k] for k in ("embed", "ln_f", "lm_head", "layers")
+          if k in params}, ())
+    return {"held": weight_storage(placed), "expected": expected,
+            "whole": whole}
 
 
 # ---------------------------------------------------------------------------
@@ -393,12 +573,19 @@ def cache_tp_axis(cfg: ModelConfig, name: str, M: int) -> Optional[int]:
     None (whole on every rank): the pools' KV heads where `kv_split`
     says, a hybrid's SSM state by heads ("ssm" (L, slots, nh, hp, ds))
     and x conv tail by channels ("conv_x" (L, slots, d_conv-1, d_inner))
-    where `ssm_split` says; "conv_bc" (B and C, one group), the
-    encoder K/V, cursors, tables and positions whole."""
+    where `ssm_split` says, an encoder-decoder's per-slot encoder K/V by
+    heads ("enc_k"/"enc_v" (L, slots, Se, K, hd)) where cross-attention's
+    heads split, so each rank holds only the heads it reads (the
+    reference's `paged_cache_pspecs` leaves them whole); "conv_bc" (B
+    and C, one group), cursors, tables and positions whole.  A dense
+    cache split over a DP's ranks (`models.model.split_dense_cache`)
+    splits the same entries."""
     if M <= 1:
         return None
     if name in ("k", "v"):
         return -2 if kv_split(cfg, M) else None
+    if name in ENC_STACKS:
+        return -2 if heads_split(cfg, M) else None
     if name in ("ssm", "conv_x") and ssm_split(cfg, M):
         return 2 if name == "ssm" else -1
     return None

@@ -46,7 +46,8 @@ class EngineMesh:
     @property
     def lead(self) -> torch.device:
         """The first device: the one the host-side tensors (tokens, block
-        tables, logits) and the dense prefill live on."""
+        tables, logits) and, without model ranks, the dense prefill
+        live on (under TP the dense prefill runs on DP 0's ranks)."""
         return self.devices[0]
 
     @property

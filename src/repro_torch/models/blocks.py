@@ -40,14 +40,19 @@ K/V from the cache and never write them.
 Under tensor parallelism a layer's weights are one rank's share
 (`repro_torch.distributed.sharding`): the attention sub-layers take
 their head counts from the weights, so a rank's heads give its partial
-output projection (`attn_split`), and `mlp_shards` joins a split dense
-FFN's partial sums (`ffn_split`) and an MoE's per-rank rows over each
-DP's ranks.
+output projection (`attn_split`), or, in the row-parallel form
+(`row_split`), its d_model rows give partial projections, joined before
+the attention runs whole; `attn_shards`, `cross_shards` and
+`ssm_shards` run a mixer on the ranks of each DP and join it;
+`mlp_shards` and `moe_lead_shards` join a split dense FFN's or shared
+experts' partial sums (`ffn_split`, `shared_split`) and an MoE's rows
+over each DP's ranks.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -68,7 +73,7 @@ from repro_torch.models.mamba import (
     init_mamba_params, mamba_decode_gated, mamba_decode_step, mamba_forward,
     ssm_dims,
 )
-from repro_torch.models.moe import init_moe_params, moe_block
+from repro_torch.models.moe import _shared, init_moe_params, moe_block
 
 ATTN_KINDS = (LayerKind.DENSE, LayerKind.MOE)
 
@@ -213,18 +218,20 @@ def attn_full(p, x, cfg: ModelConfig, positions, seg=None, causal=True,
     return _out_proj(p, o), (k, v)
 
 
-def cross_attn_full(p, x, enc_out, cfg: ModelConfig, enc_kv=None):
+def cross_attn_full(p, x, enc_out, cfg: ModelConfig, enc_kv=None, q=None):
     """Cross-attention of a decoder layer (whisper): no RoPE, every query
     sees every encoder position.  Keys and values are projected from
     `enc_out` (B, Se, D), or read from the cache (`enc_kv`, each (B, Se,
     K, hd)).  Kernel #2's contiguous entry, not causal, with all
     positions and segments 0 (the reference's mask), for prefill, chunk
-    and decode (Sq = 1) alike.  x (B, S, D).  Returns (out (B, S, D),
-    (k, v))."""
+    and decode (Sq = 1) alike.  x (B, S, D); `q` (B, S, H, hd) the
+    queries where they come joined from the ranks (`cross_shards`).
+    Returns (out (B, S, D), (k, v))."""
     B, S, D = x.shape
     _D, H, hd = p["w_q"].shape
     K = p["w_k"].shape[1]
-    q = (x @ p["w_q"].reshape(D, H * hd)).reshape(B, S, H, hd)
+    if q is None:
+        q = (x @ p["w_q"].reshape(D, H * hd)).reshape(B, S, H, hd)
     if enc_kv is None:
         Se = enc_out.shape[1]
         k = (enc_out @ p["w_k"].reshape(D, K * hd)).reshape(B, Se, K, hd)
@@ -254,7 +261,7 @@ def attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos, pos):
 
 
 def attn_extend(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos,
-                positions):
+                positions, qkv=None):
     """Chunk extend against a dense cache: write the chunk's K/V (in
     place) at positions % S, THEN attend the chunk's queries over the
     whole cache with position masking (history and intra-chunk causality
@@ -262,8 +269,9 @@ def attn_extend(p, x, cfg: ModelConfig, k_cache, v_cache, kv_pos,
     before any of its queries attend, so once a prompt is past the window
     a chunk's first queries no longer see the keys the chunk's later
     tokens overwrote.  x (B, Sc, D); positions (B, Sc).  Returns
-    (B, Sc, D)."""
-    q, k, v = _qkv_full(p, x, cfg, positions)
+    (B, Sc, D).  `qkv`: the projections where they come joined from the
+    ranks (the row-parallel form, `attn_shards`)."""
+    q, k, v = qkv or _qkv_full(p, x, cfg, positions)
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)[:, None]
     idx = (positions % k_cache.shape[1]).long()
@@ -297,12 +305,13 @@ def _paged_write_sites(block_tab, positions, block_size):
 
 
 def attn_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
-                      block_tab, pos):
+                      block_tab, pos, qkv=None):
     """Single-token decode against a paged pool: write the new K/V (in
     place) into the row's current physical block, then attend through the
     block table.  x (B, 1, D); pools (N, bs, K, hd); kv_pos_pool (N, bs);
-    block_tab (B, nbt); pos (B,).  Returns (B, 1, D)."""
-    q, k, v = _qkv_full(p, x, cfg, pos[:, None])
+    block_tab (B, nbt); pos (B,); `qkv` as `attn_extend`'s.  Returns
+    (B, 1, D)."""
+    q, k, v = qkv or _qkv_full(p, x, cfg, pos[:, None])
     phys, off = _paged_write_site(block_tab, pos, k_pool.shape[1])
     k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
     v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
@@ -313,13 +322,13 @@ def attn_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
 
 
 def attn_extend_paged(p, x, cfg: ModelConfig, k_pool, v_pool, kv_pos_pool,
-                      block_tab, positions):
+                      block_tab, positions, qkv=None):
     """Chunk extend against a paged pool: write the chunk's K/V (in
     place) into the row's physical blocks, then attend q over the pages
     through the block table (earlier chunks and shared-prefix pages
     included) with causal position masking.  x (B, Sc, D); positions
-    (B, Sc).  Returns (B, Sc, D)."""
-    q, k, v = _qkv_full(p, x, cfg, positions)
+    (B, Sc); `qkv` as `attn_extend`'s.  Returns (B, Sc, D)."""
+    q, k, v = qkv or _qkv_full(p, x, cfg, positions)
     phys, off = _paged_write_sites(block_tab, positions, k_pool.shape[1])
     k_pool[phys, off] = k.to(k_pool.dtype)
     v_pool[phys, off] = v.to(v_pool.dtype)
@@ -664,6 +673,105 @@ def attn_split(p, cfg: ModelConfig) -> bool:
     return (a["w_q"] if "w_q" in a else a["w_uq"]).shape[1] < cfg.num_heads
 
 
+def row_split(p, cfg: ModelConfig, key: str = "attn") -> bool:
+    """Whether layer `p`'s GQA attention (`key`: "attn", or "xattn" for
+    cross-attention) holds a tensor-parallel rank's rows: the
+    row-parallel form, its w_q/w_k/w_v over a slice of d_model and its
+    w_o into one."""
+    a = p.get(key)
+    return a is not None and "w_q" in a and a["w_q"].shape[0] < cfg.d_model
+
+
+def _rank_in(groups, n: int) -> List[int]:
+    """Each of the `n` shards' model rank: its place in its group."""
+    out = [0] * n
+    for g in groups:
+        for m, i in enumerate(g):
+            out[i] = m
+    return out
+
+
+def row_proj(ps, hs, groups, names, key: str = "attn"):
+    """The row-parallel projections `names` of a GQA attention (`key`) on
+    the model ranks of each DP: each rank multiplies its slice of d_model
+    of its normed input `hs` by its rows of each weight, the partials
+    (joined along the last axis) are all-reduced once, and every rank
+    splits the sum back.  Returns, for every shard, one tensor a name,
+    (..., heads, hd)."""
+    ranks = _rank_in(groups, len(ps))
+    parts = []
+    for p, h, m in zip(ps, hs, ranks):
+        a = p[key]
+        n = a["w_q"].shape[0]
+        hm = h[..., m * n:(m + 1) * n]
+        parts.append(torch.cat([hm @ a[w].reshape(n, -1) for w in names],
+                               -1))
+    out = []
+    for p, t in zip(ps, all_reduce(parts, groups)):
+        a, at, mine = p[key], 0, []
+        for w in names:
+            _n, heads, hd = a[w].shape
+            mine.append(t[..., at:at + heads * hd].reshape(
+                t.shape[:-1] + (heads, hd)))
+            at += heads * hd
+        out.append(mine)
+    return out
+
+
+def attn_shards(ps, xs, cfg: ModelConfig, attend, args, rope_pos, groups):
+    """One attention sub-layer, without its residual, on every shard:
+    `attend(p["attn"], h, cfg, *args[i])` (a decode or extend arm, paged
+    or dense) with h the shard's normed hidden states.  Over M > 1 model
+    ranks a DP (`groups`): a rank's heads give a partial output, which
+    is all-reduced; in the row-parallel form (`row_split`) the ranks'
+    partial q|k|v are all-reduced (`row_proj`), RoPE'd at `rope_pos`
+    (each shard's positions, (B, S)), the attention runs whole on every
+    rank over its whole pools (each writes the same K/V), and each
+    rank's d_model slice of the output is all-gathered.  Returns each
+    shard's output."""
+    hs = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    if len(groups[0]) > 1 and row_split(ps[0], cfg):
+        qkvs = row_proj(ps, hs, groups, ("w_q", "w_k", "w_v"))
+        ys = [attend(p["attn"], h, cfg, *a, qkv=(
+                  apply_rope(q, pos, cfg.rope_theta),
+                  apply_rope(k, pos, cfg.rope_theta), v))
+              for p, h, a, (q, k, v), pos in zip(ps, hs, args, qkvs,
+                                                 rope_pos)]
+        return all_gather(ys, groups, dim=-1)
+    ys = [attend(p["attn"], h, cfg, *a) for p, h, a in zip(ps, hs, args)]
+    if len(groups[0]) > 1 and attn_split(ps[0], cfg):
+        ys = all_reduce(ys, groups)
+    return ys
+
+
+def cross_shards(ps, xs, cfg: ModelConfig, enc_kvs, groups):
+    """`cross_block` on every shard, its encoder K/V `enc_kvs[i]` (the
+    slot's, its rank's heads where they split): over M > 1 model ranks
+    a DP (`groups`) each rank attends with its heads over its heads of
+    the encoder K/V (#2's contiguous entry, not causal) and the partial
+    outputs are all-reduced; in the row-parallel form the queries are
+    joined from the ranks' d_model slices (`row_proj`), the attention
+    runs whole and the output's d_model slices are all-gathered."""
+    M = len(groups[0])
+    if "xattn" not in ps[0]:
+        return xs
+    if M == 1:
+        return [cross_block(p, x, cfg, kv) for p, x, kv in zip(ps, xs,
+                                                                enc_kvs)]
+    hs = [rms_norm(x, p["ln_x"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    if row_split(ps[0], cfg, "xattn"):
+        qs = row_proj(ps, hs, groups, ("w_q",), "xattn")
+        ys = all_gather([cross_attn_full(p["xattn"], h, None, cfg,
+                                         enc_kv=kv, q=q[0])[0]
+                         for p, h, kv, q in zip(ps, hs, enc_kvs, qs)],
+                        groups, dim=-1)
+    else:
+        ys = all_reduce([cross_attn_full(p["xattn"], h, None, cfg,
+                                         enc_kv=kv)[0]
+                         for p, h, kv in zip(ps, hs, enc_kvs)], groups)
+    return [x + y for x, y in zip(xs, ys)]
+
+
 def ssm_split(p, cfg: ModelConfig) -> bool:
     """Whether layer `p` holds a tensor-parallel rank's share of an SSM
     mixer's heads (`w_dt`'s columns)."""
@@ -671,20 +779,22 @@ def ssm_split(p, cfg: ModelConfig) -> bool:
         cfg.d_model, cfg.ssm)[1]
 
 
-def ssm_decode_shards(ps, xs, cfg: ModelConfig, entries, groups):
-    """An SSM layer's decode mixer, without its residual, on the model
-    ranks of each DP unit (`ps`, `xs`, `entries`: each shard's params of
-    the layer, hidden states and (ssm_state, (conv_x, conv_bc)) of its
+def ssm_shards(ps, xs, cfg: ModelConfig, entries, groups,
+               gated=mamba_decode_gated):
+    """An SSM layer's mixer, without its residual, on the model ranks of
+    each DP unit (`ps`, `xs`, `entries`: each shard's params of the
+    layer, hidden states and (ssm_state, (conv_x, conv_bc)) of its
     heads; `groups`: the shards of each DP).  Each rank runs its heads
-    up to the gated norm (`mamba_decode_gated`); the norm reduces over
-    the whole d_inner, so the ranks' fp32 sums of squares are
-    all-reduced (`(rows, 1, 1)` each, summed in rank order: every rank
+    up to the gated norm (`gated`: `mamba_decode_gated` for a decode
+    step, `mamba.mamba_forward_gated` for a chunk, #4 at the rank's
+    heads); the norm reduces over the whole d_inner, so the ranks' fp32
+    sums of squares are all-reduced (summed in rank order: every rank
     the same bits) before each normalises its share; then its rows of
     out_proj give a partial sum, all-reduced.  Returns (the mixer's
     output on every shard, each shard's new state)."""
     di = ssm_dims(cfg.d_model, cfg.ssm)[0]
-    pre = [mamba_decode_gated(rms_norm(x, p["ln1"], cfg.norm_eps),
-                              p["mamba"], cfg.ssm, e[0], e[1])
+    pre = [gated(rms_norm(x, p["ln1"], cfg.norm_eps), p["mamba"], cfg.ssm,
+                 e[0], e[1])
            for p, x, e in zip(ps, xs, entries)]
     sums = all_reduce([y.float().square().sum(-1, keepdim=True)
                        for y, _s in pre], groups)
@@ -700,6 +810,43 @@ def ffn_split(p, cfg: ModelConfig) -> bool:
     return "mlp" in p and p["mlp"]["w_gate"].shape[1] < cfg.d_ff
 
 
+def shared_split(p, cfg: ModelConfig) -> bool:
+    """Whether layer `p` holds a tensor-parallel rank's share of the MoE's
+    shared experts (its columns of shared_gate/shared_up, its rows of
+    shared_down): their output is a partial sum, outside `moe_block`."""
+    m = p.get("moe")
+    return (m is not None and "shared_gate" in m and m["shared_gate"].shape[1]
+            < cfg.moe.num_shared * cfg.moe.d_shared)
+
+
+def _routed(cfg: ModelConfig, split: bool):
+    """The MoE config `moe_block` runs with: without its shared experts
+    where the ranks hold them split (their partials join apart)."""
+    return dataclasses.replace(cfg.moe, num_shared=0) if split else cfg.moe
+
+
+def _shared_partials(ps, hs, groups):
+    """Each rank's shared-experts SwiGLU over its columns, all-reduced."""
+    return all_reduce([_shared(h, p["moe"]) for p, h in zip(ps, hs)],
+                      groups)
+
+
+def moe_lead_shards(ps, xs, cfg: ModelConfig, group):
+    """An MoE FFN with its residual on the M model ranks of one DP (one
+    `group`, each rank the same rows, as a prefill chunk): the routed
+    experts once, over rank 0's rows, sent to the other ranks; split
+    shared experts as each rank's partial, all-reduced, added to the
+    routed output (the order `moe_block` adds them in)."""
+    hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(ps, xs)]
+    split = shared_split(ps[0], cfg)
+    o, _ = moe_block(hs[0], ps[0]["moe"], _routed(cfg, split))
+    outs = broadcast(o, [x.device for x in xs])
+    if split:
+        outs = [a + b for a, b in zip(outs, _shared_partials(ps, hs,
+                                                             group))]
+    return [x + o for x, o in zip(xs, outs)]
+
+
 def mlp_shards(ps, xs, cfg: ModelConfig, groups=None):
     """The FFN half of one layer over the rows of every shard of the
     sharded plane (`ps`, `xs`: each shard's params of the layer and its
@@ -710,8 +857,10 @@ def mlp_shards(ps, xs, cfg: ModelConfig, groups=None):
     of the DP's rows, as the reference's EP body splits the replicated
     block, and the ranks gather the DP's outputs (where the rows do not
     split over the ranks, rank 0's rows take the single-program path and
-    its outputs are sent to the others).  A dense FFN runs on each shard
-    alone, or under TP as each rank's partial sum, all-reduced."""
+    its outputs are sent to the others); split shared experts add each
+    rank's partial over all the DP's rows, all-reduced.  A dense FFN
+    runs on each shard alone, or under TP as each rank's partial sum,
+    all-reduced."""
     M = 1 if groups is None else len(groups[0])
     if "moe" not in ps[0]:
         if M == 1 or not ffn_split(ps[0], cfg):
@@ -726,20 +875,23 @@ def mlp_shards(ps, xs, cfg: ModelConfig, groups=None):
     if M == 1:
         outs, _ = moe_block(hs, ps[0]["moe"], cfg.moe)
         return [x + o for x, o in zip(xs, outs)]
+    split = shared_split(ps[0], cfg)
+    mc = _routed(cfg, split)
     S = hs[0].shape[0]
     if S % M == 0:
         n = S // M
         outs, _ = moe_block([h[(i % M) * n:(i % M + 1) * n]
-                             for i, h in enumerate(hs)], ps[0]["moe"],
-                            cfg.moe)
+                             for i, h in enumerate(hs)], ps[0]["moe"], mc)
         outs = all_gather(outs, groups, dim=0)
     else:
-        lead, _ = moe_block([hs[g[0]] for g in groups], ps[0]["moe"],
-                            cfg.moe)
+        lead, _ = moe_block([hs[g[0]] for g in groups], ps[0]["moe"], mc)
         outs = list(hs)
         for o, g in zip(lead, groups):
             for i, t in zip(g, broadcast(o, [xs[i].device for i in g])):
                 outs[i] = t
+    if split:
+        outs = [a + b for a, b in zip(outs, _shared_partials(ps, hs,
+                                                             groups))]
     return [x + o for x, o in zip(xs, outs)]
 
 

@@ -192,6 +192,18 @@ def mamba_forward(x, params, sc: SSMConfig, initial_state=None,
     conv_state (conv_x, conv_bc) tails or None.  Returns (out (B, S, D),
     (ssm_state, (conv_x, conv_bc))) for chunked continuation.  `scan` is
     the SSD scan (`ssd_chunked` for the plain oracle)."""
+    y, state = mamba_forward_gated(x, params, sc, initial_state,
+                                   conv_state, scan)
+    return rms_norm(y, params["norm"]) @ params["out_proj"], state
+
+
+def mamba_forward_gated(x, params, sc: SSMConfig, initial_state=None,
+                        conv_state=None, scan=ssd_chunked_kernel):
+    """`mamba_forward` up to its gated norm: (the gated output (B, S, di)
+    before the norm, (ssm_state, (conv_x, conv_bc))).  As
+    `mamba_decode_gated`, a tensor-parallel rank runs it over its heads;
+    its norm then needs the whole row's sum of squares
+    (`models.blocks.ssm_shards`)."""
     gds = sc.n_groups * sc.d_state
     z, xr, bc, dt = _project(x, params)
     di = xr.shape[-1]
@@ -210,8 +222,7 @@ def mamba_forward(x, params, sc: SSMConfig, initial_state=None,
     y = y + xs.float() * params["D_skip"][:, None]
     y = y.reshape(B, S, di)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(y, params["norm"])
-    return y @ params["out_proj"], (h, (ncs_x, ncs_bc))
+    return y, (h, (ncs_x, ncs_bc))
 
 
 def mamba_decode_step(x, params, sc: SSMConfig, ssm_state, conv_state):
@@ -228,7 +239,7 @@ def mamba_decode_gated(x, params, sc: SSMConfig, ssm_state, conv_state):
     (B, 1, di) before the norm, (new ssm_state, new conv_state)).  The
     head counts come from the weights, so a tensor-parallel rank runs it
     over its heads (its share of di); its norm then needs the whole
-    row's sum of squares (`models.blocks.ssm_decode_shards`)."""
+    row's sum of squares (`models.blocks.ssm_shards`)."""
     gds = sc.n_groups * sc.d_state
     g, ds, hp = sc.n_groups, sc.d_state, sc.head_dim
     z, xr, bc, dt = _project(x, params)

@@ -43,16 +43,21 @@ so one step advances every DP's rows; a prefill chunk and the page
 surgery run on the shards of the DP that owns the slot.  Under tensor
 parallelism (M > 1 model ranks a DP, `distributed.sharding`) each rank
 runs its share of a layer: its heads of the attention over its heads of
-the pools (MLA: over the whole latent pools), its heads of an SSM
-mixer over its heads of the slots' states, and its columns of a dense
-FFN, each a partial sum that `distributed.transfer.all_reduce` joins
-over the DP's ranks (an SSM layer's gated norm all-reduces its sums of
-squares first); its share
-of an MoE's rows through the EP layer, gathered after; the embedding
-and logits over its slice of the vocabulary or of d_model.  Every rank
-of a DP then holds the same hidden states, bit for bit.  A dense
-`prefill_chunk` needs no form of its own: it runs on the lead device
-with the whole weights, and its MoE reaches the split expert weights
+the pools (MLA: over the whole latent pools; the row-parallel form: its
+d_model rows of the projections, the attention whole over whole pools),
+its heads of a decoder layer's cross-attention over its heads of the
+slot's encoder K/V, its heads of an SSM mixer over its heads of the
+slots' states, and its columns of a dense FFN and of the shared
+experts, each a partial sum that `distributed.transfer.all_reduce`
+joins over the DP's ranks (an SSM layer's gated norm all-reduces its
+sums of squares first); its share of an MoE's rows through the EP
+layer, gathered after; the embedding and logits over its slice of the
+vocabulary or of d_model.  Every rank of a DP then holds the same
+hidden states, bit for bit.  A dense `prefill_chunk` takes the same
+form on a DP's ranks (`_tp_prefill_chunk`) over a dense cache split
+over them (`split_dense_cache`: {"shards": one dense cache a rank, its
+share of the KV heads and SSM heads, "model": M}); its MoE runs once
+from rank 0's rows and reaches the split expert weights
 (`repro_torch.models.moe`).
 
 Layouts (torch):
@@ -125,17 +130,17 @@ from repro_torch.distributed.sharding import (
     dp_groups, is_merged, params_on, rank_params, rank_share,
 )
 from repro_torch.distributed.transfer import (
-    all_gather, all_reduce, broadcast, gather_to, move, reduce_to,
+    all_gather, all_reduce, gather_to, move, reduce_to,
 )
 from repro_torch.models.blocks import (
-    ATTN_KINDS, attn_extend_paged, attn_split, block_decode,
-    block_decode_paged, block_extend, block_extend_paged, block_full,
-    cross_block, init_block_params, mixer_decode_paged, mla_extend_paged,
-    mlp_shards, ssm_decode_shards, ssm_split,
+    ATTN_KINDS, attn_decode_paged, attn_extend, attn_extend_paged,
+    attn_shards, block_decode, block_decode_paged, block_extend,
+    block_extend_paged, block_full, cross_shards, init_block_params,
+    mixer_decode_paged, mla_decode_paged, mla_extend,
+    mla_extend_paged, mlp_shards, moe_lead_shards, ssm_shards, ssm_split,
 )
 from repro_torch.models.layers import rms_norm, sinusoid_pos_embedding
-from repro_torch.models.mamba import ssm_dims
-from repro_torch.models.moe import moe_block
+from repro_torch.models.mamba import mamba_forward_gated, ssm_dims
 
 
 # ---------------------------------------------------------------------------
@@ -306,12 +311,13 @@ def kv_buffer_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, device="cuda") -> Dict:
+               dtype=torch.float32, device="cuda", tp: int = 1) -> Dict:
     """Dense decode cache of `batch` rows (a prefill request's cache is
     its batch-1 form): K/V rows for the attention layers, fp32 SSM states
     and conv tails (in `dtype`) for the SSM layers, and an
     encoder-decoder's encoder K/V for every decoder layer (zero until
-    `prefill` writes them)."""
+    `prefill` writes them).  With `tp` > 1 it is one tensor-parallel
+    rank's share (`split_dense_cache`)."""
     require_supported(cfg)
     S = kv_buffer_len(cfg, max_len) if _has_attn_cache(cfg) else 1
     kinds = cfg.layer_kinds()
@@ -324,16 +330,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
     if n_attn:
         k_shape, v_shape = _kv_shapes(cfg, (n_attn, batch, S))
-        cache["k"] = torch.zeros(k_shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(v_shape, dtype=dtype, device=device)
+        cache["k"] = _tp_zeros(cfg, "k", k_shape, tp, dtype=dtype,
+                               device=device)
+        cache["v"] = _tp_zeros(cfg, "v", v_shape, tp, dtype=dtype,
+                               device=device)
     if n_ssm:
-        cache.update(_ssm_stacks(cfg, n_ssm, batch, dtype, device))
-    if cfg.is_encoder_decoder:
-        shape = (len(kinds), batch, cfg.encoder_seq_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        for name in ENC_STACKS:
-            cache[name] = torch.zeros(shape, dtype=dtype, device=device)
+        cache.update(_ssm_stacks(cfg, n_ssm, batch, dtype, device, tp))
+    cache.update(_enc_stacks(cfg, batch, dtype, device, tp))
     return cache
+
+
+def _enc_stacks(cfg: ModelConfig, rows: int, dtype, device, tp: int = 1
+                ) -> Dict:
+    """Zero encoder K/V of every decoder layer for `rows` rows (an
+    encoder-decoder's; {} otherwise); a tensor-parallel rank's heads of
+    them with `tp` > 1."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    shape = (len(cfg.layer_kinds()), rows, cfg.encoder_seq_len,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {name: _tp_zeros(cfg, name, shape, tp, dtype=dtype,
+                            device=device) for name in ENC_STACKS}
+
+
+def split_dense_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      devices: Sequence) -> Dict:
+    """A dense cache of `batch` rows split over the M = len(devices)
+    model ranks of one DP: {"shards": rank m's share on devices[m]
+    (`init_cache(tp=M)`: its KV heads, SSM heads and encoder heads where
+    the ranks split them, the rest whole), "model": M}.  `prefill_chunk`
+    runs on it over the ranks (`_tp_prefill_chunk`), and the joins into a
+    merged paged cache take rank m's share to rank m."""
+    M = len(devices)
+    return {"shards": [init_cache(cfg, batch, max_len, dtype, device=d,
+                                  tp=M) for d in devices],
+            "model": M}
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -384,13 +415,19 @@ def cache_join(dst: Dict, src: Dict, slot: int) -> Dict:
 
 def cache_take(src: Dict, slot: int) -> Dict:
     """Row `slot` of a dense batch cache as a new batch-1 cache (the
-    inverse of cache_join: preemption and drain park it)."""
+    inverse of cache_join: preemption and drain park it); of a split
+    cache (`split_dense_cache`), each rank's share of it on its device."""
+    if is_merged(src):
+        return dict(src, shards=[cache_take(c, slot) for c in src["shards"]])
     return {name: t.clone() for name, t in cache_row(src, slot).items()}
 
 
 def cache_row(src: Dict, row: int) -> Dict:
     """Row `row` of a dense batch cache as a batch-1 cache of views: a
-    step writes its K/V and kv_pos into the batch cache in place."""
+    step writes its K/V and kv_pos into the batch cache in place (a
+    split cache: each rank's row)."""
+    if is_merged(src):
+        return dict(src, shards=[cache_row(c, row) for c in src["shards"]])
     out: Dict = {"cur": src["cur"][row:row + 1],
                  "kv_pos": src["kv_pos"][row:row + 1]}
     for name in _ROW_STACKS:
@@ -405,7 +442,11 @@ def cache_clear_row(cache: Dict, row: int) -> Dict:
     SSM states, conv tails and encoder K/V 0 (its K/V entries are read
     only where kv_pos says they were written, so they are left).  The
     dense counterpart of `paged_cache_clear_slot`, for a reused row of a
-    prefill engine's pool."""
+    prefill engine's pool.  A split cache's ranks each reset theirs."""
+    if is_merged(cache):
+        for c in cache["shards"]:
+            cache_clear_row(c, row)
+        return cache
     cache["kv_pos"][row] = -1
     cache["cur"][row] = 0
     for name in SSM_STACKS + ENC_STACKS:
@@ -465,11 +506,7 @@ def init_paged_cache(cfg: ModelConfig, slots: int, num_blocks: int,
     if len(kinds) > n_attn:
         cache.update(_ssm_stacks(cfg, len(kinds) - n_attn, slots, dtype,
                                  device, tp))
-    if cfg.is_encoder_decoder:
-        shape = (len(kinds), slots, cfg.encoder_seq_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        for name in ENC_STACKS:
-            cache[name] = torch.zeros(shape, dtype=dtype, device=device)
+    cache.update(_enc_stacks(cfg, slots, dtype, device, tp))
     return cache
 
 
@@ -882,7 +919,11 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, cache):
     (last-position logits (B, V), cache with `cur` + Sc and the new SSM
     states); the K/V rows are written in place.  An encoder-decoder's
     encoder K/V come from a prior `prefill` (the chunks extend only the
-    decoder side, as in the reference)."""
+    decoder side, as in the reference).  A cache split over a DP's model
+    ranks (`split_dense_cache`) runs the chunk on them
+    (`_tp_prefill_chunk`)."""
+    if is_merged(cache):
+        return _tp_prefill_chunk(cfg, params, tokens, cache)
     Sc = tokens.shape[1]
     pos0 = cache["cur"]
     positions = pos0[:, None] + torch.arange(Sc, dtype=torch.int32,
@@ -1061,7 +1102,7 @@ def paged_copy_block(cfg: ModelConfig, cache: Dict, src, dst) -> Dict:
     position map, in place (the copy half of copy-on-write).  Per-slot
     SSM entries are not pages: they are left alone."""
     if is_merged(cache):
-        d = cache["home"]
+        d = _home(cache)
         base = d * cache["blocks"]
         return _on_dp(cache, d, lambda m, c: paged_copy_block(
             cfg, c, src - base, dst - base))
@@ -1076,7 +1117,16 @@ def paged_gather_blocks(cfg: ModelConfig, cache: Dict, ids) -> Dict:
     ((nbt,) int32, -1 padding) of every pool, plus their kv_pos rows
     (-1 on padding).  New tensors.  Pages only: a cache's per-slot SSM
     entries are not part of it (page-native prefill, the only producer,
-    refuses hybrids)."""
+    refuses hybrids).  On a merged cache of one DP (a TP page-native
+    prefill engine's), each rank's payload on its device, split as the
+    cache is ({"shards", "model"}: `_rank_share` copies rank to rank)."""
+    if is_merged(cache):
+        d = _home(cache)
+        M = cache_model(cache)
+        return {"shards": [paged_gather_blocks(
+                    cfg, c, _local_blocks(cache, d, ids, c["cur"].device))
+                    for c in cache["shards"][d * M:(d + 1) * M]],
+                "model": M}
     g = ids.clamp_min(0).long()
     out: Dict = {"kv_pos": torch.where(ids[:, None] < 0, -1,
                                        cache["kv_pos"][g])}
@@ -1122,7 +1172,7 @@ def paged_clear_rows(cache: Dict, ids) -> Dict:
     blocks must be cleared before a slot attends through them: stale
     positions from a previous tenant would alias as valid history."""
     if is_merged(cache):
-        d = cache["home"]
+        d = _home(cache)
         return _on_dp(cache, d, lambda m, c: paged_clear_rows(
             c, _local_blocks(cache, d, ids, c["cur"].device)))
     cache["kv_pos"][ids.clamp_min(0).long()] = -1
@@ -1164,6 +1214,17 @@ def paged_install_row(cache: Dict, slot: int, tab: torch.Tensor, cur: int
 # Sharded plane: the merged paged cache
 # ---------------------------------------------------------------------------
 
+def _home(cache: Dict) -> int:
+    """The DP a merged cache's page surgery acts on: a DP view's "home",
+    or the only DP of a one-DP merged cache (a TP prefill engine's)."""
+    if "home" in cache:
+        return cache["home"]
+    if len(cache["shards"]) != cache_model(cache):
+        raise ValueError("page surgery on a merged cache of several DPs "
+                         "needs a DP's view (its home)")
+    return 0
+
+
 def _dp_slot(cache: Dict, slot) -> Tuple[int, int]:
     """(DP unit, local slot) of global slot `slot` of a merged cache."""
     if isinstance(slot, torch.Tensor):
@@ -1198,10 +1259,19 @@ def with_shard(cache: Dict, k: int, shard: Dict) -> Dict:
 
 def _rank_share(cfg: ModelConfig, cache: Dict, tree: Dict, m: int, device
                 ) -> Dict:
-    """`tree` (a dense batch-1 cache or a block payload, whole) as model
-    rank m of merged `cache` takes it, on `device`: its share of what the
-    ranks split (`cache_tp_axis`: KV heads, SSM heads)."""
+    """`tree` (a dense batch-1 cache or a block payload) as model rank m of
+    merged `cache` takes it, on `device`: its share of what the ranks
+    split (`cache_tp_axis`: KV heads, SSM heads, encoder heads), cut
+    from a whole tree, or rank m's shard of a tree already split over
+    as many ranks (a TP prefill's row or payload: copied rank to
+    rank)."""
     M = cache_model(cache)
+    if is_merged(tree):
+        if cache_model(tree) != M or len(tree["shards"]) != M:
+            raise ValueError(f"a tree split over {len(tree['shards'])} "
+                             f"ranks joins a cache of {M} model ranks")
+        return {n: t.to(device, non_blocking=True)
+                for n, t in tree["shards"][m].items()}
     return {n: rank_share(t, cache_tp_axis(cfg, n, M), m, M).to(
                 device, non_blocking=True)
             for n, t in tree.items()}
@@ -1284,11 +1354,11 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
                     decode_mask=None):
     """One decode step over every shard of a merged cache: per layer, each
     shard's mixer over its rows on its device (attention over its pages,
-    or a hybrid's SSM decode from its slots' states; under TP its heads'
-    partial output, all-reduced over the DP's model ranks, an SSM
-    layer's gated-norm squares all-reduced first), an
-    encoder-decoder's cross-attention over each slot's encoder K/V, then
-    the FFN over all shards' rows (`mlp_shards`).  `token` (n·S, 1) and
+    or a hybrid's SSM decode from its slots' states; under TP as
+    `attn_shards` and `ssm_shards` join them over the DP's model
+    ranks), an encoder-decoder's cross-attention over each slot's
+    encoder K/V (under TP each rank's heads, `cross_shards`), then the
+    FFN over all shards' rows (`mlp_shards`).  `token` (n·S, 1) and
     the optional `decode_mask` (n·S,) in global slot order, or each a
     list of every shard's rows (its DP's) on its device (the engines'
     form: a step graph's static inputs per shard); masked-out rows
@@ -1316,27 +1386,31 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
         rows.append((c, tab, mask))
     xs = _embed_shards(cfg, ps, toks, groups)            # (S, 1, D) each
     states: List[List] = [[] for _ in devs]
+    attend = (mla_decode_paged if cfg.attention == AttentionKind.MLA
+              else attn_decode_paged)
     for l, (kind, i) in enumerate(stack_index(cfg)):
         lp = [p["layers"][l] for p in ps]
+        ents = [_layer_entry(c, kind, i) for c, _t, _m in rows]
         if M > 1 and ssm_split(lp[0], cfg):
-            ys, ents = ssm_decode_shards(
-                lp, xs, cfg, [_layer_entry(c, kind, i) for c, _t, _m in rows],
-                groups)
+            ys, ents = ssm_shards(lp, xs, cfg, ents, groups)
+        elif M > 1 and kind in ATTN_KINDS:
+            ys = attn_shards(
+                lp, xs, cfg, attend,
+                [(e[0], e[1], c["kv_pos"], tab, c["cur"])
+                 for e, (c, tab, _m) in zip(ents, rows)],
+                [c["cur"][:, None] for c, _t, _m in rows], groups)
         else:
-            outs = [mixer_decode_paged(p, x, kind, cfg,
-                                       _layer_entry(c, kind, i),
-                                       c["kv_pos"], tab, c["cur"])
-                    for p, x, (c, tab, _m) in zip(lp, xs, rows)]
+            outs = [mixer_decode_paged(p, x, kind, cfg, e, c["kv_pos"], tab,
+                                       c["cur"])
+                    for p, x, e, (c, tab, _m) in zip(lp, xs, ents, rows)]
             ys, ents = [y for y, _e in outs], [e for _y, e in outs]
-            if M > 1 and attn_split(lp[0], cfg):
-                ys = all_reduce(ys, groups)
         xs = [x + y for x, y in zip(xs, ys)]
         if kind not in ATTN_KINDS:
             for st, e in zip(states, ents):
                 st.append(e)
-        if "xattn" in lp[0]:
-            xs = [cross_block(p, x, cfg, (c["enc_k"][l], c["enc_v"][l]))
-                  for p, x, (c, _t, _m) in zip(lp, xs, rows)]
+        xs = cross_shards(lp, xs, cfg, [(c["enc_k"][l], c["enc_v"][l])
+                                        for c, _t, _m in rows]
+                          if "xattn" in lp[0] else None, groups)
         xs = mlp_shards(lp, xs, cfg, groups)
     hs = [rms_norm(x, p["ln_f"], cfg.norm_eps)[:, 0] for p, x in zip(ps, xs)]
     # the logits' move to shard 0 is the step's last cut on distinct
@@ -1354,15 +1428,98 @@ def _sharded_decode(cfg: ModelConfig, params, token, cache: Dict,
     return logits, dict(cache, shards=shards)
 
 
+def _tp_layers(cfg: ModelConfig, ps: List[Dict], xs: List, cs: List[Dict],
+               attend, args: List, positions: List, states: List[List]):
+    """Every layer of a chunk on the M model ranks of one DP, each rank
+    the same rows (`ps`, `xs`, `cs`: each rank's params, hidden states
+    and cache; `attend`: the attention arm, `args[m]` its cache
+    arguments after the K/V; `positions`: each rank's (B, Sc)
+    positions): each attention layer as `attn_shards` (its split heads'
+    partials all-reduced, or the row-parallel form), each SSM layer by
+    heads through #4 (`ssm_shards`, its new states appended to
+    `states`), a decoder layer's cross-attention over its heads of the
+    encoder K/V (`cross_shards`), a dense FFN's partials all-reduced, an
+    MoE once from rank 0's rows (`moe_lead_shards`).  Returns the hidden
+    states of every rank."""
+    group = [list(range(len(ps)))]
+    for l, (kind, i) in enumerate(stack_index(cfg)):
+        lp = [p["layers"][l] for p in ps]
+        if kind in ATTN_KINDS:
+            ys = attn_shards(lp, xs, cfg, attend,
+                             [(c["k"][i], c["v"][i]) + tuple(a)
+                              for c, a in zip(cs, args)], positions, group)
+        elif ssm_split(lp[0], cfg):
+            ys, ents = ssm_shards(lp, xs, cfg,
+                                  [_layer_entry(c, kind, i) for c in cs],
+                                  group, gated=mamba_forward_gated)
+            for st, e in zip(states, ents):
+                st.append(e)
+        else:
+            raise ValueError(f"{cfg.name}: an SSM layer whose heads do not "
+                             f"split over {len(ps)} model ranks")
+        xs = [x + y for x, y in zip(xs, ys)]
+        xs = cross_shards(lp, xs, cfg, [(c["enc_k"][l], c["enc_v"][l])
+                                        for c in cs]
+                          if "xattn" in lp[0] else None, group)
+        if "moe" in lp[0]:
+            xs = moe_lead_shards(lp, xs, cfg, group)
+        else:
+            xs = mlp_shards(lp, xs, cfg, group)
+    return xs
+
+
+def _tp_prefill_chunk(cfg: ModelConfig, params, tokens, cache: Dict):
+    """`prefill_chunk` on the M > 1 model ranks of one DP, over a dense
+    cache split over them (`split_dense_cache`): each rank writes its
+    heads' K/V into its share of the rows and attends with its heads
+    (#2's contiguous entry; MLA: every rank the same latent rows into
+    its whole latent rows, torch ops; the row-parallel form: the same
+    K/V on every rank, the attention whole), each SSM layer runs its
+    heads through #4 with the gated norm's sums of squares all-reduced;
+    the partial outputs are all-reduced, an MoE runs once from rank 0's
+    rows (see `_tp_layers`); the embedding and logits over the ranks'
+    slices.  Nothing of the chunk runs on whole weights.  Returns (the
+    last position's logits (B, V) on the tokens' device, the split
+    cache with `cur` + Sc and each rank's new SSM states)."""
+    M = cache_model(cache)
+    cs = cache["shards"]
+    if len(cs) != M:
+        raise ValueError(f"a dense cache split over {M} model ranks holds "
+                         f"one DP's ranks, not {len(cs)} shards")
+    devs = [c["cur"].device for c in cs]
+    group = [list(range(M))]
+    ps = [rank_params(params, dev, m, M) for m, dev in enumerate(devs)]
+    Sc = tokens.shape[1]
+    poss = [c["cur"][:, None] + torch.arange(Sc, dtype=torch.int32,
+                                             device=dev)[None]
+            for c, dev in zip(cs, devs)]
+    xs = _embed_shards(cfg, ps, move([tokens] * M, devs), group)
+    attend = (mla_extend if cfg.attention == AttentionKind.MLA
+              else attn_extend)
+    states: List[List] = [[] for _ in devs]
+    xs = _tp_layers(cfg, ps, xs, cs, attend,
+                    [(c["kv_pos"], pos) for c, pos in zip(cs, poss)], poss,
+                    states)
+    hs = [rms_norm(x, p["ln_f"], cfg.norm_eps)[:, -1] for p, x in zip(ps, xs)]
+    logits = _logits_shards(cfg, ps, hs, group, tokens.device)
+    new = []
+    for c, st in zip(cs, states):
+        out = dict(c, **_stacked(st))
+        out["cur"] = c["cur"] + Sc
+        new.append(out)
+    return logits, dict(cache, shards=new)
+
+
 def _tp_prefill(cfg: ModelConfig, params, tokens, cache: Dict, d: int,
                 slot):
     """`paged_prefill_step` on the M > 1 model ranks of DP d of a merged
-    cache: each rank writes its heads' K/V into its pools (an MLA
-    layer: every rank the same latent rows into its whole latent pools)
-    and attends with its heads (#2's paged entry; MLA torch ops), the
-    partial outputs all-reduced; a
-    dense FFN's partials all-reduced; an MoE FFN run once from rank 0's
-    rows (the EP layer's tensor form) and sent to the other ranks.
+    cache (`_tp_layers`): each rank writes its heads' K/V into its pools
+    (an MLA layer: every rank the same latent rows into its whole latent
+    pools; the row-parallel form: the same K/V into whole pools) and
+    attends with its heads (#2's paged entry; MLA torch ops), the
+    partial outputs all-reduced; a dense FFN's partials all-reduced; an
+    MoE FFN run once from rank 0's rows (the EP layer's tensor form) and
+    sent to the other ranks, split shared experts' partials all-reduced.
     `slot` is local to the DP: an int, or a one-element tensor (a
     `dp_view`'s chunk graph).  Returns (last-position logits (1, V) on
     the tokens' device, cache)."""
@@ -1385,20 +1542,10 @@ def _tp_prefill(cfg: ModelConfig, params, tokens, cache: Dict, d: int,
     xs = _embed_shards(cfg, ps, toks, group)                    # (1, Sc, D)
     attend = (mla_extend_paged if cfg.attention == AttentionKind.MLA
               else attn_extend_paged)
-    for l in range(cfg.num_layers):
-        lp = [p["layers"][l] for p in ps]
-        ys = [attend(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                     c["k"][l], c["v"][l], c["kv_pos"], tab, pos)
-              for p, x, c, tab, pos in zip(lp, xs, cs, tabs, poss)]
-        if attn_split(lp[0], cfg):
-            ys = all_reduce(ys, group)
-        xs = [x + y for x, y in zip(xs, ys)]
-        if "moe" in lp[0]:
-            h = rms_norm(xs[0], lp[0]["ln2"], cfg.norm_eps)
-            o, _ = moe_block(h, lp[0]["moe"], cfg.moe)
-            xs = [x + t for x, t in zip(xs, broadcast(o, devs))]
-        else:
-            xs = mlp_shards(lp, xs, cfg, group)
+    xs = _tp_layers(cfg, ps, xs, cs, attend,
+                    [(c["kv_pos"], tab, pos)
+                     for c, tab, pos in zip(cs, tabs, poss)], poss,
+                    [[] for _ in devs])
     hs = [rms_norm(x, p["ln_f"], cfg.norm_eps)[:, -1] for p, x in zip(ps, xs)]
     logits = _logits_shards(cfg, ps, hs, group, tokens.device)
     new = []

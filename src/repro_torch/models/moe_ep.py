@@ -254,8 +254,11 @@ def moe_block_ep(x, params: Dict, mc: MoEConfig, mesh,
 def replica_on(params: Dict, device) -> Dict:
     """An MoE layer's params as `device` holds them: its replica of the
     router (and selection bias) and shared experts (`place_params` keeps
-    every device's under "replicas"; unplaced params are moved, a no-op
-    where they already live)."""
+    every device's under "replicas"; under TP the MoE dict of the
+    device's first model rank, whose shared experts are that rank's
+    columns: the TP callers join split shared experts themselves,
+    `blocks.mlp_shards`; unplaced params are moved, a no-op where they
+    already live)."""
     reps = params.get("replicas")
     if reps is not None:
         return reps[torch.device(device)]

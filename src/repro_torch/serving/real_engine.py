@@ -75,18 +75,23 @@ MoE layers take the explicit all-to-all of `models.moe_ep`, and a
 decode instance merges its DP units' rows into ONE cache held as one
 shard per (data, model) rank (`merged_paged_cache`; `_ShardedGroup`).
 A mesh with a "model" axis of M > 1 ranks runs tensor parallelism
-inside each DP: each rank holds its share of the heads, dense FFN
-columns and vocabulary (`ShardedParams.ranks`) and of the pools' KV
-heads, and the partial outputs meet in all-reduces over the DP's ranks
-(`distributed.transfer`), counted per step in `tp_samples`; the page
-surgery acts on every rank of the DP.  Each step
-is then one cross-DP step over every DP's rows, with the EP exchange in
-each MoE layer (a hybrid's SSM_MOE layers too; its SSM layers decode
-each shard's rows from their per-slot state): the paper's DP sync
-barrier on this plane.  A dense prefill chunk runs on the lead device
+inside each DP: each rank holds only its share of the heads (or, where
+they do not divide, of d_model: the row-parallel form), dense FFN and
+shared-expert columns and vocabulary (`ShardedParams.ranks`, no whole
+replica) and of the pools' KV heads, and the partial outputs meet in
+all-reduces over the DP's ranks (`distributed.transfer`), counted per
+step in `tp_samples`; the page surgery acts on every rank of the DP.
+Each step is then one cross-DP step over every DP's rows, with the EP
+exchange in each MoE layer (a hybrid's SSM_MOE layers too; its SSM
+layers decode each shard's rows from their per-slot state): the
+paper's DP sync barrier on this plane.  A dense prefill chunk runs
 outside the mesh context, as the reference's `jit_prefill_chunk`, so
 its MoE is the single-program one over the split expert weights and no
-chunk length has to divide over the mesh's devices.  Each DP keeps
+chunk length has to divide over the mesh's devices: on the lead device
+without model ranks, under TP on DP 0's model ranks, its rows split
+over them (`split_dense_cache`) and handed off rank to rank; a TP
+page-native prefill engine's pool is split over DP 0's ranks as well.
+A TP spec runs no step on whole weights.  Each DP keeps
 its own admission control (`_DPShardedState`: a `BlockPool` of global
 block ids from its base offset, its own slot range, a private binder)
 and reads the merged cache through its view.  Every sharded step and
@@ -179,7 +184,8 @@ from repro_torch.models.model import (
     paged_clear_rows, paged_copy_block, paged_decode_masked,
     paged_decode_step, paged_gather_blocks, paged_install_row,
     paged_layout, paged_prefill_step, paged_set_table, prefill_chunk,
-    dp_view, require_servable, shard_slot, with_dp, with_shard,
+    dp_view, require_servable, shard_slot, split_dense_cache, with_dp,
+    with_shard,
 )
 from repro_torch.models.moe_ep import count_exchanges
 from repro_torch.serving.engine import SimDecodeInstance, SimPrefillInstance
@@ -382,10 +388,11 @@ class EngineSpec:
                                       slot)
 
     def shard_prefill_fn(self, k: int):
-        """The page-native chunk step of shard k of a merged cache: on
-        that shard's cache, with its device's replica of the params and
-        a slot local to the shard (what `paged_prefill_step` does for a
-        merged cache, with the shard picked on the host)."""
+        """The page-native chunk step of shard k of a merged cache without
+        model ranks: on that shard's cache, with its device's replica of
+        the params and a slot local to the shard (what
+        `paged_prefill_step` does for a merged cache, with the shard
+        picked on the host)."""
         params = params_on(self.params, self.mesh.devices[k])
 
         def fn(cache, tokens, slot):
@@ -411,9 +418,10 @@ class EngineSpec:
         rule), so no chunk is padded."""
         if is_merged(cache) and model_size(self.mesh) > 1:
             # tensor parallelism: the chunk runs on the DP's model ranks
-            d = slot // self.paged_slots
+            # (a prefill engine's pool is one DP's)
+            d = slot // cache["slots"]
             view = dp_view(cache, d)
-            local = slot - d * self.paged_slots
+            local = slot - d * cache["slots"]
             if graphs is None:
                 logits, new = self.prefill_fn(view, tokens, local)
             else:
@@ -454,7 +462,8 @@ class EngineSpec:
                                                 tokens)
             _set_row(cache, row, new)
             return logits
-        S = cache["kv_pos"].shape[1]
+        S = (cache["shards"][0] if is_merged(cache) else cache)[
+            "kv_pos"].shape[1]
         with self.step_lock:
             _copy_kv(work, 0, cache, row, min(at, S))
             logits, new = graphs.run(("prefill-dense", tokens.shape[1]),
@@ -507,9 +516,19 @@ class EngineSpec:
         per_slot = self.max_len // self.block_size
         return 2 * self.paged_prefill_slots * per_slot + 1
 
+    @property
+    def tp(self) -> int:
+        """Tensor-parallel ranks a DP (1 without a mesh)."""
+        return 1 if self.mesh is None else model_size(self.mesh)
+
     def request_cache(self, batch: int = 1) -> Dict:
         """A dense prefill cache of `batch` rows (a dense prefill
-        engine's pool; batch 1: its graphs' working cache)."""
+        engine's pool; batch 1: its graphs' working cache); under TP
+        split over DP 0's model ranks (`split_dense_cache`), where the
+        chunks run."""
+        if self.tp > 1:
+            return split_dense_cache(self.cfg, batch, self.max_len,
+                                     self.dtype, self.mesh.devices[:self.tp])
         return init_cache(self.cfg, batch, self.max_len, dtype=self.dtype,
                           device=self.device)
 
@@ -525,7 +544,18 @@ class EngineSpec:
             device=self.device)
 
     def prefill_paged_cache(self) -> Dict:
-        """A page-native prefill engine's paged cache."""
+        """A page-native prefill engine's paged cache; under TP a merged
+        cache of one DP over DP 0's model ranks (its chunks run there,
+        `_tp_prefill`; its payloads hand off rank to rank)."""
+        if self.tp > 1:
+            M = self.tp
+            return {"shards": [init_paged_cache(
+                        self.cfg, self.paged_prefill_slots,
+                        self.paged_prefill_blocks, self.max_len,
+                        self.block_size, dtype=self.dtype, device=dev, tp=M)
+                        for dev in self.mesh.devices[:M]],
+                    "slots": self.paged_prefill_slots,
+                    "blocks": self.paged_prefill_blocks, "model": M}
         return init_paged_cache(
             self.cfg, self.paged_prefill_slots, self.paged_prefill_blocks,
             self.max_len, self.block_size, dtype=self.dtype,
@@ -562,7 +592,11 @@ def _copy_kv(dst: Dict, drow: int, src: Dict, srow: int, n: int) -> None:
     """Row `srow` of the dense cache `src` into row `drow` of `dst`, in
     place: the first `n` entries of every layer's K/V and the whole
     kv_pos row (the rest of the K/V row is read only where kv_pos says
-    it was written)."""
+    it was written); of split caches, each rank's."""
+    if is_merged(dst):
+        for d, s in zip(dst["shards"], src["shards"]):
+            _copy_kv(d, drow, s, srow, n)
+        return
     for name in ("k", "v"):
         if name in dst and n:
             dst[name][:, drow, :n] = src[name][:, srow, :n]
@@ -572,7 +606,11 @@ def _copy_kv(dst: Dict, drow: int, src: Dict, srow: int, n: int) -> None:
 def _dense_step(work: Dict, cache: Dict, row: int) -> Dict:
     """What a dense chunk's graph runs on: the static working cache
     `work` (K/V and kv_pos, written in place) with the cursor and SSM
-    and conv states of row `row` of `cache` (copied in by the runner)."""
+    and conv states of row `row` of `cache` (copied in by the runner);
+    of split caches, each rank's."""
+    if is_merged(work):
+        return dict(work, shards=[_dense_step(w, c, row) for w, c in zip(
+            work["shards"], cache["shards"])])
     step = dict(work)
     step.update({name: t for name, t in cache_row(cache, row).items()
                  if name not in IN_PLACE})
@@ -581,7 +619,12 @@ def _dense_step(work: Dict, cache: Dict, row: int) -> Dict:
 
 def _set_row(cache: Dict, row: int, new: Dict) -> None:
     """Write a batch-1 step's new cursor and SSM and conv states into
-    row `row` of the dense batch cache `cache`, in place."""
+    row `row` of the dense batch cache `cache`, in place (split caches:
+    each rank's)."""
+    if is_merged(cache):
+        for c, n in zip(cache["shards"], new["shards"]):
+            _set_row(c, row, n)
+        return
     view = cache_row(cache, row)
     for name, t in new.items():
         if name not in IN_PLACE:
@@ -737,7 +780,9 @@ class _DenseRows:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for c in self.caches for t in c.values())
+                   for c in self.caches
+                   for s in (c["shards"] if is_merged(c) else [c])
+                   for t in s.values())
 
 
 class _PrefillCtx:

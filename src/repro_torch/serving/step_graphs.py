@@ -46,7 +46,8 @@ A graph holds raw pointers, so a step's inputs live in STATIC buffers:
     writes (`cur`, `block_tab`, the SSM and conv states), since joins,
     leaves and earlier steps hand the engine new tensors for them;
   * used in place: the K/V pools or dense K/V rows and the kv_pos map,
-    which the step writes as in eager mode.  At every replay each of
+    which the step writes as in eager mode, and an encoder-decoder's
+    per-slot encoder K/V, which it only reads.  At every replay each of
     them, and each weight, must be the storage the graph was captured
     on (its `data_ptr`); a mismatch raises (no silent re-capture, no
     eager fallback);
@@ -98,9 +99,9 @@ from repro_torch.distributed.transfer import (
 )
 
 # cache entries a step replaces (copied into static buffers) and entries
-# it writes in place (the same storage at every replay)
+# it writes or reads in place (the same storage at every replay)
 REPLACED = ("cur", "block_tab", "ssm", "conv_x", "conv_bc")
-IN_PLACE = ("k", "v", "kv_pos")
+IN_PLACE = ("k", "v", "kv_pos", "enc_k", "enc_v")
 
 
 def _wrappers() -> List:

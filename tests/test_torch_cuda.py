@@ -671,6 +671,44 @@ def test_ssd_chunk_kernel_edges(dev, dtype, hp, ds, Q):
     _assert_close(st, sr, torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_launch_on_a_second_card(dev, dtype):
+    """#2 (both entries) and #4 ask for more than 48 KB of dynamic shared
+    memory, an attribute of the kernel on each card: a tensor-parallel
+    rank on a second card launches them after the first card did, and
+    each agrees with its plain version there (needs two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    for d in (torch.device("cuda:0"), torch.device("cuda:1")):
+        g = torch.Generator().manual_seed(5)
+        q = _rand(g, (2, 96, 8, 64), dtype, d)
+        k = _rand(g, (2, 96, 2, 64), dtype, d)
+        v = _rand(g, (2, 96, 2, 64), dtype, d)
+        pos = torch.arange(96, dtype=torch.int32).repeat(2, 1).to(d)
+        seg = torch.zeros_like(pos)
+        out = flash_prefill(q, k, v, pos, pos, seg, seg, True, 0)
+        _assert_close(out, flash_prefill_plain(
+            q.float(), k.float(), v.float(), pos, pos, seg, seg, True, 0),
+            dtype)
+        kp, vp, kvp, tab = _paged_case(g, 2, 40, 16, 6, 2, 64, dtype, d,
+                                       [40, 19])
+        positions = torch.stack([torch.arange(21, 40),
+                                 torch.arange(19).clamp(max=18)]).to(
+            torch.int32).to(d)
+        qp = _rand(g, (2, 19, 8, 64), dtype, d)
+        _assert_close(paged_prefill_attention(qp, kp, vp, kvp, tab,
+                                              positions),
+                      paged_prefill_attention_plain(
+                          qp.float(), kp.float(), vp.float(), kvp, tab,
+                          positions), dtype)
+        x, dt, A, Bm, Cm = _ssd_case(g, 1, 2, 64, 4, 64, 16, dtype, d)
+        y, st = ssd_chunk(x, dt, A, Bm, Cm)
+        yr, sr = ssd_chunk_plain(x.float(), dt, A, Bm.float(), Cm.float())
+        _assert_close(y, yr, torch.float32)
+        _assert_close(st, sr, torch.float32)
+        torch.cuda.synchronize(d)
+
+
 def test_ssd_chunk_kernel_is_bit_identical_at_the_served_shape(dev):
     """At the SSM serve's shape (one full-width mamba2-370m chunk, bf16
     inputs, B and C strided) the kernel sums in the plain version's

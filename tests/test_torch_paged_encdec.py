@@ -13,8 +13,8 @@ functions on the same bridged weights and numpy inputs:
     stacks within 1e-5) and the dense `decode_step`'s tokens;
   * the merged cache over four logical CPU shards, on a data-only
     (4, 1) mesh and on a (2, 2) mesh with tensor parallelism, carries
-    the encoder K/V with their slots, and its decode step equals the
-    unsharded one;
+    the encoder K/V with their slots (under TP each rank its heads of
+    them), and its decode step equals the unsharded one;
   * the page surgery (`paged_copy_block`, `paged_gather_blocks`,
     `paged_adopt_blocks`) moves pool pages only and leaves the encoder
     K/V in their slot, as JAX's; page-native prefill refuses an
@@ -40,7 +40,8 @@ from repro_torch.bridge import cache_from_numpy, cache_to_numpy, params_from_num
 from repro_torch.config.base import ParallelConfig
 from repro_torch.config.base import get_arch as t_get_arch
 from repro_torch.distributed.sharding import (
-    place_params, shard_paged_cache, unshard_paged_cache,
+    cache_tp_axis, place_params, rank_share, shard_paged_cache,
+    unshard_paged_cache,
 )
 from repro_torch.launch.mesh import make_engine_mesh
 from repro_torch.models import model as TM
@@ -212,9 +213,12 @@ def test_merged_cache_carries_encoder_kv_and_steps(pair, joined, shape):
     merged = shard_paged_cache(_clone(tc), mesh, tcfg)
     S = SLOTS // data
     for i, c in enumerate(merged["shards"]):
-        d = i // model
+        d, m = divmod(i, model)
         for name in ("enc_k", "enc_v"):
-            assert torch.equal(c[name], glob[name][:, d * S:(d + 1) * S])
+            # each model rank holds its heads of its DP's slots
+            assert torch.equal(c[name], rank_share(
+                glob[name][:, d * S:(d + 1) * S],
+                cache_tp_axis(tcfg, name, model), m, model))
     back = unshard_paged_cache(merged, "cpu", tcfg)
     for name in glob:
         assert torch.equal(back[name], glob[name]), name

@@ -7,20 +7,22 @@ jamba-v0.1-52b (attention, MoE and SSM layers) and the MoE-free hybrid
 (its pattern cut to (SSM, DENSE)):
 
   * placement: every leaf splits where the port's `param_pspecs` (the
-    reference's, `tests/test_torch_launch.py`) puts "model", but where
-    `tp_axis`'s note says the serving plane differs (the MoE's shared
-    experts whole; an SSM layer's per-head vectors and gated-norm
-    weight with its heads, and its [z|x] projection z and x each by
-    heads), and the ranks hold exactly those pieces; the merged paged
-    cache splits KV heads where `paged_cache_pspecs` puts them on
-    "model", and a hybrid's SSM state and x conv tail by heads;
+    reference's, `tests/test_torch_launch.py`) puts "model", the MoE's
+    shared experts, whisper's cross-attention and the row-parallel
+    attention of the heads-not-dividing variant included, but where
+    `tp_axis`'s note says the serving plane differs (an SSM layer's
+    per-head vectors and gated-norm weight with its heads, and its [z|x]
+    projection z and x each by heads), and the ranks hold exactly those
+    pieces; the merged paged cache splits KV heads where
+    `paged_cache_pspecs` puts them on "model", a hybrid's SSM state and
+    x conv tail by heads, and whisper's per-slot encoder K/V by heads;
   * the TP merged decode step (plain and masked) and the TP prefill
     chunk equal the unsharded steps (logits, written K/V and the new SSM
     states within 1e-5 of their largest), every model rank of a DP
     holds the same hidden states bit for bit after each layer (an SSM
     layer's too: its gated norm all-reduces its sums of squares), and
     the collectives a step makes are the ones its layers call for; a
-    heads-not-dividing variant runs its attention replicated;
+    heads-not-dividing variant runs the row-parallel form;
   * the page surgery through a DP's view of a TP merged cache equals
     the same surgery on the unsharded cache (the SSM state of a slot
     split and joined over the ranks);
@@ -149,6 +151,9 @@ def _leaves(tree, path=()):
 # (leaf, where `param_pspecs` puts "model", where the serving plane
 # splits it instead: `tp_axis`'s documented differences)
 _SERVING_SPLITS = {"A_log": 0, "D_skip": 0, "dt_bias": 0, "norm": 0}
+# the placement check's architectures: the file's, and whisper (its
+# cross-attention and encoder K/V; the engines do not serve it)
+PLACED = ARCHS + ["whisper-large-v3"]
 
 
 def _serving_axis(path, want):
@@ -157,8 +162,6 @@ def _serving_axis(path, want):
     if "mamba" in path and path[-1] in _SERVING_SPLITS:
         assert want == [], path                 # GSPMD: replicated
         return _SERVING_SPLITS[path[-1]]
-    if path[-1].startswith("shared_"):
-        return None                             # shared experts: whole
     return want[0] if want else None
 
 
@@ -168,7 +171,7 @@ def _node(tree, path):
     return tree
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PLACED)
 def test_placement_matches_reference_pspecs(arch):
     _cfg, _jp, tcfg, tp = _pair(arch)
     mesh, par = _mesh(), _par(tcfg)
@@ -188,16 +191,12 @@ def test_placement_matches_reference_pspecs(arch):
             continue
         want = [i for i, a in enumerate(spec) if a == "model"]
         ax = tp_axis(tcfg, path, t.shape, M)
-        if arch == "deepseek-7b-heads3" and path[-1] in ("w_q", "w_k",
-                                                          "w_v", "w_o"):
-            # 3 heads over 2 ranks: the reference shards these by row
-            # ("attn_seq"); the port runs the attention replicated
-            assert ax is None and want, (path, want)
-        else:
-            assert ax == _serving_axis(path, want), (path, spec, ax)
+        assert ax == _serving_axis(path, want), (path, spec, ax)
         # and the ranks hold exactly that piece (the serving plane does
-        # not run DeepSeek-V3's multi-token-prediction head: not placed)
-        for m in range(M if path[0] != "mtp" else 0):
+        # not run DeepSeek-V3's multi-token-prediction head or whisper's
+        # encoder: not placed)
+        placed_leaf = path[0] not in ("mtp", "encoder", "enc_ln_f")
+        for m in range(M if placed_leaf else 0):
             node = _node(placed.ranks[(torch.device("cpu"), m)], path)
             if "moe" in path:
                 continue
@@ -212,7 +211,8 @@ def test_placement_matches_reference_pspecs(arch):
     assert checked == len(list(_leaves(tp)))
     # the merged paged cache: slots and blocks on "data", KV heads on
     # "model" where the production rules put them there, a hybrid's SSM
-    # state and x conv tail by heads
+    # state and x conv tail by heads, an encoder-decoder's encoder K/V
+    # by heads
     glob = TM.init_paged_cache(tcfg, 4, 8, MAX_LEN, BLOCK, device="cpu")
     cspecs = paged_cache_pspecs(tcfg, mesh, par, glob)
     assert cspecs["k"][1] == "data" and cspecs["cur"] == ("data",)
@@ -234,6 +234,11 @@ def test_placement_matches_reference_pspecs(arch):
             if split and name == "conv_x":
                 want[-1] //= M                   # x channels
             assert list(c[name].shape) == want, name
+        for name in ("enc_k", "enc_v"):
+            if name in glob:
+                want = list(glob[name].shape)
+                want[1], want[-2] = 2, want[-2] // M
+                assert list(c[name].shape) == want, name
 
 
 # ---------------------------------------------------------------------------
@@ -278,16 +283,22 @@ def _spec(arch, **kw):
 def _expected_calls(tcfg, tp, S):
     """The TP collectives of one merged decode step: the embedding's
     (vocabulary slices all-reduced, d_model slices all-gathered), one
-    all-reduce after each split attention (GQA or MLA) and each split
-    dense FFN, two after each split SSM mixer (its gated norm's sums of
-    squares, its out_proj), an all-gather of each MoE layer's rows (S
-    rows a DP split over the ranks), the logits' gather (vocabulary
-    slices)."""
+    all-reduce after each split attention (GQA or MLA), each split
+    cross-attention, each split dense FFN and each MoE layer's split
+    shared experts, two after each split SSM mixer (its gated norm's
+    sums of squares, its out_proj), an all-reduce of the row-parallel
+    attention's q|k|v and an all-gather of its output, an all-gather of
+    each MoE layer's rows (S rows a DP split over the ranks), the
+    logits' gather (vocabulary slices)."""
     assert tcfg.vocab_size % M == 0 and S % M == 0
     heads, ssm = attn_heads_split(tcfg, M), ssm_split(tcfg, M)
-    reduces = 1 + sum((2 * ssm if "mamba" in p else heads) + ("mlp" in p)
+    rows = tcfg.attention.name != "MLA" and not heads    # row-parallel
+    reduces = 1 + sum((2 * ssm if "mamba" in p else heads or rows)
+                      + ("mlp" in p)
+                      + ("xattn" in p) + ("shared_gate" in p.get("moe", {}))
                       for p in tp["layers"])
-    gathers = sum("moe" in p for p in tp["layers"])
+    gathers = sum(("moe" in p) + (rows and "attn" in p)
+                  for p in tp["layers"])
     calls = {"all_reduce": reduces, "all_gather": gathers, "gather": 1}
     return {k: n for k, n in calls.items() if n}
 
