@@ -51,7 +51,10 @@ Phases (any failure exits non-zero and prints no result):
      internvl2-1b's G = 7 (14 heads over 2 KV heads of 64, 256 + 200
      tokens, a padded row and an all-pad row, exactly 0); kernel #3 at
      G = 7 over internvl2-1b's padded cache; #2 not causal timed at the
-     encoder's shape beside SDPA;
+     encoder's shape and at the decode step's and the chunk's
+     cross-attention (1 and 16 queries a row over 1500 keys) beside SDPA
+     without a mask, each timed shape's plan (rows a CTA, key splits)
+     printed;
   5. mixed serve: full-width deepseek-7b (random bf16 weights from a
      seed) behind `RealSBSServer` (unified mixed-batch plane, sbs-la, 2
      DP units, 16-token pages) answers 8 requests of 128-1024 prompt
@@ -907,6 +910,7 @@ def check_paged_prefill(device):
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
     out["shape"] = (f"B=1 Sc=240 at pos {49 * BLOCK + 5} H=K=32 hd=128 "
                     f"bs={BLOCK} bf16")
+    out["plan"] = flash_body(out["shape"], paged_prefill_attention)
     return out
 
 
@@ -1044,6 +1048,7 @@ def check_flash_prefill(device):
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
     out["shape"] = ("B=1 Sq=256 at positions 512..767 over Skv=1088 "
                     "(768 live) H=K=32 hd=128 bf16")
+    out["plan"] = flash_body(out["shape"], flash_prefill)
     # h2o-danube-3-4b's prefill chunk on the padded plane: hd 120, G = 4
     q, k, v, qp, kvp, qs, ks = extend_case(device, 18, torch.bfloat16, H=32,
                                            K=8, hd=120)
@@ -1069,6 +1074,7 @@ def check_flash_prefill(device):
     h["shape"] = ("B=1 Sq=256 at positions 512..767 over Skv=1088 (768 "
                   "live) H=32 K=8 hd=120 bf16 (h2o-danube-3-4b's prefill "
                   "chunk; SDPA with enable_gqa)")
+    h["plan"] = flash_body(h["shape"], flash_prefill)
     return out
 
 
@@ -1132,15 +1138,19 @@ def check_flash_full(device):
     64: 256 patch + 200 text tokens, a row padded after 300 tokens, an
     all-pad row, exactly 0); kernel #3 at G = 7 over internvl2-1b's
     padded cache (S = 512, an empty row exactly 0); then #2 not causal
-    timed at the encoder's shape beside SDPA.  Returns the kernel-line
+    timed at the encoder's shape beside SDPA, and at the cross-attention
+    of whisper's decode step and chunk (B = 4, 1 and 16 queries over 1500
+    keys, bound by K/V's bytes) beside SDPA.  Returns the kernel-line
     figures of the non-causal row ("errs"), with "errs_g7" (#2 causal at
-    G = 7) and "errs_dense_g7" (#3)."""
+    G = 7), "errs_dense_g7" (#3), "plan" and "cross" (per query count:
+    the figures of its row, its errors among "errs")."""
     import torch
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_prefill import (
         flash_prefill, flash_prefill_plain)
-    out = {"errs": [], "errs_g7": [], "errs_dense_g7": []}
+    out = {"errs": [], "errs_g7": [], "errs_dense_g7": [],
+           "errs_cross": {1: [], 16: []}}
     F = WHISPER_FRAMES
     for dt in (torch.bfloat16, torch.float32):
         for tag, B, Sq, enc in (("encoder self-attention", 4, F, True),
@@ -1161,6 +1171,8 @@ def check_flash_full(device):
             if "all pad" in tag:
                 check_zero(label, got[1])
             compare(label, got, ref, out["errs"])
+            if Sq in out["errs_cross"] and "all pad" not in tag:
+                out["errs_cross"][Sq].append(out["errs"][-1])
         # internvl2-1b's causal prefill: G = 7 (one head a CTA: 7 does
         # not divide the 64 rows of a tile)
         S = 256 + 200
@@ -1208,7 +1220,51 @@ def check_flash_full(device):
     out["shape"] = (f"B=4 Sq=Skv={F} H=K=20 hd=64 bf16, causal=False "
                     f"(whisper-large-v3's encoder self-attention; SDPA "
                     f"without a mask)")
+    out["plan"] = flash_body(out["shape"], flash_prefill)
+    # whisper's cross-attention: the decode step's (1 query a row) and the
+    # chunk's (16), over the 1500 encoder positions; bound by K/V's bytes
+    for Sq in (1, 16):
+        q, k, v, qp, kp, qs, ks = full_case(4, Sq, F, 20, 20, 64, device,
+                                            40 + Sq, torch.bfloat16)
+        kk, vv = copies(k, n), copies(v, n)
+        r = out.setdefault("cross", {})[Sq] = {
+            "errs": out["errs_cross"][Sq]}
+        r["ms"], r["wall_ms"] = time_ms(lambda i: flash_prefill(
+            q, kk[i], vv[i], qp, kp, qs, ks, causal=False), n, iters=50)
+        r["plain_ms"], _ = time_ms(lambda i: flash_prefill_plain(
+            q, kk[i], vv[i], qp, kp, qs, ks, causal=False), n, iters=10)
+        kt = [t.transpose(1, 2).contiguous() for t in kk]
+        vt = [t.transpose(1, 2).contiguous() for t in vv]
+        qt = q.transpose(1, 2).contiguous()
+        r["library_ms"], r["library_wall_ms"] = time_ms(
+            lambda i: sdpa(qt, kt[i], vt[i]), n, iters=50)
+        nbytes, flops = attention_work(
+            q, 2 * k.numel() * esz, 4 * Sq * F, q.numel() * esz,
+            extra=4 * (2 * qp.numel() + 2 * kp.numel()))
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+        r["shape"] = (f"B=4 Sq={Sq} Skv={F} H=K=20 hd=64 bf16, causal=False "
+                      f"(whisper-large-v3's "
+                      f"{'decode step' if Sq == 1 else 'chunk'} "
+                      f"cross-attention; SDPA without a mask)")
+        r["plan"] = flash_body(r["shape"], flash_prefill)
+        report_timing(f"[flash prefill cross Sq={Sq}]", r)
     return out
+
+
+def flash_body(shape, wrapper):
+    """The bf16 body's plan (rows a CTA, key splits) that `wrapper`'s last
+    call, the timed one, passed to the kernel, printed beside its shape;
+    None where that call took the plain version (a CPU rehearsal)."""
+    if wrapper.last_plan is None:
+        print(f"[flash prefill plan] {shape}: plain version, no kernel",
+              flush=True)
+        return None
+    rows, n_split = wrapper.last_plan
+    plan = dict(rows=rows, warpgroups=rows // 64, splits=n_split)
+    print(f"[flash prefill plan] {shape}: wgmma body, {rows} (query, head) "
+          f"rows a CTA ({rows // 64} consumer warpgroups), {n_split} "
+          f"split(s) over the keys", flush=True)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -3208,7 +3264,7 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              launches_per_step_moe_serve=on_moe["paged_decode_attention"]
              / moe_serve["steps"], **on_sharded("paged_decode_attention")),
         item("paged_prefill_attention", csrc + "flash_prefill.cu", fp_k,
-             mixed, pfx, "mixed serve",
+             mixed, pfx, "mixed serve", plan=pfx["plan"],
              launches_pd_prefix_serve=on_prefix["paged_prefill_attention"],
              launches_per_prefill_pass_pd_prefix_serve=pd_prefix[
                  "paged_prefill_attention_per_prefill_pass"],
@@ -3216,7 +3272,7 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              launches_per_step_moe_serve=on_moe["paged_prefill_attention"]
              / moe_serve["steps"], **on_sharded("paged_prefill_attention")),
         item("flash_prefill", csrc + "flash_prefill.cu", fp_k, pd, fla,
-             "P/D serve", **hd120(fla, "flash_prefill"),
+             "P/D serve", plan=fla["plan"], **hd120(fla, "flash_prefill"),
              **on_sharded("flash_prefill"),
              **on_encdec("flash_prefill_causal", full["errs_g7"]),
              launches_train=train["flash_prefill_per_step"],
@@ -3244,7 +3300,24 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
                  arch: rep["launches_by_mode"]["flash_prefill_noncausal"]
                  for arch, rep in encdec.items()},
              launches_paged_encdec=encdec["whisper-large-v3"]["paged"][
-                 "launches"]["flash_prefill_noncausal"]),
+                 "launches"]["flash_prefill_noncausal"], plan=full["plan"]),
+        *[dict(name=f"flash_prefill (cross-attention Sq={sq})", route="cuda",
+               source=csrc + "flash_prefill.cu", replaces=fp_k,
+               launches=encdec["whisper-large-v3"]["launches_by_mode"][
+                   f"flash_prefill_noncausal_{part}"],
+               **errs(r["errs"]), rel_tol=REL_TOL, ms=r["ms"],
+               wall_ms=r["wall_ms"], plain_ms=r["plain_ms"],
+               bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+               library_ms=r["library_ms"],
+               library_wall_ms=r["library_wall_ms"],
+               path=f"phase 6i, whisper-large-v3's {what} cross-attention",
+               shape=r["shape"], plan=r["plan"], **extra)
+          for sq, part, what, extra in (
+              (1, "decode", "decode steps'",
+               {"launches_paged_encdec": encdec["whisper-large-v3"][
+                   "paged"]["launches"]["flash_prefill_noncausal"]}),
+              (16, "chunk", "chunk's", {}))
+          for r in (full["cross"][sq],)],
         dict(name="flash_prefill (training, fp32 causal)", route="cuda",
              source=csrc + "flash_prefill.cu", replaces=fp_k,
              launches=sum(train["launches"]),
@@ -4127,8 +4200,10 @@ def serve_encdec(cfg, params, device, counters, lens, max_len, tag):
                               max_len=max_len)
         sync()
         ts.append(time.monotonic())
+        ncc = flash_prefill.launches_noncausal
         lg_c, cache = prefill_chunk(cfg, params, chunk.to(device), cache)
         sync()
+        ncc = flash_prefill.launches_noncausal - ncc
         ts.append(time.monotonic())
         nxt = lg_c.argmax(-1)[:, None]
         gen, finite = [nxt], bool(torch.isfinite(lg_p).all()
@@ -4142,11 +4217,11 @@ def serve_encdec(cfg, params, device, counters, lens, max_len, tag):
         sync()
         ts.append(time.monotonic())
         return (lg_p, lg_c, torch.cat(gen, 1), finite,
-                flash_prefill.launches_noncausal - nc0, ts)
+                (flash_prefill.launches_noncausal - nc0, ncc), ts)
     for w in counters:
         w.launches = 0
     flash_prefill.launches_noncausal = 0
-    lg_p, lg_c, gen, finite, nc_decode, (t0, t1, t2, t3) = run()
+    lg_p, lg_c, gen, finite, (nc_decode, nc_chunk), (t0, t1, t2, t3) = run()
     launches = {w.__name__: w.launches for w in counters}
     noncausal = flash_prefill.launches_noncausal
     if not finite or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab_size:
@@ -4157,10 +4232,12 @@ def serve_encdec(cfg, params, device, counters, lens, max_len, tag):
     expected = {"flash_prefill_causal": 2 * L,
                 "flash_prefill_noncausal": n_enc + n_x * (2 + ENCDEC_STEPS),
                 "flash_prefill_noncausal_decode": n_x * ENCDEC_STEPS,
+                "flash_prefill_noncausal_chunk": n_x,
                 "decode_attention": L * ENCDEC_STEPS}
     got = {"flash_prefill_causal": launches["flash_prefill"] - noncausal,
            "flash_prefill_noncausal": noncausal,
            "flash_prefill_noncausal_decode": nc_decode,
+           "flash_prefill_noncausal_chunk": nc_chunk,
            "decode_attention": launches["decode_attention"]}
     others = {k: n for k, n in launches.items()
               if k not in ("flash_prefill", "decode_attention") and n}

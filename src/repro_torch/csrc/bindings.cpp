@@ -97,11 +97,22 @@ at::Tensor decode_attention(const at::Tensor& q, const at::Tensor& k_cache,
   return out;
 }
 
+// The flash kernels' split partials, fp32 (m, l) and acc per (query,
+// head) row and split; empty with one split.
+std::pair<at::Tensor, at::Tensor> split_parts(const at::Tensor& q,
+                                              int64_t n_split) {
+  const auto f32 = q.options().dtype(at::kFloat);
+  const int64_t parts =
+      n_split > 1 ? q.size(0) * q.size(1) * q.size(2) * n_split : 0;
+  return {at::empty({parts, 2}, f32), at::empty({parts, q.size(3)}, f32)};
+}
+
 at::Tensor flash_prefill(const at::Tensor& q, const at::Tensor& k,
                          const at::Tensor& v, const at::Tensor& q_pos,
                          const at::Tensor& kv_pos, const at::Tensor& q_seg,
                          const at::Tensor& kv_seg, bool causal,
-                         int64_t window, double scale) {
+                         int64_t window, double scale, int64_t rows,
+                         int64_t n_split) {
   const auto st = q.scalar_type();
   check(q, "q", st);
   check(k, "k", st);
@@ -112,13 +123,18 @@ at::Tensor flash_prefill(const at::Tensor& q, const at::Tensor& k,
   check(kv_seg, "kv_seg", at::kInt);
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor out = at::empty_like(q);
+  auto [part_ml, part_acc] = split_parts(q, n_split);
+  const bool split = part_ml.numel() > 0;
   check_launch(
       launch_flash_prefill(
           q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr<int>(),
           kv_pos.data_ptr<int>(), q_seg.data_ptr<int>(),
-          kv_seg.data_ptr<int>(), out.data_ptr(), q.size(0), q.size(1),
-          k.size(1), q.size(2), k.size(2), q.size(3), causal ? 1 : 0, window,
-          static_cast<float>(scale), dtype_code(q),
+          kv_seg.data_ptr<int>(), out.data_ptr(),
+          split ? part_ml.data_ptr<float>() : nullptr,
+          split ? part_acc.data_ptr<float>() : nullptr, q.size(0),
+          q.size(1), k.size(1), q.size(2), k.size(2), q.size(3),
+          causal ? 1 : 0, window, static_cast<float>(scale), dtype_code(q),
+          static_cast<int>(rows), static_cast<int>(n_split),
           at::cuda::getCurrentCUDAStream()),
       "flash_prefill");
   return out;
@@ -130,7 +146,8 @@ at::Tensor paged_prefill_attention(const at::Tensor& q,
                                    const at::Tensor& kv_pos_pool,
                                    const at::Tensor& block_tab,
                                    const at::Tensor& q_pos, int64_t window,
-                                   double scale) {
+                                   double scale, int64_t rows,
+                                   int64_t n_split) {
   const auto st = q.scalar_type();
   check(q, "q", st);
   check(k_pool, "k_pool", st);
@@ -140,17 +157,32 @@ at::Tensor paged_prefill_attention(const at::Tensor& q,
   check(q_pos, "q_pos", at::kInt);
   const c10::cuda::CUDAGuard guard(q.device());
   at::Tensor out = at::empty_like(q);
+  auto [part_ml, part_acc] = split_parts(q, n_split);
+  const bool split = part_ml.numel() > 0;
   check_launch(
       launch_paged_prefill_attention(
           q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
           kv_pos_pool.data_ptr<int>(), block_tab.data_ptr<int>(),
-          q_pos.data_ptr<int>(), out.data_ptr(), q.size(0), q.size(1),
-          q.size(2), k_pool.size(2), q.size(3), k_pool.size(1),
-          block_tab.size(1), window,
-          static_cast<float>(scale), dtype_code(q),
+          q_pos.data_ptr<int>(), out.data_ptr(),
+          split ? part_ml.data_ptr<float>() : nullptr,
+          split ? part_acc.data_ptr<float>() : nullptr, q.size(0),
+          q.size(1), q.size(2), k_pool.size(2), q.size(3), k_pool.size(1),
+          block_tab.size(1), window, static_cast<float>(scale),
+          dtype_code(q), static_cast<int>(rows), static_cast<int>(n_split),
           at::cuda::getCurrentCUDAStream()),
       "paged_prefill_attention");
   return out;
+}
+
+// The bf16 body's CTAs an SM on card `device` (see kernels.h).
+int64_t flash_bf16_ctas_per_sm(int64_t device, int64_t hd, bool paged,
+                               int64_t rows) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  int ctas = 0;
+  check_launch(flash_bf16_occupancy(static_cast<int>(hd), paged ? 1 : 0,
+                                    static_cast<int>(rows), &ctas),
+               "flash_bf16_ctas_per_sm");
+  return ctas;
 }
 
 std::tuple<at::Tensor, at::Tensor> ssd_chunk(
@@ -200,5 +232,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention);
   m.def("flash_prefill", &flash_prefill);
   m.def("paged_prefill_attention", &paged_prefill_attention);
+  m.def("flash_bf16_ctas_per_sm", &flash_bf16_ctas_per_sm);
+  m.def("flash_bf16_tile_keys", &flash_bf16_tile_keys);
   m.def("ssd_chunk", &ssd_chunk);
 }

@@ -1,5 +1,5 @@
 // Flash prefill attention for Hopper (sm_90a): one kernel, two entries,
-// two bodies (bf16 on the tensor cores, fp32 by FMA).
+// two bodies (bf16 on wgmma, fp32 by FMA).
 //
 // Replaces: repro/kernels/flash_prefill/kernel.py flash_prefill_pallas
 //   (body _flash_kernel) -- entry launch_flash_prefill, contiguous
@@ -10,93 +10,115 @@
 // Plain versions: repro_torch/kernels/flash_prefill/ops.py
 //   flash_prefill_plain and paged_prefill_attention_plain.
 //
-// What bounds it on the H100: at the serve's shapes (B = 1, a 240-256
-// token chunk over a cache of about 1000 keys, 32 heads of 128), bytes.
-// Each K/V element fetched serves 4 * Sq flops across the chunk's
-// queries, about 160 flop/byte after the causal half is dropped, against
-// a ridge near 295 flop/byte for the bf16 tensor cores; and a per-SM
-// view is the same: a 64-key tile of K and V (32 KB in bf16) feeds
-// 2 * 64 * 64 * 128 * 2 flops for a 64-row query tile.  The bound is
-// only reached if the tile loads overlap the products and the products
-// do not run from shared memory at FMA rate.  So the bf16 body:
-//   * runs both products, S = Q.K^T and O = P.V, on the tensor cores:
-//     mma.sync.m16n8k16 with bf16 operands and fp32 accumulators.  A CTA
-//     owns 64 query rows and runs two warp groups over them, 4 warps of
-//     16 rows each; each warp keeps its Q rows as A fragments in
-//     registers for the whole KV walk, its 16 x 64 score tile and its
-//     16 x hd output in fp32 registers (about 240 registers a thread);
-//   * the two groups walk alternate live K/V tiles, each with its own
-//     ring, and merge their (m, l, O) through shared memory at the end.
-//     With one group (4 warps an SM, one CTA per SM at these shapes) the
-//     latencies of ldmatrix, mma and the softmax were all exposed: a
-//     tile took as long with 4 CTAs on the card as with 128.  Two groups
-//     put 8 warps on each SM;
-//   * takes the fragments from shared memory with ldmatrix (K as stored,
-//     V with ldmatrix.trans, so both keep their (key, hd) layout), in
-//     tiles of 64 keys whose rows are padded by 16 bytes, so the 8 row
-//     addresses of each ldmatrix phase fall in distinct bank groups;
-//   * streams K/V in with 16-byte cp.async copies into a two-stage ring
-//     per group: a group's next tile (and the row indices of the one
-//     after) are in flight while its current tile is multiplied.  Each copy names its own row, so the paged
-//     entry's 16-token pages and the contiguous entry's rows are gathered
-//     alike; a key with kv_pos < 0 (an unset page, an empty slot, the
-//     cache tail) is zero-filled and never read;
-//   * keeps the online softmax (m, l) in fp32 per row and per thread,
-//     rescales O by exp2 of the running max change, and rounds P to bf16
-//     only as the operand of P.V (as FlashAttention-2); a tile whose keys
-//     are all valid for every row of a warp (from the tile's smallest and
-//     largest kv_pos and segments) skips the per-element mask;
-//   * packs the G = H / K query heads of a kv head into the 64 rows of a
-//     CTA when G divides 64 (64 / G queries x G heads), so each K/V tile
-//     is loaded once for the whole group, as the Pallas kernel's Q block
-//     holds the group's heads.  For another G each CTA takes one head.
-//   At the serve's shapes this is 4 q-tiles x 32 heads = 128 CTAs, one
-//   per SM, each walking at most 17 tiles.
-// Both bodies skip, from the data, every K/V tile in which no key can be
-// valid for any query row of the tile: a key can be valid only if
-// kv_pos >= 0, (causal) kv_pos <= the tile's largest query position and
-// (window) kv_pos > its smallest query position - window.  This reads
-// the tile's actual kv_pos, not index ranges (a sliding-window ring does
-// not keep positions in index order), so it is exact for any input: the
-// contiguous entry no longer walks the empty tail of attn_extend's
-// cache, nor the bf16 body a tile that only the window masks.  The paged
-// entry also stops at logical block max(q_pos) // bs (see below).
+// What bounds it on the H100.  Two regimes meet in this kernel:
+//   * many queries (whisper-large-v3's encoder, 4 x 1500^2 at 20 heads of
+//     64): operations, 46.1 GFLOP (0.0466 ms at 989 TFLOP/s).  At head
+//     dim 64 the exps are as costly as the products: a 64 x 64 score
+//     tile is 4096 ex2 on 16 special-function lanes an SM (256 cycles)
+//     beside 256 cycles of wgmma, so the bound is reached only if the
+//     softmax of one tile overlaps the products of another;
+//   * few queries (its decode step's and chunk's cross-attention, 1 or
+//     16 queries over 1500 keys): bytes, 30.7 MB of K/V (0.00917 ms at
+//     3.35 TB/s), and a grid of 80 (head, row) CTAs that would leave 52
+//     of 132 SMs idle and walk 24 tiles each in series;
+//   and the serve's causal chunks (a 240-256-token chunk over about
+//   1000 keys, hd 128 and 120) sit between them.
+// The bf16 body, for both entries, causal or not, every head dim:
+//   * CTAs of 64, 128 or 192 (query, head) rows (192 at head dim 64
+//     only; flash_splits takes the count whose busiest SM walks the
+//     fewest rows, ceil(CTAs / SMs) x rows): one to three consumer
+//     warpgroups of 64 rows, plus a producer warp.  Both products run on
+//     wgmma: S = Q.K^T (m64n64k16; Q and K from shared memory, K in its
+//     (key, hd) layout) and O += P.V (m64nHDk16: P from registers
+//     in the accumulator's layout, V from shared memory with the
+//     transpose bit, so V keeps its (key, hd) layout).  Tiles are 64-key
+//     blocks of 128-byte rows in the 128-byte swizzle that TMA writes and
+//     the wgmma descriptors read (hd 128 is two such blocks);
+//   * one 4-stage K/V ring shared by the warpgroups, with a full and an
+//     empty mbarrier a stage.  The producer fills it with TMA (one 4-d
+//     box of 64 columns by 64 keys of one kv head, hd 128 two, issued by
+//     one lane) on the contiguous entry when all of a tile's keys are
+//     alive, and with cp.async otherwise: the paged entry (a 64-key tile
+//     is four 16-token pages at unrelated addresses: four small boxes
+//     timed slower than cp.async) and tiles with dead keys (kv_pos < 0
+//     or, contiguous, segment < 0), whose rows are zero-filled and never
+//     read, so NaN in their memory never reaches P.V (TMA would copy
+//     it, and 0 x NaN is NaN).  Before the first tile the producer
+//     prefetches the split's first 8 tiles into L2 (TMA prefetch), while
+//     the pre-pass runs;
+//   * a pre-pass over each window of 32 tiles, by all warps: every key's
+//     position (-1 when dead) and segment into shared memory, and per 32
+//     keys their position range, their one segment and whether all are
+//     alive; a tile no query of the CTA can attend to (kv_pos < 0,
+//     causality, the window) is skipped, from the data.  The softmax
+//     then settles each row of a tile from that summary (every key
+//     valid, or a padding row: no per-key work) and masks key by key
+//     only on the causal diagonal, at ragged edges and segment borders.
+//     The producer and the masks read shared memory only (the paged
+//     cp.async path also the block table);
+//   * the consumer pipeline of FlashAttention-3: tile i's S is issued,
+//     then tile i-1's P.V; tile i's softmax runs while P.V is on the
+//     tensor cores; O is rescaled once P.V lands, only if a row's max
+//     moved.  The first S and the last P.V are peeled off the loop: a
+//     wgmma issued under a condition, or an operand register written
+//     while a product is in flight, makes ptxas serialise every wgmma
+//     (its C7513/C7520 notes).  Warpgroups taking turns to issue
+//     (FlashAttention-3's ping-pong) and Q held in registers measured
+//     no faster, so neither is kept;
+//   * a split over keys: when a call that is not causal (every key
+//     live, as whisper's cross-attention) has (q-tiles x heads x B)
+//     CTAs that leave more than a quarter of the SMs idle, each row's
+//     keys are cut into ranges of whole tiles (flash_splits in ops.py,
+//     from the shapes and the CTAs an SM holds, which
+//     flash_bf16_occupancy reads from this file's compiled kernels, so
+//     a step graph replays the same plan), each CTA writes fp32 (m, l,
+//     O) partials and launch_decode_merge (shared with #1 and #3)
+//     combines them; a row whose splits all have l = 0 comes out
+//     exactly 0.  Causal calls never split: their live keys are a
+//     prefix of the range that only the kernel sees (the paged entry's
+//     max(q_pos) / bs), so ranges cut over the whole range would leave
+//     the later splits empty;
+//   * the G = H / K query heads of a kv head share the CTA's rows when G
+//     divides them (each K/V tile is loaded once for the group); for
+//     another G (internvl2-1b's 7) one head a CTA.
+// What it gives ("NVIDIA H100 80GB HBM3, 700.00 W", chip_smoke.py,
+// PERF.md section 6): the encoder at 0.190 ms (0.385 before;
+// SDPA, a cuDNN wgmma kernel, 0.136), the cross-attention at 1 and 16
+// queries 0.0246-0.0249 ms (2.7x their byte bound; SDPA 0.017 and
+// 0.022), the serve's chunks 5-23% faster than the mma.sync body it
+// replaces (scripts/flash_prefill_plans.py times every plan).  What
+// remains: at head dim 64 a warpgroup's tile is a serial chain (Q.K^T,
+// then the softmax) that three warpgroups hide only in part, and a
+// few-query CTA waits on the pre-pass and its first loads before its
+// first tile; 128-key tiles, an exp2 partly on the FMA pipes (as
+// FlashAttention-4) and a persistent grid would shorten them.
 //
 // The fp32 body keeps the FMA design of the first port (32-row query
 // tiles, 32-key fp32 tiles in shared memory, one head per CTA): the
 // tensor cores would need TF32, whose 10-bit mantissa cannot hold the
 // 1e-4 fp32 tolerance, and fp32 is the type of the CPU-parity server
-// tests, not of the serve.  The wrapper picks the body by dtype alone.
-//
-// What a wgmma/TMA version would add (the next step): wgmma reads B
-// from shared memory without the ldmatrix round trip through registers
-// and issues a 64-row product per warpgroup asynchronously, so the
-// softmax of one tile could overlap the products of the next
-// (FlashAttention-3's ping-pong); TMA would move the contiguous entry's
-// tiles with one thread and an mbarrier instead of 128 threads of
-// cp.async.  A paged tile is four pages at unrelated addresses, so it
-// needs one TMA box per page (or cp.async as here).
+// tests and of training, not of the serve.  It skips the same tiles as
+// the bf16 body.  The wrapper picks the body by dtype alone.
 //
 // Head dims: 64 and 128 on both entries, and 120 (h2o-danube-3-4b) on
-// the contiguous entry, the one its padded plane runs.  The bf16 body
-// needs whole k16 steps and pairs of 8-column tiles, so at 120 it runs
-// the 128-wide body: Q, K and V rows are copied with their 15 real
-// 16-byte chunks and the 16th is zero-filled in shared memory (cp.async
-// with no source bytes), zero columns add nothing to Q.K^T, and the
-// output columns 120..127 of P.V are never stored.  The fp32 body loads
-// and stores element by element, so it takes 120 as it is.  Rows stay
-// 16-byte aligned: 120 bf16 are 240 bytes.
+// the contiguous entry.  At 120 the bf16 body runs the 128-wide layout:
+// TMA reads zeros past column 120, cp.async zero-fills the 16th chunk,
+// zero columns add nothing to Q.K^T, and columns 120..127 of P.V are
+// never stored.  Rows stay 16-byte aligned: 120 bf16 are 240 bytes.
 //
 // Masks, as the reference: kv_pos < 0 (empty, or a -1 table entry),
 // causal on positions, the optional window, and on the contiguous entry
 // segment equality with segment -1 = pad.  A fully masked query row
-// outputs exactly 0.  The paged entry's early stop relies on the
-// paged-cache invariant that logical block j holds positions in
-// [j*bs, (j+1)*bs) or -1, so blocks past max(q_pos) // bs hold only keys
+// outputs exactly 0.  The paged entry walks logical blocks 0 ..
+// max(q_pos) // bs only: the paged-cache invariant that logical block j
+// holds positions in [j*bs, (j+1)*bs) or -1 leaves past it only keys
 // causality masks.
 
+#include <cuda.h>
 #include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "kernels.h"
@@ -357,48 +379,167 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: mma.sync on the tensor cores
+// bf16 body: wgmma on the tensor cores, a producer warp filling a K/V ring
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaRows = 64;        // (query, head) rows per CTA, 16 per warp
-constexpr int kMmaKeys = 64;        // keys per K/V tile
-constexpr int kGroups = 2;          // warp groups walking alternate tiles
-constexpr int kGroupThreads = 128;  // 4 warps: all 64 rows of the CTA
-constexpr int kMmaThreads = kGroups * kGroupThreads;
-constexpr int kStages = 2;          // K/V tiles in flight per group
-constexpr int kMetaRing = 3;        // tiles whose row metadata is in smem
-constexpr int kMetaSlot = 3 * kMmaKeys + 8;   // ints: rows, pos, seg, summary
-constexpr int kPrePassUnroll = 8;   // kv_pos loads in flight per thread
+constexpr int kKeys = 64;            // keys per K/V tile
+constexpr int kWgRows = 64;          // query rows per consumer warpgroup
+constexpr int kWindowTiles = 32;     // K/V tiles one pre-pass summarises
+constexpr int kBlockBytes = kKeys * 128;   // one 64-column block of a tile
+constexpr int kPreUnroll = 8;        // half-tiles a warp summarises at once
+constexpr int kPrefetchTiles = 8;    // tiles a CTA prefetches into L2
 
-// Barrier of one warp group (named barrier 1 + g; 0 is __syncthreads).
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kGroupThreads)
+// The bf16 body's head dim: whole 64-column (128-byte) blocks.
+constexpr int mma_hd(int hd) { return (hd + 63) / 64 * 64; }
+
+// Shared memory of a CTA with NWG consumer warpgroups at head dim HDP:
+// Q (64 rows a warpgroup) | the ring's K, V tiles | a window's key
+// positions (-1: dead) and segments, its summaries (one int4 per 32
+// keys) and its live tiles | the ring's full and empty barriers.  Tiles
+// are 64-column blocks of 128-byte rows, 1024-byte aligned, in the
+// 128-byte swizzle of TMA and of wgmma's descriptors.
+template <int HDP, int NWG>
+struct WgCfg {
+  static constexpr int kThreads = NWG * 128 + 32;   // + the producer warp
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRows = NWG * kWgRows;
+  // two CTAs an SM for one warpgroup at 64 columns, else one (the
+  // pipelined consumer's registers; a four-stage ring)
+  static constexpr int kMinBlocks = (NWG == 1 && HDP == 64) ? 2 : 1;
+  static constexpr int kStages = 4;
+  static constexpr int kQBytes = kRows * HDP * 2;
+  static constexpr int kTileBytes = kKeys * HDP * 2;
+  static constexpr int kKVOff = kQBytes;
+  static constexpr int kPosOff = kKVOff + kStages * 2 * kTileBytes;
+  static constexpr int kSegOff = kPosOff + kWindowTiles * kKeys * 4;
+  static constexpr int kSumOff = kSegOff + kWindowTiles * kKeys * 4;
+  static constexpr int kListOff = kSumOff + 2 * kWindowTiles * 16;
+  static constexpr int kBarOff = kListOff + kWindowTiles * 4;
+  static constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;  // + align
+  static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0, "align");
+};
+
+// Byte offset of 16-byte chunk c of row r in a tile of 64 rows: 64-column
+// blocks of 128-byte rows, chunk c % 8 stored at (c % 8) ^ (r % 8) (the
+// 128-byte swizzle, on a 1024-byte aligned base).
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t wg_desc(unsigned saddr, unsigned lbo,
+                                            unsigned sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of this warpgroup's wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching accumulators across the async product.
+template <int N>
+__device__ __forceinline__ void wg_hold(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+// ... and of P's registers, which an in-flight P.V reads.
+template <int N>
+__device__ __forceinline__ void wg_hold(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[n][e])::"memory");
+}
+
+// Generic-proxy writes to shared memory (cp.async, st.shared) before
+// async-proxy reads of them (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
-                                                  const void* p) {
+// Holds the phase of `bar` open until every cp.async this thread has
+// issued has landed (a pending arrival, added now and made then).
+__device__ __forceinline__ void mbar_track_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// An arrival that also expects `bytes` from TMA copies on `bar`.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// TMA: the box at (c0, c1, c2, c3) of `map` into the L2 cache only.
+__device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map,
+                                                int c0, int c1, int c2,
+                                                int c3) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// TMA: the box at (c0, c1, c2, c3) of `map` into shared memory at dst,
+// completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// Waits for the phase of `bar` with this parity to complete.  A wait
+// that never ends (a fault in the ring's counts) traps after about 2^26
+// tries, so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
 }
 
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Barrier of one consumer warpgroup (named barrier 1 + wg; 0 is
+// __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {   // 2^x, -inf -> 0
@@ -412,89 +553,245 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// The bf16 body's head dim: whole pairs of k16 steps.
-constexpr int mma_hd(int hd) { return (hd + 31) / 32 * 32; }
+// d (+)= A * B^T: A (64 x 16) and B (N x 16) K-major in shared memory
+// (descriptors da, db); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
+                                            uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-template <int HD>
-struct MmaLayout {
-  static constexpr int LD = HD + 8;                     // padded row (elems)
-  static constexpr int kTileElems = kMmaKeys * LD;
-  static constexpr size_t kQBytes = size_t(kMmaRows) * LD * 2;
-  static constexpr size_t kKVBytes =
-      size_t(kGroups) * 2 * kStages * kTileElems * 2;
-  static constexpr size_t kMetaBytes =
-      size_t(kGroups) * kMetaRing * kMetaSlot * 4;
-  static constexpr size_t kFixed = kQBytes + kKVBytes + kMetaBytes;
-  // the end-of-walk exchange of one group's (m, l, O) reuses its tiles
-  static_assert(size_t(4 + HD / 2) * kGroupThreads * 4 <=
-                    size_t(2) * kStages * kTileElems * 2,
-                "exchange does not fit a group's tiles");
-};
+// d += A * B: A (64 x 16 bf16) in registers in the accumulator's
+// layout, B (16 x N) N-major in shared memory (descriptor db, transpose
+// bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                            const unsigned (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-template <int HD, bool PAGED>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ q_pos,
-                 const int* __restrict__ kv_pos,
-                 const int* __restrict__ q_seg,
-                 const int* __restrict__ kv_seg,
-                 const int* __restrict__ block_tab,
-                 __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                 int K, int bs, int nbt, int causal, int window,
-                 float scale_log2, int gp) {
+// d += A * B: A (64 x 16 bf16) in registers in the accumulator's
+// layout, B (16 x N) N-major in shared memory (descriptor db, transpose
+// bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                            const unsigned (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
+                                         const unsigned (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+// One CTA: NWG * 64 (query, head) rows of one kv head over one split's
+// range of key tiles.  Warps 0 .. 4 NWG - 1 are the consumer
+// warpgroups (64 rows each: S = Q.K^T and O += P.V on wgmma, the online
+// softmax in registers); the last warp is the producer (each live
+// tile's K and V into the ring: TMA when all its keys are alive on the
+// contiguous entry, else cp.async with dead keys zero-filled; the
+// stage's full barrier completes when they land).  The key range is
+// walked in windows of 32 tiles: all warps first summarise the window
+// (each key's position and segment, each half-tile's position range,
+// segment, whether all its keys are alive and whether some query can
+// attend to one), then stream its live tiles.  With n_split > 1 each
+// CTA writes its rows' fp32 (m, l, O) partials for launch_decode_merge.
+template <int HD, bool PAGED, int NWG>
+__global__ void __launch_bounds__(WgCfg<mma_hd(HD), NWG>::kThreads,
+                                  WgCfg<mma_hd(HD), NWG>::kMinBlocks)
+flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const int* __restrict__ q_pos,
+                const int* __restrict__ kv_pos,
+                const int* __restrict__ q_seg,
+                const int* __restrict__ kv_seg,
+                const int* __restrict__ block_tab,
+                __nv_bfloat16* __restrict__ out,
+                float* __restrict__ part_ml, float* __restrict__ part_acc,
+                int Sq, int Skv, int H, int K, int bs, int nbt, int causal,
+                int window, float scale_log2, float scale, int gp,
+                int n_split, int split_tiles,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, int use_tma) {
   constexpr int HDP = mma_hd(HD);     // the body's head dim
-  using L = MmaLayout<HDP>;
-  constexpr int LD = L::LD;
+  using C = WgCfg<HDP, NWG>;
+  constexpr int ROWS = C::kRows;
+  constexpr int NW = C::kWarps;
+  constexpr int S = C::kStages;
   constexpr int KSTEPS = HDP / 16;    // k-steps of Q.K^T
-  constexpr int NT_S = kMmaKeys / 8;  // n-tiles of a score tile
-  constexpr int NT_O = HDP / 8;       // n-tiles of the output
-  constexpr int CPR = HDP / 8;        // 16-byte chunks per shared row
+  constexpr int NT_S = kKeys / 8;     // 8-column tiles of a score tile
+  constexpr int NT_O = HDP / 8;       // ... of the output
+  constexpr int CPR = HDP / 8;        // 16-byte chunks of a shared row
   constexpr int CPR_IN = HD / 8;      // ... of them read from a global row
-  static_assert(HD % 8 == 0 && KSTEPS % 2 == 0 && NT_O % 2 == 0,
-                "head dim");
+  static_assert(HD % 8 == 0 && HDP % 64 == 0, "head dim");
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // per group: kStages K tiles, then kStages V tiles
-  __nv_bfloat16* KVs = Qs + kMmaRows * LD;
-  int* meta = reinterpret_cast<int*>(KVs + kGroups * 2 * kStages *
-                                               L::kTileElems);
-  // per half-tile of 32 keys: can any key of it be valid (pre-pass)
-  unsigned char* live =
-      reinterpret_cast<unsigned char*>(meta + kGroups * kMetaRing * kMetaSlot);
-  __shared__ int s_qpos[kMmaRows], s_qseg[kMmaRows], s_qok[kMmaRows];
-  __shared__ int s_wmin[kMmaThreads / 32], s_wmax[kMmaThreads / 32];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  int* wpos = reinterpret_cast<int*>(sm + C::kPosOff);
+  int* wseg = reinterpret_cast<int*>(sm + C::kSegOff);
+  int4* hsum = reinterpret_cast<int4*>(sm + C::kSumOff);
+  int* list = reinterpret_cast<int*>(sm + C::kListOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::kBarOff);
+  uint64_t* empty = full + S;
+  __shared__ int s_qpos[ROWS], s_qseg[ROWS], s_qok[ROWS];
+  __shared__ int s_wmin[NW], s_wmax[NW], s_nlive;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int grp = tid / kGroupThreads;         // warp group
-  const int gtid = tid % kGroupThreads;
-  const int gwarp = gtid >> 5;                 // warp in the group
-  const int QR = kMmaRows / gp;                // queries per CTA
+  const bool producer = warp == 4 * NWG;
+  const int wg = producer ? 0 : warp >> 2;    // consumer warpgroup
+  const int gtid = tid & 127;
+  const int gwarp = warp & 3;
+  const int QR = ROWS / gp;                    // queries per CTA
   const int q0 = blockIdx.x * QR;
   const int h0 = blockIdx.y * gp;              // first head of the CTA
   const int kvh = h0 / (H / K);
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / n_split;
+  const int split = blockIdx.z % n_split;
 
-  // ---- Q rows (row r = query q0 + r / gp, head h0 + r % gp) -> smem ----
-  for (int idx = tid; idx < kMmaRows * CPR; idx += kMmaThreads) {
-    const int r = idx / CPR;
-    const int c = idx % CPR;
-    const int qi = q0 + r / gp;
-    const bool in = qi < Sq && c < CPR_IN;   // zero-fill the padding
-    const __nv_bfloat16* src =
-        in ? q + ((static_cast<size_t>(b) * Sq + qi) * H + h0 + r % gp) *
-                         HD + c * 8
-           : q;
-    cp_async16(Qs + r * LD + c * 8, src, in ? 16 : 0);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);          // the producer's lanes
+      mbar_init(empty + s, 4 * NWG);    // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+
+  // ---- Q rows (row R = query q0 + R / gp, head h0 + R % gp) -> smem ----
+  unsigned char* qtile = sm + wg * (kWgRows * HDP * 2);
+  if (!producer) {
+    for (int idx = gtid; idx < kWgRows * CPR; idx += 128) {
+      const int r = idx / CPR;
+      const int c = idx % CPR;
+      const int R = wg * kWgRows + r;
+      const int qi = q0 + R / gp;
+      const bool in = qi < Sq && c < CPR_IN;   // zero-fill the padding
+      const __nv_bfloat16* src =
+          in ? q + ((static_cast<size_t>(b) * Sq + qi) * H + h0 + R % gp) *
+                           HD + c * 8
+             : q;
+      cp_async16(qtile + swz(r, c), src, in ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // ---- the first tiles of the split's range into L2 while the pre-pass
+  // reads positions (contiguous entry): a call that streams each key once
+  // (few queries) then finds them there ----
+  const int t_begin = split * split_tiles;
+  if (!PAGED && use_tma && warp == 4 * NWG && lane == 0) {
+    const int t_last = min((Skv + kKeys - 1) / kKeys, t_begin + split_tiles);
+    for (int t = t_begin; t < min(t_last, t_begin + kPrefetchTiles); ++t)
+#pragma unroll
+      for (int blk = 0; blk < HDP / 64; ++blk) {
+        tma_prefetch_4d(&tm_k, blk * 64, kvh, t * kKeys, b);
+        tma_prefetch_4d(&tm_v, blk * 64, kvh, t * kKeys, b);
+      }
+  }
+
+  // ---- the pre-pass's loads: each warp reads whole 32-key halves of a
+  // window (kp = -1 for a dead key); the first window's are issued now,
+  // over the split's keys up to all the kernel could walk, so that they
+  // are in flight with the queries' rows ----
+  int kp[kPreUnroll], sg[kPreUnroll];
+  auto load_window = [&](int w0, int hb, int nt, int key_end) {
+#pragma unroll
+    for (int u = 0; u < kPreUnroll; ++u) {
+      const int hh = hb + warp + u * NW;
+      const int t = (2 * w0 + hh) * 32 + lane;
+      int p = -1, g = -1;
+      if (hh < 2 * nt && t < key_end) {
+        if (PAGED) {
+          const int phys = block_tab[static_cast<size_t>(b) * nbt + t / bs];
+          if (phys >= 0) p = kv_pos[static_cast<size_t>(phys) * bs + t % bs];
+        } else {
+          p = kv_pos[static_cast<size_t>(b) * Skv + t];
+          g = kv_seg[static_cast<size_t>(b) * Skv + t];
+        }
+      }
+      kp[u] = p;
+      sg[u] = g;
+    }
+  };
+  {
+    const int n_all = PAGED ? nbt * bs : Skv;
+    const int nt = max(0, min(min((n_all + kKeys - 1) / kKeys,
+                                  t_begin + split_tiles) - t_begin,
+                              kWindowTiles));
+    load_window(t_begin, 0, nt, min(n_all, (t_begin + nt) * kKeys));
+  }
 
   int qmn = INT_MAX, qmx = INT_MIN;
-  if (tid < kMmaRows) {
+  if (tid < ROWS) {
     const int qi = q0 + tid / gp;
     const bool in = qi < Sq;
     const size_t at = static_cast<size_t>(b) * Sq + qi;
@@ -515,400 +812,563 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     s_wmin[warp] = qmn;
     s_wmax[warp] = qmx;
   }
-  __syncthreads();
+  __syncthreads();              // also publishes the barriers' init
   int qmin = INT_MAX, qmax = INT_MIN;
 #pragma unroll
-  for (int w = 0; w < kMmaThreads / 32; ++w) {
+  for (int w = 0; w < NW; ++w) {
     qmin = min(qmin, s_wmin[w]);
     qmax = max(qmax, s_wmax[w]);
   }
   int n_kv = qmax == INT_MIN ? 0 : Skv;   // no valid query row: nothing
   if (PAGED) n_kv = qmax < 0 ? 0 : min(qmax / bs + 1, nbt) * bs;
-  const int n_tiles = (n_kv + kMmaKeys - 1) / kMmaKeys;
+  const int t_end =
+      min((n_kv + kKeys - 1) / kKeys, t_begin + split_tiles);
 
-  // ---- pre-pass: which tiles hold a key some query can attend to ----
-  // Warp w covers keys [base + 256u + 32w, +32): half of one tile, so
-  // each half-tile flag has exactly one writer.
-  for (int base = 0; base < n_kv; base += kPrePassUnroll * kMmaThreads) {
-    int kp[kPrePassUnroll];
-#pragma unroll
-    for (int u = 0; u < kPrePassUnroll; ++u) {
-      const int t = base + u * kMmaThreads + tid;
-      int r, sg;
-      kp[u] = t < n_kv ? key_meta<PAGED>(t, b, kvh, K, Skv, bs, nbt, kv_pos,
-                                         kv_seg, block_tab, &r, &sg)
-                       : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kPrePassUnroll; ++u) {
-      const int t0 = base + u * kMmaThreads + warp * 32;
-      const bool any = __any_sync(
-          0xffffffffu, key_can_attend(kp[u], qmin, qmax, causal, window));
-      if (lane == 0 && t0 < n_kv) live[t0 / 32] = any;
-    }
-  }
-  __syncthreads();
-  const int n_halves = (n_kv + 31) / 32;
-  auto next_live = [&](int j) {
-    for (++j; j < n_tiles; ++j)
-      if (live[2 * j] || (2 * j + 1 < n_halves && live[2 * j + 1])) break;
-    return j;
-  };
-  // group g takes the live tiles of ordinal g, g + kGroups, ...
-  auto next_own = [&](int j) {
-#pragma unroll
-    for (int i = 0; i < kGroups; ++i) j = next_live(j);
-    return j;
-  };
-
-  // ---- per-thread row state: rows r0 = 16 gwarp + lane/4, r1 = r0 + 8 ----
-  const int r0 = gwarp * 16 + (lane >> 2);
-  const int r1 = r0 + 8;
-  const int qp0 = s_qpos[r0], qp1 = s_qpos[r1];
-  const int qs0 = s_qseg[r0], qs1 = s_qseg[r1];
-  const bool ok0 = s_qok[r0] != 0, ok1 = s_qok[r1] != 0;
-  // the warp's rows, for tiles whose keys are all valid for all of them
-  const bool w_ok = __all_sync(0xffffffffu, ok0 && ok1);
-  const int w_qmin = __reduce_min_sync(0xffffffffu, min(qp0, qp1));
-  const int w_qmax = __reduce_max_sync(0xffffffffu, max(qp0, qp1));
-  const int w_seg0 = __shfl_sync(0xffffffffu, qs0, 0);
-  const int w_seg =
-      __all_sync(0xffffffffu, qs0 == w_seg0 && qs1 == w_seg0) ? w_seg0
-                                                               : INT_MIN;
+  // ---- consumer row state: rows r0 = 16 gwarp + lane/4, r1 = r0 + 8 ----
+  const int R0 = wg * kWgRows + gwarp * 16 + (lane >> 2);
+  const int R1 = R0 + 8;
+  const int qp0 = s_qpos[R0], qp1 = s_qpos[R1];
+  const int qs0 = s_qseg[R0], qs1 = s_qseg[R1];
+  const bool ok0 = s_qok[R0] != 0, ok1 = s_qok[R1] != 0;
 
   float o[NT_O][4];
 #pragma unroll
   for (int n = 0; n < NT_O; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  __nv_bfloat16* Kg = KVs + grp * 2 * kStages * L::kTileElems;
-  __nv_bfloat16* Vg = Kg + kStages * L::kTileElems;
-  int* meta_g = meta + grp * kMetaRing * kMetaSlot;
-
-  // the key metadata of one tile: group thread t < 64 holds key t
-  int mr = -1, mp = -1, ms = -1;
-  auto fetch_meta = [&](int j) {
-    mr = mp = ms = -1;
-    const int t = j * kMmaKeys + gtid;
-    if (gtid < kMmaKeys && t < n_kv)
-      mp = key_meta<PAGED>(t, b, kvh, K, Skv, bs, nbt, kv_pos, kv_seg,
-                           block_tab, &mr, &ms);
-  };
-  // slot layout: rows[64] | pos[64] | seg[64] | per 32 keys: min pos,
-  // max pos, their one segment (INT_MIN if they differ)
-  auto store_meta = [&](int slot) {
-    if (gtid < kMmaKeys) {           // warps 0 and 1 of the group
-      int* s = meta_g + slot * kMetaSlot;
-      s[gtid] = mr;
-      s[kMmaKeys + gtid] = mp;
-      s[2 * kMmaKeys + gtid] = ms;
-      const int kmn = __reduce_min_sync(0xffffffffu, mp);
-      const int kmx = __reduce_max_sync(0xffffffffu, mp);
-      const int s0 = __shfl_sync(0xffffffffu, ms, 0);
-      const bool uni = __all_sync(0xffffffffu, ms == s0);
-      if (lane == 0) {
-        s[3 * kMmaKeys + 3 * gwarp] = kmn;
-        s[3 * kMmaKeys + 3 * gwarp + 1] = kmx;
-        s[3 * kMmaKeys + 3 * gwarp + 2] = uni ? s0 : INT_MIN;
-      }
-    }
-  };
-  auto issue_tile = [&](int stage, int slot) {
-    __nv_bfloat16* kd = Kg + stage * L::kTileElems;
-    __nv_bfloat16* vd = Vg + stage * L::kTileElems;
-    const int* rows = meta_g + slot * kMetaSlot;
-#pragma unroll
-    for (int i = 0; i < kMmaKeys * CPR / kGroupThreads; ++i) {
-      const int idx = i * kGroupThreads + gtid;
-      const int r = idx / CPR;
-      const int c = idx % CPR;
-      const int row = rows[r];
-      const bool ld = row >= 0 && c < CPR_IN;   // zero-fill the padding
-      const size_t off = ld ? static_cast<size_t>(row) * HD + c * 8 : 0;
-      cp_async16(kd + r * LD + c * 8, k + off, ld ? 16 : 0);
-      cp_async16(vd + r * LD + c * 8, v + off, ld ? 16 : 0);
-    }
-  };
-
-  int j = grp == 0 ? next_live(-1) : next_live(next_live(-1));
-  if (j < n_tiles) {
-    const int jn = next_own(j);
-    fetch_meta(jn < n_tiles ? jn : j);   // both tiles' loads in flight
-    const int nr = mr, np = mp, ns = ms;
-    fetch_meta(j);
-    store_meta(0);
-    mr = nr;
-    mp = np;
-    ms = ns;
-    store_meta(1);
-    group_sync(grp);
-    issue_tile(0, 0);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();           // this thread's Q copies have landed
-  __syncthreads();              // everyone's have
-
-  // Q fragments (A operands), held for the whole walk
-  unsigned qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (gwarp * 16 + (lane & 7) +
-                              ((lane >> 3) & 1) * 8) * LD +
-                             kk * 16 + (lane >> 4) * 8);
-
   const int c2 = 2 * (lane & 3);    // this thread's first column of a tile
-  for (int it = 0; j < n_tiles; ++it) {
-    const int stage = it % kStages;
-    const int slot = it % kMetaRing;
-    const int jn = next_own(j);
-    if (jn < n_tiles) issue_tile(stage ^ 1, (it + 1) % kMetaRing);
-    cp_async_commit();
-    const int jnn = jn < n_tiles ? next_own(jn) : n_tiles;
-    if (jnn < n_tiles) fetch_meta(jnn);   // in flight during the products
-    cp_async_wait<1>();
-    group_sync(grp);
+  const unsigned q_addr = smem_addr(qtile);
+  bool q_ready = false;
+  int it = 0;                       // tiles through the ring so far
 
-    const __nv_bfloat16* kt = Kg + stage * L::kTileElems;
-    const __nv_bfloat16* vt = Vg + stage * L::kTileElems;
-    const int* kpos = meta_g + slot * kMetaSlot + kMmaKeys;
-    const int* kseg = kpos + kMmaKeys;
-    const int* ksum = kseg + kMmaKeys;
-
-    // S = Q.K^T (16 x 64 per warp)
-    float s[NT_S][4];
+  for (int w0 = t_begin; w0 < t_end; w0 += kWindowTiles) {
+    const int nt = min(t_end - w0, kWindowTiles);
+    const int key_end = min(n_kv, (w0 + nt) * kKeys);
+    // ---- pre-pass: summarise the window's 32-key halves ----
+    // {min pos, max pos (alive keys), their one segment (INT_MIN if they
+    // differ or one is dead), flags: 1 some query can attend, 2 all alive}
+    for (int hb = 0; hb < 2 * nt; hb += kPreUnroll * NW) {
+      if (w0 != t_begin || hb != 0) load_window(w0, hb, nt, key_end);
 #pragma unroll
-    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; kk += 2) {
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-        unsigned bf[4];
-        ldmatrix_x4(bf, kt + (n * 8 + (lane & 7)) * LD + kk * 16 +
-                            (lane >> 3) * 8);
-        mma_bf16(s[n], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[n], qf[kk + 1], bf[2], bf[3]);
+      for (int u = 0; u < kPreUnroll; ++u) {
+        const int hh = hb + warp + u * NW;
+        if (hh >= 2 * nt) continue;             // whole warps
+        const int tw = hh * 32 + lane;          // the key in the window
+        const int t = w0 * kKeys + tw;
+        const bool al = t < key_end && kp[u] >= 0 && (PAGED || sg[u] >= 0);
+        const int p = al ? kp[u] : -1;
+        wpos[tw] = p;
+        wseg[tw] = sg[u];
+        const int kmn = __reduce_min_sync(0xffffffffu, al ? p : INT_MAX);
+        const int kmx = __reduce_max_sync(0xffffffffu, al ? p : INT_MIN);
+        const bool all = __all_sync(0xffffffffu, al);
+        const int s0 = __shfl_sync(0xffffffffu, sg[u], 0);
+        const bool uni = __all_sync(0xffffffffu, sg[u] == s0);
+        const bool can = __any_sync(
+            0xffffffffu, al && key_can_attend(p, qmin, qmax, causal, window));
+        if (lane == 0)
+          hsum[hh] = make_int4(kmn, kmx, all && uni ? s0 : INT_MIN,
+                               (can ? 1 : 0) | (all ? 2 : 0));
       }
     }
-
-    // masks (skipped when every key of the tile is valid for every row
-    // of the warp) and the online softmax
-    const int kmin = min(ksum[0], ksum[3]), kmax = max(ksum[1], ksum[4]);
-    const bool full = w_ok && kmin >= 0 && (!causal || kmax <= w_qmin) &&
-                      (window <= 0 || kmin > w_qmax - window) &&
-                      (PAGED || (w_seg != INT_MIN && ksum[2] == w_seg &&
-                                 ksum[5] == w_seg));
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-    if (full) {
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    __syncthreads();
+    if (warp == 0) {          // the window's live tiles, in order
+      int n = 0;
+      for (int base = 0; base < nt; base += 32) {
+        const int j = base + lane;
+        const bool live =
+            j < nt && ((hsum[2 * j].w | hsum[2 * j + 1].w) & 1) != 0;
+        const unsigned bal = __ballot_sync(0xffffffffu, live);
+        if (live) list[n + __popc(bal & ((1u << lane) - 1u))] = w0 + j;
+        n += __popc(bal);
       }
-    } else {
+      if (lane == 0) s_nlive = n;
+    }
+    __syncthreads();
+    const int n_live = s_nlive;
+
+    if (producer) {
+      // ---- producer: the window's live tiles into the ring, in order;
+      // it reads the pre-pass's positions, and the block table only on
+      // the paged entry ----
+      for (int i = 0; i < n_live; ++i) {
+        const int j = list[i];
+        const int s = (it + i) % S;
+        const int use = (it + i) / S;
+        const int t0 = (j - w0) * kKeys;        // the tile in the window
+        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+        unsigned char* kd = sm + C::kKVOff + s * 2 * C::kTileBytes;
+        unsigned char* vd = kd + C::kTileBytes;
+        if (use_tma && (hsum[2 * (j - w0)].w & hsum[2 * (j - w0) + 1].w &
+                        2)) {
+          // every key alive (contiguous entry): TMA boxes of 64 columns
+          // by the tile's 64 keys, issued by lane 0
+          if (lane == 0) {
+            mbar_arrive_expect(full + s, 2 * C::kTileBytes);
 #pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
+            for (int blk = 0; blk < HDP / 64; ++blk) {
+              tma_load_4d(kd + blk * kBlockBytes, &tm_k, blk * 64, kvh,
+                          j * kKeys, b, full + s);
+              tma_load_4d(vd + blk * kBlockBytes, &tm_v, blk * 64, kvh,
+                          j * kKeys, b, full + s);
+            }
+          } else {
+            mbar_arrive(full + s);
+          }
+        } else {
+          // lane l finds the rows of keys l and l + 32 (-1: dead), then
+          // copies chunk l % 8 of each 64-column block of keys l / 8 +
+          // 4 i (8 lanes read a key's 128 bytes); dead keys and the
+          // padding of hd 120 are zero-filled
+          int row[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = n * 8 + c2 + e;
-          const int kp = kpos[key];
-          const bool kv_ok = kp >= 0;
-          const int ks = PAGED ? 0 : kseg[key];
-          const bool v0 = ok0 && kv_ok && (!causal || qp0 >= kp) &&
-                          (window <= 0 || qp0 - kp < window) &&
-                          (PAGED || ks == qs0);
-          const bool v1 = ok1 && kv_ok && (!causal || qp1 >= kp) &&
-                          (window <= 0 || qp1 - kp < window) &&
-                          (PAGED || ks == qs1);
-          s[n][e] = v0 ? s[n][e] : -INFINITY;
-          s[n][2 + e] = v1 ? s[n][2 + e] : -INFINITY;
-          mx0 = fmaxf(mx0, s[n][e]);
-          mx1 = fmaxf(mx1, s[n][2 + e]);
+          for (int u = 0; u < 2; ++u) {
+            const int key = lane + 32 * u;
+            const int t = j * kKeys + key;
+            row[u] = -1;
+            if (wpos[t0 + key] >= 0) {
+              long long tok = static_cast<long long>(b) * Skv + t;
+              if (PAGED)
+                tok = static_cast<long long>(
+                          block_tab[static_cast<size_t>(b) * nbt + t / bs]) *
+                          bs + t % bs;
+              row[u] = static_cast<int>(tok * K + kvh);
+            }
+          }
+#pragma unroll
+          for (int i2 = 0; i2 < kKeys / 4; ++i2) {
+            const int key = (lane >> 3) + 4 * i2;
+            const int r = __shfl_sync(0xffffffffu, row[i2 / 8], key & 31);
+            const size_t base = r >= 0 ? static_cast<size_t>(r) * HD : 0;
+#pragma unroll
+            for (int blk = 0; blk < HDP / 64; ++blk) {
+              const int c = (lane & 7) + 8 * blk;
+              const bool ld = r >= 0 && c < CPR_IN;
+              const size_t off = ld ? base + c * 8 : 0;
+              cp_async16(kd + swz(key, c), k + off, ld ? 16 : 0);
+              cp_async16(vd + swz(key, c), v + off, ld ? 16 : 0);
+            }
+          }
+          mbar_track_cp_async(full + s);
+          mbar_arrive(full + s);
         }
       }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // m is kept on the raw score scale; p = 2^(s * scale_log2 - m'),
-    // one FFMA and one ex2 per score
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // a row with no valid key yet keeps everything at 0 (no inf - inf)
-    const float mu0 = mn0 == -INFINITY ? 0.f : mn0 * scale_log2;
-    const float mu1 = mn1 == -INFINITY ? 0.f : mn1 * scale_log2;
-    const float a0 = mn0 == m0 ? 1.f : ex2(fmaf(m0, scale_log2, -mu0));
-    const float a1 = mn1 == m1 ? 1.f : ex2(fmaf(m1, scale_log2, -mu1));
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-      s[n][0] = ex2(fmaf(s[n][0], scale_log2, -mu0));
-      s[n][1] = ex2(fmaf(s[n][1], scale_log2, -mu0));
-      s[n][2] = ex2(fmaf(s[n][2], scale_log2, -mu1));
-      s[n][3] = ex2(fmaf(s[n][3], scale_log2, -mu1));
-      ps0 += s[n][0] + s[n][1];
-      ps1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-    // rescale O only if some row's running max moved (most tiles after
-    // the first few leave it in place)
-    if (!__all_sync(0xffffffffu, a0 == 1.f && a1 == 1.f)) {
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        o[n][0] *= a0;
-        o[n][1] *= a0;
-        o[n][2] *= a1;
-        o[n][3] *= a1;
+    } else if (n_live > 0) {
+      if (!q_ready) {
+        cp_async_wait<0>();     // this thread's Q copies have landed
+        fence_proxy_async();
+        wg_sync(wg);            // everyone's have
+        q_ready = true;
       }
-    }
+      // Software pipeline (as FlashAttention-3's): tile i's S = Q.K^T is
+      // issued, then tile i-1's O += P.V; the softmax of tile i runs
+      // while P.V is on the tensor cores, and O is rescaled by tile i's
+      // max change once that P.V has landed.  The first tile's S and the
+      // last tile's P.V are peeled off the loop, so no wgmma is issued
+      // under a condition (ptxas would serialise them).
+      float sc[NT_S][4];                               // S, then P, of tile i
+      unsigned pa[kKeys / 16][4];                      // P of tile i-1
+      float a0 = 1.f, a1 = 1.f;                       // tile i's max change
+      auto stage_addr = [&](int st) {
+        return smem_addr(sm + C::kKVOff + st * 2 * C::kTileBytes);
+      };
+      auto s_issue = [&](int st) {
+        const unsigned k_addr = stage_addr(st);
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const unsigned off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
+          wgmma_ss_n64(sc, wg_desc(q_addr + off, 16, 1024),
+                       wg_desc(k_addr + off, 16, 1024), kk > 0);
+        }
+        wg_commit();
+      };
+      auto pv_issue = [&](int st) {
+        const unsigned v_addr = stage_addr(st) + C::kTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wgmma_rs<HDP>(o, pa[kk],
+                        wg_desc(v_addr + kk * 16 * 128, kBlockBytes, 1024));
+        wg_commit();
+      };
+      auto arrive_full = [&](int i) {
+        const int st = (it + i) % S;
+        mbar_wait(full + st, ((it + i) / S) & 1);
+        fence_proxy_async();
+        return st;
+      };
+      // the masks (only for the rows the tile's summary cannot settle),
+      // the online softmax of S in place, and the max change (a0, a1)
+      auto softmax = [&](int j) {
+        wg_hold(sc);
+        const int* kpos = wpos + (j - w0) * kKeys;
+        const int* kseg = wseg + (j - w0) * kKeys;
+        const int4 ha = hsum[2 * (j - w0)], hb = hsum[2 * (j - w0) + 1];
+        const int kmin = min(ha.x, hb.x), kmax = max(ha.y, hb.y);
+        const bool all_alive = (ha.w & hb.w & 2) != 0;
+        // per row: 2 = every key of the tile valid for it, 0 = none (a
+        // padding row), 1 = check each key
+        auto row_state = [&](bool ok, int qp, int qs) {
+          if (!ok) return 0;
+          return all_alive && (!causal || kmax <= qp) &&
+                         (window <= 0 || kmin > qp - window) &&
+                         (PAGED || (ha.z == qs && hb.z == qs))
+                     ? 2
+                     : 1;
+        };
+        const int st0 = row_state(ok0, qp0, qs0);
+        const int st1 = row_state(ok1, qp1, qs1);
+        if (st0 == 1 || st1 == 1) {
+#pragma unroll
+          for (int n = 0; n < NT_S; ++n) {
+            const int2 kp2 =
+                *reinterpret_cast<const int2*>(kpos + n * 8 + c2);
+            const int2 ks2 =
+                PAGED ? make_int2(0, 0)
+                      : *reinterpret_cast<const int2*>(kseg + n * 8 + c2);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kp = e ? kp2.y : kp2.x;
+              const int ks = e ? ks2.y : ks2.x;
+              const bool v0 =
+                  st0 == 2 ||
+                  (st0 == 1 && kp >= 0 && (!causal || qp0 >= kp) &&
+                   (window <= 0 || qp0 - kp < window) && (PAGED || ks == qs0));
+              const bool v1 =
+                  st1 == 2 ||
+                  (st1 == 1 && kp >= 0 && (!causal || qp1 >= kp) &&
+                   (window <= 0 || qp1 - kp < window) && (PAGED || ks == qs1));
+              sc[n][e] = v0 ? sc[n][e] : -INFINITY;
+              sc[n][2 + e] = v1 ? sc[n][2 + e] : -INFINITY;
+            }
+          }
+        } else if (st0 == 0 || st1 == 0) {
+#pragma unroll
+          for (int n = 0; n < NT_S; ++n) {
+            if (st0 == 0) sc[n][0] = sc[n][1] = -INFINITY;
+            if (st1 == 0) sc[n][2] = sc[n][3] = -INFINITY;
+          }
+        }
+        // row maxima and sums as trees (short dependence chains)
+        float t0[NT_S], t1[NT_S];
+#pragma unroll
+        for (int n = 0; n < NT_S; ++n) {
+          t0[n] = fmaxf(sc[n][0], sc[n][1]);
+          t1[n] = fmaxf(sc[n][2], sc[n][3]);
+        }
+#pragma unroll
+        for (int w = NT_S / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int n = 0; n < w; ++n) {
+            t0[n] = fmaxf(t0[n], t0[n + w]);
+            t1[n] = fmaxf(t1[n], t1[n + w]);
+          }
+        float mx0 = t0[0], mx1 = t1[0];
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        // m is kept on the raw score scale; p = 2^(s * scale_log2 - m'),
+        // one FFMA and one ex2 per score
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        // a row with no valid key yet keeps everything at 0 (no inf - inf)
+        const float mu0 = mn0 == -INFINITY ? 0.f : mn0 * scale_log2;
+        const float mu1 = mn1 == -INFINITY ? 0.f : mn1 * scale_log2;
+        a0 = mn0 == m0 ? 1.f : ex2(fmaf(m0, scale_log2, -mu0));
+        a1 = mn1 == m1 ? 1.f : ex2(fmaf(m1, scale_log2, -mu1));
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int n = 0; n < NT_S; ++n) {
+          sc[n][0] = ex2(fmaf(sc[n][0], scale_log2, -mu0));
+          sc[n][1] = ex2(fmaf(sc[n][1], scale_log2, -mu0));
+          sc[n][2] = ex2(fmaf(sc[n][2], scale_log2, -mu1));
+          sc[n][3] = ex2(fmaf(sc[n][3], scale_log2, -mu1));
+          t0[n] = sc[n][0] + sc[n][1];
+          t1[n] = sc[n][2] + sc[n][3];
+        }
+#pragma unroll
+        for (int w = NT_S / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int n = 0; n < w; ++n) {
+            t0[n] += t0[n + w];
+            t1[n] += t1[n + w];
+          }
+        l0 = l0 * a0 + t0[0];
+        l1 = l1 * a1 + t1[0];
+      };
+      // once the previous P.V has landed: O *= the max change, only if
+      // some row's max moved (most tiles after the first few leave it in
+      // place), and P (bf16) into P.V's A fragments (the accumulator's
+      // fragments are its A fragments)
+      auto rescale_and_take_p = [&]() {
+        if (!__all_sync(0xffffffffu, a0 == 1.f && a1 == 1.f)) {
+#pragma unroll
+          for (int n = 0; n < NT_O; ++n) {
+            o[n][0] *= a0;
+            o[n][1] *= a0;
+            o[n][2] *= a1;
+            o[n][3] *= a1;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+          pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+          pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+          pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+        }
+      };
+      auto release = [&](int st) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + st);   // the stage is free
+      };
 
-    // O += P.V: P's C fragments are the A fragments of P.V (bf16)
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      unsigned pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NT_O; n += 2) {
-        unsigned bf[4];
-        ldmatrix_x4_trans(bf, vt + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LD +
-                                  n * 8 + (lane >> 4) * 8);
-        mma_bf16(o[n], pa, bf[0], bf[1]);
-        mma_bf16(o[n + 1], pa, bf[2], bf[3]);
+      int s_prev = arrive_full(0);
+      wg_fence();
+      s_issue(s_prev);
+      wg_wait<0>();
+      softmax(list[0]);
+      rescale_and_take_p();
+      for (int i = 1; i < n_live; ++i) {
+        const int s = arrive_full(i);
+          wg_fence();
+        s_issue(s);
+        pv_issue(s_prev);
+          wg_wait<1>();           // S has landed; P.V may still run
+        softmax(list[i]);
+        wg_wait<0>();           // the previous tile's P.V has landed
+        wg_hold(o);
+        wg_hold(pa);
+        release(s_prev);
+        rescale_and_take_p();
+        s_prev = s;
       }
+      wg_fence();
+      pv_issue(s_prev);
+      wg_wait<0>();
+      wg_hold(o);
+      wg_hold(pa);
+      release(s_prev);
     }
-
-    store_meta((it + 2) % kMetaRing);   // tile jnn's rows, for next time
-    group_sync(grp);                    // stage and slot free for reuse
-    j = jn;
+    it += n_live;
+    __syncthreads();          // the window's summaries and list reused
   }
-  cp_async_wait<0>();
+  if (producer) return;
+  if (!q_ready) cp_async_wait<0>();
 
-  // ---- merge the two groups' (m, l, O) and write O / l ----
+  // ---- write O / l, or the split's (m, l, O) partials ----
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // group 1 hands its state to the thread of group 0 holding the same
-  // fragment, through its own (now idle) tiles; element-major, so the
-  // 128 threads of a group write and read consecutive words
-  float* xch = reinterpret_cast<float*>(KVs + 2 * kStages * L::kTileElems);
-  __syncthreads();
-  if (grp == 1) {
-    xch[0 * kGroupThreads + gtid] = m0;
-    xch[1 * kGroupThreads + gtid] = m1;
-    xch[2 * kGroupThreads + gtid] = l0;
-    xch[3 * kGroupThreads + gtid] = l1;
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n)
+  for (int half = 0; half < 2; ++half) {
+    const int R = half ? R1 : R0;
+    const int qi = q0 + R / gp;
+    if (qi >= Sq) continue;
+    const float l = half ? l1 : l0;
+    const float m = half ? m1 : m0;
+    const size_t row = (static_cast<size_t>(b) * Sq + qi) * H + h0 + R % gp;
+    if (n_split == 1) {
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      __nv_bfloat16* op = out + row * HD;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        xch[(4 + 4 * n + e) * kGroupThreads + gtid] = o[n][e];
-  }
-  __syncthreads();
-  if (grp == 1) return;
-  {
-    const float pm0 = xch[gtid], pm1 = xch[kGroupThreads + gtid];
-    const float M0 = fmaxf(m0, pm0), M1 = fmaxf(m1, pm1);
-    const float u0 = M0 == -INFINITY ? 0.f : M0 * scale_log2;
-    const float u1 = M1 == -INFINITY ? 0.f : M1 * scale_log2;
-    const float fa0 = ex2(fmaf(m0, scale_log2, -u0));
-    const float fb0 = ex2(fmaf(pm0, scale_log2, -u0));
-    const float fa1 = ex2(fmaf(m1, scale_log2, -u1));
-    const float fb1 = ex2(fmaf(pm1, scale_log2, -u1));
-    l0 = l0 * fa0 + xch[2 * kGroupThreads + gtid] * fb0;
-    l1 = l1 * fa1 + xch[3 * kGroupThreads + gtid] * fb1;
+      for (int n = 0; n < HD / 8; ++n)   // the real columns only
+        *reinterpret_cast<unsigned*>(op + n * 8 + c2) =
+            pack_bf16(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+    } else {
+      const size_t pr = row * n_split + split;
+      float* pacc = part_acc + pr * HD;
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      const float* px = xch + (4 + 4 * n) * kGroupThreads + gtid;
-      o[n][0] = o[n][0] * fa0 + px[0] * fb0;
-      o[n][1] = o[n][1] * fa0 + px[kGroupThreads] * fb0;
-      o[n][2] = o[n][2] * fa1 + px[2 * kGroupThreads] * fb1;
-      o[n][3] = o[n][3] * fa1 + px[3 * kGroupThreads] * fb1;
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(pacc + n * 8 + c2) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
+      if ((lane & 3) == 0) {
+        part_ml[2 * pr] = m * scale;   // natural-log scale; -inf if l = 0
+        part_ml[2 * pr + 1] = l;
+      }
     }
-  }
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const int qi0 = q0 + r0 / gp, qi1 = q0 + r1 / gp;
-  __nv_bfloat16* o0 =
-      out + ((static_cast<size_t>(b) * Sq + qi0) * H + h0 + r0 % gp) * HD;
-  __nv_bfloat16* o1 =
-      out + ((static_cast<size_t>(b) * Sq + qi1) * H + h0 + r1 % gp) * HD;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {     // the real columns only
-    if (qi0 < Sq)
-      *reinterpret_cast<unsigned*>(o0 + n * 8 + c2) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    if (qi1 < Sq)
-      *reinterpret_cast<unsigned*>(o1 + n * 8 + c2) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
-template <int HD, bool PAGED>
+// cuTensorMapEncodeTiled, from the driver through the runtime (so the
+// extension links no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return err == cudaSuccess && res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map over bf16 K or V rows (hd, K kv heads, rows, outer) whose
+// boxes are 64 columns (128 bytes, 128-byte swizzle) by `box_rows` rows
+// of one kv head; columns and rows past the edges read as zeros.
+inline cudaError_t kv_map(CUtensorMap* map, const void* base, int hd, int K,
+                          int rows, int outer, int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[3] = {row, row * K, row * K * rows};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD, bool PAGED, int NWG>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int* q_pos, const int* kv_pos,
                         const int* q_seg, const int* kv_seg,
-                        const int* block_tab, void* out, int B, int Sq,
-                        int Skv, int H, int K, int bs, int nbt, int causal,
-                        int window, float scale, cudaStream_t stream) {
-  using L = MmaLayout<mma_hd(HD)>;
-  // 227 KB a block, less 2 KB for the kernel's static shared memory
-  constexpr int kMaxSmem = 232448 - 2048;
-  const int n_kv = PAGED ? nbt * bs : Skv;
-  const size_t smem = L::kFixed + ((n_kv + 31) / 32 + 15) / 16 * 16;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = flash_kernel_mma<HD, PAGED>;
-  // allow the largest size once a device; each launch asks only for what
-  // it needs
+                        const int* block_tab, void* out, float* part_ml,
+                        float* part_acc, int B, int Sq, int Skv, int H,
+                        int K, int bs, int nbt, int causal, int window,
+                        float scale, int n_split, cudaStream_t stream) {
+  using C = WgCfg<mma_hd(HD), NWG>;
+  const int n_keys = PAGED ? nbt * bs : Skv;
+  const int n_tiles = max(1, (n_keys + kKeys - 1) / kKeys);
+  if (n_split < 1 || n_split > n_tiles ||
+      static_cast<long long>(B) * n_split > 65535 ||
+      (n_split > 1 && (part_ml == nullptr || part_acc == nullptr)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_kernel_wg<HD, PAGED, NWG>;
   const cudaError_t attr =
-      allow_dynamic_smem(reinterpret_cast<const void*>(kern), kMaxSmem);
+      allow_dynamic_smem(reinterpret_cast<const void*>(kern), C::kSmem);
   if (attr != cudaSuccess) return attr;
   // the G heads of a kv head share the CTA's rows when G divides them
   const int G = H / K;
-  const int gp = kMmaRows % G == 0 ? G : 1;
-  const int qr = kMmaRows / gp;
-  const dim3 grid((Sq + qr - 1) / qr, H / gp, B);
-  kern<<<grid, kMmaThreads, smem, stream>>>(
+  const int gp = C::kRows % G == 0 ? G : 1;
+  const int qr = C::kRows / gp;
+  const int per = (n_tiles + n_split - 1) / n_split;
+  const dim3 grid((Sq + qr - 1) / qr, H / gp, B * n_split);
+  // TMA maps (contiguous entry) over (hd, K, Skv, B): boxes of 64
+  // columns by a tile's 64 keys, for the tiles whose keys are all alive
+  CUtensorMap tm_k{}, tm_v{};
+  const int use_tma = !PAGED && Skv > 0;
+  if (use_tma) {
+    cudaError_t e = kv_map(&tm_k, k, HD, K, Skv, B, kKeys);
+    if (e == cudaSuccess) e = kv_map(&tm_v, v, HD, K, Skv, B, kKeys);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), q_pos, kv_pos, q_seg, kv_seg,
-      block_tab, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, K, bs, nbt,
-      causal, window, scale * 1.4426950408889634f, gp);
-  return cudaSuccess;
+      block_tab, static_cast<__nv_bfloat16*>(out), part_ml, part_acc, Sq,
+      Skv, H, K, bs, nbt, causal, window, scale * 1.4426950408889634f,
+      scale, gp, n_split, per, tm_k, tm_v, use_tma);
+  if (n_split == 1) return cudaSuccess;
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_decode_merge(part_ml, part_acc, out, B * Sq * H, HD, n_split,
+                             kBFloat16, stream);
+}
+
+// Calls f(std::integral_constant<int, NWG>{}) for the bf16 body with
+// `rows` = 64 NWG (query, head) rows a CTA: 64 or 128 rows, and 192 at
+// head dim 64 only; cudaErrorNotSupported for any other row count.
+template <int HD, class F>
+cudaError_t with_rows(int rows, F&& f) {
+  if (rows == 64) return f(std::integral_constant<int, 1>{});
+  if (rows == 128) return f(std::integral_constant<int, 2>{});
+  if constexpr (HD == 64) {
+    if (rows == 192) return f(std::integral_constant<int, 3>{});
+  }
+  return cudaErrorNotSupported;
+}
+
+template <int HD, bool PAGED>
+cudaError_t launch_bf16_rows(int rows, const void* q, const void* k,
+                             const void* v, const int* q_pos,
+                             const int* kv_pos, const int* q_seg,
+                             const int* kv_seg, const int* block_tab,
+                             void* out, float* part_ml, float* part_acc,
+                             int B, int Sq, int Skv, int H, int K, int bs,
+                             int nbt, int causal, int window, float scale,
+                             int n_split, cudaStream_t stream) {
+  return with_rows<HD>(rows, [&](auto nwg) {
+    return launch_bf16<HD, PAGED, decltype(nwg)::value>(
+        q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_tab, out, part_ml,
+        part_acc, B, Sq, Skv, H, K, bs, nbt, causal, window, scale, n_split,
+        stream);
+  });
+}
+
+// CTAs of the bf16 body with `rows` rows an SM holds on the current
+// device (its registers, shared memory and __launch_bounds__), as the
+// occupancy calculator reads them from the compiled kernel.
+template <int HD, bool PAGED>
+cudaError_t bf16_ctas_per_sm(int rows, int* ctas) {
+  return with_rows<HD>(rows, [&](auto nwg) {
+    constexpr int NWG = decltype(nwg)::value;
+    using C = WgCfg<mma_hd(HD), NWG>;
+    auto kern = flash_kernel_wg<HD, PAGED, NWG>;
+    const cudaError_t attr =
+        allow_dynamic_smem(reinterpret_cast<const void*>(kern), C::kSmem);
+    if (attr != cudaSuccess) return attr;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern,
+                                                         C::kThreads,
+                                                         C::kSmem);
+  });
 }
 
 template <bool PAGED>
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, const int* q_pos, const int* kv_pos,
                      const int* q_seg, const int* kv_seg,
-                     const int* block_tab, void* out, int B, int Sq, int Skv,
-                     int H, int K, int bs, int nbt, int causal, int window,
-                     float scale, cudaStream_t stream) {
+                     const int* block_tab, void* out, float* part_ml,
+                     float* part_acc, int B, int Sq, int Skv, int H, int K,
+                     int bs, int nbt, int causal, int window, float scale,
+                     int rows, int n_split, cudaStream_t stream) {
   // K/V rows (token * K + kv head) are indexed in int32: a K tensor of
   // 2^31 rows of hd >= 64 elements would not fit in the card's memory.
-#define REPRO_FLASH_CASE(FN, HD)                                            \
-  return FN<HD, PAGED>(q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_tab,   \
-                       out, B, Sq, Skv, H, K, bs, nbt, causal, window, scale, \
-                       stream)
+#define REPRO_BF16_CASE(HD)                                                 \
+  return launch_bf16_rows<HD, PAGED>(rows, q, k, v, q_pos, kv_pos, q_seg,  \
+                                     kv_seg, block_tab, out, part_ml,      \
+                                     part_acc, B, Sq, Skv, H, K, bs, nbt,  \
+                                     causal, window, scale, n_split, stream)
+#define REPRO_FP32_CASE(HD)                                                 \
+  return launch_fp32<HD, PAGED>(q, k, v, q_pos, kv_pos, q_seg, kv_seg,     \
+                                block_tab, out, B, Sq, Skv, H, K, bs, nbt, \
+                                causal, window, scale, stream)
   if (dtype == kBFloat16) {
-    if (hd == 64) REPRO_FLASH_CASE(launch_bf16, 64);
-    if (hd == 128) REPRO_FLASH_CASE(launch_bf16, 128);
-  } else if (dtype == kFloat32) {
-    if (hd == 64) REPRO_FLASH_CASE(launch_fp32, 64);
-    if (hd == 128) REPRO_FLASH_CASE(launch_fp32, 128);
+    if (hd == 64) REPRO_BF16_CASE(64);
+    if (hd == 128) REPRO_BF16_CASE(128);
+  } else if (dtype == kFloat32 && n_split == 1) {     // the FMA body: no split
+    if (hd == 64) REPRO_FP32_CASE(64);
+    if (hd == 128) REPRO_FP32_CASE(128);
   }
   if constexpr (!PAGED) {               // head dim 120: contiguous only
-    if (hd == 120 && dtype == kBFloat16) REPRO_FLASH_CASE(launch_bf16, 120);
-    if (hd == 120 && dtype == kFloat32) REPRO_FLASH_CASE(launch_fp32, 120);
+    if (hd == 120 && dtype == kBFloat16) REPRO_BF16_CASE(120);
+    if (hd == 120 && dtype == kFloat32 && n_split == 1) REPRO_FP32_CASE(120);
   }
-#undef REPRO_FLASH_CASE
+#undef REPRO_BF16_CASE
+#undef REPRO_FP32_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -917,27 +1377,47 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
 
 cudaError_t launch_flash_prefill(
     const void* q, const void* k, const void* v, const int* q_pos,
-    const int* kv_pos, const int* q_seg, const int* kv_seg, void* out, int B,
-    int Sq, int Skv, int H, int K, int hd, int causal, int window,
-    float scale, int dtype, cudaStream_t stream) {
+    const int* kv_pos, const int* q_seg, const int* kv_seg, void* out,
+    float* part_ml, float* part_acc, int B, int Sq, int Skv, int H, int K,
+    int hd, int causal, int window, float scale, int dtype, int rows,
+    int n_split, cudaStream_t stream) {
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   return repro_torch::dispatch<false>(dtype, hd, q, k, v, q_pos, kv_pos,
-                                      q_seg, kv_seg, nullptr, out, B, Sq,
-                                      Skv, H, K, 1, 1, causal, window, scale,
+                                      q_seg, kv_seg, nullptr, out, part_ml,
+                                      part_acc, B, Sq, Skv, H, K, 1, 1,
+                                      causal, window, scale, rows, n_split,
                                       stream);
 }
 
 cudaError_t launch_paged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const int* kv_pos_pool, const int* block_tab, const int* q_pos,
-    void* out, int B, int Sq, int H, int K, int hd, int bs, int nbt,
-    int window, float scale, int dtype, cudaStream_t stream) {
+    void* out, float* part_ml, float* part_acc, int B, int Sq, int H, int K,
+    int hd, int bs, int nbt, int window, float scale, int dtype, int rows,
+    int n_split, cudaStream_t stream) {
   if (K <= 0 || H % K != 0 || bs <= 0 || nbt <= 0)
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   return repro_torch::dispatch<true>(dtype, hd, q, k_pool, v_pool, q_pos,
                                      kv_pos_pool, nullptr, nullptr,
-                                     block_tab, out, B, Sq, nbt * bs, H, K,
-                                     bs, nbt, 1, window, scale, stream);
+                                     block_tab, out, part_ml, part_acc, B,
+                                     Sq, nbt * bs, H, K, bs, nbt, 1, window,
+                                     scale, rows, n_split, stream);
 }
+
+cudaError_t flash_bf16_occupancy(int hd, int paged, int rows, int* ctas) {
+  *ctas = 0;
+  cudaError_t err = cudaErrorNotSupported;
+  if (hd == 64)
+    err = paged ? repro_torch::bf16_ctas_per_sm<64, true>(rows, ctas)
+                : repro_torch::bf16_ctas_per_sm<64, false>(rows, ctas);
+  else if (hd == 128)
+    err = paged ? repro_torch::bf16_ctas_per_sm<128, true>(rows, ctas)
+                : repro_torch::bf16_ctas_per_sm<128, false>(rows, ctas);
+  else if (hd == 120 && !paged)
+    err = repro_torch::bf16_ctas_per_sm<120, false>(rows, ctas);
+  return err == cudaErrorNotSupported ? cudaSuccess : err;
+}
+
+int flash_bf16_tile_keys() { return repro_torch::kKeys; }

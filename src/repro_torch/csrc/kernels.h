@@ -50,25 +50,39 @@ cudaError_t launch_decode_attention(
 // Packed-varlen flash attention over contiguous K/V: q (B,Sq,H,hd);
 // k/v (B,Skv,K,hd); q_pos/q_seg (B,Sq), kv_pos/kv_seg (B,Skv) int32
 // (segment -1 = pad, kv_pos < 0 = empty); out (B,Sq,H,hd).  bf16 runs
-// on the tensor cores, fp32 by FMA.  The bf16 body keeps one byte per
-// 32 keys in shared memory beside ~158 KB of tiles, so it takes up to
-// about 2.2M keys (nbt * bs on the paged entry).
-// Replaces flash_prefill_pallas.
+// on wgmma with `rows` (query, head) rows a CTA (64, 128, or 192 at
+// head dim 64) and each row's keys cut into n_split ranges of
+// ceil(ceil(Skv / 64) / n_split) 64-key tiles (n_split <= the tiles);
+// with n_split > 1 the splits' fp32 partials go to part_ml
+// (B*Sq*H,n_split,2) and part_acc (B*Sq*H,n_split,hd) and
+// launch_decode_merge writes out.  fp32 runs by FMA and takes
+// n_split = 1 only.  Replaces flash_prefill_pallas.
 cudaError_t launch_flash_prefill(
     const void* q, const void* k, const void* v,
     const int* q_pos, const int* kv_pos, const int* q_seg, const int* kv_seg,
-    void* out, int B, int Sq, int Skv, int H, int K, int hd,
-    int causal, int window, float scale, int dtype, cudaStream_t stream);
+    void* out, float* part_ml, float* part_acc, int B, int Sq, int Skv,
+    int H, int K, int hd, int causal, int window, float scale, int dtype,
+    int rows, int n_split, cudaStream_t stream);
 
 // The same kernel reading K/V through a block table: q (B,Sq,H,hd) at
 // q_pos (B,Sq); pools (N,bs,K,hd); kv_pos_pool (N,bs); block_tab
-// (B,nbt).  Causal on positions.  Replaces the gather + attend of
-// attn_extend_paged (repro/models/blocks.py:464-475).
+// (B,nbt).  Causal on positions; the splits cut nbt * bs keys.
+// Replaces the gather + attend of attn_extend_paged
+// (repro/models/blocks.py:464-475).
 cudaError_t launch_paged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const int* kv_pos_pool, const int* block_tab, const int* q_pos,
-    void* out, int B, int Sq, int H, int K, int hd, int bs, int nbt,
-    int window, float scale, int dtype, cudaStream_t stream);
+    void* out, float* part_ml, float* part_acc, int B, int Sq, int H, int K,
+    int hd, int bs, int nbt, int window, float scale, int dtype, int rows,
+    int n_split, cudaStream_t stream);
+
+// The bf16 body's CTAs an SM at `rows` (query, head) rows a CTA on the
+// current device, read from the compiled kernel by the occupancy
+// calculator (0 where no body has that many rows: 192 is head dim 64
+// only; the paged entry has no head dim 120), and its keys a K/V tile.
+// The wrappers' planner (flash_splits in ops.py) reads both here.
+cudaError_t flash_bf16_occupancy(int hd, int paged, int rows, int* ctas);
+int flash_bf16_tile_keys();
 
 // Mamba2 SSD intra-chunk term (n_groups = 1): x (BC,Q,nh,hp); dt
 // (BC,Q,nh) fp32; A (nh,) fp32; B and C: BC*Q tokens of ds values at a

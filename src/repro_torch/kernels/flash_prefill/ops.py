@@ -10,14 +10,22 @@ entry the serving path runs).  The kernel
 (`repro_torch/csrc/flash_prefill.cu`) tiles K/V through shared memory
 with an fp32 online softmax, skips from the data every K/V tile no
 query of a tile can attend to, and never writes a (Sq, Skv) matrix to
-device memory.  bf16 inputs run both products on the tensor cores
-(mma.sync, K/V tiles streamed in by cp.async); fp32 inputs run an FMA
+device memory.  bf16 inputs run both products on wgmma (CTAs of 64,
+128 or 192 (query, head) rows, a K/V ring filled by TMA or cp.async,
+and, for grids that would leave SMs idle, a split over the keys whose
+partials the decode kernels' merge combines); fp32 inputs run an FMA
 body, so the fp32 path keeps its 1e-4 agreement — see the source note.
+`flash_splits` picks the bf16 body's rows and splits from the shapes
+and what the binding reads of the card (`flash_config`: the tile's
+keys, the CTAs an SM holds, the SM count), so a captured step replays
+the same plan; only calls that are not causal split.
 
 Each wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU (and `meta`) tensors; `<wrapper>.launches` counts
-launches, and `flash_prefill.launches_noncausal` those of them made
-with causal=False (the encoder's self-attention and cross-attention).
+wrapper calls that launched (one, also when a split adds the merge
+kernel), `<wrapper>.last_plan` is the (rows, splits) the last call
+passed to the kernel (None after a plain call), and `flash_prefill.launches_noncausal` counts those made with
+causal=False (the encoder's self-attention and cross-attention).
 
 `flash_prefill_train` is the contiguous entry under autograd (the
 training forward): its forward is `flash_prefill` (the kernel on the
@@ -26,9 +34,13 @@ attention (`flash_attention_xla`) has an XLA backward and no kernel.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.build import PLAIN_DEVICES, load_kernels
+from repro_torch.kernels.decode_attention.ops import _sm_count
 from repro_torch.models.attention import (
     NEG_INF, build_mask, gather_paged, gather_paged_pos, gqa_reference,
 )
@@ -36,9 +48,80 @@ from repro_torch.models.attention import (
 HEAD_DIMS = (64, 120, 128)  # head dims of the contiguous entry
 PAGED_HEAD_DIMS = (64, 128)  # ... and of the paged entry
 DTYPES = (torch.float32, torch.bfloat16)
-# keys the bf16 body walks at most (Skv, or nbt * bs on the paged entry):
-# it keeps one byte per 32 keys in shared memory beside its tiles
+# keys the bf16 body walks at most (Skv, or nbt * bs on the paged entry).
+# Shared memory no longer bounds it (the pre-pass summarises 32 tiles at
+# a time); the limit stays where the callers and tests have it.
 MAX_BF16_KEYS = 1 << 21
+# (query, head) rows a CTA to ask the binding about, most first; it says
+# which the compiled bodies have (192 at head dim 64 only) and how many
+# CTAs of each an SM holds
+FLASH_ROW_SIZES = (192, 128, 64)
+FLASH_MIN_SPLIT_TILES = 4   # key tiles a split takes at least
+
+
+class FlashConfig(NamedTuple):
+    """What the bf16 body's planner needs of a card, as the binding reads
+    it from the compiled kernels (`flash_config`)."""
+    keys: int                   # keys a K/V tile
+    ctas_per_sm: dict           # {rows a CTA: CTAs an SM holds}
+    sm_count: int
+
+
+@functools.lru_cache(maxsize=None)
+def flash_config(device: torch.device, hd: int, paged: bool) -> FlashConfig:
+    """The bf16 bodies of one entry at head dim `hd` on a CUDA `device`:
+    their tile's keys and the CTAs an SM holds at each row count (the
+    occupancy calculator on the compiled kernel), and the SM count."""
+    ext = load_kernels()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    occ = {r: ext.flash_bf16_ctas_per_sm(index, hd, paged, r)
+           for r in FLASH_ROW_SIZES}
+    return FlashConfig(ext.flash_bf16_tile_keys(),
+                       {r: n for r, n in occ.items() if n > 0},
+                       _sm_count(device))
+
+
+def _cta_rows(Sq: int, H: int, K: int, rows: int) -> int:
+    """CTAs of one batch row with `rows` (query, head) rows each: the G =
+    H / K heads of a kv head share a CTA when G divides `rows`, else one
+    head a CTA."""
+    G = H // K
+    gp = G if rows % G == 0 else 1
+    return -(-Sq * gp // rows) * (H // gp)
+
+
+def flash_splits(B: int, Sq: int, H: int, K: int, n_keys: int,
+                 causal: bool, config: FlashConfig) -> tuple[int, int]:
+    """(rows a CTA, splits) of the bf16 body, from the shapes alone (never
+    from positions or segments: a step graph replays the same plan, and
+    reading them would sync the host), by the rule that
+    `scripts/flash_prefill_plans.py` checked at the port's shapes
+    (PERF.md section 6).  Rows: the body whose busiest SM walks
+    the fewest (query, head) rows in series, ceil(CTAs / SMs) x rows,
+    ties to the most rows (each K/V tile read by more queries).  Splits,
+    only for calls that are not causal (every key of every row live, as
+    whisper's encoder and cross-attention): when the CTAs leave more than
+    a quarter of the SMs idle, each row's `n_keys` are cut into splits of
+    ceil(n_tiles / splits) tiles, as many as fill the SMs' CTA slots
+    without a second wave, none under `FLASH_MIN_SPLIT_TILES` tiles, so
+    every split owns at least one tile.  A causal call's live keys are a
+    prefix of `n_keys` that only the kernel sees (a chunk early in its
+    cache has few), so splits cut over `n_keys` would run empty there."""
+    if Sq <= 0 or H <= 0 or K <= 0 or H % K:
+        raise ValueError(f"bad shape Sq={Sq} H={H} K={K}")
+    sms = config.sm_count
+
+    def busiest(rows):
+        return -(-B * _cta_rows(Sq, H, K, rows) // sms) * rows
+    rows = min(sorted(config.ctas_per_sm, reverse=True), key=busiest)
+    ctas = B * _cta_rows(Sq, H, K, rows)
+    if causal or 4 * ctas > 3 * sms:
+        return rows, 1
+    n_tiles = max(1, -(-n_keys // config.keys))
+    want = max(1, config.ctas_per_sm[rows] * sms // ctas)
+    per = max(FLASH_MIN_SPLIT_TILES, -(-n_tiles // want))
+    return rows, -(-n_tiles // per)
 
 
 def flash_prefill_plain(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
@@ -131,21 +214,38 @@ def _check_keys(q, n_keys: int) -> None:
                          f"{MAX_BF16_KEYS}")
 
 
+def flash_plan(q, n_keys: int, K: int, causal: bool, paged: bool,
+               config: FlashConfig | None = None) -> tuple[int, int]:
+    """The (rows, splits) a wrapper call passes for q over `n_keys` keys
+    of K kv heads: `flash_splits` with q's card's `flash_config` (or
+    `config`); the fp32 body takes (64, 1)."""
+    if q.dtype != torch.bfloat16:
+        return 64, 1
+    B, Sq, H, hd = q.shape
+    if config is None:
+        config = flash_config(q.device, hd, paged)
+    return flash_splits(B, Sq, H, K, n_keys, causal, config)
+
+
 def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,
                   window: int = 0):
     """Contiguous packed-varlen entry (shapes as the plain version).
     Head dims 64, 120 and 128 (`HEAD_DIMS`; 120 runs the 128-wide bf16
     body with the padding zeroed)."""
     if q.device.type in PLAIN_DEVICES:
+        flash_prefill.last_plan = None
         return flash_prefill_plain(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
                                    causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     check_flash_args(q, k, v, q_pos, kv_pos, q_seg, kv_seg)
+    rows, n_split = flash_plan(q, k.shape[1], k.shape[2], bool(causal),
+                               paged=False)
     out = load_kernels().flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
                                        bool(causal), int(window),
-                                       q.shape[-1] ** -0.5)
+                                       q.shape[-1] ** -0.5, rows, n_split)
     flash_prefill.launches += 1
+    flash_prefill.last_plan = (rows, n_split)
     if not causal:
         flash_prefill.launches_noncausal += 1
     return out
@@ -157,15 +257,19 @@ def paged_prefill_attention(q, k_pool, v_pool, kv_pos_pool, block_tab,
     and 128 (`PAGED_HEAD_DIMS`); the kernel walks logical blocks
     0 .. max(positions) // bs only."""
     if q.device.type in PLAIN_DEVICES:
+        paged_prefill_attention.last_plan = None
         return paged_prefill_attention_plain(q, k_pool, v_pool, kv_pos_pool,
                                              block_tab, positions, window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     check_paged_args(q, k_pool, v_pool, kv_pos_pool, block_tab, positions)
+    rows, n_split = flash_plan(q, block_tab.shape[1] * k_pool.shape[1],
+                               k_pool.shape[2], True, paged=True)
     out = load_kernels().paged_prefill_attention(
         q, k_pool, v_pool, kv_pos_pool, block_tab, positions, int(window),
-        q.shape[-1] ** -0.5)
+        q.shape[-1] ** -0.5, rows, n_split)
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.last_plan = (rows, n_split)
     return out
 
 
@@ -244,4 +348,6 @@ def flash_prefill_train(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
 
 flash_prefill.launches = 0
 flash_prefill.launches_noncausal = 0
+flash_prefill.last_plan = None
 paged_prefill_attention.launches = 0
+paged_prefill_attention.last_plan = None

@@ -299,6 +299,188 @@ def test_paged_prefill_kernel_edges(dev, dtype, hd, H, K, Sc, window):
 
 
 # ---------------------------------------------------------------------------
+# kernel #2's bf16 body (wgmma, a TMA/cp.async ring, a split over keys for
+# few-query grids): not causal at whisper's kinds of shapes, every G and
+# head dim, dead keys holding NaN, padding rows split and unsplit, and a
+# split call replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _cross_case(g, B, Sq, Skv, H, K, hd, dev):
+    """Not causal: every position 0 and segment 0 (cross-attention)."""
+    q = _rand(g, (B, Sq, H, hd), torch.bfloat16, dev)
+    k = _rand(g, (B, Skv, K, hd), torch.bfloat16, dev)
+    v = _rand(g, (B, Skv, K, hd), torch.bfloat16, dev)
+    qp = torch.zeros(B, Sq, dtype=torch.int32, device=dev)
+    kp = torch.zeros(B, Skv, dtype=torch.int32, device=dev)
+    return q, k, v, qp, kp, qp.clone(), kp.clone()
+
+
+@pytest.mark.parametrize("Skv", [1, 63, 64, 65, 1500])
+@pytest.mark.parametrize("Sq", [1, 2, 16, 17, 64, 77, 1500])
+def test_flash_bf16_not_causal_shapes(dev, Sq, Skv):
+    """Whisper's head dim and G = 1 at every query count the body takes
+    a different plan for (64-row CTAs split over keys, 64 and 192-row
+    CTAs unsplit) over key counts around the 64-key tile."""
+    g = torch.Generator().manual_seed(Sq * 7 + Skv)
+    ins = _cross_case(g, 2, Sq, Skv, 4, 4, 64, dev)
+    before = flash_prefill.launches
+    out = flash_prefill(*ins, causal=False)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    ref = flash_prefill_plain(*[t.float() for t in ins[:3]], *ins[3:],
+                              causal=False)
+    _assert_close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 7])
+@pytest.mark.parametrize("Sq,Skv", [(17, 1500), (77, 65), (300, 300)])
+def test_flash_bf16_groups_and_head_dims(dev, hd, G, Sq, Skv):
+    """G query heads a kv head (packed into a CTA's rows when G divides
+    them, one head a CTA at 7) at head dims 64, 120 and 128, not causal,
+    and causal on the square case."""
+    g = torch.Generator().manual_seed(G * 100 + hd + Sq)
+    K = 2
+    ins = list(_cross_case(g, 2, Sq, Skv, G * K, K, hd, dev))
+    causal = Sq == Skv
+    if causal:
+        ins[3] = torch.arange(Sq, dtype=torch.int32, device=dev).repeat(2, 1)
+        ins[4] = ins[3].clone()
+    out = flash_prefill(*ins, causal=causal)
+    ref = flash_prefill_plain(*[t.float() for t in ins[:3]], *ins[3:],
+                              causal=causal)
+    _assert_close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bf16_dead_keys_hold_nan(dev, hd):
+    """Keys with kv_pos < 0 or segment -1 are never read: NaN planted in
+    their K/V rows (tiles partly alive, so both the TMA and the cp.async
+    paths run) leaves the output finite and equal to the plain version
+    on zeroed rows."""
+    g = torch.Generator().manual_seed(hd)
+    B, Sq, S, H, K = 2, 117, 320, 8, 4
+    q, k, v, qp, kvp, qs, ks = _extend_case(g, Sq, 40, S, K, hd,
+                                            torch.bfloat16, dev, H)
+    ks[0, 100:110] = -1
+    kvp[0, 30:35] = -1
+    dead = (kvp < 0) | (ks < 0)
+    kn, vn = k.clone(), v.clone()
+    kn[dead] = float("nan")
+    vn[dead] = float("nan")
+    kz, vz = k.clone(), v.clone()
+    kz[dead] = 0
+    vz[dead] = 0
+    for causal in (True, False):
+        out = flash_prefill(q, kn, vn, qp, kvp, qs, ks, causal)
+        assert bool(torch.isfinite(out).all())
+        ref = flash_prefill_plain(q.float(), kz.float(), vz.float(), qp, kvp,
+                                  qs, ks, causal)
+        _assert_close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_flash_bf16_padding_rows_zero_split_or_not(dev, rows, n_split):
+    """Through the binding at a forced plan: a padding query row (segment
+    -1), a row whose keys are all padding, and splits whose keys are all
+    dead (row 1's first 192 keys) give exactly 0 where the plain version
+    does, never NaN, whatever the split count."""
+    from repro_torch.kernels.build import load_kernels
+    g = torch.Generator().manual_seed(rows + n_split)
+    B, Sq, Skv, H = 3, 16, 448, 4
+    q, k, v, qp, kp, qs, ks = _cross_case(g, B, Sq, Skv, H, H, 64, dev)
+    qs[0, 5] = -1                    # a padding query row
+    ks[2] = -1                       # every key of row 2 is padding
+    kp[1, :192] = -1                 # row 1's first splits all dead
+    out = load_kernels().flash_prefill(q, k, v, qp, kp, qs, ks, False, 0,
+                                       64 ** -0.5, rows, n_split)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    ref = flash_prefill_plain(q.float(), k.float(), v.float(), qp, kp, qs,
+                              ks, causal=False)
+    _assert_close(out, ref, torch.bfloat16)
+    assert float(out[0, 5].abs().max()) == 0.0
+    assert float(out[2].abs().max()) == 0.0
+
+
+def test_paged_bf16_holes_and_window(dev):
+    """The paged entry (bs 16, 64-key tiles of four pages) with -1 table
+    entries inside a row's range, a window, and a split forced through
+    the binding: dead pages are zero-filled, never read."""
+    from repro_torch.kernels.build import load_kernels
+    g = torch.Generator().manual_seed(5)
+    rows = [(300, 64), (150, 40)]
+    lens = [p0 + sc for p0, sc in rows]
+    kp, vp, kvp, tab = _paged_case(g, 2, 80, 16, 30, 4, 128, torch.bfloat16,
+                                   dev, lens)
+    tab[0, 3] = -1                   # a hole: its keys are dead
+    tab[1, 1] = -1
+    positions = torch.stack([
+        (p0 + torch.arange(64)).clamp(max=p0 + sc - 1) for p0, sc in rows
+    ]).to(torch.int32).to(dev)
+    q = _rand(g, (2, 64, 16, 128), torch.bfloat16, dev)
+    for window in (0, 100):
+        ref = paged_prefill_attention_plain(q.float(), kp.float(), vp.float(),
+                                            kvp, tab, positions, window)
+        out = paged_prefill_attention(q, kp, vp, kvp, tab, positions, window)
+        _assert_close(out, ref, torch.bfloat16)
+        for n_split in (2, 5):
+            out = load_kernels().paged_prefill_attention(
+                q, kp, vp, kvp, tab, positions, window, 128 ** -0.5, 64,
+                n_split)
+            _assert_close(out, ref, torch.bfloat16)
+
+
+def test_flash_bf16_split_call_replays_from_a_graph(dev):
+    """Whisper's decode-step cross-attention (a split plan and the merge
+    kernel, partials from torch.empty in the binding) captured in a CUDA
+    graph replays bit for bit as eager calls, on new data too."""
+    g = torch.Generator().manual_seed(9)
+    ins = _cross_case(g, 4, 1, 1500, 20, 20, 64, dev)
+    flash_prefill(*ins, causal=False)
+    assert flash_prefill.last_plan[1] > 1        # the split path
+    static = [t.clone() for t in ins]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_prefill(*static, causal=False)      # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_prefill(*static, causal=False)
+    for seed in (1, 2):
+        new = _cross_case(torch.Generator().manual_seed(seed), 4, 1, 1500,
+                          20, 20, 64, dev)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = flash_prefill(*new, causal=False)
+        assert torch.equal(out, eager)
+
+
+def test_flash_config_reads_the_compiled_bodies(dev):
+    """The bf16 planner's card figures come from the compiled kernels:
+    64-key tiles, 192-row bodies at head dim 64 only, no paged body at
+    head dim 120, at least one CTA an SM of every body and two of the
+    64-row body at head dim 64 (its launch bounds ask for two), and the
+    card's SM count."""
+    from repro_torch.kernels.flash_prefill.ops import flash_config
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for hd, paged, rows in ((64, False, {192, 128, 64}),
+                            (64, True, {192, 128, 64}),
+                            (128, False, {128, 64}), (128, True, {128, 64}),
+                            (120, False, {128, 64}), (120, True, set())):
+        cfg = flash_config(dev, hd, paged)
+        assert cfg.keys == 64 and cfg.sm_count == sms
+        assert set(cfg.ctas_per_sm) == rows
+        assert all(n >= 1 for n in cfg.ctas_per_sm.values())
+    assert flash_config(dev, 64, False).ctas_per_sm[64] >= 2
+
+
+# ---------------------------------------------------------------------------
 # kernel #1 (split-K over pages) at its design's edges
 # ---------------------------------------------------------------------------
 

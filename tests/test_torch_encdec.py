@@ -410,6 +410,7 @@ def test_chip_smoke_encdec_phase_rehearsed():
     w = rep["whisper-large-v3"]["expected"]
     assert w["flash_prefill_noncausal"] == 2 + 2 * (2 + cs.ENCDEC_STEPS)
     assert w["flash_prefill_noncausal_decode"] == 2 * cs.ENCDEC_STEPS
+    assert w["flash_prefill_noncausal_chunk"] == 2
     assert rep["whisper-large-v3"]["noncausal_per_decode_step"] == 0
     assert rep["internvl2-1b"]["expected"]["flash_prefill_noncausal"] == 0
 
@@ -438,3 +439,14 @@ def test_chip_smoke_full_kernel_phase_rehearsed(monkeypatch):
     assert max(r for _a, r in fp32) == 0.0
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
         assert key in out
+    # the cross-attention rows (the decode step's and the chunk's): their
+    # errors (bf16 and fp32) and figures, bound by K/V's bytes; each timed
+    # shape's plan is the one its call passed to the kernel, so none for
+    # the plain version here
+    for sq in (1, 16):
+        r = out["cross"][sq]
+        assert len(r["errs"]) == 2 and r["bound_by"] == "bytes"
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "shape"):
+            assert key in r
+        assert r["plan"] is None
+    assert out["plan"] is None
