@@ -329,6 +329,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 peak (no tensor cores)
+TF32_FLOPS = 495e12                # H100 SXM dense TF32 tensor peak
 # A kernel's output is held against its plain version on the same inputs
 # by max|out - ref| / max|ref| over each head vector of each token (see
 # `rel_err`).  In bf16 the output's own rounding moves an element by up
@@ -3326,6 +3327,8 @@ def kernel_items(dec, dense, pfx, fla, ssd, mixed, pd, ssm, pd_prefix,
              plain_ms=train["kernel"]["plain_ms"],
              bound_ms=train["kernel"]["bound_ms"],
              bound_by=train["kernel"]["bound_by"],
+             bound_peak="3xTF32 at 495 TFLOP/s",
+             bound_fma_ms=train["kernel"]["bound_fma_ms"],
              library_ms=train["kernel"]["library_ms"],
              library_wall_ms=train["kernel"]["library_wall_ms"],
              backward_ms=train["kernel"]["backward_ms"],
@@ -5084,8 +5087,10 @@ def time_flash_train(device, B=TRAIN_BATCH, S=TRAIN_SEQ, H=36, hd=64):
     """#2's contiguous entry at the training forward's shape (causal, fp32,
     H = K, one segment): the kernel against its plain version, its device
     and wall ms, the plain version's, SDPA's (causal, no mask), the
-    backward's (`flash_prefill_backward`, torch ops) and the bound
-    (flops over the fp32 peak, or bytes over HBM)."""
+    backward's (`flash_prefill_backward`, torch ops) and the bound: the
+    body's three TF32 products (3xTF32) over the TF32 tensor peak, or
+    bytes over HBM; `bound_fma_ms` is the same work once over the fp32
+    FMA peak, the bound of an fp32 body without tensor cores."""
     import torch
     from repro_torch.kernels.flash_prefill import (
         flash_prefill, flash_prefill_backward, flash_prefill_plain)
@@ -5118,11 +5123,16 @@ def time_flash_train(device, B=TRAIN_BATCH, S=TRAIN_SEQ, H=36, hd=64):
     nbytes, flops = attention_work(
         q, 2 * k.numel() * esz, B * S * (S + 1) // 2, q.numel() * esz,
         extra=4 * (2 * qp.numel() + 2 * kp.numel()))
-    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, FP32_FLOPS)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * flops, TF32_FLOPS)
+    out["bound_fma_ms"], _ = bound(nbytes, flops, FP32_FLOPS)
     out["shape"] = (f"B={B} Sq=Skv={S} H=K={H} hd={hd} fp32, causal "
                     f"(minicpm-2b's training forward; SDPA is_causal, no "
-                    f"mask; bound at the fp32 peak)")
+                    f"mask; bound: 3xTF32 at the TF32 peak)")
     report_timing("[flash prefill train]", out)
+    print(f"[flash prefill train] bound 3xTF32 at 495 TFLOP/s "
+          f"{out['bound_ms']!r} ms ({out['bound_by']}); the same work at "
+          f"the 67 TFLOP/s fp32 FMA peak {out['bound_fma_ms']!r} ms",
+          flush=True)
     print(f"[flash prefill train] backward (torch ops) ms="
           f"{out['backward_ms']!r} wall_ms={out['backward_wall_ms']!r}",
           flush=True)

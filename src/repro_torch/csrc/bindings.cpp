@@ -174,14 +174,16 @@ at::Tensor paged_prefill_attention(const at::Tensor& q,
   return out;
 }
 
-// The bf16 body's CTAs an SM on card `device` (see kernels.h).
-int64_t flash_bf16_ctas_per_sm(int64_t device, int64_t hd, bool paged,
-                               int64_t rows) {
+// The CTAs an SM of the fp32 or bf16 body on card `device` (see
+// kernels.h).
+int64_t flash_ctas_per_sm(int64_t device, int64_t hd, bool paged,
+                          int64_t rows, bool fp32) {
   const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
   int ctas = 0;
-  check_launch(flash_bf16_occupancy(static_cast<int>(hd), paged ? 1 : 0,
-                                    static_cast<int>(rows), &ctas),
-               "flash_bf16_ctas_per_sm");
+  check_launch(flash_occupancy(fp32 ? kFloat32 : kBFloat16,
+                               static_cast<int>(hd), paged ? 1 : 0,
+                               static_cast<int>(rows), &ctas),
+               "flash_ctas_per_sm");
   return ctas;
 }
 
@@ -232,7 +234,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention);
   m.def("flash_prefill", &flash_prefill);
   m.def("paged_prefill_attention", &paged_prefill_attention);
-  m.def("flash_bf16_ctas_per_sm", &flash_bf16_ctas_per_sm);
-  m.def("flash_bf16_tile_keys", &flash_bf16_tile_keys);
+  m.def("flash_ctas_per_sm", &flash_ctas_per_sm);
+  m.def("flash_tile_keys", &flash_tile_keys);
   m.def("ssd_chunk", &ssd_chunk);
 }

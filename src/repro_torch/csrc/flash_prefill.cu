@@ -1,5 +1,5 @@
 // Flash prefill attention for Hopper (sm_90a): one kernel, two entries,
-// two bodies (bf16 on wgmma, fp32 by FMA).
+// one body on wgmma for bf16 and, as split-precision TF32, for fp32.
 //
 // Replaces: repro/kernels/flash_prefill/kernel.py flash_prefill_pallas
 //   (body _flash_kernel) -- entry launch_flash_prefill, contiguous
@@ -22,8 +22,12 @@
 //     3.35 TB/s), and a grid of 80 (head, row) CTAs that would leave 52
 //     of 132 SMs idle and walk 24 tiles each in series;
 //   and the serve's causal chunks (a 240-256-token chunk over about
-//   1000 keys, hd 128 and 120) sit between them.
-// The bf16 body, for both entries, causal or not, every head dim:
+//   1000 keys, hd 128 and 120) sit between them.  In fp32 (training)
+//   the products are three TF32 products each: operations, at 495
+//   TFLOP/s (minicpm-2b's training forward, 2 x 512 causal at 36 heads
+//   of 64: 3 x 2.42 GFLOP, 0.0147 ms).
+// The body, for both entries, causal or not, every head dim (bf16; the
+// fp32 paragraph below says what differs):
 //   * CTAs of 64, 128 or 192 (query, head) rows (192 at head dim 64
 //     only; flash_splits takes the count whose busiest SM walks the
 //     fewest rows, ceil(CTAs / SMs) x rows): one to three consumer
@@ -70,7 +74,7 @@
 //     CTAs that leave more than a quarter of the SMs idle, each row's
 //     keys are cut into ranges of whole tiles (flash_splits in ops.py,
 //     from the shapes and the CTAs an SM holds, which
-//     flash_bf16_occupancy reads from this file's compiled kernels, so
+//     flash_occupancy reads from this file's compiled kernels, so
 //     a step graph replays the same plan), each CTA writes fp32 (m, l,
 //     O) partials and launch_decode_merge (shared with #1 and #3)
 //     combines them; a row whose splits all have l = 0 comes out
@@ -93,18 +97,51 @@
 // first tile; 128-key tiles, an exp2 partly on the FMA pipes (as
 // FlashAttention-4) and a persistent grid would shorten them.
 //
-// The fp32 body keeps the FMA design of the first port (32-row query
-// tiles, 32-key fp32 tiles in shared memory, one head per CTA): the
-// tensor cores would need TF32, whose 10-bit mantissa cannot hold the
-// 1e-4 fp32 tolerance, and fp32 is the type of the CPU-parity server
-// tests and of training, not of the serve.  It skips the same tiles as
-// the bf16 body.  The wrapper picks the body by dtype alone.
+// The fp32 body is the same kernel instantiated for float: the same
+// producer, ring, pre-pass, tile skip, consumer order, rows by waves and
+// splits.  Both products run on the tensor cores as split-precision
+// TF32 (3xTF32): each operand x = big + small, big the nearest TF32
+// value (ties away from zero: what cvt.rna.tf32.f32 gives for finite x,
+// computed with an integer add and mask, as the cvt itself timed slow
+// on the split's path in development builds), small the exact fp32
+// remainder, of which the tensor cores read the leading TF32 bits;
+// small.big + big.small + big.big is summed, small.small dropped.  That
+// holds fp32's accuracy (about 1e-6 of a head vector's largest element,
+// where one TF32 product is 1e-3 off: tests/test_torch_flash_tf32.py)
+// whatever torch's allow_tf32 flag says.  What differs from bf16:
+//   * wgmma reads a TF32 operand from shared memory only K-major (no
+//     transpose bit) and only as it is stored, so every stage is split
+//     by the consumers once it lands: K in place into its big part and a
+//     small tile (K-major for S = Q.K^T as loaded); V transposed into
+//     V^T big and small tiles, the K-major B of O += P.V, each group of 8
+//     keys in the order 0 2 4 6 1 3 5 7, in which a thread's S columns
+//     (2t, 2t + 1) of each 8 are its A fragment's k-indices (t, t + 4),
+//     so P goes from the S registers into P.V's A operand (big and
+//     small) without a shuffle.  Q is split once a CTA, into two tiles.
+//   * a stage holds one tile's K and the previous live tile's V (raw V
+//     lands in the K-small slot and is transposed out of it before K's
+//     small part is written there), so S(i) and P.V(i-1), issued
+//     together, read one stage and free it together.  Four fp32 tiles a
+//     stage and Q's two tiles leave room for two stages at head dim 64
+//     and one at 128 (where a tile's loads wait for the previous tile),
+//     and for CTAs of 64 rows, or 128 at head dim 64.
+//   * the split is shared by every consumer warp of the CTA (two named
+//     barriers a tile) and sits on each tile's critical path, with the
+//     three products of each (m64n64k8 for S, both operands read from
+//     shared memory).
+// What it gives (chip_smoke.py and scripts/flash_prefill_plans.py,
+// PERF.md section 6): the training forward 3.4x faster than the FMA
+// body it replaces, and under SDPA's fp32 time; the other fp32 shapes
+// the FMA body served 4-6x faster.  What remains: a converter warpgroup
+// (the split off the consumers' path), Q.K^T with Q from registers, and
+// a third stage.  The wrapper picks the body by dtype alone.
 //
 // Head dims: 64 and 128 on both entries, and 120 (h2o-danube-3-4b) on
-// the contiguous entry.  At 120 the bf16 body runs the 128-wide layout:
-// TMA reads zeros past column 120, cp.async zero-fills the 16th chunk,
+// the contiguous entry.  At 120 the body runs the 128-wide layout: TMA
+// reads zeros past column 120, cp.async zero-fills the chunks past it,
 // zero columns add nothing to Q.K^T, and columns 120..127 of P.V are
-// never stored.  Rows stay 16-byte aligned: 120 bf16 are 240 bytes.
+// never stored.  Rows stay 16-byte aligned: 120 bf16 are 240 bytes, 120
+// fp32 480.
 //
 // Masks, as the reference: kv_pos < 0 (empty, or a -1 table entry),
 // causal on positions, the optional window, and on the contiguous entry
@@ -130,36 +167,6 @@ namespace {
 // shared pieces
 // ---------------------------------------------------------------------------
 
-// Position of key t for the tile-skip pre-pass and the row metadata:
-// through the block table (paged) or straight from kv_pos (contiguous).
-// *row gets the key's K/V row ((token * K) + kv head), or -1 when the key
-// has kv_pos < 0 (nothing of it is read).
-template <bool PAGED>
-__device__ __forceinline__ int key_meta(int t, int b, int kvh, int K,
-                                        int Skv, int bs, int nbt,
-                                        const int* __restrict__ kv_pos,
-                                        const int* __restrict__ kv_seg,
-                                        const int* __restrict__ block_tab,
-                                        int* row, int* seg) {
-  int kp = -1, r = -1, sg = -1;
-  if (PAGED) {
-    const int phys = block_tab[static_cast<size_t>(b) * nbt + t / bs];
-    if (phys >= 0) {
-      const long long tok = static_cast<long long>(phys) * bs + t % bs;
-      kp = kv_pos[tok];
-      r = static_cast<int>(tok * K + kvh);
-    }
-  } else if (t < Skv) {
-    const size_t at = static_cast<size_t>(b) * Skv + t;
-    kp = kv_pos[at];
-    sg = kv_seg[at];
-    r = static_cast<int>(static_cast<long long>(at) * K + kvh);
-  }
-  *row = kp >= 0 ? r : -1;
-  *seg = sg;
-  return kp;
-}
-
 // Whether a key at position kp can be valid for some query of a tile
 // whose valid rows span positions [qmin, qmax].
 __device__ __forceinline__ bool key_can_attend(int kp, int qmin, int qmax,
@@ -169,261 +176,64 @@ __device__ __forceinline__ bool key_can_attend(int kp, int qmin, int qmax,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 body: FMA from shared memory
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 32;          // query rows per CTA
-constexpr int kBK = 32;          // keys per shared-memory tile
-constexpr int kFlashThreads = 128;
-
-template <int HD>
-constexpr size_t flash_smem_bytes() {
-  // rowoff (int64) | Q, K, V tiles (fp32, padded rows) | P tile | kv pos,
-  // kv seg (int32)
-  return kBK * sizeof(long long) +
-         (kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * (kBK + 1)) *
-             sizeof(float) +
-         2 * kBK * sizeof(int);
-}
-
-template <int HD, bool PAGED>
-__global__ void __launch_bounds__(kFlashThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ q_pos,
-             const int* __restrict__ kv_pos, const int* __restrict__ q_seg,
-             const int* __restrict__ kv_seg,
-             const int* __restrict__ block_tab, float* __restrict__ out,
-             int Sq, int Skv, int H, int K, int bs, int nbt, int causal,
-             int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int PLD = kBK + 1;
-  constexpr int DPT = HD / 4;      // output dims per thread
-  constexpr int SPT = kBK / 4;     // scores per thread per tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  long long* rowoff = reinterpret_cast<long long*>(smem_raw);
-  float* Qs = reinterpret_cast<float*>(rowoff + kBK);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
-  int* kvp_s = reinterpret_cast<int*>(Ps + kBQ * PLD);
-  int* kvs_s = kvp_s + kBK;
-  __shared__ int s_qpos[kBQ];
-  __shared__ int s_qseg[kBQ];
-  __shared__ int s_qok[kBQ];
-  __shared__ int s_nkv, s_qmin, s_qmax;
-
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / K;
-  const int kvh = h / G;
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int quad = tid & 3;
-  const int q0 = qt * kBQ;
-
-  for (int idx = tid; idx < kBQ * HD; idx += kFlashThreads) {
-    const int r = idx / HD;
-    const int d = idx % HD;
-    const int qi = q0 + r;
-    Qs[r * LD + d] =
-        qi < Sq ? q[((static_cast<size_t>(b) * Sq + qi) * H + h) * HD + d]
-                : 0.f;
-  }
-  if (tid < kBQ) {
-    const int qi = q0 + tid;
-    const bool in = qi < Sq;
-    const size_t at = static_cast<size_t>(b) * Sq + qi;
-    const int seg = (!in || PAGED) ? 0 : q_seg[at];
-    s_qpos[tid] = in ? q_pos[at] : INT_MIN;
-    s_qseg[tid] = seg;
-    s_qok[tid] = in && seg >= 0;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int mn = INT_MAX, mx = INT_MIN;
-    for (int r = 0; r < kBQ; ++r)
-      if (s_qok[r]) {
-        mn = min(mn, s_qpos[r]);
-        mx = max(mx, s_qpos[r]);
-      }
-    int n = mx == INT_MIN ? 0 : Skv;     // no valid query row: nothing
-    // paged, causal: keys past the tile's largest position are all masked
-    if (PAGED) n = mx < 0 ? 0 : min(mx / bs + 1, nbt) * bs;
-    s_nkv = n;
-    s_qmin = mn;
-    s_qmax = mx;
-  }
-  __syncthreads();
-  const int n_kv = s_nkv;
-  const int qmin = s_qmin, qmax = s_qmax;
-  const int qp = s_qpos[row];
-  const int qs = s_qseg[row];
-  const bool qok = s_qok[row] != 0;
-
-  float m_i = kNegInf, l_i = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
-
-  for (int kv0 = 0; kv0 < n_kv; kv0 += kBK) {
-    bool can = false;
-    if (tid < kBK) {
-      const int t = kv0 + tid;
-      int p = -1, sg = -1, r = -1;
-      if (t < n_kv)
-        p = key_meta<PAGED>(t, b, kvh, K, Skv, bs, nbt, kv_pos, kv_seg,
-                            block_tab, &r, &sg);
-      rowoff[tid] = r;
-      kvp_s[tid] = p;
-      kvs_s[tid] = sg;
-      can = key_can_attend(p, qmin, qmax, causal, window);
-    }
-    // a tile no query of this CTA can attend to is skipped whole (every
-    // thread gets the same answer, and the previous tile's last barrier
-    // already ordered its reads of these buffers)
-    if (!__syncthreads_or(can)) continue;
-    for (int idx = tid; idx < kBK * HD; idx += kFlashThreads) {
-      const int r = idx / HD;
-      const int d = idx % HD;
-      const long long o = rowoff[r];
-      float kk = 0.f, vv = 0.f;
-      if (o >= 0) {
-        kk = k[o * HD + d];
-        vv = v[o * HD + d];
-      }
-      Ks[r * LD + d] = kk;
-      Vs[r * LD + d] = vv;
-    }
-    __syncthreads();
-
-    // scores of this thread's query row against keys quad + 4c
-    float s[SPT];
-#pragma unroll
-    for (int c = 0; c < SPT; ++c) s[c] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[row * LD + d];
-#pragma unroll
-      for (int c = 0; c < SPT; ++c) s[c] += qd * Ks[(quad + 4 * c) * LD + d];
-    }
-    unsigned ok_bits = 0u;
-    float tmax = kNegInf;
-#pragma unroll
-    for (int c = 0; c < SPT; ++c) {
-      const int j = quad + 4 * c;
-      const int kp = kvp_s[j];
-      const bool ok = qok && kp >= 0 && (!causal || qp >= kp) &&
-                      (window <= 0 || qp - kp < window) &&
-                      (PAGED || kvs_s[j] == qs);
-      s[c] *= scale;
-      if (ok) {
-        ok_bits |= 1u << c;
-        tmax = fmaxf(tmax, s[c]);
-      }
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m_i, tmax);
-    const float alpha = expf(m_i - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int c = 0; c < SPT; ++c) {
-      const float p = (ok_bits >> c) & 1u ? expf(s[c] - m_new) : 0.f;
-      Ps[row * PLD + quad + 4 * c] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-    __syncwarp();   // the row's P entries come from the 4 lanes of its quad
-
-#pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) acc[jj] *= alpha;
-    for (int j = 0; j < kBK; ++j) {
-      const float p = Ps[row * PLD + j];
-#pragma unroll
-      for (int jj = 0; jj < DPT; ++jj) acc[jj] += p * Vs[j * LD + quad + 4 * jj];
-    }
-    __syncthreads();   // before the next tile overwrites K, V and P
-  }
-
-  const int qi = q0 + row;
-  if (qi < Sq) {
-    float* op = out + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD;
-#pragma unroll
-    for (int jj = 0; jj < DPT; ++jj)
-      op[quad + 4 * jj] = l_i > 0.f ? acc[jj] / l_i : 0.f;
-  }
-}
-
-template <int HD, bool PAGED>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                        const int* q_pos, const int* kv_pos,
-                        const int* q_seg, const int* kv_seg,
-                        const int* block_tab, void* out, int B, int Sq,
-                        int Skv, int H, int K, int bs, int nbt, int causal,
-                        int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<HD>();
-  auto kern = flash_kernel<HD, PAGED>;
-  const cudaError_t attr = allow_dynamic_smem(
-      reinterpret_cast<const void*>(kern), static_cast<int>(smem));
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kFlashThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), q_pos, kv_pos, q_seg, kv_seg, block_tab,
-      static_cast<float*>(out), Sq, Skv, H, K, bs, nbt, causal, window,
-      scale);
-  return cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// bf16 body: wgmma on the tensor cores, a producer warp filling a K/V ring
+// the body: wgmma on the tensor cores, a producer warp filling a K/V ring
 // ---------------------------------------------------------------------------
 
 constexpr int kKeys = 64;            // keys per K/V tile
 constexpr int kWgRows = 64;          // query rows per consumer warpgroup
 constexpr int kWindowTiles = 32;     // K/V tiles one pre-pass summarises
-constexpr int kBlockBytes = kKeys * 128;   // one 64-column block of a tile
+constexpr int kBlockBytes = kKeys * 128;   // a 128-byte column block
 constexpr int kPreUnroll = 8;        // half-tiles a warp summarises at once
 constexpr int kPrefetchTiles = 8;    // tiles a CTA prefetches into L2
 
-// The bf16 body's head dim: whole 64-column (128-byte) blocks.
+// The body's head dim: whole 64-column blocks.
 constexpr int mma_hd(int hd) { return (hd + 63) / 64 * 64; }
 
-// Shared memory of a CTA with NWG consumer warpgroups at head dim HDP:
-// Q (64 rows a warpgroup) | the ring's K, V tiles | a window's key
-// positions (-1: dead) and segments, its summaries (one int4 per 32
-// keys) and its live tiles | the ring's full and empty barriers.  Tiles
-// are 64-column blocks of 128-byte rows, 1024-byte aligned, in the
-// 128-byte swizzle of TMA and of wgmma's descriptors.
-template <int HDP, int NWG>
+// Shared memory of a CTA of element type T with NWG consumer warpgroups
+// at head dim HDP: Q (64 rows a warpgroup; fp32: its tf32 big, then
+// small part) | the ring's stages | a window's key positions (-1: dead)
+// and segments, its summaries (one int4 per 32 keys) and its live tiles
+// | the ring's full and empty barriers.  A bf16 stage is one tile's K
+// and V; an fp32 stage is K's big and small parts, then V^T's big and
+// small parts (see the source note).  Tiles are 128-byte column blocks
+// of 128-byte rows, 1024-byte aligned, in the 128-byte swizzle of TMA
+// and of wgmma's descriptors.
+template <typename T, int HDP, int NWG>
 struct WgCfg {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int kThreads = NWG * 128 + 32;   // + the producer warp
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kRows = NWG * kWgRows;
-  // two CTAs an SM for one warpgroup at 64 columns, else one (the
-  // pipelined consumer's registers; a four-stage ring)
-  static constexpr int kMinBlocks = (NWG == 1 && HDP == 64) ? 2 : 1;
-  static constexpr int kStages = 4;
-  static constexpr int kQBytes = kRows * HDP * 2;
-  static constexpr int kTileBytes = kKeys * HDP * 2;
+  // two CTAs an SM for one bf16 warpgroup at 64 columns, else one (the
+  // pipelined consumer's registers; shared memory)
+  static constexpr int kMinBlocks = (!kF32 && NWG == 1 && HDP == 64) ? 2 : 1;
+  // bf16: a four-stage ring; an fp32 stage is four tiles of twice the
+  // bytes, so two stages at head dim 64 and one at 128
+  static constexpr int kStages = kF32 ? (HDP == 64 ? 2 : 1) : 4;
+  static constexpr int kQTileBytes = kWgRows * HDP * int(sizeof(T));
+  static constexpr int kQBytes = NWG * kQTileBytes * (kF32 ? 2 : 1);
+  static constexpr int kTileBytes = kKeys * HDP * int(sizeof(T));
+  static constexpr int kStageBytes = (kF32 ? 4 : 2) * kTileBytes;
   static constexpr int kKVOff = kQBytes;
-  static constexpr int kPosOff = kKVOff + kStages * 2 * kTileBytes;
+  static constexpr int kPosOff = kKVOff + kStages * kStageBytes;
   static constexpr int kSegOff = kPosOff + kWindowTiles * kKeys * 4;
   static constexpr int kSumOff = kSegOff + kWindowTiles * kKeys * 4;
   static constexpr int kListOff = kSumOff + 2 * kWindowTiles * 16;
   static constexpr int kBarOff = kListOff + kWindowTiles * 4;
   static constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;  // + align
   static_assert(kQBytes % 1024 == 0 && kTileBytes % 1024 == 0, "align");
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
 };
 
-// Byte offset of 16-byte chunk c of row r in a tile of 64 rows: 64-column
-// blocks of 128-byte rows, chunk c % 8 stored at (c % 8) ^ (r % 8) (the
-// 128-byte swizzle, on a 1024-byte aligned base).
+// Byte offset of 16-byte chunk c of row r in a tile of ROWS rows:
+// 128-byte column blocks of 128-byte rows, chunk c % 8 stored at (c % 8)
+// ^ (r % 8) (the 128-byte swizzle, on a 1024-byte aligned base).  ROWS
+// is a template argument so that the 64-row form folds to a constant
+// block stride before ptxas sees it (as a runtime argument the bf16
+// producer's addresses came out in a different order).
+template <int ROWS = kKeys>
 __device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address,
@@ -542,6 +352,13 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
+// Barrier of all NWG consumer warpgroups (named barrier NWG + 1).
+template <int NWG>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(NWG + 1), "n"(NWG * 128)
+               : "memory");
+}
+
 __device__ __forceinline__ float ex2(float x) {   // 2^x, -inf -> 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -553,102 +370,124 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// d (+)= A * B^T: A (64 x 16) and B (N x 16) K-major in shared memory
-// (descriptors da, db); scale_d = 0 overwrites d.
+// x = big + small for 3xTF32: big the nearest TF32 value, ties away
+// from zero (cvt.rna.tf32.f32's value for finite x: half of the 13
+// dropped bits added to the magnitude, then dropped), small the exact
+// fp32 remainder, of which the tensor cores read the leading TF32 bits.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+__device__ __forceinline__ void split_tf32(const float4& x, float4& big,
+                                           float4& small) {
+  unsigned b[4], s[4];
+  split_tf32(x.x, b[0], s[0]);
+  split_tf32(x.y, b[1], s[1]);
+  split_tf32(x.z, b[2], s[2]);
+  split_tf32(x.w, b[3], s[3]);
+  big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                    __uint_as_float(b[2]), __uint_as_float(b[3]));
+  small = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                      __uint_as_float(s[2]), __uint_as_float(s[3]));
+}
+
+// The accumulator operands of an m64nN product: N / 8 tiles of 4.
+#define REPRO_D8(d)                                                        \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),             \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),         \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),         \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),         \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),         \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),         \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),         \
+      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define REPRO_D16(d)                                                       \
+  REPRO_D8(d), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),               \
+      "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]),         \
+      "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]),      \
+      "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]),     \
+      "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]),     \
+      "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),     \
+      "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]),     \
+      "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]),     \
+      "+f"(d[15][3])
+#define REPRO_R32                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define REPRO_R64                                                          \
+  REPRO_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
+            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "  \
+            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// S (+)= A * B^T over one 32-byte k-step (16 bf16 or 8 tf32): A (64 rows)
+// and B (64 rows) K-major in shared memory (descriptors da, db);
+// scale_d = 0 overwrites S.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
                                             uint64_t da, uint64_t db,
                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, float>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{" REPRO_R32 "}, %32, %33, p, 1, 1;\n}\n"
+        : REPRO_D8(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" REPRO_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : REPRO_D8(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
-// d += A * B: A (64 x 16 bf16) in registers in the accumulator's
-// layout, B (16 x N) N-major in shared memory (descriptor db, transpose
-// bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
-                                            const unsigned (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A * B: A (64 x 16 bf16) in registers in the accumulator's
-// layout, B (16 x N) N-major in shared memory (descriptor db, transpose
-// bit set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
-                                            const unsigned (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
+// O += A * B over one 32-byte k-step: A (64 rows) from registers in the
+// accumulator's layout (bf16 pairs) or in tf32's A-fragment layout, B
+// (N columns) in shared memory: bf16 N-major (descriptor with the
+// transpose bit), tf32 K-major (no transpose exists for tf32).
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
                                          const unsigned (&a)[4],
                                          uint64_t db) {
-  if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, db);
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if constexpr (N == 64 && F32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{" REPRO_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : REPRO_D8(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" REPRO_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : REPRO_D8(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (F32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{" REPRO_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : REPRO_D16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   } else {
-    wgmma_rs_n128(d, a, db);
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" REPRO_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : REPRO_D16(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 }
+#undef REPRO_D8
+#undef REPRO_D16
+#undef REPRO_R32
+#undef REPRO_R64
 
 // One CTA: NWG * 64 (query, head) rows of one kv head over one split's
 // range of key tiles.  Warps 0 .. 4 NWG - 1 are the consumer
@@ -662,34 +501,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
 // segment, whether all its keys are alive and whether some query can
 // attend to one), then stream its live tiles.  With n_split > 1 each
 // CTA writes its rows' fp32 (m, l, O) partials for launch_decode_merge.
-template <int HD, bool PAGED, int NWG>
-__global__ void __launch_bounds__(WgCfg<mma_hd(HD), NWG>::kThreads,
-                                  WgCfg<mma_hd(HD), NWG>::kMinBlocks)
-flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const int* __restrict__ q_pos,
+// T = float runs both products as 3xTF32: an fp32 stage holds one
+// tile's K and the previous live tile's V, each split into tf32 big and
+// small tiles by the consumers once it lands (V transposed, as tf32's B
+// operand must be K-major), so S(i) and P.V(i-1) read one stage.
+template <typename T, int HD, bool PAGED, int NWG>
+__global__ void __launch_bounds__(WgCfg<T, mma_hd(HD), NWG>::kThreads,
+                                  WgCfg<T, mma_hd(HD), NWG>::kMinBlocks)
+flash_kernel_wg(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ q_pos,
                 const int* __restrict__ kv_pos,
                 const int* __restrict__ q_seg,
                 const int* __restrict__ kv_seg,
-                const int* __restrict__ block_tab,
-                __nv_bfloat16* __restrict__ out,
+                const int* __restrict__ block_tab, T* __restrict__ out,
                 float* __restrict__ part_ml, float* __restrict__ part_acc,
                 int Sq, int Skv, int H, int K, int bs, int nbt, int causal,
                 int window, float scale_log2, float scale, int gp,
                 int n_split, int split_tiles,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, int use_tma) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int HDP = mma_hd(HD);     // the body's head dim
-  using C = WgCfg<HDP, NWG>;
+  using C = WgCfg<T, HDP, NWG>;
   constexpr int ROWS = C::kRows;
   constexpr int NW = C::kWarps;
   constexpr int S = C::kStages;
-  constexpr int KSTEPS = HDP / 16;    // k-steps of Q.K^T
+  constexpr int E16 = 16 / int(sizeof(T));   // elements in 16 bytes
+  constexpr int KSTEPS = HDP / (2 * E16);    // 32-byte k-steps of Q.K^T
+  constexpr int PSTEPS = kKeys / (2 * E16);  // ... of P.V
   constexpr int NT_S = kKeys / 8;     // 8-column tiles of a score tile
   constexpr int NT_O = HDP / 8;       // ... of the output
-  constexpr int CPR = HDP / 8;        // 16-byte chunks of a shared row
-  constexpr int CPR_IN = HD / 8;      // ... of them read from a global row
+  constexpr int CPR = HDP / E16;      // 16-byte chunks of a shared row
+  constexpr int CPR_IN = HD / E16;    // ... of them read from a global row
+  constexpr int NBLK = CPR / 8;       // 128-byte column blocks of a row
   static_assert(HD % 8 == 0 && HDP % 64 == 0, "head dim");
 
   extern __shared__ unsigned char smem_raw[];
@@ -727,7 +571,9 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
   }
 
   // ---- Q rows (row R = query q0 + R / gp, head h0 + R % gp) -> smem ----
-  unsigned char* qtile = sm + wg * (kWgRows * HDP * 2);
+  // (fp32: the rows as loaded become their tf32 big part, and the small
+  // part follows in a tile of its own)
+  unsigned char* qtile = sm + wg * C::kQBytes / NWG;
   if (!producer) {
     for (int idx = gtid; idx < kWgRows * CPR; idx += 128) {
       const int r = idx / CPR;
@@ -735,9 +581,9 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
       const int R = wg * kWgRows + r;
       const int qi = q0 + R / gp;
       const bool in = qi < Sq && c < CPR_IN;   // zero-fill the padding
-      const __nv_bfloat16* src =
+      const T* src =
           in ? q + ((static_cast<size_t>(b) * Sq + qi) * H + h0 + R % gp) *
-                           HD + c * 8
+                           HD + c * E16
              : q;
       cp_async16(qtile + swz(r, c), src, in ? 16 : 0);
     }
@@ -752,9 +598,9 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
     const int t_last = min((Skv + kKeys - 1) / kKeys, t_begin + split_tiles);
     for (int t = t_begin; t < min(t_last, t_begin + kPrefetchTiles); ++t)
 #pragma unroll
-      for (int blk = 0; blk < HDP / 64; ++blk) {
-        tma_prefetch_4d(&tm_k, blk * 64, kvh, t * kKeys, b);
-        tma_prefetch_4d(&tm_v, blk * 64, kvh, t * kKeys, b);
+      for (int blk = 0; blk < NBLK; ++blk) {
+        tma_prefetch_4d(&tm_k, blk * 8 * E16, kvh, t * kKeys, b);
+        tma_prefetch_4d(&tm_v, blk * 8 * E16, kvh, t * kKeys, b);
       }
   }
 
@@ -890,72 +736,166 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
     if (producer) {
       // ---- producer: the window's live tiles into the ring, in order;
       // it reads the pre-pass's positions, and the block table only on
-      // the paged entry ----
-      for (int i = 0; i < n_live; ++i) {
-        const int j = list[i];
-        const int s = (it + i) % S;
-        const int use = (it + i) / S;
-        const int t0 = (j - w0) * kKeys;        // the tile in the window
-        if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
-        unsigned char* kd = sm + C::kKVOff + s * 2 * C::kTileBytes;
-        unsigned char* vd = kd + C::kTileBytes;
-        if (use_tma && (hsum[2 * (j - w0)].w & hsum[2 * (j - w0) + 1].w &
-                        2)) {
-          // every key alive (contiguous entry): TMA boxes of 64 columns
-          // by the tile's 64 keys, issued by lane 0
-          if (lane == 0) {
-            mbar_arrive_expect(full + s, 2 * C::kTileBytes);
+      // the paged entry.  A tile whose keys are all alive (contiguous
+      // entry) comes by TMA: boxes of 128 bytes of columns by its 64
+      // keys, issued by lane 0; any other by cp.async ----
+      auto alive = [&](int j) {
+        return use_tma &&
+               (hsum[2 * (j - w0)].w & hsum[2 * (j - w0) + 1].w & 2) != 0;
+      };
+      auto tma_tile = [&](unsigned char* dst, const CUtensorMap* map,
+                          int j, uint64_t* bar) {
 #pragma unroll
-            for (int blk = 0; blk < HDP / 64; ++blk) {
-              tma_load_4d(kd + blk * kBlockBytes, &tm_k, blk * 64, kvh,
-                          j * kKeys, b, full + s);
-              tma_load_4d(vd + blk * kBlockBytes, &tm_v, blk * 64, kvh,
-                          j * kKeys, b, full + s);
+        for (int blk = 0; blk < NBLK; ++blk)
+          tma_load_4d(dst + blk * kBlockBytes, map, blk * 8 * E16, kvh,
+                      j * kKeys, b, bar);
+      };
+      // lane l finds the rows of tile j's keys l and l + 32 (-1: dead)
+      auto key_rows = [&](int j, int (&row)[2]) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int key = lane + 32 * u;
+          const int t = j * kKeys + key;
+          row[u] = -1;
+          if (wpos[(j - w0) * kKeys + key] >= 0) {
+            long long tok = static_cast<long long>(b) * Skv + t;
+            if (PAGED)
+              tok = static_cast<long long>(
+                        block_tab[static_cast<size_t>(b) * nbt + t / bs]) *
+                        bs + t % bs;
+            row[u] = static_cast<int>(tok * K + kvh);
+          }
+        }
+      };
+      // ... then copies chunk l % 8 of each 128-byte block of keys l / 8
+      // + 4 i of src (8 lanes read a key's 128 bytes); dead keys and the
+      // padding of hd 120 are zero-filled
+      auto cp_tile = [&](unsigned char* dst, const T* src,
+                         const int (&row)[2]) {
+#pragma unroll
+        for (int i2 = 0; i2 < kKeys / 4; ++i2) {
+          const int key = (lane >> 3) + 4 * i2;
+          const int r = __shfl_sync(0xffffffffu, row[i2 / 8], key & 31);
+          const size_t base = r >= 0 ? static_cast<size_t>(r) * HD : 0;
+#pragma unroll
+          for (int blk = 0; blk < NBLK; ++blk) {
+            const int c = (lane & 7) + 8 * blk;
+            const bool ld = r >= 0 && c < CPR_IN;
+            const size_t off = ld ? base + c * E16 : 0;
+            cp_async16(dst + swz(key, c), src + off, ld ? 16 : 0);
+          }
+        }
+      };
+      if constexpr (!F32) {
+        for (int i = 0; i < n_live; ++i) {
+          const int j = list[i];
+          const int s = (it + i) % S;
+          const int use = (it + i) / S;
+          const int t0 = (j - w0) * kKeys;        // the tile in the window
+          if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+          unsigned char* kd = sm + C::kKVOff + s * C::kStageBytes;
+          unsigned char* vd = kd + C::kTileBytes;
+          if (use_tma && (hsum[2 * (j - w0)].w & hsum[2 * (j - w0) + 1].w &
+                          2)) {
+            // every key alive (contiguous entry): TMA, issued by lane 0
+            if (lane == 0) {
+              mbar_arrive_expect(full + s, 2 * C::kTileBytes);
+#pragma unroll
+              for (int blk = 0; blk < NBLK; ++blk) {
+                tma_load_4d(kd + blk * kBlockBytes, &tm_k, blk * 8 * E16,
+                            kvh, j * kKeys, b, full + s);
+                tma_load_4d(vd + blk * kBlockBytes, &tm_v, blk * 8 * E16,
+                            kvh, j * kKeys, b, full + s);
+              }
+            } else {
+              mbar_arrive(full + s);
             }
+          } else {
+            // key_rows and cp_tile written out with K and V copied
+            // together: through the lambdas the paged entry timed slower
+            // in development builds
+            int row[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int key = lane + 32 * u;
+              const int t = j * kKeys + key;
+              row[u] = -1;
+              if (wpos[t0 + key] >= 0) {
+                long long tok = static_cast<long long>(b) * Skv + t;
+                if (PAGED)
+                  tok = static_cast<long long>(
+                            block_tab[static_cast<size_t>(b) * nbt +
+                                      t / bs]) * bs + t % bs;
+                row[u] = static_cast<int>(tok * K + kvh);
+              }
+            }
+#pragma unroll
+            for (int i2 = 0; i2 < kKeys / 4; ++i2) {
+              const int key = (lane >> 3) + 4 * i2;
+              const int r =
+                  __shfl_sync(0xffffffffu, row[i2 / 8], key & 31);
+              const size_t base =
+                  r >= 0 ? static_cast<size_t>(r) * HD : 0;
+#pragma unroll
+              for (int blk = 0; blk < NBLK; ++blk) {
+                const int c = (lane & 7) + 8 * blk;
+                const bool ld = r >= 0 && c < CPR_IN;
+                const size_t off = ld ? base + c * E16 : 0;
+                cp_async16(kd + swz(key, c), k + off, ld ? 16 : 0);
+                cp_async16(vd + swz(key, c), v + off, ld ? 16 : 0);
+              }
+            }
+            mbar_track_cp_async(full + s);
+            mbar_arrive(full + s);
+          }
+        }
+      } else {
+        // stage i: tile i's K (i < n_live) and tile i-1's V (i > 0), raw,
+        // in the stage's K-big and K-small slots, where the consumers
+        // split them
+        for (int i = 0; i < (n_live > 0 ? n_live + 1 : 0); ++i) {
+          const int s = (it + i) % S;
+          const int use = (it + i) / S;
+          if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
+          unsigned char* kd = sm + C::kKVOff + s * C::kStageBytes;
+          unsigned char* vd = kd + C::kTileBytes;
+          const bool has_k = i < n_live, has_v = i > 0;
+          const int jk = has_k ? list[i] : 0, jv = has_v ? list[i - 1] : 0;
+          const bool tk = has_k && alive(jk), tv = has_v && alive(jv);
+          int row[2];
+          if (has_k && !tk) {
+            key_rows(jk, row);
+            cp_tile(kd, k, row);
+          }
+          if (has_v && !tv) {
+            key_rows(jv, row);
+            cp_tile(vd, v, row);
+          }
+          if ((has_k && !tk) || (has_v && !tv))
+            mbar_track_cp_async(full + s);
+          // lane 0 arrives after its copies, expecting the TMA bytes
+          if (lane == 0 && (tk || tv)) {
+            mbar_arrive_expect(full + s, (tk + tv) * C::kTileBytes);
+            if (tk) tma_tile(kd, &tm_k, jk, full + s);
+            if (tv) tma_tile(vd, &tm_v, jv, full + s);
           } else {
             mbar_arrive(full + s);
           }
-        } else {
-          // lane l finds the rows of keys l and l + 32 (-1: dead), then
-          // copies chunk l % 8 of each 64-column block of keys l / 8 +
-          // 4 i (8 lanes read a key's 128 bytes); dead keys and the
-          // padding of hd 120 are zero-filled
-          int row[2];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int key = lane + 32 * u;
-            const int t = j * kKeys + key;
-            row[u] = -1;
-            if (wpos[t0 + key] >= 0) {
-              long long tok = static_cast<long long>(b) * Skv + t;
-              if (PAGED)
-                tok = static_cast<long long>(
-                          block_tab[static_cast<size_t>(b) * nbt + t / bs]) *
-                          bs + t % bs;
-              row[u] = static_cast<int>(tok * K + kvh);
-            }
-          }
-#pragma unroll
-          for (int i2 = 0; i2 < kKeys / 4; ++i2) {
-            const int key = (lane >> 3) + 4 * i2;
-            const int r = __shfl_sync(0xffffffffu, row[i2 / 8], key & 31);
-            const size_t base = r >= 0 ? static_cast<size_t>(r) * HD : 0;
-#pragma unroll
-            for (int blk = 0; blk < HDP / 64; ++blk) {
-              const int c = (lane & 7) + 8 * blk;
-              const bool ld = r >= 0 && c < CPR_IN;
-              const size_t off = ld ? base + c * 8 : 0;
-              cp_async16(kd + swz(key, c), k + off, ld ? 16 : 0);
-              cp_async16(vd + swz(key, c), v + off, ld ? 16 : 0);
-            }
-          }
-          mbar_track_cp_async(full + s);
-          mbar_arrive(full + s);
         }
       }
     } else if (n_live > 0) {
       if (!q_ready) {
         cp_async_wait<0>();     // this thread's Q copies have landed
+        if constexpr (F32) {    // ... split into tf32 big and small parts
+          for (int idx = gtid; idx < kWgRows * CPR; idx += 128) {
+            const int off = swz(idx / CPR, idx % CPR);
+            float4* x = reinterpret_cast<float4*>(qtile + off);
+            float4 big, small;
+            split_tf32(*x, big, small);
+            *x = big;
+            *reinterpret_cast<float4*>(qtile + C::kQTileBytes + off) = small;
+          }
+        }
         fence_proxy_async();
         wg_sync(wg);            // everyone's have
         q_ready = true;
@@ -965,29 +905,52 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
       // while P.V is on the tensor cores, and O is rescaled by tile i's
       // max change once that P.V has landed.  The first tile's S and the
       // last tile's P.V are peeled off the loop, so no wgmma is issued
-      // under a condition (ptxas would serialise them).
+      // under a condition (ptxas would serialise them).  fp32 runs each
+      // product as three tf32 products, small.big + big.small + big.big,
+      // small.small dropped (3xTF32).
       float sc[NT_S][4];                               // S, then P, of tile i
-      unsigned pa[kKeys / 16][4];                      // P of tile i-1
+      unsigned pa[PSTEPS][4];        // P of tile i-1 (fp32: its big part)
+      unsigned ps[F32 ? PSTEPS : 1][4];    // fp32: ... its small part
       float a0 = 1.f, a1 = 1.f;                       // tile i's max change
       auto stage_addr = [&](int st) {
-        return smem_addr(sm + C::kKVOff + st * 2 * C::kTileBytes);
+        return smem_addr(sm + C::kKVOff + st * C::kStageBytes);
       };
       auto s_issue = [&](int st) {
         const unsigned k_addr = stage_addr(st);
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
           const unsigned off = (kk >> 2) * kBlockBytes + (kk & 3) * 32;
-          wgmma_ss_n64(sc, wg_desc(q_addr + off, 16, 1024),
-                       wg_desc(k_addr + off, 16, 1024), kk > 0);
+          const uint64_t qd = wg_desc(q_addr + off, 16, 1024);
+          const uint64_t kd = wg_desc(k_addr + off, 16, 1024);
+          if constexpr (F32) {    // small.big, big.small, then big.big
+            wgmma_ss_n64<T>(
+                sc, wg_desc(q_addr + C::kQTileBytes + off, 16, 1024), kd,
+                kk > 0);
+            wgmma_ss_n64<T>(
+                sc, qd, wg_desc(k_addr + C::kTileBytes + off, 16, 1024), 1);
+          }
+          wgmma_ss_n64<T>(sc, qd, kd, F32 || kk > 0);
         }
         wg_commit();
       };
       auto pv_issue = [&](int st) {
-        const unsigned v_addr = stage_addr(st) + C::kTileBytes;
+        const unsigned v_addr =
+            stage_addr(st) + (F32 ? 2 : 1) * C::kTileBytes;
 #pragma unroll
-        for (int kk = 0; kk < kKeys / 16; ++kk)
-          wgmma_rs<HDP>(o, pa[kk],
-                        wg_desc(v_addr + kk * 16 * 128, kBlockBytes, 1024));
+        for (int kk = 0; kk < PSTEPS; ++kk) {
+          if constexpr (F32) {
+            // V^T: HDP rows of 64 keys, K-major, 32 keys a 128-byte block
+            const unsigned off = (kk >> 2) * (HDP * 128) + (kk & 3) * 32;
+            const uint64_t vb = wg_desc(v_addr + off, 16, 1024);
+            wgmma_rs<T, HDP>(o, ps[kk], vb);
+            wgmma_rs<T, HDP>(
+                o, pa[kk], wg_desc(v_addr + C::kTileBytes + off, 16, 1024));
+            wgmma_rs<T, HDP>(o, pa[kk], vb);
+          } else {
+            wgmma_rs<T, HDP>(
+                o, pa[kk], wg_desc(v_addr + kk * 16 * 128, kBlockBytes, 1024));
+          }
+        }
         wg_commit();
       };
       auto arrive_full = [&](int i) {
@@ -995,6 +958,72 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
         mbar_wait(full + st, ((it + i) / S) & 1);
         fence_proxy_async();
         return st;
+      };
+      // fp32: stage st's raw V (has_v, landed in the K-small slot)
+      // transposed into V^T big and small tiles, each group of 8 keys
+      // stored in the order 0 2 4 6 1 3 5 7, the order in which P's
+      // accumulator registers are its A fragments; then its raw K (has_k)
+      // split in place into its big part and a small tile.  Every
+      // consumer thread takes a share; they meet at a named barrier once
+      // all raw V is read and once the split tiles are written.
+      auto convert = [&](int st, bool has_k, bool has_v) {
+        if constexpr (F32) {
+          constexpr int NC = NWG * 128;
+          constexpr int NB = kKeys / 4 * CPR;     // 4 x 4 blocks of V
+          static_assert(NB % NC == 0 && kKeys * CPR % NC == 0, "shares");
+          unsigned char* kb = sm + C::kKVOff + st * C::kStageBytes;
+          unsigned char* ks = kb + C::kTileBytes;
+          unsigned char* vb = ks + C::kTileBytes;
+          unsigned char* vs = vb + C::kTileBytes;
+          // x[j] (keys k0 + 2j, columns 4c .. 4c + 3) -> V^T rows 4c + e,
+          // 16-byte chunk `quad` (key positions 4 quad .. 4 quad + 3)
+          auto put = [&](unsigned char* dst, int c, int quad,
+                         const float4 (&x)[4]) {
+            *reinterpret_cast<float4*>(dst + swz<HDP>(4 * c, quad)) =
+                make_float4(x[0].x, x[1].x, x[2].x, x[3].x);
+            *reinterpret_cast<float4*>(dst + swz<HDP>(4 * c + 1, quad)) =
+                make_float4(x[0].y, x[1].y, x[2].y, x[3].y);
+            *reinterpret_cast<float4*>(dst + swz<HDP>(4 * c + 2, quad)) =
+                make_float4(x[0].z, x[1].z, x[2].z, x[3].z);
+            *reinterpret_cast<float4*>(dst + swz<HDP>(4 * c + 3, quad)) =
+                make_float4(x[0].w, x[1].w, x[2].w, x[3].w);
+          };
+          if (has_v) {
+            // block b: keys 8g + h + 2j (j < 4) at columns 4c .. 4c + 3;
+            // the eight blocks of a quarter-warp take c = c0 + 2m and g =
+            // g0 + m (m < 4), h = 0 and 1: no bank conflict on either side
+#pragma unroll
+            for (int u = 0; u < NB / NC; ++u) {
+              const int bi = tid + u * NC;
+              const int m = bi & 3, h = (bi >> 2) & 1;
+              const int g = ((bi >> 3) + m) & 7;
+              const int ci = bi >> 6;
+              const int c = (ci >> 1) * 8 + (ci & 1) + 2 * m;
+              float4 hi[4], lo[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                split_tf32(*reinterpret_cast<const float4*>(
+                               ks + swz(8 * g + h + 2 * j, c)),
+                           hi[j], lo[j]);
+              put(vb, c, 2 * g + h, hi);
+              put(vs, c, 2 * g + h, lo);
+            }
+          }
+          consumers_sync<NWG>();    // raw V read before K's small part lands
+          if (has_k) {
+#pragma unroll
+            for (int idx = tid; idx < kKeys * CPR; idx += NC) {
+              const int off = swz(idx / CPR, idx % CPR);
+              float4* x = reinterpret_cast<float4*>(kb + off);
+              float4 big, small;
+              split_tf32(*x, big, small);
+              *x = big;
+              *reinterpret_cast<float4*>(ks + off) = small;
+            }
+          }
+          fence_proxy_async();
+          consumers_sync<NWG>();    // the split tiles before any wgmma
+        }
       };
       // the masks (only for the rows the tile's summary cannot settle),
       // the online softmax of S in place, and the max change (a0, a1)
@@ -1098,8 +1127,10 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
       };
       // once the previous P.V has landed: O *= the max change, only if
       // some row's max moved (most tiles after the first few leave it in
-      // place), and P (bf16) into P.V's A fragments (the accumulator's
-      // fragments are its A fragments)
+      // place), and P into P.V's A fragments: bf16 pairs packed (the
+      // accumulator's fragments are its A fragments); fp32 split into big
+      // and small parts, k-step kk's positions t and t + 4 being keys
+      // 8 kk + 2t and 8 kk + 2t + 1 (V^T's key order)
       auto rescale_and_take_p = [&]() {
         if (!__all_sync(0xffffffffu, a0 == 1.f && a1 == 1.f)) {
 #pragma unroll
@@ -1110,12 +1141,22 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
             o[n][3] *= a1;
           }
         }
+        if constexpr (F32) {
 #pragma unroll
-        for (int kk = 0; kk < kKeys / 16; ++kk) {
-          pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-          pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-          pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-          pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+          for (int kk = 0; kk < PSTEPS; ++kk) {
+            split_tf32(sc[kk][0], pa[kk][0], ps[kk][0]);   // row g
+            split_tf32(sc[kk][2], pa[kk][1], ps[kk][1]);   // row g + 8
+            split_tf32(sc[kk][1], pa[kk][2], ps[kk][2]);
+            split_tf32(sc[kk][3], pa[kk][3], ps[kk][3]);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < PSTEPS; ++kk) {
+            pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+            pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+            pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+            pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+          }
         }
       };
       auto release = [&](int st) {
@@ -1123,34 +1164,71 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
         if (lane == 0) mbar_arrive(empty + st);   // the stage is free
       };
 
-      int s_prev = arrive_full(0);
-      wg_fence();
-      s_issue(s_prev);
-      wg_wait<0>();
-      softmax(list[0]);
-      rescale_and_take_p();
-      for (int i = 1; i < n_live; ++i) {
-        const int s = arrive_full(i);
-          wg_fence();
+      if constexpr (F32) {
+        // stage i holds tile i's K and tile i-1's V (see the producer), so
+        // one stage feeds S(i) and P.V(i-1) and is released after both
+        int s = arrive_full(0);
+        convert(s, true, false);
+        wg_fence();
         s_issue(s);
-        pv_issue(s_prev);
+        wg_wait<0>();
+        release(s);
+        softmax(list[0]);
+        rescale_and_take_p();
+        for (int i = 1; i < n_live; ++i) {
+          s = arrive_full(i);
+          convert(s, true, true);
+          wg_fence();
+          s_issue(s);
+          pv_issue(s);
           wg_wait<1>();           // S has landed; P.V may still run
-        softmax(list[i]);
-        wg_wait<0>();           // the previous tile's P.V has landed
+          softmax(list[i]);
+          wg_wait<0>();           // the previous tile's P.V has landed
+          wg_hold(o);
+          wg_hold(pa);
+          wg_hold(ps);
+          release(s);
+          rescale_and_take_p();
+        }
+        s = arrive_full(n_live);
+        convert(s, false, true);
+        wg_fence();
+        pv_issue(s);
+        wg_wait<0>();
+        wg_hold(o);
+        wg_hold(pa);
+        wg_hold(ps);
+        release(s);
+      } else {
+        int s_prev = arrive_full(0);
+        wg_fence();
+        s_issue(s_prev);
+        wg_wait<0>();
+        softmax(list[0]);
+        rescale_and_take_p();
+        for (int i = 1; i < n_live; ++i) {
+          const int s = arrive_full(i);
+          wg_fence();
+          s_issue(s);
+          pv_issue(s_prev);
+          wg_wait<1>();           // S has landed; P.V may still run
+          softmax(list[i]);
+          wg_wait<0>();           // the previous tile's P.V has landed
+          wg_hold(o);
+          wg_hold(pa);
+          release(s_prev);
+          rescale_and_take_p();
+          s_prev = s;
+        }
+        wg_fence();
+        pv_issue(s_prev);
+        wg_wait<0>();
         wg_hold(o);
         wg_hold(pa);
         release(s_prev);
-        rescale_and_take_p();
-        s_prev = s;
       }
-      wg_fence();
-      pv_issue(s_prev);
-      wg_wait<0>();
-      wg_hold(o);
-      wg_hold(pa);
-      release(s_prev);
     }
-    it += n_live;
+    it += F32 && n_live > 0 ? n_live + 1 : n_live;   // stages used
     __syncthreads();          // the window's summaries and list reused
   }
   if (producer) return;
@@ -1171,11 +1249,15 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,
     const size_t row = (static_cast<size_t>(b) * Sq + qi) * H + h0 + R % gp;
     if (n_split == 1) {
       const float inv = l > 0.f ? 1.f / l : 0.f;
-      __nv_bfloat16* op = out + row * HD;
+      T* op = out + row * HD;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)   // the real columns only
-        *reinterpret_cast<unsigned*>(op + n * 8 + c2) =
-            pack_bf16(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+      for (int n = 0; n < HD / 8; ++n) {   // the real columns only
+        const float x = o[n][2 * half] * inv, y = o[n][2 * half + 1] * inv;
+        if constexpr (F32)
+          *reinterpret_cast<float2*>(op + n * 8 + c2) = make_float2(x, y);
+        else
+          *reinterpret_cast<unsigned*>(op + n * 8 + c2) = pack_bf16(x, y);
+      }
     } else {
       const size_t pr = row * n_split + split;
       float* pacc = part_acc + pr * HD;
@@ -1218,45 +1300,50 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A TMA map over bf16 K or V rows (hd, K kv heads, rows, outer) whose
-// boxes are 64 columns (128 bytes, 128-byte swizzle) by `box_rows` rows
-// of one kv head; columns and rows past the edges read as zeros.
+// A TMA map over K or V rows of element type T (hd, K kv heads, rows,
+// outer) whose boxes are 128 bytes of columns (128-byte swizzle) by
+// `box_rows` rows of one kv head; columns and rows past the edges read
+// as zeros.
+template <typename T>
 inline cudaError_t kv_map(CUtensorMap* map, const void* base, int hd, int K,
                           int rows, int outer, int box_rows) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * sizeof(T);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(outer)};
   const cuuint64_t strides[3] = {row, row * K, row * K * rows};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {128 / sizeof(T), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD, bool PAGED, int NWG>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const int* q_pos, const int* kv_pos,
-                        const int* q_seg, const int* kv_seg,
-                        const int* block_tab, void* out, float* part_ml,
-                        float* part_acc, int B, int Sq, int Skv, int H,
-                        int K, int bs, int nbt, int causal, int window,
-                        float scale, int n_split, cudaStream_t stream) {
-  using C = WgCfg<mma_hd(HD), NWG>;
+template <typename T, int HD, bool PAGED, int NWG>
+cudaError_t launch_wg(const void* q, const void* k, const void* v,
+                      const int* q_pos, const int* kv_pos, const int* q_seg,
+                      const int* kv_seg, const int* block_tab, void* out,
+                      float* part_ml, float* part_acc, int B, int Sq,
+                      int Skv, int H, int K, int bs, int nbt, int causal,
+                      int window, float scale, int n_split,
+                      cudaStream_t stream) {
+  using C = WgCfg<T, mma_hd(HD), NWG>;
   const int n_keys = PAGED ? nbt * bs : Skv;
   const int n_tiles = max(1, (n_keys + kKeys - 1) / kKeys);
   if (n_split < 1 || n_split > n_tiles ||
       static_cast<long long>(B) * n_split > 65535 ||
       (n_split > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return cudaErrorInvalidValue;
-  auto kern = flash_kernel_wg<HD, PAGED, NWG>;
+  auto kern = flash_kernel_wg<T, HD, PAGED, NWG>;
   const cudaError_t attr =
       allow_dynamic_smem(reinterpret_cast<const void*>(kern), C::kSmem);
   if (attr != cudaSuccess) return attr;
@@ -1266,68 +1353,73 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const int qr = C::kRows / gp;
   const int per = (n_tiles + n_split - 1) / n_split;
   const dim3 grid((Sq + qr - 1) / qr, H / gp, B * n_split);
-  // TMA maps (contiguous entry) over (hd, K, Skv, B): boxes of 64
-  // columns by a tile's 64 keys, for the tiles whose keys are all alive
+  // TMA maps (contiguous entry) over (hd, K, Skv, B): boxes of 128 bytes
+  // of columns by a tile's 64 keys, for the tiles whose keys are all alive
   CUtensorMap tm_k{}, tm_v{};
   const int use_tma = !PAGED && Skv > 0;
   if (use_tma) {
-    cudaError_t e = kv_map(&tm_k, k, HD, K, Skv, B, kKeys);
-    if (e == cudaSuccess) e = kv_map(&tm_v, v, HD, K, Skv, B, kKeys);
+    cudaError_t e = kv_map<T>(&tm_k, k, HD, K, Skv, B, kKeys);
+    if (e == cudaSuccess) e = kv_map<T>(&tm_v, v, HD, K, Skv, B, kKeys);
     if (e != cudaSuccess) return e;
   }
   kern<<<grid, C::kThreads, C::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), q_pos, kv_pos, q_seg, kv_seg,
-      block_tab, static_cast<__nv_bfloat16*>(out), part_ml, part_acc, Sq,
-      Skv, H, K, bs, nbt, causal, window, scale * 1.4426950408889634f,
-      scale, gp, n_split, per, tm_k, tm_v, use_tma);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), q_pos, kv_pos, q_seg, kv_seg, block_tab,
+      static_cast<T*>(out), part_ml, part_acc, Sq, Skv, H, K, bs, nbt,
+      causal, window, scale * 1.4426950408889634f, scale, gp, n_split, per,
+      tm_k, tm_v, use_tma);
   if (n_split == 1) return cudaSuccess;
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_decode_merge(part_ml, part_acc, out, B * Sq * H, HD, n_split,
-                             kBFloat16, stream);
+                             std::is_same<T, float>::value ? kFloat32
+                                                           : kBFloat16,
+                             stream);
 }
 
-// Calls f(std::integral_constant<int, NWG>{}) for the bf16 body with
-// `rows` = 64 NWG (query, head) rows a CTA: 64 or 128 rows, and 192 at
-// head dim 64 only; cudaErrorNotSupported for any other row count.
-template <int HD, class F>
+// Calls f(std::integral_constant<int, NWG>{}) for the body of element
+// type T with `rows` = 64 NWG (query, head) rows a CTA: bf16 64 or 128
+// rows, and 192 at head dim 64; fp32 64 rows, and 128 at head dim 64
+// (shared memory: WgCfg); cudaErrorNotSupported for any other count.
+template <typename T, int HD, class F>
 cudaError_t with_rows(int rows, F&& f) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   if (rows == 64) return f(std::integral_constant<int, 1>{});
-  if (rows == 128) return f(std::integral_constant<int, 2>{});
-  if constexpr (HD == 64) {
+  if constexpr (!F32 || HD == 64) {
+    if (rows == 128) return f(std::integral_constant<int, 2>{});
+  }
+  if constexpr (!F32 && HD == 64) {
     if (rows == 192) return f(std::integral_constant<int, 3>{});
   }
   return cudaErrorNotSupported;
 }
 
-template <int HD, bool PAGED>
-cudaError_t launch_bf16_rows(int rows, const void* q, const void* k,
-                             const void* v, const int* q_pos,
-                             const int* kv_pos, const int* q_seg,
-                             const int* kv_seg, const int* block_tab,
-                             void* out, float* part_ml, float* part_acc,
-                             int B, int Sq, int Skv, int H, int K, int bs,
-                             int nbt, int causal, int window, float scale,
-                             int n_split, cudaStream_t stream) {
-  return with_rows<HD>(rows, [&](auto nwg) {
-    return launch_bf16<HD, PAGED, decltype(nwg)::value>(
+template <typename T, int HD, bool PAGED>
+cudaError_t launch_rows(int rows, const void* q, const void* k,
+                        const void* v, const int* q_pos, const int* kv_pos,
+                        const int* q_seg, const int* kv_seg,
+                        const int* block_tab, void* out, float* part_ml,
+                        float* part_acc, int B, int Sq, int Skv, int H,
+                        int K, int bs, int nbt, int causal, int window,
+                        float scale, int n_split, cudaStream_t stream) {
+  return with_rows<T, HD>(rows, [&](auto nwg) {
+    return launch_wg<T, HD, PAGED, decltype(nwg)::value>(
         q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_tab, out, part_ml,
         part_acc, B, Sq, Skv, H, K, bs, nbt, causal, window, scale, n_split,
         stream);
   });
 }
 
-// CTAs of the bf16 body with `rows` rows an SM holds on the current
-// device (its registers, shared memory and __launch_bounds__), as the
-// occupancy calculator reads them from the compiled kernel.
-template <int HD, bool PAGED>
-cudaError_t bf16_ctas_per_sm(int rows, int* ctas) {
-  return with_rows<HD>(rows, [&](auto nwg) {
+// CTAs of the body of element type T with `rows` rows an SM holds on
+// the current device (its registers, shared memory and
+// __launch_bounds__), as the occupancy calculator reads them from the
+// compiled kernel.
+template <typename T, int HD, bool PAGED>
+cudaError_t ctas_per_sm(int rows, int* ctas) {
+  return with_rows<T, HD>(rows, [&](auto nwg) {
     constexpr int NWG = decltype(nwg)::value;
-    using C = WgCfg<mma_hd(HD), NWG>;
-    auto kern = flash_kernel_wg<HD, PAGED, NWG>;
+    using C = WgCfg<T, mma_hd(HD), NWG>;
+    auto kern = flash_kernel_wg<T, HD, PAGED, NWG>;
     const cudaError_t attr =
         allow_dynamic_smem(reinterpret_cast<const void*>(kern), C::kSmem);
     if (attr != cudaSuccess) return attr;
@@ -1335,6 +1427,24 @@ cudaError_t bf16_ctas_per_sm(int rows, int* ctas) {
                                                          C::kThreads,
                                                          C::kSmem);
   });
+}
+
+// Calls f(T{}, std::integral_constant<int, HD>{}) for a body this entry
+// has: bf16 or fp32 at head dim 64 or 128, and 120 on the contiguous
+// entry; cudaErrorInvalidValue for any other.
+template <bool PAGED, class F>
+cudaError_t with_body(int dtype, int hd, F&& f) {
+  auto by_hd = [&](auto t) {
+    if (hd == 64) return f(t, std::integral_constant<int, 64>{});
+    if (hd == 128) return f(t, std::integral_constant<int, 128>{});
+    if constexpr (!PAGED) {
+      if (hd == 120) return f(t, std::integral_constant<int, 120>{});
+    }
+    return cudaErrorInvalidValue;
+  };
+  if (dtype == kBFloat16) return by_hd(__nv_bfloat16{});
+  if (dtype == kFloat32) return by_hd(float{});
+  return cudaErrorInvalidValue;
 }
 
 template <bool PAGED>
@@ -1347,29 +1457,12 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      int rows, int n_split, cudaStream_t stream) {
   // K/V rows (token * K + kv head) are indexed in int32: a K tensor of
   // 2^31 rows of hd >= 64 elements would not fit in the card's memory.
-#define REPRO_BF16_CASE(HD)                                                 \
-  return launch_bf16_rows<HD, PAGED>(rows, q, k, v, q_pos, kv_pos, q_seg,  \
-                                     kv_seg, block_tab, out, part_ml,      \
-                                     part_acc, B, Sq, Skv, H, K, bs, nbt,  \
-                                     causal, window, scale, n_split, stream)
-#define REPRO_FP32_CASE(HD)                                                 \
-  return launch_fp32<HD, PAGED>(q, k, v, q_pos, kv_pos, q_seg, kv_seg,     \
-                                block_tab, out, B, Sq, Skv, H, K, bs, nbt, \
-                                causal, window, scale, stream)
-  if (dtype == kBFloat16) {
-    if (hd == 64) REPRO_BF16_CASE(64);
-    if (hd == 128) REPRO_BF16_CASE(128);
-  } else if (dtype == kFloat32 && n_split == 1) {     // the FMA body: no split
-    if (hd == 64) REPRO_FP32_CASE(64);
-    if (hd == 128) REPRO_FP32_CASE(128);
-  }
-  if constexpr (!PAGED) {               // head dim 120: contiguous only
-    if (hd == 120 && dtype == kBFloat16) REPRO_BF16_CASE(120);
-    if (hd == 120 && dtype == kFloat32 && n_split == 1) REPRO_FP32_CASE(120);
-  }
-#undef REPRO_BF16_CASE
-#undef REPRO_FP32_CASE
-  return cudaErrorInvalidValue;
+  return with_body<PAGED>(dtype, hd, [&](auto t, auto h) {
+    return launch_rows<decltype(t), decltype(h)::value, PAGED>(
+        rows, q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_tab, out, part_ml,
+        part_acc, B, Sq, Skv, H, K, bs, nbt, causal, window, scale, n_split,
+        stream);
+  });
 }
 
 }  // namespace
@@ -1406,18 +1499,22 @@ cudaError_t launch_paged_prefill_attention(
                                      scale, rows, n_split, stream);
 }
 
-cudaError_t flash_bf16_occupancy(int hd, int paged, int rows, int* ctas) {
+cudaError_t flash_occupancy(int dtype, int hd, int paged, int rows,
+                            int* ctas) {
   *ctas = 0;
-  cudaError_t err = cudaErrorNotSupported;
-  if (hd == 64)
-    err = paged ? repro_torch::bf16_ctas_per_sm<64, true>(rows, ctas)
-                : repro_torch::bf16_ctas_per_sm<64, false>(rows, ctas);
-  else if (hd == 128)
-    err = paged ? repro_torch::bf16_ctas_per_sm<128, true>(rows, ctas)
-                : repro_torch::bf16_ctas_per_sm<128, false>(rows, ctas);
-  else if (hd == 120 && !paged)
-    err = repro_torch::bf16_ctas_per_sm<120, false>(rows, ctas);
-  return err == cudaErrorNotSupported ? cudaSuccess : err;
+  auto count = [&](auto pg) {
+    constexpr bool PAGED = decltype(pg)::value;
+    return repro_torch::with_body<PAGED>(dtype, hd, [&](auto t, auto h) {
+      return repro_torch::ctas_per_sm<decltype(t), decltype(h)::value,
+                                      PAGED>(rows, ctas);
+    });
+  };
+  const cudaError_t err =
+      paged ? count(std::true_type{}) : count(std::false_type{});
+  // no body of that many rows, or no such body: 0 CTAs
+  return err == cudaErrorNotSupported || err == cudaErrorInvalidValue
+             ? cudaSuccess
+             : err;
 }
 
-int flash_bf16_tile_keys() { return repro_torch::kKeys; }
+int flash_tile_keys() { return repro_torch::kKeys; }

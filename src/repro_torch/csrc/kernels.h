@@ -49,14 +49,14 @@ cudaError_t launch_decode_attention(
 
 // Packed-varlen flash attention over contiguous K/V: q (B,Sq,H,hd);
 // k/v (B,Skv,K,hd); q_pos/q_seg (B,Sq), kv_pos/kv_seg (B,Skv) int32
-// (segment -1 = pad, kv_pos < 0 = empty); out (B,Sq,H,hd).  bf16 runs
-// on wgmma with `rows` (query, head) rows a CTA (64, 128, or 192 at
-// head dim 64) and each row's keys cut into n_split ranges of
+// (segment -1 = pad, kv_pos < 0 = empty); out (B,Sq,H,hd).  Both
+// dtypes run on wgmma (fp32 as 3xTF32) with `rows` (query, head) rows a
+// CTA (bf16: 64, 128, or 192 at head dim 64; fp32: 64, or 128 at head
+// dim 64) and each row's keys cut into n_split ranges of
 // ceil(ceil(Skv / 64) / n_split) 64-key tiles (n_split <= the tiles);
 // with n_split > 1 the splits' fp32 partials go to part_ml
 // (B*Sq*H,n_split,2) and part_acc (B*Sq*H,n_split,hd) and
-// launch_decode_merge writes out.  fp32 runs by FMA and takes
-// n_split = 1 only.  Replaces flash_prefill_pallas.
+// launch_decode_merge writes out.  Replaces flash_prefill_pallas.
 cudaError_t launch_flash_prefill(
     const void* q, const void* k, const void* v,
     const int* q_pos, const int* kv_pos, const int* q_seg, const int* kv_seg,
@@ -76,13 +76,15 @@ cudaError_t launch_paged_prefill_attention(
     int hd, int bs, int nbt, int window, float scale, int dtype, int rows,
     int n_split, cudaStream_t stream);
 
-// The bf16 body's CTAs an SM at `rows` (query, head) rows a CTA on the
-// current device, read from the compiled kernel by the occupancy
-// calculator (0 where no body has that many rows: 192 is head dim 64
-// only; the paged entry has no head dim 120), and its keys a K/V tile.
-// The wrappers' planner (flash_splits in ops.py) reads both here.
-cudaError_t flash_bf16_occupancy(int hd, int paged, int rows, int* ctas);
-int flash_bf16_tile_keys();
+// The CTAs an SM of the body of `dtype` at `rows` (query, head) rows a
+// CTA on the current device, read from the compiled kernel by the
+// occupancy calculator (0 where no body has that many rows: see
+// launch_flash_prefill; the paged entry has no head dim 120), and the
+// keys of a K/V tile (both bodies').  The wrappers' planner
+// (flash_splits in ops.py) reads both here.
+cudaError_t flash_occupancy(int dtype, int hd, int paged, int rows,
+                            int* ctas);
+int flash_tile_keys();
 
 // Mamba2 SSD intra-chunk term (n_groups = 1): x (BC,Q,nh,hp); dt
 // (BC,Q,nh) fp32; A (nh,) fp32; B and C: BC*Q tokens of ds values at a

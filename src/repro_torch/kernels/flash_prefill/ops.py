@@ -10,15 +10,17 @@ entry the serving path runs).  The kernel
 (`repro_torch/csrc/flash_prefill.cu`) tiles K/V through shared memory
 with an fp32 online softmax, skips from the data every K/V tile no
 query of a tile can attend to, and never writes a (Sq, Skv) matrix to
-device memory.  bf16 inputs run both products on wgmma (CTAs of 64,
-128 or 192 (query, head) rows, a K/V ring filled by TMA or cp.async,
-and, for grids that would leave SMs idle, a split over the keys whose
-partials the decode kernels' merge combines); fp32 inputs run an FMA
-body, so the fp32 path keeps its 1e-4 agreement — see the source note.
-`flash_splits` picks the bf16 body's rows and splits from the shapes
-and what the binding reads of the card (`flash_config`: the tile's
-keys, the CTAs an SM holds, the SM count), so a captured step replays
-the same plan; only calls that are not causal split.
+device memory.  Both dtypes run both products on wgmma (CTAs of 64, 128
+or, bf16 at head dim 64, 192 (query, head) rows, a K/V ring filled by
+TMA or cp.async, and, for grids that would leave SMs idle, a split over
+the keys whose partials the decode kernels' merge combines).  fp32 runs
+each product as three TF32 products (3xTF32: every operand split into a
+TF32 big part and a small remainder), which holds the fp32 path's 1e-4
+agreement whatever `torch.backends.cuda.matmul.allow_tf32` says — see
+the source note.  `flash_splits` picks either body's rows and splits
+from the shapes and what the binding reads of the card (`flash_config`:
+the tile's keys, the CTAs an SM holds, the SM count), so a captured step
+replays the same plan; only calls that are not causal split.
 
 Each wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU (and `meta`) tensors; `<wrapper>.launches` counts
@@ -60,24 +62,28 @@ FLASH_MIN_SPLIT_TILES = 4   # key tiles a split takes at least
 
 
 class FlashConfig(NamedTuple):
-    """What the bf16 body's planner needs of a card, as the binding reads
-    it from the compiled kernels (`flash_config`)."""
+    """What the planner needs of a card for one body (dtype, head dim,
+    entry), as the binding reads it from the compiled kernels
+    (`flash_config`)."""
     keys: int                   # keys a K/V tile
     ctas_per_sm: dict           # {rows a CTA: CTAs an SM holds}
     sm_count: int
 
 
 @functools.lru_cache(maxsize=None)
-def flash_config(device: torch.device, hd: int, paged: bool) -> FlashConfig:
-    """The bf16 bodies of one entry at head dim `hd` on a CUDA `device`:
-    their tile's keys and the CTAs an SM holds at each row count (the
-    occupancy calculator on the compiled kernel), and the SM count."""
+def flash_config(device: torch.device, hd: int, paged: bool,
+                 dtype: torch.dtype) -> FlashConfig:
+    """The bodies of one dtype and entry at head dim `hd` on a CUDA
+    `device`: their tile's keys and the CTAs an SM holds at each row count
+    (the occupancy calculator on the compiled kernel), and the SM
+    count."""
     ext = load_kernels()
     index = torch.cuda.current_device() if device.index is None \
         else device.index
-    occ = {r: ext.flash_bf16_ctas_per_sm(index, hd, paged, r)
+    fp32 = dtype == torch.float32
+    occ = {r: ext.flash_ctas_per_sm(index, hd, paged, r, fp32)
            for r in FLASH_ROW_SIZES}
-    return FlashConfig(ext.flash_bf16_tile_keys(),
+    return FlashConfig(ext.flash_tile_keys(),
                        {r: n for r, n in occ.items() if n > 0},
                        _sm_count(device))
 
@@ -93,7 +99,7 @@ def _cta_rows(Sq: int, H: int, K: int, rows: int) -> int:
 
 def flash_splits(B: int, Sq: int, H: int, K: int, n_keys: int,
                  causal: bool, config: FlashConfig) -> tuple[int, int]:
-    """(rows a CTA, splits) of the bf16 body, from the shapes alone (never
+    """(rows a CTA, splits) of a body, from the shapes alone (never
     from positions or segments: a step graph replays the same plan, and
     reading them would sync the host), by the rule that
     `scripts/flash_prefill_plans.py` checked at the port's shapes
@@ -217,21 +223,19 @@ def _check_keys(q, n_keys: int) -> None:
 def flash_plan(q, n_keys: int, K: int, causal: bool, paged: bool,
                config: FlashConfig | None = None) -> tuple[int, int]:
     """The (rows, splits) a wrapper call passes for q over `n_keys` keys
-    of K kv heads: `flash_splits` with q's card's `flash_config` (or
-    `config`); the fp32 body takes (64, 1)."""
-    if q.dtype != torch.bfloat16:
-        return 64, 1
+    of K kv heads: `flash_splits` with the `flash_config` of q's card and
+    dtype (or `config`)."""
     B, Sq, H, hd = q.shape
     if config is None:
-        config = flash_config(q.device, hd, paged)
+        config = flash_config(q.device, hd, paged, q.dtype)
     return flash_splits(B, Sq, H, K, n_keys, causal, config)
 
 
 def flash_prefill(q, k, v, q_pos, kv_pos, q_seg, kv_seg, causal: bool = True,
                   window: int = 0):
     """Contiguous packed-varlen entry (shapes as the plain version).
-    Head dims 64, 120 and 128 (`HEAD_DIMS`; 120 runs the 128-wide bf16
-    body with the padding zeroed)."""
+    Head dims 64, 120 and 128 (`HEAD_DIMS`; 120 runs the 128-wide body
+    with the padding zeroed)."""
     if q.device.type in PLAIN_DEVICES:
         flash_prefill.last_plan = None
         return flash_prefill_plain(q, k, v, q_pos, kv_pos, q_seg, kv_seg,

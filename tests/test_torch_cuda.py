@@ -462,22 +462,203 @@ def test_flash_bf16_split_call_replays_from_a_graph(dev):
 
 
 def test_flash_config_reads_the_compiled_bodies(dev):
-    """The bf16 planner's card figures come from the compiled kernels:
-    64-key tiles, 192-row bodies at head dim 64 only, no paged body at
-    head dim 120, at least one CTA an SM of every body and two of the
-    64-row body at head dim 64 (its launch bounds ask for two), and the
-    card's SM count."""
+    """The planner's card figures come from the compiled kernels: 64-key
+    tiles; bf16 bodies of 64 and 128 rows, and 192 at head dim 64 only;
+    fp32 bodies of 64 rows, and 128 at head dim 64 only (their stages
+    fill the shared memory); no paged body at head dim 120; at least one
+    CTA an SM of every body and two of the bf16 64-row body at head dim
+    64 (its launch bounds ask for two), and the card's SM count."""
     from repro_torch.kernels.flash_prefill.ops import flash_config
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for hd, paged, rows in ((64, False, {192, 128, 64}),
-                            (64, True, {192, 128, 64}),
-                            (128, False, {128, 64}), (128, True, {128, 64}),
-                            (120, False, {128, 64}), (120, True, set())):
-        cfg = flash_config(dev, hd, paged)
+    bf, f32 = torch.bfloat16, torch.float32
+    for hd, paged, dtype, rows in (
+            (64, False, bf, {192, 128, 64}), (64, True, bf, {192, 128, 64}),
+            (128, False, bf, {128, 64}), (128, True, bf, {128, 64}),
+            (120, False, bf, {128, 64}), (120, True, bf, set()),
+            (64, False, f32, {128, 64}), (64, True, f32, {128, 64}),
+            (128, False, f32, {64}), (128, True, f32, {64}),
+            (120, False, f32, {64}), (120, True, f32, set())):
+        cfg = flash_config(dev, hd, paged, dtype)
         assert cfg.keys == 64 and cfg.sm_count == sms
         assert set(cfg.ctas_per_sm) == rows
         assert all(n >= 1 for n in cfg.ctas_per_sm.values())
-    assert flash_config(dev, 64, False).ctas_per_sm[64] >= 2
+    assert flash_config(dev, 64, False, bf).ctas_per_sm[64] >= 2
+
+
+# ---------------------------------------------------------------------------
+# kernel #2's fp32 body (3xTF32 on wgmma, K and V split by the consumers)
+# at its edges, held to the fp32 tolerances
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_fp32_dead_keys_hold_nan(dev, hd):
+    """Keys with kv_pos < 0 or segment -1 are never read: NaN planted in
+    their K/V rows (tiles partly alive, so both the TMA and the cp.async
+    paths run, and 0 x NaN would show) leaves the output finite and
+    equal to the plain version on zeroed rows; padding query rows are
+    exactly 0."""
+    g = torch.Generator().manual_seed(hd + 1)
+    q, k, v, qp, kvp, qs, ks = _extend_case(g, 117, 40, 320, 4, hd,
+                                            torch.float32, dev, 8)
+    ks[0, 100:110] = -1
+    kvp[0, 30:35] = -1
+    qs[0, 5:9] = -1
+    dead = (kvp < 0) | (ks < 0)
+    kn, vn = k.clone(), v.clone()
+    kn[dead] = float("nan")
+    vn[dead] = float("nan")
+    kz, vz = k.clone(), v.clone()
+    kz[dead] = 0
+    vz[dead] = 0
+    for causal in (True, False):
+        out = flash_prefill(q, kn, vn, qp, kvp, qs, ks, causal)
+        assert bool(torch.isfinite(out).all())
+        ref = flash_prefill_plain(q, kz, vz, qp, kvp, qs, ks, causal)
+        _assert_close(out, ref, torch.float32)
+        assert float(out[0, 5:9].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128])
+@pytest.mark.parametrize("Sq", [1, 17, 64, 65, 130])
+def test_flash_fp32_ragged_window_segments(dev, hd, Sq):
+    """Ragged query counts around the 64-row warpgroup, causal with a
+    window, over packed segments whose padding (-1) is both queries and
+    keys, and a query row whose every key is masked (its segment has no
+    key): exactly 0 where the plain version is; hd 120's padding
+    columns never reach the output."""
+    g = torch.Generator().manual_seed(Sq + hd)
+    B, Skv, H, K = 2, 200, 4, 2
+    q = _rand(g, (B, Sq, H, hd), torch.float32, dev)
+    k = _rand(g, (B, Skv, K, hd), torch.float32, dev)
+    v = _rand(g, (B, Skv, K, hd), torch.float32, dev)
+    kp = torch.arange(Skv, dtype=torch.int32).repeat(B, 1)
+    ks = torch.zeros(B, Skv, dtype=torch.int32)
+    ks[:, 120:] = 1
+    ks[:, 180:] = -1
+    qp = (Skv - Sq + torch.arange(Sq, dtype=torch.int32)).clamp(min=0)
+    qp = qp.repeat(B, 1)
+    qs = torch.ones(B, Sq, dtype=torch.int32)
+    qs[0, ::3] = -1                   # padding query rows
+    qs[1, -1] = 2                     # a segment no key has
+    ints = [t.to(dev) for t in (qp, kp, qs, ks)]
+    for window in (0, 50):
+        out = flash_prefill(q, k, v, *ints, True, window)
+        ref = flash_prefill_plain(q, k, v, *ints, True, window)
+        _assert_close(out, ref, torch.float32)
+        assert float(out[0, ::3].abs().max()) == 0.0
+        assert float(out[1, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128])
+@pytest.mark.parametrize("G", [1, 2, 7])
+def test_flash_fp32_groups(dev, hd, G):
+    """G query heads a kv head (internvl2-1b's 7: one head a CTA) at
+    every head dim, causal and not, through the planner's rows."""
+    g = torch.Generator().manual_seed(G * 10 + hd)
+    B, S, K = 2, 300, 2
+    q = _rand(g, (B, S, G * K, hd), torch.float32, dev)
+    k = _rand(g, (B, S, K, hd), torch.float32, dev)
+    v = _rand(g, (B, S, K, hd), torch.float32, dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    for causal in (True, False):
+        out = flash_prefill(q, k, v, pos, pos, seg, seg, causal)
+        ref = flash_prefill_plain(q, k, v, pos, pos, seg, seg, causal)
+        _assert_close(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_fp32_holes_window_and_splits(dev, hd):
+    """The paged entry in fp32 (16-token pages, 64-key tiles of four)
+    with -1 table entries inside a row's range (dead pages zero-filled),
+    a window, every row count the fp32 body has, and splits forced
+    through the binding."""
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.kernels.flash_prefill.ops import flash_config
+    g = torch.Generator().manual_seed(hd)
+    rows = [(300, 64), (150, 40)]
+    kp, vp, kvp, tab = _paged_case(g, 2, 80, 16, 30, 4, hd, torch.float32,
+                                   dev, [p0 + sc for p0, sc in rows])
+    tab[0, 3] = -1
+    tab[1, 1] = -1
+    positions = torch.stack([
+        (p0 + torch.arange(64)).clamp(max=p0 + sc - 1) for p0, sc in rows
+    ]).to(torch.int32).to(dev)
+    q = _rand(g, (2, 64, 8, hd), torch.float32, dev)
+    cfg = flash_config(dev, hd, True, torch.float32)
+    for window in (0, 100):
+        ref = paged_prefill_attention_plain(q, kp, vp, kvp, tab, positions,
+                                            window)
+        out = paged_prefill_attention(q, kp, vp, kvp, tab, positions, window)
+        _assert_close(out, ref, torch.float32)
+        for n_rows in cfg.ctas_per_sm:
+            for n_split in (1, 2, 5):
+                out = load_kernels().paged_prefill_attention(
+                    q, kp, vp, kvp, tab, positions, window, hd ** -0.5,
+                    n_rows, n_split)
+                _assert_close(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize("hd", [64, 120, 128])
+def test_flash_fp32_split_matches_unsplit(dev, hd):
+    """A not-causal call of few CTAs (16 queries over 1500 keys) is split
+    by the planner; every split count the binding takes agrees with the
+    unsplit plan and the plain version, and a row whose keys are all
+    padding is exactly 0 split or not."""
+    from repro_torch.kernels.build import load_kernels
+    g = torch.Generator().manual_seed(hd + 3)
+    ins = list(_cross_case(g, 2, 16, 1500, 8, 4, hd, dev))
+    ins[:3] = [t.float() for t in ins[:3]]
+    ins[6][1] = -1                   # row 1: every key padding
+    flash_prefill(*ins, causal=False)
+    assert flash_prefill.last_plan[1] > 1
+    ref = flash_prefill_plain(*ins, causal=False)
+    one = load_kernels().flash_prefill(*ins, False, 0, hd ** -0.5, 64, 1)
+    _assert_close(one, ref, torch.float32)
+    for n_split in (2, 3, 6, 24):
+        out = load_kernels().flash_prefill(*ins, False, 0, hd ** -0.5, 64,
+                                           n_split)
+        _assert_close(out, ref, torch.float32)
+        assert float((out - one).abs().max()) <= 1e-5
+        assert float(out[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fp32_call_replays_from_a_graph(dev, causal):
+    """The fp32 body in a captured step (phase 6j's shape cut to 2 x 256,
+    causal and unsplit; not causal at 16 queries over 1500 keys, split
+    with the merge kernel) replays bit for bit as eager calls, on new
+    data too."""
+    def case(seed):
+        g = torch.Generator().manual_seed(seed)
+        if causal:
+            q, k, v, qp, kp, qs, ks = _cross_case(g, 2, 256, 256, 8, 8, 64,
+                                                  dev)
+            qp = torch.arange(256, dtype=torch.int32,
+                              device=dev).repeat(2, 1)
+            kp = qp.clone()
+        else:
+            q, k, v, qp, kp, qs, ks = _cross_case(g, 2, 16, 1500, 8, 8, 64,
+                                                  dev)
+        return [q.float(), k.float(), v.float(), qp, kp, qs, ks]
+    static = case(0)
+    flash_prefill(*static, causal=causal)
+    assert (flash_prefill.last_plan[1] > 1) == (not causal)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_prefill(*static, causal=causal)     # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_prefill(*static, causal=causal)
+    for seed in (1, 2):
+        for dst, src in zip(static, case(seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_prefill(*static, causal=causal))
 
 
 # ---------------------------------------------------------------------------
